@@ -6,7 +6,8 @@
 Every run goes through every phase, so every number it prints was
 measured in that run. Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the three CUDA kernels from csrc/ (one nvcc each, in parallel);
+  2. build the six CUDA kernels from the four sources in csrc/ (one nvcc
+     per source, all in parallel);
   3. each kernel against its plain PyTorch version on the card, at the
      stage-1 shapes (Vicuna-7B, chunk of 64 windows): max error against the
      stated tolerance, device time of the kernel, of the plain version and of
@@ -25,7 +26,28 @@ measured in that run. Phases:
      enqueue it and the device's busy time (summed kernel time under
      torch.profiler); then one ground_windows under the profiler, its kernel
      time grouped by hand-written kernel (K1 = matmul + finalize), library
-     GEMM and the rest, and the device's idle share.
+     GEMM and the rest, and the device's idle share;
+  7. the row-4 kernels (forward with LSE, dq, dk/dv) against their plain
+     versions at the training shape (B = 1, H = 32, T = S = 2048, d = 128,
+     causal), at full length and at a ragged kv_len of 330: the relative
+     L2 error of each whole output and of each of its (64-row tile, head)
+     blocks against stated limits, two planted faults that must fail those
+     limits, device times, the data-sheet bound, and SDPA's forward and
+     backward as the yardstick;
+  8. the training slice through its entry point, train_cli.main: QLoRA at
+     Vicuna-7B width and depth (the stage1_dense preset: int8 frozen base
+     made from a seed, dense bf16 lm_head, LoRA r 64 on all seven linears,
+     the ClipEncoder adapter with T2V, remat, batch 1, sequence 2048) over
+     the synthetic corpus, 1 warm-up and 6 timed steps: step time,
+     tokens/s, peak memory, loss and grad norm per step, each row-4
+     kernel's launches (fails if one is 0, or if K1, K2, K3 or
+     torch._int_mm ran), the log, the async checkpoint main saved against
+     the trained trees, and the export; one step under the profiler;
+     auto-resume for one more step; the no-silent-detach rule on the card;
+  9. one train step with the kernels on the card against the plain path on
+     the CPU, from train_cli's assembly at full width, 2 layers and
+     sequence 2048: the loss and the gradient of every trainable leaf
+     (LoRA and the adapter).
 
 Prints phase lines, then one JSON line of per-kernel numbers, the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Exits non-zero,
@@ -37,9 +59,12 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 from pathlib import Path
@@ -54,7 +79,18 @@ REPLACES = {
     "int8_matmul": "revisionllm_tpu/ops/quant.py:46",
     "flash_attention": "revisionllm_tpu/ops/flash_attention.py:40",
     "decode_attention": "revisionllm_tpu/ops/decode_attention.py:40",
+    "flash_fwd_lse": "revisionllm_tpu/ops/flash_attention.py:352",
+    "flash_dq": "revisionllm_tpu/ops/flash_attention.py:415",
+    "flash_dkv": "revisionllm_tpu/ops/flash_attention.py:464",
 }
+SOURCES = {
+    "int8_matmul": "int8_matmul", "flash_attention": "flash_attention",
+    "decode_attention": "decode_attention", "flash_fwd_lse": "flash_attention",
+    "flash_dq": "flash_attention_vjp", "flash_dkv": "flash_attention_vjp",
+}
+SERVING = ("int8_matmul", "flash_attention", "decode_attention")
+TRAINING = ("flash_fwd_lse", "flash_dq", "flash_dkv")
+TRAIN_STEPS = 6             # timed train steps after one warm-up
 
 
 def say(msg: str) -> None:
@@ -69,11 +105,14 @@ def bound(nbytes: float, ops: float):
 
 def kernel_events(prof):
     """The CUDA kernel events of a torch.profiler run (CUPTI's "Command
-    Buffer Full" stall records are not kernels)."""
+    Buffer Full" stall records and the device-side ranges of user
+    annotations, such as the optimizer's step, are not kernels)."""
     from torch.autograd import DeviceType
 
     return [e for e in prof.events()
-            if e.device_type == DeviceType.CUDA and not e.name.startswith("Command Buffer")]
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("Command Buffer")
+            and not getattr(e, "is_user_annotation", False)
+            and not e.name.startswith("Optimizer.")]
 
 
 # device kernels by what launched them: the hand-written kernels by their
@@ -83,6 +122,9 @@ KERNEL_GROUPS = (
     ("K1 int8_matmul (q8_matmul + q8_finalize)", r"q8_matmul_kernel|q8_finalize_kernel"),
     ("K2 flash_attention", r"flash_fwd_kernel"),
     ("K3 decode_attention", r"decode_attn_kernel"),
+    ("row 4 flash_fwd_lse", r"flash_fwd_lse_kernel"),
+    ("row 4 flash_dq", r"flash_dq_kernel"),
+    ("row 4 flash_dkv", r"flash_dkv_kernel"),
     ("W8A8 GEMM (torch._int_mm)", r"gemm_s8|s8gemm|imma"),
     ("other library GEMMs", r"gemm|nvjet|xmma|cutlass"),
 )
@@ -433,7 +475,7 @@ def phase_slice(dev, runs):
         f"chunk latency (median) {chunk_s * 1e3:.1f} ms; windows/s {57 / chunk_s:.2f}; "
         f"q/s {1 / chunk_s:.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     say(f"slice: launches in one ground_windows: {launches}")
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k in SERVING if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     return launches, setup
@@ -528,11 +570,15 @@ def phase_profile(dev, setup):
 # ------------------------------------------------------------------ phase 5
 
 
-def _to(tree, device):
+def _to(tree, device, grad=False):
+    """A copy of the tree's tensors on `device` (fresh leaves that require
+    grad with grad=True)."""
     if isinstance(tree, dict):
-        return {k: _to(v, device) for k, v in tree.items()}
+        return {k: _to(v, device, grad) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_to(v, device) for v in tree]
+        return [_to(v, device, grad) for v in tree]
+    if grad:
+        return tree.detach().to(device, copy=True).requires_grad_()
     return tree.to(device)
 
 
@@ -599,6 +645,471 @@ def phase_compare(dev):
         raise AssertionError(f"logits differ by {diff} > {tol}")
 
 
+# ------------------------------------------------------------------ phase 7
+
+
+def _pairs(T, lens, causal=True):
+    """Live (row, column) pairs of causal attention over T rows with kv_len
+    per batch row."""
+    t_idx = np.arange(T)
+    return sum(int(np.minimum(t_idx + 1 if causal else T, n).sum()) for n in lens)
+
+
+TILE = 64                   # rows per tile of the row-4 kernels
+VJP_TOL = 1e-2              # relative L2 error of a whole o, dq, dk or dv
+VJP_TILE_TOL = 2e-2         # ... and of each of its (64-row tile, head) blocks
+
+
+def rel_errs(got, want):
+    """(relative L2 error of the whole [B, N, H, d] tensor, the worst
+    relative L2 error of one of its (64-row tile, head) blocks). A block
+    whose reference is all zeros counts inf unless it is zeros too."""
+    import torch
+    import torch.nn.functional as F
+
+    g, w = got.float(), want.float()
+    B, N, H, d = w.shape
+
+    def blocks(x):
+        return F.pad(x, (0, 0, 0, 0, 0, -N % TILE)).reshape(B, -1, TILE, H, d).sum(dim=(2, 4))
+
+    e, r = blocks((g - w).square()), blocks(w.square())
+    per = torch.where(r > 0, (e / r.clamp_min(1e-30)).sqrt(),
+                      torch.where(e > 0, torch.full_like(e, math.inf), torch.zeros_like(e)))
+    return (e.sum() / r.sum()).sqrt().item(), per.max().item()
+
+
+def check_flash_vjp(dev, iters):
+    """Row 4 at the training shape. Returns the three kernel records (the
+    ragged case, which is what a training batch gives them)."""
+    import torch
+    import torch.nn.functional as F
+    from revisionllm_tpu_torch.ops import flash_attention as FA
+
+    B, H, T, d = 1, 32, 2048, 128
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q, k, v, do = (torch.randn((B, T, H, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(4))
+    kw = dict(causal=True)
+    # Tolerances. In causal attention the magnitudes span four decades: row
+    # 0 of o is v[0] itself, key column 0 of dk/dv sums over every row,
+    # the last columns over a few. So no fraction of the largest element
+    # and no single per-element atol fits every row. Each of o, dq, dk and
+    # dv is held by relative L2 error, of the whole tensor (1e-2) and of
+    # every (64-row tile, head) block (2e-2): bf16 rounding of P, dS and
+    # the output is about 2^-9 relative, and a kernel that mis-scales,
+    # skips or misplaces one tile of rows or keys moves its blocks by far
+    # more. Two planted faults must fail these limits: the last live tile
+    # scaled by 0.9, and the last live kv tile dropped (the plain version
+    # at kv_len cut to that tile's start). lse is f32: 1e-3 absolute.
+    records = {name: {"name": name, "max_abs_err": 0.0} for name in TRAINING}
+    for label, n in (("full", T), ("ragged", 330)):
+        lens = torch.full((B,), n, dtype=torch.int32, device=dev)
+        o, lse = FA.flash_fwd_lse(q, k, v, kv_lens=lens, **kw)
+        o2, lse2 = FA.flash_fwd_lse_plain(q, k, v, kv_lens=lens, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        dq = FA.flash_dq(*args, kv_lens=lens, **kw)
+        dq2 = FA.flash_dq_plain(*args, kv_lens=lens, **kw)
+        dk, dv = FA.flash_dkv(*args, kv_lens=lens, **kw)
+        dk2, dv2 = FA.flash_dkv_plain(*args, kv_lens=lens, **kw)
+        last_q = slice(TILE * ((T - 1) // TILE), T)
+        last_kv = slice(TILE * ((n - 1) // TILE), n)
+        short = torch.full_like(lens, last_kv.start)
+        o3, _ = FA.flash_fwd_lse_plain(q, k, v, kv_lens=short, **kw)
+        dq3 = FA.flash_dq_plain(*args, kv_lens=short, **kw)
+        dk3, dv3 = FA.flash_dkv_plain(*args, kv_lens=short, **kw)
+        torch.cuda.synchronize()
+        lse_err = (lse - lse2).abs().max().item()
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"flash_fwd_lse {label}: lse max_abs_err {lse_err} > 1e-3")
+        errs = {"flash_fwd_lse": 0.0, "flash_dq": 0.0, "flash_dkv": 0.0}
+        for name, tname, got, want, dropped, tile in (
+                ("flash_fwd_lse", "o", o, o2, o3, last_q), ("flash_dq", "dq", dq, dq2, dq3, last_q),
+                ("flash_dkv", "dk", dk, dk2, dk3, last_kv), ("flash_dkv", "dv", dv, dv2, dv3, last_kv)):
+            rel, worst = rel_errs(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            scaled = got.clone()
+            scaled[:, tile] *= 0.9
+            faults = {"last live tile x0.9": rel_errs(scaled, want),
+                      "last live kv tile dropped": rel_errs(dropped, want)}
+            say(f"{name} {tname} ({label}, kv_len {n}): relative L2 {rel:.2e} (tol {VJP_TOL:.0e}), "
+                f"worst tile {worst:.2e} (tol {VJP_TILE_TOL:.0e}), max_abs_err {err:.3e}; planted "
+                f"faults, worst tile (whole tensor): "
+                + ", ".join(f"{f} {w:.2e} ({r:.2e})" for f, (r, w) in faults.items()))
+            if not (rel <= VJP_TOL and worst <= VJP_TILE_TOL):
+                raise AssertionError(f"{name} {tname} {label}: relative L2 {rel}, worst tile {worst}")
+            passed = [f for f, (r, w) in faults.items() if r <= VJP_TOL and w <= VJP_TILE_TOL]
+            if passed:
+                raise AssertionError(f"{name} {tname} {label}: the limits accept planted faults {passed}")
+            errs[name] = max(errs[name], err)
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+        plain_iters = max(3, iters // 4)
+        t_fwd = device_ms(lambda: FA.flash_fwd_lse(q, k, v, kv_lens=lens, **kw), iters)
+        t_dq = device_ms(lambda: FA.flash_dq(*args, kv_lens=lens, **kw), iters)
+        t_dkv = device_ms(lambda: FA.flash_dkv(*args, kv_lens=lens, **kw), iters)
+        p_fwd = device_ms(lambda: FA.flash_fwd_lse_plain(q, k, v, kv_lens=lens, **kw), plain_iters)
+        p_dq = device_ms(lambda: FA.flash_dq_plain(*args, kv_lens=lens, **kw), plain_iters)
+        p_dkv = device_ms(lambda: FA.flash_dkv_plain(*args, kv_lens=lens, **kw), plain_iters)
+        # one SDPA call for the same function: is_causal at full length, an
+        # explicit causal + kv_lens mask when ragged; its backward computes
+        # dq, dk and dv together
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        mask = None if label == "full" else FA._kv_mask(B, T, T, lens, True, dev)
+        sdpa = partial(F.scaled_dot_product_attention, is_causal=mask is None, attn_mask=mask)
+        with torch.no_grad():
+            l_fwd = device_ms(lambda: sdpa(qt, kt, vt), iters)
+        out = sdpa(qt, kt, vt)
+        l_bwd = device_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters)
+        del out
+        lh = [n] * B
+        pairs = _pairs(T, lh)
+        rows_b = B * T * H * d * 2          # one bf16 [B, T, H, d] tensor, all rows
+        kv_b = B * n * H * d * 2            # one bf16 k or v, live rows only
+        stat_b = B * H * T * 4              # one f32 lse or delta
+        bounds = {
+            "flash_fwd_lse": bound(2 * rows_b + 2 * kv_b + stat_b + B * 4, 4.0 * H * d * pairs),
+            "flash_dq": bound(3 * rows_b + 2 * kv_b + 2 * stat_b + B * 4, 6.0 * H * d * pairs),
+            # dk and dv are written for all T rows (zeros past kv_len)
+            "flash_dkv": bound(4 * rows_b + 2 * kv_b + 2 * stat_b + B * 4, 8.0 * H * d * pairs),
+        }
+        times = {"flash_fwd_lse": (t_fwd, p_fwd, l_fwd), "flash_dq": (t_dq, p_dq, l_bwd),
+                 "flash_dkv": (t_dkv, p_dkv, l_bwd)}
+        for name in TRAINING:
+            ms, plain, lib = times[name]
+            b, by = bounds[name]
+            lib_label = "sdpa fwd" if name == "flash_fwd_lse" else "sdpa bwd (dq+dk+dv)"
+            say(f"{name} B={B} H={H} T=S={T} d={d} causal kv_len={n} ({label}): "
+                f"max_abs_err {errs[name]:.3e} kernel {ms:.4f} ms plain {plain:.4f} ms "
+                f"{lib_label}{' is_causal' if mask is None else ' masked'} {lib:.4f} ms "
+                f"bound {b:.4f} ms ({by})")
+            if label == "ragged":
+                records[name].update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
+                                     library_ms=lib,
+                                     unit=f"one launch = one layer, T=2048, kv_len {n} "
+                                          f"(library: {lib_label}, masked)")
+    return [records[name] for name in TRAINING]
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+def _corpus(tmp):
+    from revisionllm_tpu_torch.data.synthetic import make_synthetic_corpus
+
+    return make_synthetic_corpus(os.path.join(tmp, "corpus"), n_train_movies=8, n_val_movies=1,
+                                 d=768, duration=540.0, fps=5.0, seed=11)
+
+
+def train_argv(paths, out, steps):
+    """train_cli flags for the QLoRA configuration of
+    scripts/train_7b_sustained.py:147-163 (the stage1_dense preset with an
+    int8 base, batch 1, sequence 2048), `steps` steps, one save at the end."""
+    return ["--preset", "stage1_dense", "--quant_base", "--seed", "0",
+            "--data_path", paths["train_json"], "--feat_folder", paths["features"],
+            "--q_feat_dir", paths["queries"], "--output_dir", out,
+            "--per_device_batch_size", "1", "--max_steps", str(steps),
+            "--save_steps", str(steps), "--log_steps", "1"]
+
+
+class _CountIntMM:
+    """Counts torch._int_mm calls (the W8A8 GEMM) while installed."""
+
+    def __init__(self):
+        import torch
+
+        self.n = 0
+        self.orig = torch._int_mm
+
+    def __call__(self, *a, **k):
+        self.n += 1
+        return self.orig(*a, **k)
+
+    def __enter__(self):
+        import torch
+
+        torch._int_mm = self
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch._int_mm = self.orig
+
+
+def check_no_silent_detach(dev):
+    """q8_apply on a grad-requiring bf16 CUDA tensor at M = 64 raises outside
+    the exact trace (K1 has no backward), and inside it gives the dequant
+    route's gradient."""
+    import torch
+    from revisionllm_tpu_torch.ops import quant as Q
+    from revisionllm_tpu_torch.train.trainer import _dequant_trace
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((64, 4096), generator=gen, device=dev).to(torch.bfloat16).requires_grad_()
+    q, s = Q.quantize_int8(torch.randn((4096, 1024), generator=gen, device=dev) * 4096 ** -0.5)
+    w = {"q8": q, "scale": s}
+    try:
+        Q.q8_apply(x, w)
+    except RuntimeError as e:
+        say(f"no silent detach: q8_apply(grad-requiring bf16 x, M=64) outside the exact trace "
+            f"raises: {str(e)[:80]}...")
+    else:
+        raise AssertionError("K1 accepted a grad-requiring input outside the exact trace")
+    with _dequant_trace():
+        Q.q8_apply(x, w).float().sum().backward()
+    ones = torch.ones((64, 1024), device=dev, dtype=torch.bfloat16)
+    want = (ones @ Q.dequantize_int8(q, s, torch.bfloat16).T).float()
+    err = (x.grad.float() - want).abs().max().item()
+    tol = 2.0 ** -8 * want.abs().max().item()  # one bf16 step: the same product
+    say(f"no silent detach: inside the exact trace the gradient is g dequant(W)^T "
+        f"(max_abs_err {err:.3e}, tol {tol:.3e})")
+    if not err <= tol:
+        raise AssertionError(f"exact-trace gradient differs by {err} > {tol}")
+
+
+def phase_train(dev, tmp, paths):
+    """The training slice through the training entry point, train_cli.main:
+    1 warm-up and TRAIN_STEPS timed steps, an async save at the last step,
+    the export; then the checkpoint against the trained trees, one step
+    under the profiler, and auto-resume for one more step. Returns the
+    launches of main's steps."""
+    import torch
+    from revisionllm_tpu_torch.train import checkpoint, optimizer, train_cli, trainer
+    from revisionllm_tpu_torch.utils import kernels
+
+    out = os.path.join(tmp, "run")
+    marks, losses, gnorms, live, peak = [], [], [], [], []
+
+    def on_step(step, batch, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses.append(float(metrics["loss"]))
+        gnorms.append(float(metrics["grad_norm"]))
+        live.append(int(batch["lengths"].sum()))
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+        peak.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _CountIntMM() as int_mm:
+        run, opt = train_cli.main(train_argv(paths, out, TRAIN_STEPS + 1), on_step=on_step)
+    t_end = time.perf_counter()
+    launches = dict(kernels.LAUNCHES)
+    cfg = run.llama_cfg
+    n_lora = sum(t.numel() for t in trainer.tree_leaves(run.trainable["lora"]))
+    n_vis = sum(t.numel() for t in trainer.tree_leaves(run.trainable["vision"]))
+    say(f"train: train_cli.main, Vicuna-7B QLoRA, {cfg.num_layers} layers, int8 base + dense "
+        f"bf16 lm_head, LoRA r={run.train_cfg.lora.r} ({n_lora / 1e6:.1f} M params f32) + "
+        f"ClipEncoder/T2V adapter ({n_vis / 1e6:.1f} M params bf16), seq "
+        f"{run.train_cfg.model_max_length}, batch 1, remat; {len(run.dataset)} training items; "
+        f"set-up and warm-up step {marks[0] - t0:.2f} s; async save at step {TRAIN_STEPS + 1}, "
+        f"wait and export {t_end - marks[-1]:.2f} s")
+    steps = np.diff(marks)
+    med = float(np.median(steps))
+    say(f"train: {TRAIN_STEPS} loop steps after the warm-up (batch build, step, log line): ms "
+        f"{[round(float(x) * 1e3, 1) for x in steps]}; median {med * 1e3:.1f} ms, spread (max - min) "
+        f"{(steps.max() - steps.min()) * 1e3:.1f} ms, std {float(np.std(steps)) * 1e3:.1f} ms")
+    build = []
+    for i in range(TRAIN_STEPS):
+        h0 = time.perf_counter()
+        run.batch([i])
+        build.append(time.perf_counter() - h0)
+    say(f"train: batch build on the host, timed apart: median {float(np.median(build)) * 1e3:.1f} ms")
+    say(f"train: tokens/s padded {run.train_cfg.model_max_length / med:.1f}, live "
+        f"{float(np.mean(live[1:])) / med:.1f} (live tokens per step {live}); peak memory over "
+        f"the timed steps {peak[-1]:.2f} GiB")
+    say(f"train: loss per step {[round(x, 4) for x in losses]}; grad norm "
+        f"{[round(x, 4) for x in gnorms]}")
+    per_step = {k: launches[k] / (TRAIN_STEPS + 1) for k in kernels.COUNTERS}
+    say(f"train: launches in main's {TRAIN_STEPS + 1} steps {launches}; per step {per_step}; "
+        f"torch._int_mm calls {int_mm.n}")
+    if not all(np.isfinite(losses)) or not all(np.isfinite(gnorms)):
+        raise AssertionError("non-finite loss or grad norm")
+    missing = [k for k in TRAINING if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"row-4 kernels never launched in training: {missing}")
+    stray = {k: launches[k] for k in SERVING if launches[k]}
+    if stray or int_mm.n:
+        raise AssertionError(f"kernels without a backward ran in the loss: {stray}, "
+                             f"torch._int_mm x{int_mm.n}")
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        logged = [json.loads(line) for line in f]
+    if [e["step"] for e in logged] != list(range(1, TRAIN_STEPS + 2)) or \
+            [e["loss"] for e in logged] != losses:
+        raise AssertionError(f"train_log.jsonl differs from the steps: {logged}")
+
+    # the checkpoint main saved asynchronously, restored into fresh trees
+    latest = checkpoint.latest_checkpoint(out)
+    t0 = time.perf_counter()
+    restored = checkpoint.restore_checkpoint(latest, {"trainable": run.trainable})
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    got, want = trainer.tree_leaves(restored["trainable"]), trainer.tree_leaves(run.trainable)
+    if not (len(got) == len(want) and all(torch.equal(a, b) for a, b in zip(got, want))
+            and restored["step"] == TRAIN_STEPS + 1):
+        raise AssertionError("restored checkpoint differs from the trained state")
+    opt2 = optimizer.AdamW(got, run.train_cfg, total_steps=TRAIN_STEPS + 1)
+    opt2.load_state_dict(restored["opt_state"])
+    if opt2.count != opt.count:
+        raise AssertionError("restored optimizer state differs")
+    del restored, got, opt2
+    size = sum(os.path.getsize(os.path.join(latest, f)) for f in os.listdir(latest)) / 2 ** 20
+    files = {f: round(os.path.getsize(os.path.join(out, f)) / 2 ** 20, 1) for f in
+             ("adapter_config.json", "adapter_model.bin", "non_lora_trainables.bin")}
+    say(f"train: checkpoint {latest.rsplit('/', 1)[-1]} ({size:.0f} MiB) restored into fresh "
+        f"trees in {t_restore:.1f} s, equal; export {files} MiB")
+
+    # one more step under the profiler: where its time goes
+    step_fn = trainer.make_train_step(cfg, run.adapter_cfg, run.train_cfg, opt)
+    batch = run.batch([0])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(run.trainable, run.frozen, run.base, batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    groups, other = group_kernels(kernel_events(prof))
+    busy = sum(ms for ms, _ in groups.values())
+    say(f"train profile: one step under the profiler: wall {wall:.1f} ms, summed kernel time "
+        f"{busy:.1f} ms (device idle share {max(0.0, 1 - busy / wall) * 100:.1f}% under the "
+        f"profiler, {max(0.0, 1 - busy / (med * 1e3)) * 100:.1f}% of the median loop step)")
+    for label, (ms, n) in groups.items():
+        if n:
+            say(f"train profile:   {ms:9.2f} ms  x{n:<6d} {label}")
+    top = sorted(other.items(), key=lambda kv: -kv[1][0])
+    for name, (ms, n) in top[:10]:
+        say(f"train profile:     of which {ms:9.2f} ms  x{n:<6d} {name[:100]}")
+    rest = [sum(ms for _, (ms, _) in top[10:]), sum(n for _, (_, n) in top[10:])]
+    say(f"train profile:     of which {rest[0]:9.2f} ms  x{rest[1]:<6d} the {len(top[10:])} "
+        f"other kernel names")
+    dequant_ms = time_dequant_passes(dev, run.base, cfg)
+    say(f"train profile: dequant passes timed apart: one layer's 7 matrices {dequant_ms:.3f} ms; "
+        f"x {cfg.num_layers} layers x 2 (forward, remat recompute) = "
+        f"{dequant_ms * cfg.num_layers * 2:.1f} ms per step (inside the elementwise group)")
+    del run, opt, step_fn, batch, prof
+    torch.cuda.empty_cache()
+
+    # auto-resume: main again with one more step picks up checkpoint-7
+    t0 = time.perf_counter()
+    resumed = []
+    run, _ = train_cli.main(train_argv(paths, out, TRAIN_STEPS + 2),
+                            on_step=lambda step, b, m: resumed.append((step, float(m["loss"]))))
+    with open(os.path.join(out, "train_log.jsonl")) as f:
+        steps_logged = [json.loads(line)["step"] for line in f]
+    say(f"train: resumed main ran steps {resumed} in {time.perf_counter() - t0:.1f} s; the log "
+        f"holds steps {steps_logged}; latest {checkpoint.latest_checkpoint(out).rsplit('/', 1)[-1]}")
+    if [s for s, _ in resumed] != [TRAIN_STEPS + 2] or not np.isfinite(resumed[0][1]) or \
+            steps_logged != list(range(1, TRAIN_STEPS + 3)):
+        raise AssertionError("auto-resume did not continue from the last checkpoint")
+    del run
+    torch.cuda.empty_cache()
+    check_no_silent_detach(dev)
+    return launches
+
+
+def time_dequant_passes(dev, base, cfg):
+    """Device ms of one layer's seven dequantize_int8 calls (int8 -> bf16),
+    as the exact trace runs them before each matmul."""
+    import torch
+    from revisionllm_tpu_torch.models.llama import LAYER_MATRICES, layer_params
+    from revisionllm_tpu_torch.ops import quant as Q
+
+    lp = layer_params(base, 0)
+
+    def run():
+        for name in LAYER_MATRICES:
+            Q.dequantize_int8(lp[name]["q8"], lp[name]["scale"], torch.bfloat16)
+
+    return device_ms(run, 10)
+
+
+# ------------------------------------------------------------------ phase 9
+
+
+def _named_leaves(tree, prefix=""):
+    """(path, tensor) of a nested dict / list tree, in trainer.tree_leaves
+    order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _named_leaves(tree[k], f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree) for x in _named_leaves(v, f"{prefix}{i}/")]
+    return [(prefix[:-1], tree)]
+
+
+def phase_train_compare(dev, paths):
+    """One train step's loss and gradients of every trainable leaf (LoRA
+    and the ClipEncoder/T2V adapter): kernels on the card against the plain
+    path on the CPU, from train_cli's assembly at full width, 2 layers and
+    the main path's sequence of 2048, adapter dropout 0 (the two devices'
+    generators draw different masks)."""
+    import dataclasses
+
+    import torch
+    from revisionllm_tpu_torch.train import train_cli, trainer
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cfgs = train_cli.build_configs(train_cli.parse_args(train_argv(paths, "unused", 1)))
+    llama_cfg, adapter_cfg, data_cfg, train_cfg = cfgs
+    run = train_cli.assemble(dataclasses.replace(llama_cfg, num_layers=2),
+                             dataclasses.replace(adapter_cfg, dropout=0.0), data_cfg, train_cfg,
+                             cpu, seed=0, quant_base=True)
+    batch = run.batch([0])
+    loss_fn = trainer.make_loss_fn(run.llama_cfg, run.adapter_cfg, run.train_cfg)
+    out = {}
+    for device in (dev, cpu):
+        b, bs = _to(run.base, device), _to(batch, device)
+        tr = _to(run.trainable, device, grad=True)
+        named = _named_leaves(tr)
+        gen = torch.Generator(device=device).manual_seed(0)
+        with trainer._dequant_trace():
+            loss = loss_fn(tr, {}, b, bs, gen)
+            grads = torch.autograd.grad(loss, [t for _, t in named])
+        out[device.type] = (loss.item(), {n: g.float().cpu() for (n, _), g in zip(named, grads)})
+    (lk, gk), (lp, gp) = out[dev.type], out["cpu"]
+    # The key projection's bias has no gradient in exact arithmetic (it adds
+    # the same q.b to every score of a row, which the softmax ignores), so
+    # both sides return rounding noise there, about 1e-8 in norm. Its error
+    # is measured against the gradient of the same layer's query bias.
+    rel = {}
+    for n, want in gp.items():
+        ref = gp[n[:-len("wk/b")] + "wq/b"] if n.endswith("/wk/b") else want
+        e, r = (gk[n] - want).norm().item(), ref.norm().item()
+        rel[n] = e / r if r > 0 else (math.inf if e > 0 else 0.0)
+    groups = {"LoRA-B": [n for n in rel if n.startswith("lora/") and n.endswith("/b")],
+              "LoRA-A (zero: B starts at 0)": [n for n in rel if n.startswith("lora/") and n.endswith("/a")],
+              "vision": [n for n in rel if n.startswith("vision/")]}
+    if sorted(sum(groups.values(), [])) != sorted(rel):
+        raise AssertionError(f"unexpected trainable leaves: {sorted(rel)}")
+    worst = {g: max(names, key=rel.get) for g, names in groups.items()}
+    # bf16 activations on both sides, f32 sums in another order, two layers
+    # of backward, bf16 adapter gradients: the loss within 2e-3 relative
+    # (4.5x the 4.4e-4 gap read on the H100), each gradient within 5e-2
+    # relative L2 (2.3x the worst leaf read there, 2.2e-2)
+    loss_tol, grad_tol = 2e-3, 5e-2
+    say(f"train compare: Vicuna-7B width, 2 layers, seq {run.train_cfg.model_max_length}, "
+        f"kernels on the card vs plain on the CPU: loss {lk:.5f} vs {lp:.5f} (rel diff "
+        f"{abs(lk - lp) / abs(lp):.2e}, tol {loss_tol:.0e}); gradient relative L2, worst leaf "
+        f"of each group: " + "; ".join(f"{g} ({len(groups[g])} leaves) {rel[n]:.2e} at {n}"
+                                      for g, n in worst.items())
+        + f" (tol {grad_tol:.0e}) ({time.perf_counter() - t0:.1f} s)")
+    top = sorted(groups["vision"], key=rel.get, reverse=True)[:5]
+    say("train compare: the 5 worst vision leaves "
+        + str({n: float(f"{rel[n]:.2e}") for n in top}) + "; key-bias gradient norms "
+        + str({n: (float(f"{gk[n].norm().item():.2e}"), float(f"{gp[n].norm().item():.2e}"))
+               for n in groups["vision"] if n.endswith("/wk/b")}) + " (card, CPU)")
+    if not abs(lk - lp) <= loss_tol * abs(lp):
+        raise AssertionError(f"train loss differs: {lk} vs {lp}")
+    bad = {n: r for n, r in rel.items() if not r <= grad_tol}
+    if bad:
+        raise AssertionError(f"gradients differ: {bad}")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -640,14 +1151,30 @@ def main() -> int:
     records = {}
     for check in (check_int8_matmul, check_flash_attention, check_decode_attention):
         rec = check(dev, ITERS)
-        rec.update(route="cuda", source=f"revisionllm_tpu_torch/csrc/{rec['name']}.cu",
-                   replaces=REPLACES[rec["name"]])
         records[rec["name"]] = rec
-    launches, setup = phase_slice(dev, RUNS)
+    for rec in check_flash_vjp(dev, ITERS):
+        records[rec["name"]] = rec
     for name, rec in records.items():
-        rec["launches"] = launches[name]
+        rec.update(route="cuda", source=f"revisionllm_tpu_torch/csrc/{SOURCES[name]}.cu",
+                   replaces=REPLACES[name])
+    launches, setup = phase_slice(dev, RUNS)
+    for name in SERVING:
+        records[name]["launches"] = launches[name]
     phase_compare(dev)
     phase_profile(dev, setup)
+    del setup
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        paths = _corpus(tmp)
+        launches = phase_train(dev, tmp, paths)
+        for name in TRAINING:
+            records[name]["launches"] = launches[name]
+        torch.cuda.empty_cache()
+        phase_train_compare(dev, paths)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     print(json.dumps({"kernels": list(records.values())}), flush=True)
     print(smi, flush=True)

@@ -19,3 +19,7 @@ QUESTIONS = {
     "ego_question": "Find the start and end time of the Query from the Video.\nQuery: {}",
     "retrieval": "During which video can we see {}?",
 }
+
+# Answers of negative (event-absent) samples in training data.
+NEGATIVE_ANSWER = "Not Present"
+NEGATIVE_ANSWER_RETRIEVAL = "no"

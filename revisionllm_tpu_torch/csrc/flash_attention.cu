@@ -1,25 +1,33 @@
-// K2: forward attention with an online softmax, for the stage-1 prefill.
+// Forward attention with an online softmax: kernel K2 for the stage-1
+// prefill, and the forward of row 4 (training), which also writes the
+// per-row log-sum-exp. One body serves both.
 //
-// Replaces the Pallas kernel revisionllm_tpu/ops/flash_attention.py:40
-// _flash_kernel (entry flash_attention :119, pallas_call :191): q [B, T, H, d],
-// k/v [B, S, KH, d] bf16, per-row kv_lens [B], causal, GQA through
-// kv head = h / (H / KH), f32 running max m, sum l and accumulator, with the
-// same NEG_INF = -2e30 masking, so the maths matches mha_reference and rows
-// that see no key give 0 (l_safe at :115).
+// K2 replaces the Pallas kernel revisionllm_tpu/ops/flash_attention.py:40
+// _flash_kernel (entry flash_attention :119, pallas_call :191). The row-4
+// forward replaces _flash_fwd_lse_kernel :352 (entry make_flash_mha :526,
+// pallas_call :584); its backward kernels are in flash_attention_vjp.cu.
+// q [B, T, H, d], k/v [B, S, KH, d] bf16, per-row kv_lens [B], causal, GQA
+// through kv head = h / (H / KH), f32 running max m, sum l and accumulator,
+// with the same NEG_INF = -2e30 masking, so the maths matches mha_reference
+// and rows that see no key give 0 (l_safe at :115). The row-4 entry stores
+// lse = m + log(l) per row in f32 as [B, H, T] (JAX's lane-replicated
+// [.., 128] layout is a Mosaic constraint and is not copied), and +2e30 for a
+// row with l == 0 (:411), so that the backward's exp(s - lse) is 0 there.
 //
-// What bounds it on the H100: bytes. At the stage-1 shapes (B = 64, H = 32,
-// T = S = 318, d = 128, causal) one layer reads and writes 0.67 GB of
+// What bounds it on the H100: bytes at the stage-1 shapes (B = 64, H = 32,
+// T = S = 318, d = 128, causal): one layer reads and writes 0.67 GB of
 // q/k/v/o bf16 (about 0.2 ms at 3.35 TB/s) but does only about 53 GFLOP of
-// products (0.05 ms on the bf16 tensor cores), so each q/k/v element should
-// leave device memory once per block that needs it. The design: one block
-// per (q tile of 64 rows, head, batch row) -- on Hopper blocks run in
-// parallel, so the TPU grid's sequential kv axis becomes a loop inside the
-// block. Each of the 4 warps owns 16 query rows.
-// Q K^T and P V run on the tensor cores through WMMA (bf16 inputs, f32
-// accumulation); the softmax statistics and the f32 output accumulator live
-// in shared memory. Tiles in the causal future and tiles at or past
-// kv_lens[b] are never loaded, as the Pallas kernel skips them with pl.when.
-// P is rounded to bf16 before P V, as the Pallas body casts p to v's type.
+// products (0.05 ms on the bf16 tensor cores). Operations at the training
+// shape (B = 1, H = 32, T = 2048, causal): 34 GFLOP at full length, 35 us at
+// 989 TFLOP/s against 15 us of bytes. The design, simple first: one block per
+// (q tile of 64 rows, head, batch row) -- on Hopper blocks run in parallel,
+// so the TPU grid's sequential kv axis becomes a loop inside the block. Each
+// of the 4 warps owns 16 query rows. Q K^T and P V run on the tensor cores
+// through WMMA (bf16 inputs, f32 accumulation); the softmax statistics and
+// the f32 output accumulator live in shared memory. Tiles in the causal
+// future and tiles at or past kv_lens[b] are never loaded, as the Pallas
+// kernels skip them with pl.when. P is rounded to bf16 before P V, as the
+// Pallas bodies cast p to v's type.
 //
 // Plain C interface, bound with ctypes by revisionllm_tpu_torch/ops/flash_attention.py.
 
@@ -36,6 +44,7 @@ constexpr int BQ = 64;        // query rows per block
 constexpr int BKV = 64;       // kv rows per loop step
 constexpr int THREADS = 128;  // 4 warps x 16 query rows
 constexpr float NEG_INF = -2.0e30f;
+constexpr float LSE_EMPTY = 2.0e30f;  // lse of a row that sees no key
 
 template <int D>
 struct Layout {
@@ -66,12 +75,13 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// the whole forward of one block; lse == nullptr skips the LSE output
 template <int D>
-__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
+__device__ __forceinline__ void flash_fwd_body(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_lens,
-    __nv_bfloat16* __restrict__ out, int T, int S, int H, int KH, float sm_scale,
-    int causal) {
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int T, int S, int H, int KH,
+    float sm_scale, int causal) {
   using L = Layout<D>;
   constexpr int DS = L::DS, SS = L::SS, PS = L::PS;
   constexpr int VPR = D / 8;  // 16-byte vectors per row
@@ -150,20 +160,23 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     }
     __syncwarp();
 
-    // online softmax over this tile, one row at a time; lane owns 2 columns
+    // online softmax over this tile, one row at a time; lane owns 2 columns;
+    // masked entries get p = 0 even while a row has seen no live column
     for (int rr = 0; rr < 16; ++rr) {
       const int r = warp * 16 + rr, t = q0 + r;
       float sv[2];
+      bool ok[2];
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
-        const int c = lane + 32 * u, col = s0 + c;
-        const bool ok = col < kv_len && (!causal || t >= col);
-        sv[u] = ok ? ss[r * SS + c] * sm_scale : NEG_INF;
+        const int col = s0 + lane + 32 * u;
+        ok[u] = col < kv_len && (!causal || t >= col);
+        sv[u] = ok[u] ? ss[r * SS + lane + 32 * u] * sm_scale : NEG_INF;
       }
       const float m_prev = m_s[r];
       const float m_new = fmaxf(m_prev, warp_max(fmaxf(sv[0], sv[1])));
       const float alpha = expf(m_prev - m_new);
-      const float p0 = expf(sv[0] - m_new), p1 = expf(sv[1] - m_new);
+      const float p0 = ok[0] ? expf(sv[0] - m_new) : 0.0f;
+      const float p1 = ok[1] ? expf(sv[1] - m_new) : 0.0f;
       const float psum = warp_sum(p0 + p1);
       ps[r * PS + lane] = __float2bfloat16(p0);
       ps[r * PS + lane + 32] = __float2bfloat16(p1);
@@ -208,22 +221,38 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
     const float l_safe = l == 0.0f ? 1.0f : l;
     out[(((size_t)b * T + t) * H + h) * D + c] = __float2bfloat16(os[i] / l_safe);
   }
+  if (lse != nullptr) {
+    for (int i = tid; i < BQ; i += THREADS) {
+      const int t = q0 + i;
+      if (t >= T) continue;
+      const float l = l_s[i];
+      lse[((size_t)b * H + h) * T + t] = l > 0.0f ? m_s[i] + logf(l) : LSE_EMPTY;
+    }
+  }
 }
 
+// K2 (prefill)
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_lens,
-                   void* out, int B, int T, int S, int H, int KH, float sm_scale,
-                   int causal, cudaStream_t stream) {
-  const size_t smem = Layout<D>::bytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_lens),
-      static_cast<__nv_bfloat16*>(out), T, S, H, KH, sm_scale, causal);
-  return cudaGetLastError();
+__global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_lens,
+    __nv_bfloat16* __restrict__ out, int T, int S, int H, int KH, float sm_scale, int causal) {
+  flash_fwd_body<D>(q, k, v, kv_lens, out, nullptr, T, S, H, KH, sm_scale, causal);
+}
+
+// row 4's forward (training): the same, plus the per-row LSE
+template <int D>
+__global__ void __launch_bounds__(THREADS) flash_fwd_lse_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const int* __restrict__ kv_lens,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int T, int H, int KH,
+    float sm_scale, int causal) {
+  flash_fwd_body<D>(q, k, v, kv_lens, out, lse, T, T, H, KH, sm_scale, causal);
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace
@@ -234,7 +263,32 @@ extern "C" int flash_attn_fwd_bf16(const void* q, const void* k, const void* v,
                                    const void* kv_lens, void* out, int B, int T,
                                    int S, int H, int KH, int D, float sm_scale,
                                    int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D != 128) return (int)cudaErrorInvalidValue;
-  return (int)launch<128>(q, k, v, kv_lens, out, B, T, S, H, KH, sm_scale, causal, s);
+  const size_t smem = Layout<128>::bytes;
+  cudaError_t err = allow_smem(flash_fwd_kernel<128>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + BQ - 1) / BQ, H, B);
+  flash_fwd_kernel<128><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_lens),
+      static_cast<__nv_bfloat16*>(out), T, S, H, KH, sm_scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// q [B, T, H, D], k/v [B, T, KH, D] bf16 contiguous, kv_lens [B] int32 (each
+// <= T), out [B, T, H, D] bf16, lse [B, H, T] f32. D = 128; H % KH == 0.
+extern "C" int flash_fwd_lse_bf16(const void* q, const void* k, const void* v,
+                                  const void* kv_lens, void* out, void* lse, int B, int T,
+                                  int H, int KH, int D, float sm_scale, int causal,
+                                  void* stream) {
+  if (D != 128) return (int)cudaErrorInvalidValue;
+  const size_t smem = Layout<128>::bytes;
+  cudaError_t err = allow_smem(flash_fwd_lse_kernel<128>, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((T + BQ - 1) / BQ, H, B);
+  flash_fwd_lse_kernel<128><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(kv_lens),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), T, H, KH, sm_scale, causal);
+  return (int)cudaGetLastError();
 }

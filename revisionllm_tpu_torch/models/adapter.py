@@ -8,10 +8,15 @@ the output is the CLS token ('cls' / hierarchy) or the per-frame tokens
 ('temporal'), projected by `mm_projector` to the LLM width. Parameters keep
 JAX's tree ({"w": [in, out], "b"} linears, lists of layer dicts).
 
-Inference only: dropout is the identity. The 'alternate' and 'all' modes,
-the mlp projector, the CrossLayer self-attention variants (ca_self_attn:
-performer, linformer) and the chapters text projection (cross_attn) are
-not ported yet.
+Training (deterministic=False) applies dropout at every site where JAX
+does (revisionllm_tpu/models/adapter.py:141-264): the attention
+probabilities, each residual branch and the FFN's hidden layer. Its keep
+masks come from an explicit torch.Generator; they cannot replay JAX's PRNG
+bits, so the two agree in distribution (keep rate 1 - dropout, kept values
+scaled by 1 / (1 - dropout)), not bit for bit, and parity tests run with
+dropout 0. The 'alternate' and 'all' modes, the mlp projector, the
+CrossLayer self-attention variants (ca_self_attn: performer, linformer) and
+the chapters text projection (cross_attn) are not ported yet.
 """
 
 from __future__ import annotations
@@ -99,8 +104,19 @@ def linear(p, x):
     return x.to(dt) @ p["w"].to(dt) + p["b"].to(dt)
 
 
-def _mha(layer: Params, q_in, k_in, v_in, key_valid, num_heads: int):
-    """Batch-first multi-head attention with key-padding masking, f32 scores."""
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout: keep each element with probability 1 - rate (uniform
+    draws from `generator` on x's device) and scale kept values by
+    1 / (1 - rate). generator=None or rate 0: the identity."""
+    if generator is None or rate <= 0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def _mha(layer: Params, q_in, k_in, v_in, key_valid, num_heads: int, rate=0.0, gen=None):
+    """Batch-first multi-head attention with key-padding masking, f32 scores;
+    dropout on the probabilities when training."""
     B, Lq, d = q_in.shape
     Lk = k_in.shape[1]
     hd = d // num_heads
@@ -110,41 +126,43 @@ def _mha(layer: Params, q_in, k_in, v_in, key_valid, num_heads: int):
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(hd)
     if key_valid is not None:
         s = torch.where(key_valid[:, None, None, :], s, torch.full_like(s, -2.0e30))
-    p = torch.softmax(s, dim=-1)
+    p = dropout(torch.softmax(s, dim=-1), rate, gen)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return linear(layer["wo"], o.reshape(B, Lq, d).to(q_in.dtype))
 
 
-def _ffn(layer, x):
-    return linear(layer["ffn2"], torch.relu(linear(layer["ffn1"], x)))
+def _ffn(layer, x, rate=0.0, gen=None):
+    return linear(layer["ffn2"], dropout(torch.relu(linear(layer["ffn1"], x)), rate, gen))
 
 
-def _encoder_layer_post(layer, src, pos, key_valid, num_heads):
+def _encoder_layer_post(layer, src, pos, key_valid, num_heads, rate=0.0, gen=None):
     """Post-norm self-attention layer: q = k = src + pos, v = src;
     residual -> LN -> FFN -> residual -> LN."""
     qk = src + pos
-    src = src + _mha(layer, qk, qk, src, key_valid, num_heads)
+    src = src + dropout(_mha(layer, qk, qk, src, key_valid, num_heads, rate, gen), rate, gen)
     src = layer_norm(src, layer["norm1_w"], layer["norm1_b"])
-    src = src + _ffn(layer, src)
+    src = src + dropout(_ffn(layer, src, rate, gen), rate, gen)
     return layer_norm(src, layer["norm2_w"], layer["norm2_b"])
 
 
-def _t2v_cross_part(layer, src, pos, video_length, text_valid, num_heads):
+def _t2v_cross_part(layer, src, pos, video_length, text_valid, num_heads, rate=0.0, gen=None):
     """Cross-attention half of the T2V layer: queries = frames (pos added),
     keys/values = text tokens; CLS and text pass through."""
     pos_src = src + pos
     q = pos_src[:, 1 : video_length + 1]
     k = pos_src[:, video_length + 1 :]
     v = src[:, video_length + 1 :]
-    src2 = src[:, 1 : video_length + 1] + _mha(layer, q, k, v, text_valid, num_heads)
+    attn = dropout(_mha(layer, q, k, v, text_valid, num_heads, rate, gen), rate, gen)
+    src2 = src[:, 1 : video_length + 1] + attn
     return torch.cat([src[:, :1], src2, src[:, video_length + 1 :]], dim=1)
 
 
-def _t2v_ffn_part(layer, src, video_length):
+def _t2v_ffn_part(layer, src, video_length, rate=0.0, gen=None):
     """FFN half of the T2V layer on the frames: norm1 -> FFN -> residual -> norm2."""
     src2 = src[:, 1 : video_length + 1]
     src3 = layer_norm(src2, layer["norm1_w"], layer["norm1_b"])
-    src2 = layer_norm(src2 + _ffn(layer, src3), layer["norm2_w"], layer["norm2_b"])
+    ff = dropout(_ffn(layer, src3, rate, gen), rate, gen)
+    src2 = layer_norm(src2 + ff, layer["norm2_w"], layer["norm2_b"])
     return torch.cat([src[:, :1], src2, src[:, video_length + 1 :]], dim=1)
 
 
@@ -154,10 +172,17 @@ def clip_encoder_forward(
     video: torch.Tensor,
     text: Optional[torch.Tensor] = None,
     text_valid: Optional[torch.Tensor] = None,
+    deterministic: bool = True,
+    generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
     """video [B, T, d_in] frame features; text [B, Lt, d_in] query tokens.
-    Returns [B, 1, hidden] (cls / hierarchy) or [B, T, hidden] (temporal)."""
+    Returns [B, 1, hidden] (cls / hierarchy) or [B, T, hidden] (temporal).
+    deterministic=False applies dropout cfg.dropout with masks drawn from
+    `generator` (required then)."""
     _check_cfg(cfg)
+    if not deterministic and cfg.dropout > 0 and generator is None:
+        raise ValueError("training-mode dropout needs a torch.Generator")
+    rate, gen = (0.0, None) if deterministic else (cfg.dropout, generator)
     B, T, d = video.shape
     frame_valid = torch.ones((B, T), dtype=torch.float32, device=video.device)
     pos = sine_positions(frame_valid, d).to(video.dtype)
@@ -173,12 +198,13 @@ def clip_encoder_forward(
         src_t2v = torch.cat([src, text], dim=1)
         pos_t2v = torch.cat([pos_embed, torch.zeros_like(text)], dim=1)
         for layer in params["t2v_layers"]:
-            src_t2v = _t2v_cross_part(layer, src_t2v, pos_t2v, T, text_valid.bool(), cfg.num_heads)
-            src_t2v = _t2v_ffn_part(layer, src_t2v, T)
+            src_t2v = _t2v_cross_part(layer, src_t2v, pos_t2v, T, text_valid.bool(), cfg.num_heads,
+                                      rate, gen)
+            src_t2v = _t2v_ffn_part(layer, src_t2v, T, rate, gen)
         src = src_t2v[:, : T + 1]
 
     for layer in params["enc_layers"]:
-        src = _encoder_layer_post(layer, src, pos_embed, valid, cfg.num_heads)
+        src = _encoder_layer_post(layer, src, pos_embed, valid, cfg.num_heads, rate, gen)
 
     cls_only = cfg.hierarchy or cfg.feature_mode == "cls"
     return linear(params["mm_projector"], src[:, :1] if cls_only else src[:, 1:])

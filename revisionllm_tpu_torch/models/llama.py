@@ -1,4 +1,4 @@
-"""LLaMA / Vicuna backbone, serving half, in PyTorch.
+"""LLaMA / Vicuna backbone in PyTorch: serving, and training with LoRA.
 
 Counterpart of revisionllm_tpu/models/llama.py: RMSNorm pre-norm, RoPE,
 MHA/GQA attention, SwiGLU MLP. Parameters keep JAX's layout, so a tree
@@ -9,8 +9,12 @@ a leading L axis (dense tensors or {"q8", "scale"} dicts), norms [L, D].
 Matmuls go through ops.quant.q8_apply (kernel K1 at M <= 256), prefill
 attention through ops.flash_attention.attention (kernel K2 on the card), and
 each decode step's attention is one ops.decode_attention launch per layer
-(kernel K3). LoRA, the P-tuning prefix, shared-prefix prefill, the serving
-slab and the ChatGLM2 geometry wait for later slices.
+(kernel K3). Training (`forward_hidden(trainable=True)`) applies LoRA in
+line and takes ops.flash_attention.trainable_attention (the row-4 kernels);
+`remat=True` recomputes each layer in the backward
+(torch.utils.checkpoint, in place of jax.checkpoint). The P-tuning prefix,
+shared-prefix prefill, the serving slab and the ChatGLM2 geometry wait for
+later slices.
 """
 
 from __future__ import annotations
@@ -19,10 +23,11 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from revisionllm_tpu_torch.config import LlamaConfig
 from revisionllm_tpu_torch.ops.decode_attention import decode_attention
-from revisionllm_tpu_torch.ops.flash_attention import attention
+from revisionllm_tpu_torch.ops.flash_attention import attention, trainable_attention
 from revisionllm_tpu_torch.ops.norms import rms_norm
 from revisionllm_tpu_torch.ops.quant import q8_apply, q8_apply_multi, quantize_int8
 from revisionllm_tpu_torch.ops.rope import apply_rope_tables, rope_angles, rope_tables
@@ -67,12 +72,15 @@ def init_params(
     dtype=None,
     device=None,
     quantize: bool = False,
+    quantize_lm_head: bool = True,
 ) -> Params:
     """Random init (scaled normal) from `seed`, on `device` (default CUDA).
 
     quantize=True draws one layer's matrix at a time and keeps only its int8
     values and scales, so a 7B tree never holds a full-precision copy; the
-    lm_head is quantized too and the embedding keeps `dtype`. The numbers
+    lm_head is quantized too unless quantize_lm_head=False (the training
+    base keeps a dense lm_head, as train_cli does), and the embedding keeps
+    `dtype`. The numbers
     differ from the JAX package's init (another generator); parity tests
     carry JAX's weights across with models/weights.py instead."""
     device = resolve_device(device)
@@ -85,7 +93,7 @@ def init_params(
     def normal(shape, std):
         return torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * std
 
-    def matrix(n, din, dout):
+    def matrix(n, din, dout, quantize=quantize):
         # one [din, dout] draw at a time, so quantize=True holds at most one
         # layer's matrix in f32; n=None gives an unstacked matrix
         std = din ** -0.5
@@ -115,7 +123,7 @@ def init_params(
         "embed": normal((cfg.vocab_size, cfg.hidden_size), 0.02).to(dtype),
         "layers": layers,
         "final_norm": torch.ones((cfg.hidden_size,), dtype=dtype, device=device),
-        "lm_head": matrix(None, cfg.hidden_size, cfg.vocab_size),
+        "lm_head": matrix(None, cfg.hidden_size, cfg.vocab_size, quantize and quantize_lm_head),
     }
 
 
@@ -132,20 +140,52 @@ def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
     return params["embed"][ids.clamp(min=0).long()]
 
 
-def _attention_block(cfg, lp, x, rope, kv_lens):
+def _lora_apply(x, w, lora_layer, scale):
+    """x @ W (q8_apply) plus scale * (x @ A) @ B. JAX's `x @ a` promotes a
+    bf16 activation times the f32 adapter to f32, so the delta is computed
+    in the promoted type and cast back to the output's."""
+    y = q8_apply(x, w)
+    if lora_layer is not None:
+        a, b = lora_layer["a"], lora_layer["b"]
+        dt = torch.promote_types(x.dtype, a.dtype)
+        delta = (x.to(dt) @ a.to(dt)) @ b.to(dt) * scale
+        y = y + delta.to(y.dtype)
+    return y
+
+
+def _attention_block(cfg, lp, x, rope, kv_lens, lora_lp=None, lora_scale=0.0, trainable=False):
     B, T, _ = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    qm, km, vm = q8_apply_multi(x, (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
+    if lora_lp is None:
+        qm, km, vm = q8_apply_multi(x, (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
+    else:
+        qm, km, vm = (_lora_apply(x, lp[n], lora_lp.get(n), lora_scale)
+                      for n in ("q_proj", "k_proj", "v_proj"))
     q = apply_rope_tables(qm.reshape(B, T, H, hd), *rope)
     k = apply_rope_tables(km.reshape(B, T, KH, hd), *rope)
     v = vm.reshape(B, T, KH, hd)
-    o = attention(q, k, v, causal=True, kv_lens=kv_lens)
-    return q8_apply(o.reshape(B, T, H * hd), lp["o_proj"]), k, v
+    if trainable:
+        o = trainable_attention(q, k, v, causal=True, kv_lens=kv_lens)
+    else:
+        o = attention(q, k, v, causal=True, kv_lens=kv_lens)
+    o = o.reshape(B, T, H * hd)
+    lo = None if lora_lp is None else lora_lp.get("o_proj")
+    return _lora_apply(o, lp["o_proj"], lo, lora_scale), k, v
 
 
-def _mlp_block(lp, x):
-    g_lin, up = q8_apply_multi(x, (lp["gate_proj"], lp["up_proj"]))
-    return q8_apply(F.silu(g_lin) * up, lp["down_proj"])
+def _mlp_block(lp, x, lora_lp=None, lora_scale=0.0):
+    if lora_lp is None:
+        g_lin, up = q8_apply_multi(x, (lp["gate_proj"], lp["up_proj"]))
+        return q8_apply(F.silu(g_lin) * up, lp["down_proj"])
+    g_lin, up = (_lora_apply(x, lp[n], lora_lp.get(n), lora_scale) for n in ("gate_proj", "up_proj"))
+    return _lora_apply(F.silu(g_lin) * up, lp["down_proj"], lora_lp.get("down_proj"), lora_scale)
+
+
+def lora_layer_params(lora: Optional[Params], i: int) -> Optional[Params]:
+    """Views of layer i of a LoRA tree (models/lora.py), or None."""
+    if lora is None:
+        return None
+    return {name: {k: t[i] for k, t in mats.items()} for name, mats in lora["layers"].items()}
 
 
 def _quantize_rows(x: torch.Tensor):
@@ -165,14 +205,25 @@ def forward_hidden(
     kv_lens: Optional[torch.Tensor] = None,
     return_kv: bool = False,
     kv_quant: bool = False,
+    lora: Optional[Params] = None,
+    lora_scale: float = 0.0,
+    trainable: bool = False,
+    remat: bool = False,
 ):
     """Full-sequence forward. embeds [B, T, D], positions [B, T].
 
     Returns the final hidden [B, T, D]; with return_kv=True also the
     per-layer cache {"k", "v"} [L, B, T, KH, hd], which kv_quant=True writes
     as int8 plus per-(position, head) scales {"k_scale", "v_scale"}
-    [L, B, T, KH] layer by layer, so a full-precision cache never exists."""
+    [L, B, T, KH] layer by layer, so a full-precision cache never exists.
+
+    Training: `lora` (models/lora.py tree) adds scale * x A B to every
+    adapted matmul; trainable=True takes the differentiable attention
+    (row-4 kernels on the card); remat=True checkpoints each layer, which is
+    exact because the layers draw no random numbers."""
     _check_cfg(cfg)
+    if remat and return_kv:
+        raise ValueError("remat is for training; it returns no cache")
     B, T, _ = embeds.shape
     L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     rope = rope_tables(*rope_angles(positions, hd, cfg.rope_theta))
@@ -187,14 +238,22 @@ def forward_hidden(
         if kv_quant:
             cache["k_scale"] = torch.empty(shape[:-1], dtype=torch.float32, device=embeds.device)
             cache["v_scale"] = torch.empty(shape[:-1], dtype=torch.float32, device=embeds.device)
+    def layer(x, lp, lora_lp):
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        attn_out, k, v = _attention_block(cfg, lp, h, rope, kv_lens, lora_lp, lora_scale, trainable)
+        x = x + attn_out
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+        return x + _mlp_block(lp, h, lora_lp, lora_scale), k, v
+
     x = embeds
     for i in range(L):
         lp = layer_params(params, i)
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        attn_out, k, v = _attention_block(cfg, lp, h, rope, kv_lens)
-        x = x + attn_out
-        h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_block(lp, h)
+        lora_lp = lora_layer_params(lora, i)
+        if remat:
+            x = checkpoint(lambda x, lp=lp, lora_lp=lora_lp: layer(x, lp, lora_lp)[0], x,
+                           use_reentrant=False)
+            continue
+        x, k, v = layer(x, lp, lora_lp)
         if cache is not None:
             if kv_quant:
                 for name, t in (("k", k), ("v", v)):

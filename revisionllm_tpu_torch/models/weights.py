@@ -3,8 +3,10 @@ revisionllm_tpu/models/convert.py's hand-over to the device.
 
 `params_from_numpy` turns a parameter tree given as nested dicts / lists of
 NumPy arrays -- the JAX package's llama tree (including {"q8", "scale"}
-leaves) or its vision tree, e.g. `jax.tree.map(np.asarray, params)` -- into
-the same tree of torch tensors on `device`. Loading HF checkpoints
+leaves), its vision (ClipEncoder) tree or a LoRA tree, e.g.
+`jax.tree.map(np.asarray, params)` -- into the same tree of torch tensors on
+`device`; `requires_grad=True` marks the floating-point leaves of a tree to
+be trained (LoRA, vision). Loading HF checkpoints
 (convert.py, eval/loader.py) waits until real weights are in the repository.
 """
 
@@ -29,12 +31,18 @@ def _tensor(a: np.ndarray, device, dtype: Optional[torch.dtype], keep: bool) -> 
     return t.to(device)
 
 
-def params_from_numpy(tree: Any, device, dtype: Optional[torch.dtype] = None, _key: str = "") -> Any:
+def params_from_numpy(
+    tree: Any, device, dtype: Optional[torch.dtype] = None, _key: str = "",
+    requires_grad: bool = False,
+) -> Any:
     """Nested dicts / lists / tuples of arrays -> the same structure of
     tensors on `device`. `dtype`, when given, casts floating-point leaves,
     except int8 scales ("scale" leaves), which stay f32; int8 stays int8."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device, dtype, k) for k, v in tree.items()}
+        return {k: params_from_numpy(v, device, dtype, k, requires_grad) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(params_from_numpy(v, device, dtype, _key) for v in tree)
-    return _tensor(tree, device, dtype, keep=_key == "scale")
+        return type(tree)(params_from_numpy(v, device, dtype, _key, requires_grad) for v in tree)
+    t = _tensor(tree, device, dtype, keep=_key == "scale")
+    if requires_grad and t.is_floating_point():
+        t.requires_grad_(True)
+    return t

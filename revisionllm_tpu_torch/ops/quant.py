@@ -8,8 +8,16 @@ keeps JAX's dispatch rule (ops/quant.py:237-276):
   (csrc/int8_matmul.cu) on a CUDA tensor, its plain version on a CPU one;
 - M > 256 with W8A8 on (prefill): `w8a8_matmul`, per-row int8 activations
   times int8 weights with int32 accumulation. In JAX this is an XLA int8 dot
-  outside any Pallas kernel, so here it stays a PyTorch call (`torch._int_mm`);
+  outside any Pallas kernel, so here it stays a PyTorch call (`torch._int_mm`).
+  Its gradient is JAX's straight-through rule (:162-190): dx = g dequant(W)^T
+  as if the matmul were exact;
 - otherwise exact dequantization, then a matmul.
+
+`set_exact_trace(True)` (the trainer's `_dequant_trace`) sends every call to
+the differentiable dequantize-then-matmul route, on any device and any M, as
+JAX's exact-trace rule does (:221-234). K1 and `torch._int_mm` have no
+backward: on a CUDA tensor that requires grad they raise (`forbid_grad`)
+rather than cut it from the graph.
 
 Quantization divides and rounds half to even (`torch.round`, like
 `jnp.round`), so the int8 values are bit-equal to JAX's.
@@ -82,6 +90,7 @@ def int8_matmul(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor) -> tor
     A CPU tensor takes `int8_matmul_plain`; a CUDA tensor launches K1."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w_q8, scale)
+    kernels.forbid_grad("int8_matmul", x, scale)
     K, N = w_q8.shape
     x2 = x.reshape(-1, K)
     M = x2.shape[0]
@@ -136,6 +145,7 @@ def _w8a8_product(
     # stays [K, N] row-major, as in JAX). The copy is redone on every call:
     # a known cost, queued in ROADMAP's speed work
     if x_q8.is_cuda:
+        kernels.forbid_grad("torch._int_mm (W8A8)", x, x_scale, w_scale)
         acc = torch._int_mm(x_q8, w_q8.t().contiguous().t())
     elif x_q8.shape[0] > 16:
         acc = torch._int_mm(x_q8, w_q8)
@@ -146,11 +156,39 @@ def _w8a8_product(
     return out.to(x.dtype).reshape(*x.shape[:-1], w_q8.shape[-1])
 
 
+class _W8A8Product(torch.autograd.Function):
+    """One shared activation quantization of x times several int8 matrices,
+    with JAX's straight-through VJP: the rounding in the quantization has a
+    zero derivative, so the backward is dx = sum_i g_i dequant(W_i)^T in f32,
+    cast to the cotangent's type, as if each product were exact
+    (revisionllm_tpu/ops/quant.py:181-187, :335-343)."""
+
+    @staticmethod
+    def forward(ctx, x, *weights):
+        x_q8, x_scale = _quantize_activation_rows(x)
+        pairs = list(zip(weights[0::2], weights[1::2]))
+        ctx.save_for_backward(*weights)
+        return tuple(_w8a8_product(x, x_q8, x_scale, wq, ws) for wq, ws in pairs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        weights = ctx.saved_tensors
+        gx = None
+        for g, wq, ws in zip(gs, weights[0::2], weights[1::2]):
+            if g is None:
+                continue
+            w = dequantize_int8(wq, ws, torch.float32)
+            part = g.float() @ w.T
+            gx = part if gx is None else gx + part
+        if gx is not None:
+            gx = gx.to(next(g for g in gs if g is not None).dtype)
+        return (gx,) + (None,) * len(weights)
+
+
 def w8a8_matmul(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
     """Dynamic-activation int8 matmul: per-row absmax quantize x, int8 x int8
-    with int32 accumulation, rescale. Inference only (no gradient)."""
-    x_q8, x_scale = _quantize_activation_rows(x)
-    return _w8a8_product(x, x_q8, x_scale, w_q8, w_scale)
+    with int32 accumulation, rescale. Straight-through gradient to x."""
+    return _W8A8Product.apply(x, w_q8, w_scale)[0]
 
 
 _W8A8: Optional[bool] = None
@@ -175,6 +213,17 @@ def _w8a8_enabled(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
+_EXACT_TRACE = False
+
+
+def set_exact_trace(enabled: bool) -> None:
+    """While set, q8_apply and q8_apply_multi take the differentiable
+    dequantize-then-matmul route: no K1 and no W8A8, on any device and any M
+    (the trainer sets it around a loss, as JAX's _dequant_trace does)."""
+    global _EXACT_TRACE
+    _EXACT_TRACE = bool(enabled)
+
+
 def _is_q8(w) -> bool:
     return isinstance(w, dict) and "q8" in w
 
@@ -183,6 +232,8 @@ def q8_apply(x: torch.Tensor, w) -> torch.Tensor:
     """Matmul dispatch: w is a dense [K, N] tensor or a {'q8', 'scale'} dict."""
     if not _is_q8(w):
         return x @ w
+    if _EXACT_TRACE:
+        return x @ dequantize_int8(w["q8"], w["scale"], x.dtype)
     M = x.numel() // x.shape[-1]
     if M <= KERNEL_MAX_M:
         return int8_matmul(x, w["q8"], w["scale"])
@@ -193,17 +244,45 @@ def q8_apply(x: torch.Tensor, w) -> torch.Tensor:
 
 def q8_apply_multi(x: torch.Tensor, ws: Sequence):
     """Apply several matrices to the SAME activation, sharing one activation
-    quantization on the W8A8 path (bit-exact vs separate w8a8_matmul calls);
-    per-matrix q8_apply otherwise."""
+    quantization on the W8A8 path (bit-exact vs separate w8a8_matmul calls,
+    with the summed straight-through gradient); per-matrix q8_apply
+    otherwise, and always under the exact trace."""
     ws = tuple(ws)
     M = x.numel() // x.shape[-1]
     if not (
-        len(ws) >= 2 and all(_is_q8(w) for w in ws)
+        len(ws) >= 2 and all(_is_q8(w) for w in ws) and not _EXACT_TRACE
         and M > KERNEL_MAX_M and _w8a8_enabled(x.device)
     ):
         return tuple(q8_apply(x, w) for w in ws)
-    x_q8, x_scale = _quantize_activation_rows(x)
-    return tuple(_w8a8_product(x, x_q8, x_scale, w["q8"], w["scale"]) for w in ws)
+    return _W8A8Product.apply(x, *(t for w in ws for t in (w["q8"], w["scale"])))
+
+
+def quantize_llama_params_host(params, quantize_lm_head: bool = True):
+    """NumPy (host-RAM) variant of quantize_llama_params, for a converted
+    checkpoint before any device transfer (revisionllm_tpu/ops/quant.py:489):
+    arrays in, {"q8": int8, "scale": f32} arrays out."""
+    import numpy as np
+
+    def q(w):
+        wf = np.asarray(w, dtype=np.float32)
+        absmax = np.max(np.abs(wf), axis=-2)
+        scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
+        vals = np.clip(np.round(wf / scale[..., None, :]), -127, 127).astype(np.int8)
+        return {"q8": vals, "scale": scale}
+
+    out = dict(params)
+    layers = {}
+    for name, w in params["layers"].items():
+        if name.endswith("_norm") or name.endswith("_bias") or (
+            hasattr(w, "ndim") and w.ndim < 3
+        ):
+            layers[name] = w
+        else:
+            layers[name] = q(w)
+    out["layers"] = layers
+    if quantize_lm_head and not isinstance(params["lm_head"], dict):
+        out["lm_head"] = q(params["lm_head"])
+    return out
 
 
 def quantize_llama_params(params, quantize_lm_head: bool = True):

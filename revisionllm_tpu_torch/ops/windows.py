@@ -51,3 +51,16 @@ def gather_windows(features: torch.Tensor, frame_indices) -> torch.Tensor:
     num_frames] -> [num_windows, num_frames, d], one gather on the device."""
     idx = torch.as_tensor(np.asarray(frame_indices), dtype=torch.long, device=features.device)
     return features[idx]
+
+
+def timestamp_to_frame_token(duration: float, x: float, num_frames: int) -> str:
+    """Timestamp (seconds within window) -> two-digit frame-index token string.
+
+    Uses Python round() (banker's rounding) then clamps to num_frames-1 and
+    left-pads to width 2 (reference revisionllm/train/dataset.py:806-811).
+    """
+    x = x / duration * num_frames
+    s = str(min(round(x), num_frames - 1))
+    if len(s) == 1:
+        s = "0" + s
+    return s

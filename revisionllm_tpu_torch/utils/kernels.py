@@ -9,8 +9,13 @@ nvcc per source, all together, and waits for them.
 
 Every wrapper adds one to its kernel's count in `LAUNCHES` where it launches
 the kernel, and nowhere else, so a run can show that its path went through
-the kernels. Nothing here is touched when a module is imported: the CPU tests
-import every module on a machine without nvcc.
+the kernels (one source may hold several kernels, each with its own count).
+Nothing here is touched when a module is imported: the CPU tests import every
+module on a machine without nvcc.
+
+A kernel without a backward would cut a grad-requiring input out of the
+autograd graph (its output is filled through ctypes), so every such wrapper
+calls `forbid_grad` on its CUDA branch and raises instead.
 """
 
 from __future__ import annotations
@@ -28,13 +33,19 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("int8_matmul", "flash_attention", "decode_attention")
+KERNELS = ("int8_matmul", "flash_attention", "decode_attention", "flash_attention_vjp")
+# launch counters, one per kernel: flash_attention.cu holds K2 and row 4's
+# forward (flash_fwd_lse), flash_attention_vjp.cu row 4's dq and dk/dv
+COUNTERS = (
+    "int8_matmul", "flash_attention", "decode_attention",
+    "flash_fwd_lse", "flash_dq", "flash_dkv",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+LAUNCHES: Dict[str, int] = {name: 0 for name in COUNTERS}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[tuple, ctypes._CFuncPtr] = {}
 
@@ -126,3 +137,15 @@ def check_launch(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
+
+def forbid_grad(name: str, *tensors) -> None:
+    """Raise when autograd is recording and any tensor requires grad: kernel
+    `name` has no backward, so its output would silently drop the graph."""
+    if torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors
+    ):
+        raise RuntimeError(
+            f"{name}: this kernel has no backward and an input requires grad; "
+            "take a differentiable route (ops.quant.set_exact_trace, "
+            "ops.flash_attention.trainable_attention) or run under torch.no_grad()"
+        )

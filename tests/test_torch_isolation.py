@@ -42,7 +42,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("ops.quant", "ops.flash_attention", "ops.decode_attention", "models.llama",
-                "models.generation", "eval.engine", "models.weights", "utils.kernels"):
+                "models.generation", "eval.engine", "models.weights", "utils.kernels",
+                "models.lora", "train.trainer", "train.train_cli", "data.dataset"):
         assert f"revisionllm_tpu_torch.{mod}" in res["imported"]
 
 

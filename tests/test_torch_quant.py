@@ -20,6 +20,8 @@ def _restore_switches():
     yield
     JQ.set_w8a8(None)
     TQ.set_w8a8(None)
+    JQ.set_exact_trace(False)
+    TQ.set_exact_trace(False)
 
 
 def _quantized(rng, K, N):
@@ -127,3 +129,91 @@ def test_quantize_llama_params_matches_jax():
         np.testing.assert_array_equal(got["layers"][name]["q8"].numpy(), np.asarray(want["layers"][name]["q8"]))
         np.testing.assert_array_equal(got["layers"][name]["scale"].numpy(), np.asarray(want["layers"][name]["scale"]))
     np.testing.assert_array_equal(got["lm_head"]["q8"].numpy(), np.asarray(want["lm_head"]["q8"]))
+
+
+def _jw(qs):
+    return [{"q8": jnp.asarray(q), "scale": jnp.asarray(s)} for q, s in qs]
+
+
+def _tw(qs):
+    return [{"q8": torch.from_numpy(q), "scale": torch.from_numpy(s)} for q, s in qs]
+
+
+@pytest.mark.parametrize("multi", [False, True], ids=["q8_apply", "q8_apply_multi"])
+def test_w8a8_gradient_is_jax_straight_through(multi):
+    """W8A8 on both sides, M = 300 > 256: the gradient to x is JAX's
+    straight-through g dequant(W)^T (summed over the matrices in f32 for
+    q8_apply_multi), equal within f32 rounding (rtol/atol 1e-5). Without
+    it, autograd saw only the path through the absmax scale."""
+    JQ.set_w8a8(True)
+    TQ.set_w8a8(True)
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(300, 64)).astype(np.float32)
+    qs = [_quantized(rng, 64, n) for n in (48, 32)]
+    wts = rng.normal(size=(2,)).astype(np.float32) + 2.0
+
+    def jloss(x):
+        outs = JQ.q8_apply_multi(x, _jw(qs)) if multi else (JQ.q8_apply(x, _jw(qs)[0]),)
+        return sum((o * w).sum() for o, w in zip(outs, wts))
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    outs = TQ.q8_apply_multi(xt, _tw(qs)) if multi else (TQ.q8_apply(xt, _tw(qs)[0]),)
+    sum((o * float(w)).sum() for o, w in zip(outs, wts)).backward()
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-5, atol=1e-5 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("M", [64, 300])
+def test_exact_trace_takes_the_dequant_route(M):
+    """set_exact_trace(True), even with W8A8 on: q8_apply and q8_apply_multi
+    compute x @ dequant(W) on any M, and its gradient, as JAX's exact trace
+    does (rtol/atol 1e-5)."""
+    JQ.set_w8a8(True)
+    TQ.set_w8a8(True)
+    JQ.set_exact_trace(True)
+    TQ.set_exact_trace(True)
+    rng = np.random.default_rng(M)
+    x = rng.normal(size=(M, 64)).astype(np.float32)
+    qs = [_quantized(rng, 64, n) for n in (48, 32)]
+    xt = torch.from_numpy(x).requires_grad_()
+    outs = TQ.q8_apply_multi(xt, _tw(qs))
+    want = [np.asarray(o) for o in JQ.q8_apply_multi(jnp.asarray(x), _jw(qs))]
+    for got, w, (q, s) in zip(outs, want, qs):
+        np.testing.assert_allclose(np_of(got), w, rtol=1e-5, atol=1e-5)
+        deq = TQ.dequantize_int8(torch.from_numpy(q), torch.from_numpy(s), torch.float32)
+        torch.testing.assert_close(got, torch.from_numpy(x) @ deq, rtol=0, atol=0)
+    sum(o.sum() for o in outs).backward()
+    jg = jax.grad(lambda x: sum(o.sum() for o in JQ.q8_apply_multi(x, _jw(qs))))(jnp.asarray(x))
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jg), rtol=1e-5, atol=1e-5)
+
+
+def test_forbid_grad_raises_only_while_recording():
+    from revisionllm_tpu_torch.utils import kernels
+
+    a = torch.ones(3, requires_grad=True)
+    b = torch.ones(3)
+    kernels.forbid_grad("k", b, None, 3)
+    with pytest.raises(RuntimeError, match="k: this kernel has no backward"):
+        kernels.forbid_grad("k", b, a)
+    with torch.no_grad():
+        kernels.forbid_grad("k", b, a)
+
+
+def test_quantize_llama_params_host_matches_jax():
+    """The NumPy host quantizer and the torch one give JAX's int8 values and
+    scales; quantize_lm_head=False keeps a dense lm_head."""
+    from revisionllm_tpu.config import LlamaConfig
+    from revisionllm_tpu.models import llama as jllama
+    from torch_parity import to_torch
+
+    cfg = LlamaConfig.tiny()
+    p = jax.tree.map(np.asarray, jllama.init_params(cfg, jax.random.PRNGKey(1), jnp.float32))
+    want = JQ.quantize_llama_params_host(p, quantize_lm_head=False)
+    got = TQ.quantize_llama_params_host(p, quantize_lm_head=False)
+    dev = TQ.quantize_llama_params(to_torch(p), quantize_lm_head=False)
+    for name in ("k_proj", "up_proj"):
+        for key in ("q8", "scale"):
+            np.testing.assert_array_equal(got["layers"][name][key], want["layers"][name][key])
+            np.testing.assert_array_equal(dev["layers"][name][key].numpy(), want["layers"][name][key])
+    assert not isinstance(got["lm_head"], dict) and not isinstance(dev["lm_head"], dict)
+
