@@ -6,8 +6,8 @@
 Every run goes through every phase, so every number it prints was
 measured in that run. Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the six CUDA kernels from the four sources in csrc/ (one nvcc
-     per source, all in parallel);
+  2. build the eight CUDA kernels (rows 4 and 5 share one __global__) from
+     the four sources in csrc/ (one nvcc per source, all in parallel);
   3. each kernel against its plain PyTorch version on the card, at the
      stage-1 shapes (Vicuna-7B, chunk of 64 windows): max error against the
      stated tolerance, device time of the kernel, of the plain version and of
@@ -47,8 +47,30 @@ measured in that run. Phases:
   9. one train step with the kernels on the card against the plain path on
      the CPU, from train_cli's assembly at full width, 2 layers and
      sequence 2048: the loss and the gradient of every trainable leaf
-     (LoRA and the adapter).
+     (LoRA and the adapter);
+ 10. the shared-prefix prefill's kernels, row 6 (prefix + causal
+     attention) and row 5 (the LSE forward for any kv length), at the
+     stage-1 shape (B 64, the prompt's prefix P, the rest T2, ragged
+     rest_lens) and the stage-2 shape (B the row bucket): row 6 against its
+     plain version and against the merge of two row-5 launches, row 5
+     against its plain version, by the limits of phase 7, with two planted
+     faults that must fail (the prefix's last tile dropped, the last causal
+     tile x0.9), device times, bounds and SDPA; then the fused recursive
+     pipeline at Vicuna-7B width and depth on the 1-hour movie, through
+     stage1.run -> stage2.run --grounding_path -> fusion.main for 3 queries
+     (both engines on one int8 base tree), with REVISIONLLM_SHARED_PREFIX
+     unset and then 1: per-query latency of each stage and of the whole,
+     q/s, the stage-2 passes and row bucket, peak memory and each stage's
+     launches (fails if K1-K3 never ran, or row 6 never ran in either stage
+     with the switch on); then one call of each stage with the shared
+     prefix against the full prefill: first-step logits, greedy tokens and
+     where the call's time goes;
+ 11. stage-2 retrieve and its shared-prefix prefill with the kernels on the
+     card against the plain path on the CPU, at full width, 2 layers and
+     one seed, on a 10-minute movie: first-step logits and answers.
 
+The kernel checks of phases 3, 7 and 10 run first, after the build; the
+pipeline runs after phase 6 on the slice's weights, before training.
 Prints phase lines, then one JSON line of per-kernel numbers, the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Exits non-zero,
 with no result line, when CUDA is missing, when run outside a checkout of
@@ -82,14 +104,19 @@ REPLACES = {
     "flash_fwd_lse": "revisionllm_tpu/ops/flash_attention.py:352",
     "flash_dq": "revisionllm_tpu/ops/flash_attention.py:415",
     "flash_dkv": "revisionllm_tpu/ops/flash_attention.py:464",
+    "flash_attention_lse": "revisionllm_tpu/ops/flash_attention.py:721",
+    "flash_attention_prefixed": "revisionllm_tpu/ops/flash_attention.py:859",
 }
 SOURCES = {
     "int8_matmul": "int8_matmul", "flash_attention": "flash_attention",
     "decode_attention": "decode_attention", "flash_fwd_lse": "flash_attention",
     "flash_dq": "flash_attention_vjp", "flash_dkv": "flash_attention_vjp",
+    "flash_attention_lse": "flash_attention", "flash_attention_prefixed": "flash_attention",
 }
 SERVING = ("int8_matmul", "flash_attention", "decode_attention")
 TRAINING = ("flash_fwd_lse", "flash_dq", "flash_dkv")
+PIPELINE = ("flash_attention_lse", "flash_attention_prefixed")
+SENTENCE = "a man opens the old door"
 TRAIN_STEPS = 6             # timed train steps after one warm-up
 
 
@@ -391,15 +418,11 @@ def make_engine(cfg, acfg, ecfg, device, dtype, seed=0):
     """Random int8 Vicuna params (built one layer at a time) and adapter."""
     from revisionllm_tpu_torch.eval.engine import GroundingEngine
     from revisionllm_tpu_torch.models import llama, revisionllm
-    from revisionllm_tpu_torch.utils.testing import FakeTokenizer
 
     params = llama.init_params(cfg, seed=seed, dtype=dtype, device=device, quantize=True)
     vision = revisionllm.init_vision_params(acfg, seed=seed + 1, d_in=acfg.d_model,
                                             dtype=dtype, device=device)
-    tok = FakeTokenizer()
-    for i in range(300):
-        tok._id(str(i))
-    return GroundingEngine(cfg, acfg, params, vision, tok, ecfg, device=device)
+    return GroundingEngine(cfg, acfg, params, vision, fake_tokenizer(), ecfg, device=device)
 
 
 def run_slice(engine, movie, qf, qc, runs):
@@ -417,7 +440,7 @@ def run_slice(engine, movie, qf, qc, runs):
         if engine.device.type == "cuda":
             torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = engine.ground_windows(movie, "a man opens the old door", qf, qc, movie_key="movie0")
+        res = engine.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
         if engine.device.type == "cuda":
             torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
@@ -464,7 +487,7 @@ def phase_slice(dev, runs):
 
     setup = engine, movie, qf, qc = slice_setup(dev)
     t0 = time.perf_counter()
-    res = engine.ground_windows(movie, "a man opens the old door", qf, qc, movie_key="movie0")
+    res = engine.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
     torch.cuda.synchronize()
     say(f"slice: warm-up ground_windows {time.perf_counter() - t0:.3f} s")
     torch.cuda.reset_peak_memory_stats()
@@ -496,7 +519,7 @@ def phase_profile(dev, setup):
 
     eng, movie, qf_np, _ = setup
     cfg, acfg = eng.llama_cfg, eng.adapter_cfg
-    ids = eng._prompt_ids("a man opens the old door", QUESTIONS["mad_grounding"])
+    ids = eng._prompt_ids(SENTENCE, QUESTIONS["mad_grounding"])
     plan = {k: torch.as_tensor(v, device=dev) for k, v in stack_plans(
         [build_splice_plan(ids, 250, len(ids) - 1 + 250 + 12)] * 64).items()}
     idx = torch.as_tensor(eng._stage1_plan_idx(18000)[:64].tolist() + [[0] * 250] * 7, device=dev)
@@ -551,7 +574,7 @@ def phase_profile(dev, setup):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eng.ground_windows(movie, "a man opens the old door", qf_np, None, movie_key="movie0")
+        eng.ground_windows(movie, SENTENCE, qf_np, None, movie_key="movie0")
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     groups, other = group_kernels(kernel_events(prof))
@@ -679,6 +702,25 @@ def rel_errs(got, want):
     return (e.sum() / r.sum()).sqrt().item(), per.max().item()
 
 
+def hold(label, got, want, faults=None):
+    """Hold `got` against `want` by relative L2 error, whole (VJP_TOL) and
+    per (64-row tile, head) block (VJP_TILE_TOL); each planted fault must
+    fail those limits. Returns the max abs error."""
+    rel, worst = rel_errs(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    found = {f: rel_errs(bad, want) for f, bad in (faults or {}).items()}
+    say(f"{label}: relative L2 {rel:.2e} (tol {VJP_TOL:.0e}), worst tile {worst:.2e} "
+        f"(tol {VJP_TILE_TOL:.0e}), max_abs_err {err:.3e}"
+        + ("; planted faults, worst tile (whole tensor): "
+           + ", ".join(f"{f} {w:.2e} ({r:.2e})" for f, (r, w) in found.items()) if found else ""))
+    if not (rel <= VJP_TOL and worst <= VJP_TILE_TOL):
+        raise AssertionError(f"{label}: relative L2 {rel}, worst tile {worst}")
+    passed = [f for f, (r, w) in found.items() if r <= VJP_TOL and w <= VJP_TILE_TOL]
+    if passed:
+        raise AssertionError(f"{label}: the limits accept planted faults {passed}")
+    return err
+
+
 def check_flash_vjp(dev, iters):
     """Row 4 at the training shape. Returns the three kernel records (the
     ragged case, which is what a training batch gives them)."""
@@ -727,21 +769,10 @@ def check_flash_vjp(dev, iters):
         for name, tname, got, want, dropped, tile in (
                 ("flash_fwd_lse", "o", o, o2, o3, last_q), ("flash_dq", "dq", dq, dq2, dq3, last_q),
                 ("flash_dkv", "dk", dk, dk2, dk3, last_kv), ("flash_dkv", "dv", dv, dv2, dv3, last_kv)):
-            rel, worst = rel_errs(got, want)
-            err = (got.float() - want.float()).abs().max().item()
             scaled = got.clone()
             scaled[:, tile] *= 0.9
-            faults = {"last live tile x0.9": rel_errs(scaled, want),
-                      "last live kv tile dropped": rel_errs(dropped, want)}
-            say(f"{name} {tname} ({label}, kv_len {n}): relative L2 {rel:.2e} (tol {VJP_TOL:.0e}), "
-                f"worst tile {worst:.2e} (tol {VJP_TILE_TOL:.0e}), max_abs_err {err:.3e}; planted "
-                f"faults, worst tile (whole tensor): "
-                + ", ".join(f"{f} {w:.2e} ({r:.2e})" for f, (r, w) in faults.items()))
-            if not (rel <= VJP_TOL and worst <= VJP_TILE_TOL):
-                raise AssertionError(f"{name} {tname} {label}: relative L2 {rel}, worst tile {worst}")
-            passed = [f for f, (r, w) in faults.items() if r <= VJP_TOL and w <= VJP_TILE_TOL]
-            if passed:
-                raise AssertionError(f"{name} {tname} {label}: the limits accept planted faults {passed}")
+            err = hold(f"{name} {tname} ({label}, kv_len {n})", got, want, {
+                "last live tile x0.9": scaled, "last live kv tile dropped": dropped})
             errs[name] = max(errs[name], err)
             records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
         plain_iters = max(3, iters // 4)
@@ -1110,6 +1141,550 @@ def phase_train_compare(dev, paths):
         raise AssertionError(f"gradients differ: {bad}")
 
 
+# ------------------------------------------------------------------ phase 10
+
+
+def fake_tokenizer():
+    """The word-level FakeTokenizer with the numbers 0-299 registered, so
+    generated ids decode to digits."""
+    from revisionllm_tpu_torch.utils.testing import FakeTokenizer
+
+    tok = FakeTokenizer()
+    for i in range(300):
+        tok._id(str(i))
+    return tok
+
+
+def prompt_geometry(question_key, num_videos, new_tokens):
+    """(P, T, live length) of the engine's splice plan for SENTENCE: the
+    first video slot (the shared prefix), the padded length and the live
+    length."""
+    from revisionllm_tpu_torch.constants import QUESTIONS
+    from revisionllm_tpu_torch.conversation import CONV_VICUNA_V1
+    from revisionllm_tpu_torch.models.multimodal import KIND_VIDEO, build_splice_plan
+    from revisionllm_tpu_torch.tokenization import tokenizer_image_token
+
+    prompt = CONV_VICUNA_V1.user_turn_prompt("<video>\n" + QUESTIONS[question_key].format(SENTENCE))
+    ids = tokenizer_image_token(prompt, fake_tokenizer())
+    plan = build_splice_plan(ids, num_videos, len(ids) - 1 + num_videos + new_tokens)
+    return int(np.argmax(plan.kind == KIND_VIDEO)), len(plan.kind), plan.length
+
+
+def stage2_passes_1h():
+    """Stage-2 passes of the 1-hour movie when the prefilter keeps every
+    strided window (random weights answer every stage-1 window): 143
+    windows at zooms 4, 2, 1 over batch 100."""
+    from revisionllm_tpu_torch.ops.windows import num_windows_strided
+
+    nw = num_windows_strided(18000, 625, 5)
+    return sum(math.ceil(nw / (100 // z)) for z in (4, 2, 1))
+
+
+def dropped_prefix_tile(q, k, v, pk, pv, lens):
+    """Row 6's plain version with the prefix's last 64-row tile dropped (the
+    causal block alone when the prefix is one tile)."""
+    from revisionllm_tpu_torch.ops import flash_attention as FA
+
+    cut = TILE * ((pk.shape[1] - 1) // TILE)
+    if cut == 0:
+        return FA.flash_attention_plain(q, k, v, causal=True, kv_lens=lens)
+    return FA.flash_attention_prefixed_plain(q, k, v, pk[:, :cut], pv[:, :cut], kv_lens=lens)
+
+
+def check_prefix_attention(dev, iters):
+    """Rows 6 (flash_attention_prefixed) and 5 (flash_attention_lse) at the
+    shared-prefix prefill's shapes: stage 1 (B 64, the real prompt's prefix
+    P, T2 the rest of the 1-hour query's plan, ragged rest_lens) and stage 2
+    (B the row bucket, T2 about 130). Row 6 against its plain version and
+    against the merge of two row-5 launches; row 5 against its plain
+    version; two planted faults that must fail (the prefix's last tile
+    dropped, the last causal tile x0.9); device times, bounds and SDPA on
+    the concatenated kv with an explicit mask. Returns the records of rows
+    5 and 6 (timed at the stage-1 shape)."""
+    import torch
+    import torch.nn.functional as F
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+    from revisionllm_tpu_torch.ops import flash_attention as FA
+
+    H, d = 32, 128
+    P1, T1, live1 = prompt_geometry("mad_grounding", 250, 12)
+    P2, T2b, live2 = prompt_geometry("retrieval", 100, 8)
+    shapes = (("stage 1", 64, P1, T1 - P1, live1 - P1),
+              ("stage 2", GroundingEngine._stage2_row_bucket(stage2_passes_1h()), P2, T2b - P2,
+               live2 - P2))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    records = {}
+    for label, B, P, T2, rest in shapes:
+        q, k, v = (torch.randn((B, T2, H, d), generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        pk, pv = (torch.randn((1, P, H, d), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        # the real row's live rest first, the others ragged below it
+        lens = torch.randint(rest // 2, rest + 1, (B,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        lens[0] = rest
+        pkb, pvb = (t.expand(B, -1, -1, -1).contiguous() for t in (pk, pv))
+        o6 = FA.flash_attention_prefixed(q, k, v, pk, pv, kv_lens=lens)
+        p6 = FA.flash_attention_prefixed_plain(q, k, v, pk, pv, kv_lens=lens)
+        o1, l1 = FA.flash_attention_lse(q, pkb, pvb, causal=False)
+        o2, l2 = FA.flash_attention_lse(q, k, v, causal=True, kv_lens=lens)
+        merged = FA.merge_attention_pieces(o1, l1, o2, l2)
+        r1, rl1 = FA.flash_attention_lse_plain(q, pkb, pvb, causal=False)
+        r2, rl2 = FA.flash_attention_lse_plain(q, k, v, causal=True, kv_lens=lens)
+        last = slice(TILE * ((rest - 1) // TILE), min(T2, TILE * ((rest - 1) // TILE) + TILE))
+        scaled = o6.clone()
+        scaled[:, last] *= 0.9
+        torch.cuda.synchronize()
+        tag = f"B={B} H={H} P={P} T2={T2} rest_lens {int(lens.min())}-{rest}"
+        e6 = hold(f"flash_attention_prefixed {label} {tag} vs its plain version", o6, p6, {
+            "last prefix tile dropped": dropped_prefix_tile(q, k, v, pk, pv, lens),
+            "last causal tile x0.9": scaled})
+        hold(f"flash_attention_prefixed {label} vs merge of two flash_attention_lse launches",
+             o6, merged)
+        e5 = max(hold(f"flash_attention_lse {label} prefix piece (not causal, S={P})", o1, r1),
+                 hold(f"flash_attention_lse {label} causal piece (S=T2, ragged)", o2, r2))
+        lse_err = max((l1 - rl1).abs().max().item(), (l2 - rl2).abs().max().item())
+        say(f"flash_attention_lse {label}: lse max_abs_err {lse_err:.3e} (tol 1e-3)")
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"flash_attention_lse {label}: lse max_abs_err {lse_err}")
+
+        plain_iters = max(3, iters // 4)
+        t6 = device_ms(lambda: FA.flash_attention_prefixed(q, k, v, pk, pv, kv_lens=lens), iters)
+        pt6 = device_ms(lambda: FA.flash_attention_prefixed_plain(q, k, v, pk, pv, kv_lens=lens),
+                        plain_iters)
+        t5 = device_ms(lambda: FA.flash_attention_lse(q, k, v, causal=True, kv_lens=lens), iters)
+        pt5 = device_ms(lambda: FA.flash_attention_lse_plain(q, k, v, causal=True, kv_lens=lens),
+                        plain_iters)
+        two = device_ms(lambda: FA.merge_attention_pieces(
+            *FA.flash_attention_lse(q, pkb, pvb, causal=False),
+            *FA.flash_attention_lse(q, k, v, causal=True, kv_lens=lens)), iters)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (torch.cat([a, b], dim=1).transpose(1, 2).contiguous()
+                  for a, b in ((pkb, k), (pvb, v)))
+        col = torch.arange(P + T2, device=dev)
+        mask = ((col[None, None, :] < P) | (((col - P)[None, None, :] <= torch.arange(
+            T2, device=dev)[None, :, None]) & ((col - P)[None, None, :] < lens[:, None, None])))
+        mask = mask[:, None]
+        l6 = device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), iters)
+        ct, cvt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        cmask = FA._kv_mask(B, T2, T2, lens, True, dev)
+        l5 = device_ms(lambda: F.scaled_dot_product_attention(qt, ct, cvt, attn_mask=cmask), iters)
+        lh = lens.cpu().numpy().astype(np.int64)
+        pairs = _pairs(T2, lh)
+        rows_b = B * T2 * H * d * 2
+        b6, by6 = bound(2 * rows_b + 2 * int(lh.sum()) * H * d * 2 + 2 * P * H * d * 2 + B * 4,
+                        4.0 * H * d * (B * T2 * P + pairs))
+        b5, by5 = bound(2 * rows_b + 2 * int(lh.sum()) * H * d * 2 + B * H * T2 * 4 + B * 4,
+                        4.0 * H * d * pairs)
+        say(f"flash_attention_prefixed {label} {tag}: kernel {t6:.4f} ms plain {pt6:.4f} ms "
+            f"two flash_attention_lse launches + merge {two:.4f} ms sdpa (concatenated kv, "
+            f"explicit mask) {l6:.4f} ms bound {b6:.4f} ms ({by6})")
+        say(f"flash_attention_lse {label} causal piece B={B} T=S={T2}: kernel {t5:.4f} ms plain "
+            f"{pt5:.4f} ms sdpa fwd (masked, no lse: approximate) {l5:.4f} ms bound {b5:.4f} ms "
+            f"({by5})")
+        if label == "stage 1":
+            unit = f"one launch = one layer of the chunk-64 stage-1 prefill, P={P}, T2={T2}"
+            records["flash_attention_prefixed"] = {
+                "name": "flash_attention_prefixed", "max_abs_err": e6, "ms": t6, "plain_ms": pt6,
+                "bound_ms": b6, "bound_by": by6, "library_ms": l6,
+                "unit": unit + " (library: SDPA over the concatenated kv, explicit mask)"}
+            records["flash_attention_lse"] = {
+                "name": "flash_attention_lse", "max_abs_err": e5, "ms": t5, "plain_ms": pt5,
+                "bound_ms": b5, "bound_by": by5, "library_ms": l5,
+                "unit": f"one launch on the causal piece of that layer, T=S={T2} (library: "
+                        f"SDPA forward, which returns no lse: approximate)"}
+        else:
+            for name in records:
+                records[name]["max_abs_err"] = max(records[name]["max_abs_err"],
+                                                   e6 if name == "flash_attention_prefixed" else e5)
+        del q, k, v, pk, pv, pkb, pvb, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    return [records["flash_attention_lse"], records["flash_attention_prefixed"]]
+
+
+PIPE_QUERIES = 3
+S1_FLAGS = ["--batch", "64", "--max_new_tokens", "12", "--clip_adapter", "True",
+            "--clip_adapter_text", "True"]
+S2_FLAGS = ["--batch", "100", "--stride", "5", "--zooms", "4,2,1", "--max_new_tokens", "8",
+            "--distributed_retrieval", "1"]
+
+
+def pipeline_files(tmp, movie, seed=0):
+    """The pipeline's inputs under tmp: a feature store with the 1-hour movie
+    (movie0.npy), a data JSON of PIPE_QUERIES queries on it and a query
+    feature store (25 token features and a CLS feature per query, from
+    `seed`). Returns the stage CLIs' common flags."""
+    feats, qdir = os.path.join(tmp, "feats"), os.path.join(tmp, "queries")
+    os.makedirs(feats)
+    os.makedirs(qdir)
+    np.save(os.path.join(feats, "movie0.npy"), movie)
+    rng = np.random.default_rng(seed)
+    data = {}
+    for i in range(PIPE_QUERIES):
+        qid = f"q{i}"
+        data[qid] = {"movie": "movie0", "movie_duration": 3600.0,
+                     "timestamps": [1000.0 + 400 * i, 1100.0 + 400 * i],
+                     "query": f"{SENTENCE} {i}"}
+        np.savez(os.path.join(qdir, f"{qid}.npz"),
+                 token_features=rng.normal(size=(25, 768)).astype(np.float32),
+                 cls_features=rng.normal(size=(768,)).astype(np.float32))
+    path = os.path.join(tmp, "val.json")
+    with open(path, "w") as f:
+        json.dump(data, f)
+    return ["--data_path", path, "--feat_folder", feats, "--q_feat_dir", qdir, "--debug", "True"]
+
+
+def pipeline_engines(dev, params, vision1, common):
+    """Stage-1 and stage-2 engines on ONE int8 base tree, as bench.py's
+    bench_e2e builds them, with the configurations the CLIs' flags give
+    (eval/loader.py): the temporal T2V adapter (the slice's weights) and a
+    hierarchy cls T2V adapter from seed 2."""
+    import torch
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.eval import loader, stage1, stage2
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+    from revisionllm_tpu_torch.models import revisionllm
+
+    cfg = LlamaConfig()
+    engines = []
+    for stage, flags, vision in ((stage1, S1_FLAGS, vision1), (stage2, S2_FLAGS, None)):
+        args = stage.parse_args(common + ["--log_path", "unused"] + flags)
+        acfg = loader.adapter_cfg_from_args(args).with_hidden(cfg.hidden_size)
+        if vision is None:
+            vision = revisionllm.init_vision_params(acfg, seed=2, d_in=acfg.d_model,
+                                                    dtype=torch.bfloat16, device=dev)
+        engines.append(GroundingEngine(cfg, acfg, params, vision, fake_tokenizer(),
+                                       loader.eval_cfg_from_args(args), device=dev))
+    return engines
+
+
+def run_pipeline(eng1, eng2, common, out):
+    """stage1.run -> stage2.run --grounding_path -> fusion.main, each timed
+    from an idle device, with each stage's kernel launches. Returns the
+    numbers and the two logs."""
+    import contextlib
+    import io
+
+    import torch
+    from revisionllm_tpu_torch.eval import fusion, stage1, stage2
+    from revisionllm_tpu_torch.eval import metrics as M
+    from revisionllm_tpu_torch.utils import kernels
+
+    s1, s2 = os.path.join(out, "s1"), os.path.join(out, "s2")
+    a1 = stage1.parse_args(common + ["--log_path", s1] + S1_FLAGS)
+    a2 = stage2.parse_args(common + ["--log_path", s2, "--grounding_path", s1] + S2_FLAGS)
+    res = {"launches": {}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for name, stage, args, eng in (("stage1", stage1, a1, eng1), ("stage2", stage2, a2, eng2)):
+        kernels.reset_launches()
+        stats = stage.run(args, eng)
+        torch.cuda.synchronize()
+        res["launches"][name] = dict(kernels.LAUNCHES)
+        res[name] = stats
+        if stats["done"] != PIPE_QUERIES or stats["errors"]:
+            raise AssertionError(f"{name}.run: {stats}")
+    t2 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        metrics = fusion.main(["--grounding_path", s1, "--retrieval_path", s2,
+                               "--distributed_grounding", "1", "--distributed_retrieval", "1"])
+    res["wall"] = time.perf_counter() - t0
+    res["fusion_s"] = time.perf_counter() - t2
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["metrics"] = metrics
+    res["logs"] = (M.load_prediction_logs(s1, 1), M.load_prediction_logs(s2, 1))
+    return res
+
+
+def check_pipeline_logs(logs1, logs2, metrics):
+    """The repo's own checks of the logs: one stage-1 record per query with
+    57 window answers, one stage-2 record per query whose passes carry
+    finite positive inverse entropies and one window hit, and fused
+    metrics with an mIoU."""
+    if len(logs1) != PIPE_QUERIES or any(len(r["answer"]) != 57 for r in logs1):
+        raise AssertionError("stage-1 log: expected 57 window answers per query")
+    for r in logs2:
+        n = len(r["answer"])
+        ent = np.asarray(r["info"]["mean_entropy"] + r["info"]["max_entropy"], np.float64)
+        if not n or len(ent) != 2 * n or not np.isfinite(ent).all() or (ent <= 0).any() \
+                or r["info"]["iou"] not in ([0], [1]):
+            raise AssertionError(f"stage-2 record malformed: {r['query_id']}")
+    if len(logs2) != PIPE_QUERIES or "mIoU" not in metrics:
+        raise AssertionError("stage-2 log or fused metrics missing")
+
+
+def timed_ms(fn):
+    """(fn(), ms) from an idle device to the end of fn's device work."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def shared_vs_unshared(eng, plan_np, rows, feats_dev, qf, qv):
+    """One call of the engine's (rows of identical plans): the adapter and
+    splice, then the prefill and the whole generate with and without the
+    shared prefix, each run twice and timed the second time from an idle
+    device. Under the serving numerics the prefix's rows take K1 (bf16
+    activations) in the shared prefill and W8A8 (int8 activations) in the
+    full one; with W8A8 off on both sides (the dequant route above 256
+    rows) the two prefills do the same matmul maths. Returns (first-step
+    logits {name: [B, V]}, greedy token agreement under the serving
+    numerics, P, times in ms, the adapter's peak memory in GiB above what
+    was allocated before it)."""
+    import torch
+    from revisionllm_tpu_torch.models import generation, llama, revisionllm
+    from revisionllm_tpu_torch.models.multimodal import KIND_VIDEO
+    from revisionllm_tpu_torch.ops import quant
+    from revisionllm_tpu_torch.ops import windows as W
+
+    cfg = eng.llama_cfg
+    P = int(np.argmax(plan_np["kind"][0] == KIND_VIDEO))
+    plan = {k: torch.as_tensor(v, device=eng.device) for k, v in plan_np.items()}
+
+    def twice(fn):
+        timed_ms(fn)
+        return timed_ms(fn)
+
+    def encode():
+        images = W.gather_windows(feats_dev, rows).to(torch.bfloat16)
+        video = revisionllm.encode_video(eng.adapter_cfg, eng.vision_params, images, qf, qv)
+        return revisionllm.assemble_inputs(eng.params, plan, video, dtype=torch.bfloat16)
+
+    timed_ms(encode)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    (embeds, pos, lens), t_enc = timed_ms(encode)
+    times = {"adapter": t_enc}
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    full_fn = partial(llama.prefill_kv, cfg, eng.params, embeds, pos, kv_lens=lens, kv_quant=True)
+    shared_fn = partial(llama.prefill_shared_prefix, cfg, eng.params, embeds, pos, P,
+                        kv_lens=lens, kv_quant=True)
+    logits = {}
+    (logits["full"], _), times["prefill"] = twice(full_fn)
+    (logits["shared"], _), times["prefill shared"] = twice(shared_fn)
+    kw = dict(eos_id=eng.eos_id, max_new_tokens=eng.eval_cfg.max_new_tokens)
+    full, times["generate"] = twice(lambda: generation.generate(
+        cfg, eng.params, embeds, pos, lens, **kw))
+    sp, times["generate shared"] = twice(lambda: generation.generate(
+        cfg, eng.params, embeds, pos, lens, shared_prefix_len=P, **kw))
+    quant.set_w8a8(False)
+    try:
+        logits["full, W8A8 off"] = full_fn()[0]
+        logits["shared, W8A8 off"] = shared_fn()[0]
+    finally:
+        quant.set_w8a8(None)
+    agree = (full["tokens"] == sp["tokens"]).float().mean().item()
+    return logits, agree, P, times, peak
+
+
+def phase_pipeline(dev, setup, tmp):
+    """The fused recursive pipeline at Vicuna-7B width and depth on one
+    1-hour movie through its entry points (stage1.run, stage2.run
+    --grounding_path, fusion.main), with REVISIONLLM_SHARED_PREFIX unset and
+    then 1. Fails if K1-K3 are never launched, or row 6 is not launched in
+    either stage with the switch on. Then, on one call of each stage, the
+    shared-prefix prefill against the full one. Returns the launches of the
+    run with the switch on."""
+    import torch
+    from revisionllm_tpu_torch.models.multimodal import build_splice_plan, stack_plans
+    from revisionllm_tpu_torch.constants import QUESTIONS
+
+    slice_engine, movie, _, _ = setup
+    common = pipeline_files(tmp, movie)
+    eng1, eng2 = pipeline_engines(dev, slice_engine.params, slice_engine.vision_params, common)
+    runs = {}
+    old = os.environ.pop("REVISIONLLM_SHARED_PREFIX", None)
+    try:
+        for switch in ("unset", "1"):
+            if switch == "1":
+                os.environ["REVISIONLLM_SHARED_PREFIX"] = "1"
+            r = runs[switch] = run_pipeline(eng1, eng2, common, os.path.join(tmp, f"pipe_{switch}"))
+            check_pipeline_logs(*r["logs"], r["metrics"])
+            n_pass = len(r["logs"][1][0]["answer"])
+            s1, s2 = r["stage1"], r["stage2"]
+            say(f"pipeline (REVISIONLLM_SHARED_PREFIX {switch}): {PIPE_QUERIES} queries on the "
+                f"1-hour movie, per query (p50): stage 1 {s1['p50_latency_s'] * 1e3:.1f} ms, "
+                f"stage 2 {s2['p50_latency_s'] * 1e3:.1f} ms; whole run {r['wall']:.3f} s = "
+                f"{r['wall'] / PIPE_QUERIES * 1e3:.1f} ms per query, {PIPE_QUERIES / r['wall']:.4f} "
+                f"q/s (fusion.main {r['fusion_s'] * 1e3:.1f} ms); stage-2 passes {n_pass} in a "
+                f"{eng2._stage2_row_bucket(n_pass)}-row bucket; peak memory {r['peak_gib']:.2f} GiB; "
+                f"fused mIoU {r['metrics']['mIoU']:.2f}")
+            for stage, launches in r["launches"].items():
+                say(f"pipeline ({switch}): launches in {stage}.run: "
+                    + str({k: n for k, n in launches.items() if n}))
+                missing = [k for k in SERVING if launches[k] == 0]
+                if switch == "1" and launches["flash_attention_prefixed"] == 0:
+                    missing.append("flash_attention_prefixed")
+                if missing:
+                    raise AssertionError(f"{stage}: kernels never launched: {missing}")
+
+        # answers of the two runs, and one call of each stage done both ways
+        same = [sum(a == b for a, b in zip(ra["answer"], rb["answer"])) / len(ra["answer"])
+                for i in (0, 1) for ra, rb in zip(runs["unset"]["logs"][i], runs["1"]["logs"][i])]
+        say(f"pipeline: answers equal with and without the shared prefix, per stage-1 then "
+            f"stage-2 record: {[round(x, 4) for x in same]}")
+        feats = eng1._features_to_device(movie, movie_key="shared_vs_unshared")
+        qf_np = np.load(os.path.join(tmp, "queries", "q0.npz"))["token_features"]
+        checks = []
+        ids = eng1._prompt_ids(f"{SENTENCE} 0", QUESTIONS["mad_grounding"])
+        plan_idx = eng1._stage1_plan_idx(len(movie))
+        rows = np.concatenate([plan_idx, np.repeat(plan_idx[-1:], 64 - len(plan_idx), 0)])
+        plan = stack_plans([build_splice_plan(ids, 250, len(ids) - 1 + 250 + 12)] * 64)
+        checks.append(("stage 1", eng1, plan, rows, *eng1._broadcast_query_feats(qf_np, 64)))
+        ids = eng2._prompt_ids(f"{SENTENCE} 0", QUESTIONS["retrieval"])
+        row_idx = eng2._stage2_passes(eng2._stage2_win_idx(len(movie)), np.random.default_rng(0))[4]
+        R = eng2._stage2_row_bucket(len(row_idx))
+        rows = np.stack(row_idx + [row_idx[-1]] * (R - len(row_idx)))
+        plan = stack_plans([build_splice_plan(ids, 100, len(ids) - 1 + 100 + 8)] * R)
+        checks.append(("stage 2", eng2, plan, rows, *eng2._broadcast_query_feats(qf_np, R)))
+        for label, eng, plan, rows, qf, qv in checks:
+            logits, agree, P, times, peak = shared_vs_unshared(eng, plan, rows, feats, qf, qv)
+
+            def gap(a, b):
+                return (logits[a] - logits[b]).abs().max().item()
+
+            exact = "full, W8A8 off"
+            scale = logits[exact].abs().max().item()
+            tol = 5e-2 * max(1.0, scale)
+            held = gap("shared, W8A8 off", exact)
+            say(f"pipeline: {label} call (B={len(rows)}, P={P}, T={plan['kind'].shape[1]}), "
+                f"shared-prefix vs full prefill, first-step logits max_abs_diff (max |logit| "
+                f"{scale:.3f}): same matmul numerics (W8A8 off both) {held:.4e} (tol {tol:.3e}); "
+                f"serving numerics {gap('shared', 'full'):.4e}, of which the full W8A8 prefill "
+                f"is {gap('full', exact):.4e} and the shared one {gap('shared', exact):.4e} from "
+                f"the W8A8-off full prefill; greedy tokens agree {agree * 100:.1f}% (serving)")
+            say(f"pipeline: {label} call, ms (second of two runs, from an idle device): "
+                + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+                + f"; so decode {times['generate'] - times['prefill']:.2f} (full) / "
+                f"{times['generate shared'] - times['prefill shared']:.2f} (shared); the adapter's "
+                f"peak memory above its inputs {peak:.3f} GiB")
+            if not held <= tol:
+                raise AssertionError(f"{label}: shared-prefix logits differ by {held} > {tol}")
+    finally:
+        os.environ.pop("REVISIONLLM_SHARED_PREFIX", None)
+        if old is not None:
+            os.environ["REVISIONLLM_SHARED_PREFIX"] = old
+    del eng1, eng2, feats
+    torch.cuda.empty_cache()
+    on = runs["1"]["launches"]
+    return {k: on["stage1"][k] + on["stage2"][k] for k in on["stage1"]}
+
+
+# ------------------------------------------------------------------ phase 11
+
+
+def phase_pipeline_compare(dev):
+    """Stage-2 retrieval with the kernels on the card against the plain path
+    on the CPU, at full width, 2 layers and one seed, on a 10-minute movie
+    (23 windows, 3 passes, in a 3-row bucket). The card runs `retrieve`;
+    the same call's rows (the same rng) then run on both devices through
+    encode_video, prefill_shared_prefix and generate, so the CPU's adapter
+    runs 300 windows once. Checks the first-step logits; reports the answers
+    and greedy tokens that agree and the inverse entropies; and holds the
+    card's retrieve to its own rows' decode."""
+    import torch
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.constants import QUESTIONS
+    from revisionllm_tpu_torch.eval import loader, stage2
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+    from revisionllm_tpu_torch.models import generation, llama, revisionllm
+    from revisionllm_tpu_torch.models.multimodal import build_splice_plan, stack_plans
+    from revisionllm_tpu_torch.ops import flash_attention, quant
+    from revisionllm_tpu_torch.ops import windows as W
+    from revisionllm_tpu_torch.utils import kernels
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(num_layers=2)
+    args = stage2.parse_args(["--data_path", "-", "--feat_folder", "-", "--log_path", "-"]
+                             + S2_FLAGS)
+    acfg = loader.adapter_cfg_from_args(args).with_hidden(cfg.hidden_size)
+    ecfg = loader.eval_cfg_from_args(args)
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=cpu, quantize=True)
+    vision = revisionllm.init_vision_params(acfg, seed=2, d_in=acfg.d_model,
+                                            dtype=torch.bfloat16, device=cpu)
+    rng = np.random.default_rng(5)
+    movie = rng.normal(size=(3000, 768)).astype(np.float32)
+    qf = rng.normal(size=(25, 768)).astype(np.float32)
+    qc = rng.normal(size=(768,)).astype(np.float32)
+    qc /= np.linalg.norm(qc)
+    env = {"REVISIONLLM_SHARED_PREFIX": "1", "REVISIONLLM_S2_ROW_BUCKETS": "3"}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    quant.set_w8a8(True)
+    generation.set_kv8(True)
+    flash_attention.set_attn_bf16(False)
+    out = {}
+    try:
+        for device in (dev, cpu):
+            eng = GroundingEngine(cfg, acfg, _to(params, device), _to(vision, device),
+                                  fake_tokenizer(), ecfg, device=device)
+            if device == dev:
+                kernels.reset_launches()
+                res = eng.retrieve(movie, SENTENCE, qf, qc, rng=np.random.default_rng(0))
+                launches = dict(kernels.LAUNCHES)
+            row_idx = eng._stage2_passes(eng._stage2_win_idx(len(movie)),
+                                         np.random.default_rng(0))[4]
+            ids = eng._prompt_ids(SENTENCE, QUESTIONS["retrieval"])
+            plan_np = stack_plans([build_splice_plan(ids, 100, len(ids) - 1 + 100 + 8)]
+                                  * len(row_idx))
+            plan = {k: torch.as_tensor(v, device=device) for k, v in plan_np.items()}
+            images = W.gather_windows(eng._features_to_device(movie),
+                                      np.stack(row_idx)).to(torch.bfloat16)
+            video = revisionllm.encode_video(acfg, eng.vision_params, images,
+                                             *eng._broadcast_query_feats(qf, len(row_idx)))
+            embeds, pos, lens = revisionllm.assemble_inputs(eng.params, plan, video,
+                                                            dtype=torch.bfloat16)
+            P = GroundingEngine._shared_prefix_len(plan_np)
+            logits, _ = llama.prefill_shared_prefix(cfg, eng.params, embeds, pos, P,
+                                                    kv_lens=lens, kv_quant=True)
+            gen = generation.generate(cfg, eng.params, embeds, pos, lens, eos_id=eng.eos_id,
+                                      max_new_tokens=ecfg.max_new_tokens, shared_prefix_len=P)
+            stats = generation.entropy_stats_from_steps(gen["entropy"], gen["valid"])
+            out[device.type] = {
+                "logits": logits.float().cpu(), "tokens": gen["tokens"].cpu(),
+                "answers": eng._decode_answers(gen["tokens"].cpu().numpy(),
+                                               gen["valid"].cpu().numpy()),
+                "inv_mean_entropy": 1.0 / stats[:, 2].cpu().clamp(min=1e-9)}
+            del eng
+    finally:
+        quant.set_w8a8(None)
+        generation.set_kv8(None)
+        flash_attention.set_attn_bf16(None)
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    card, host = out[dev.type], out["cpu"]
+    diff = (card["logits"] - host["logits"]).abs().max().item()
+    scale = host["logits"].abs().max().item()
+    tol = 5e-2 * max(1.0, scale)
+    agree = np.mean([a == b for a, b in zip(card["answers"], host["answers"])])
+    tokens = (card["tokens"] == host["tokens"]).float().mean().item()
+    ent = ((card["inv_mean_entropy"] - host["inv_mean_entropy"]).abs()
+           / host["inv_mean_entropy"]).max().item()
+    say(f"pipeline compare: stage-2 retrieve, Vicuna-7B width, 2 layers, 10-minute movie "
+        f"({res['num_windows']} windows, {len(res['answers'])} passes, P={P}), kernels on the card "
+        f"vs plain on the CPU: shared-prefix prefill first-step logits max_abs_diff {diff:.4e} "
+        f"(tol {tol:.3e}, max |logit| {scale:.3f}); greedy tokens agree {tokens * 100:.1f}%, "
+        f"answers {agree * 100:.1f}%; inverse mean entropies max relative diff {ent:.3e}; card "
+        f"launches in retrieve {({k: n for k, n in launches.items() if n})} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if res["answers"] != card["answers"] or not np.allclose(
+            res["mean_entropy"], card["inv_mean_entropy"].numpy(), rtol=1e-5):
+        raise AssertionError("the card's retrieve differs from its own rows' decode")
+    if launches["flash_attention_prefixed"] == 0:
+        raise AssertionError("the card's retrieve did not launch flash_attention_prefixed")
+    if not diff <= tol:
+        raise AssertionError(f"stage-2 logits differ by {diff} > {tol}")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1152,7 +1727,7 @@ def main() -> int:
     for check in (check_int8_matmul, check_flash_attention, check_decode_attention):
         rec = check(dev, ITERS)
         records[rec["name"]] = rec
-    for rec in check_flash_vjp(dev, ITERS):
+    for rec in check_flash_vjp(dev, ITERS) + check_prefix_attention(dev, ITERS):
         records[rec["name"]] = rec
     for name, rec in records.items():
         rec.update(route="cuda", source=f"revisionllm_tpu_torch/csrc/{SOURCES[name]}.cu",
@@ -1162,11 +1737,15 @@ def main() -> int:
         records[name]["launches"] = launches[name]
     phase_compare(dev)
     phase_profile(dev, setup)
-    del setup
-    torch.cuda.empty_cache()
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
+        launches = phase_pipeline(dev, setup, tmp)
+        for name in PIPELINE:
+            records[name]["launches"] = launches[name]
+        del setup
+        torch.cuda.empty_cache()
+        phase_pipeline_compare(dev)
         paths = _corpus(tmp)
         launches = phase_train(dev, tmp, paths)
         for name in TRAINING:

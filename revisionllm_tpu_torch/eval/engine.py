@@ -1,21 +1,30 @@
-"""Stage-1 dense grounding engine, in PyTorch.
+"""Batched hierarchical grounding engine, in PyTorch.
 
-Counterpart of revisionllm_tpu/eval/engine.py::GroundingEngine.ground_windows:
-windows are planned once on the host as an integer gather plan; the movie
-is shipped to the device once and every chunk's windows are gathered there
-from it; each chunk runs adapter -> splice -> prefill -> decode with inline
-entropy; every chunk is enqueued before the first is read back, so the
-host work of one chunk overlaps the device work of the last. Answers are
-parsed and the proposals scored by decode entropy and CLIP cosine.
+Counterpart of revisionllm_tpu/eval/engine.py::GroundingEngine: windows are
+planned once on the host as an integer gather plan; the movie is shipped to
+the device once and every chunk's windows are gathered there from it; each
+chunk runs adapter -> splice -> prefill -> decode with inline entropy; every
+chunk is enqueued before the first is read back.
+
+Stage 1 (`ground_windows`, and `ground_windows_batch` for several queries
+over one movie): every dense window answers "From X to Y" / "Not Present";
+proposals are scored by decode entropy and CLIP cosine. Stage 2 (`retrieve`,
+`retrieve_batch`): strided windows are compressed to one CLS token each by
+the hierarchy adapter, shuffled, zoom-repeated, and the LLM answers
+"In video N" per multi-scale pass; all passes are rows of one call, padded
+to a row bucket (REVISIONLLM_S2_ROW_BUCKETS). Under
+REVISIONLLM_SHARED_PREFIX=1 a chunk whose rows share their prompt up to the
+video block prefills that prefix once (llama.prefill_shared_prefix).
 
 There is no mesh and no compiled-program cache (PyTorch runs eagerly), so
-the movie is not padded to a length bucket. Stage-2 `retrieve` and the
-multi-query batch paths wait for a later slice.
+the movie is not padded to a length bucket. Captioning and MSR-VTT video
+retrieval (`caption_windows`, `retrieve_videos`) wait for a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+import os
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +35,7 @@ from revisionllm_tpu_torch.conversation import CONV_VICUNA_V1
 from revisionllm_tpu_torch.eval import metrics as M
 from revisionllm_tpu_torch.eval.similarity import proposal_cosine_scores
 from revisionllm_tpu_torch.models import llama, revisionllm
-from revisionllm_tpu_torch.models.multimodal import build_splice_plan, stack_plans
+from revisionllm_tpu_torch.models.multimodal import KIND_VIDEO, build_splice_plan, stack_plans
 from revisionllm_tpu_torch.ops import windows as W
 from revisionllm_tpu_torch.tokenization import tokenizer_image_token
 from revisionllm_tpu_torch.utils.device import resolve_device
@@ -88,16 +97,41 @@ class GroundingEngine:
             out.append(text)
         return out
 
-    def _run_chunk(self, plan: Dict[str, torch.Tensor], rows: np.ndarray,
+    @staticmethod
+    def _shared_prefix_len(plan_np: Dict[str, np.ndarray]) -> int:
+        """Rows with identical plans share every token before the first video
+        slot (the text is the same, the video differs): that many, when
+        REVISIONLLM_SHARED_PREFIX=1 (default off, as in the JAX package) and
+        the chunk has two rows or more; else 0."""
+        if os.environ.get("REVISIONLLM_SHARED_PREFIX", "0") != "1":
+            return 0
+        kind = plan_np["kind"]
+        if kind.shape[0] < 2 or not (kind == kind[0]).all() or not (
+            plan_np["text_ids"] == plan_np["text_ids"][0]
+        ).all():
+            return 0
+        vid_pos = np.where(kind[0] == KIND_VIDEO)[0]
+        return int(vid_pos[0]) if len(vid_pos) else 0
+
+    def _run_chunk(self, plan_np: Dict[str, np.ndarray], rows: np.ndarray,
                    feats_dev: torch.Tensor, qf, qv) -> Dict[str, torch.Tensor]:
-        """Enqueue one chunk: gather its windows [B, T, d] from the resident
-        movie by the int32 index rows, then adapter, splice and decode."""
+        """Enqueue one chunk: ship its splice plan, gather its windows from
+        the resident movie by the int32 index rows ([B, T] for stage 1,
+        [R, V, T] for stage 2), then adapter, splice and decode. A plan with
+        "qsel" (a multi-query chunk) picks each row's query features from
+        the [Q, Qt, d] stack qf."""
+        spl = self._shared_prefix_len(plan_np)
+        plan = {k: torch.as_tensor(v, device=self.device) for k, v in plan_np.items()}
+        qsel = plan.pop("qsel", None)
+        if qsel is not None:
+            qf, qv = qf[qsel.long()], qv[qsel.long()]
         images = W.gather_windows(feats_dev, rows).to(self.dtype)
         return revisionllm.generate_grounding(
             self.llama_cfg, self.adapter_cfg, self.params, self.vision_params,
             plan, images, qf, qv, eos_id=self.eos_id,
             max_new_tokens=self.eval_cfg.max_new_tokens,
             temperature=0.0 if self.eval_cfg.greedy else self.eval_cfg.temperature,
+            shared_prefix_len=spl,
         )
 
     def _read_chunk(self, out) -> Tuple[List[str], np.ndarray]:
@@ -105,6 +139,44 @@ class GroundingEngine:
         valid = out["valid"].cpu().numpy()
         stats = out["entropy_stats"].cpu().numpy()
         return self._decode_answers(tokens, valid), stats
+
+    def _broadcast_query_feats(self, query_feats: np.ndarray, n: int):
+        """Ship the [Q, d] query features once and broadcast them to
+        [n, Q, d] on the device, with an all-true mask."""
+        q1 = torch.as_tensor(np.asarray(query_feats), device=self.device).to(self.dtype)
+        qf = q1.expand((n,) + tuple(q1.shape))
+        return qf, torch.ones(qf.shape[:2], dtype=torch.bool, device=self.device)
+
+    def _query_feats_stack(self, queries: Sequence[Dict[str, Any]], d: int, what: str):
+        """The queries' features as one [Q, Qt, d] device stack, padded to
+        the longest, with its mask; (None, None) when no query has any. A
+        batch must be uniform: an all-false mask is not the no-feature
+        program (T2V cross-attention over an empty set)."""
+        have = [q.get("query_feats") is not None for q in queries]
+        if not any(have):
+            return None, None
+        if not all(have):
+            raise ValueError(f"{what}: queries must uniformly have or lack query_feats")
+        qts = [len(q["query_feats"]) for q in queries]
+        qf = np.zeros((len(queries), max(qts), d), np.float32)
+        qv = np.zeros((len(queries), max(qts)), bool)
+        for i, q in enumerate(queries):
+            qf[i, : qts[i]] = q["query_feats"]
+            qv[i, : qts[i]] = True
+        return (torch.as_tensor(qf, device=self.device).to(self.dtype),
+                torch.as_tensor(qv, device=self.device))
+
+    def _cosine_scores(self, feats_dev: torch.Tensor, prop_idx: np.ndarray,
+                       valid: np.ndarray, query_cls: np.ndarray) -> List[float]:
+        """CLIP cosine of each proposal [P, T] of frame indices (valid [P, T])
+        against the query CLS, in one device call."""
+        valid_dev = torch.as_tensor(valid, device=self.device)
+        props = feats_dev[torch.as_tensor(prop_idx, dtype=torch.long, device=self.device)]
+        props = torch.where(valid_dev[..., None], props, torch.zeros_like(props))
+        qc = torch.as_tensor(np.asarray(query_cls), dtype=torch.float32, device=self.device)
+        return [float(x) for x in proposal_cosine_scores(qc, props, valid_dev, k=3).cpu()]
+
+    # ---------------------------------------------------------------- stage 1
 
     def _stage1_plan_idx(self, ctx_len: int) -> np.ndarray:
         """[n, num_frames] global frame indices per dense window (baseline /
@@ -151,16 +223,10 @@ class GroundingEngine:
         plan = build_splice_plan(
             ids, ecfg.num_frames, len(ids) - 1 + ecfg.num_frames + ecfg.max_new_tokens
         )
-        plan_dev = {
-            k: torch.as_tensor(v, device=self.device)
-            for k, v in stack_plans([plan] * chunk).items()
-        }
+        plan_np = stack_plans([plan] * chunk)
         qf = qv = None
         if query_feats is not None:
-            # ship the [Q, d] query features once, broadcast on the device
-            q1 = torch.as_tensor(np.asarray(query_feats), device=self.device).to(self.dtype)
-            qf = q1.expand((chunk,) + tuple(q1.shape))
-            qv = torch.ones(qf.shape[:2], dtype=torch.bool, device=self.device)
+            qf, qv = self._broadcast_query_feats(query_feats, chunk)
 
         pending = []
         for start in range(0, n, chunk):
@@ -168,7 +234,7 @@ class GroundingEngine:
             rows = plan_idx[start:end]
             if len(rows) < chunk:  # pad the tail chunk to the chunk size
                 rows = np.concatenate([rows, np.repeat(rows[-1:], chunk - len(rows), axis=0)])
-            pending.append((end - start, self._run_chunk(plan_dev, rows, feats_dev, qf, qv)))
+            pending.append((end - start, self._run_chunk(plan_np, rows, feats_dev, qf, qv)))
         answers: List[str] = []
         scores_entropy: List[float] = []
         col = 0 if ecfg.score == "max_entropy" else 2
@@ -209,11 +275,7 @@ class GroundingEngine:
                 row = plan_idx[i][f : t + 1]
                 prop_idx[j, : len(row)] = row
                 valid[j, : len(row)] = True
-            valid_dev = torch.as_tensor(valid, device=self.device)
-            props = feats_dev[torch.as_tensor(prop_idx, device=self.device)]
-            props = torch.where(valid_dev[..., None], props, torch.zeros_like(props))
-            qc = torch.as_tensor(np.asarray(query_cls), dtype=torch.float32, device=self.device)
-            score_cos = [float(x) for x in proposal_cosine_scores(qc, props, valid_dev, k=3).cpu()]
+            score_cos = self._cosine_scores(feats_dev, prop_idx, valid, query_cls)
 
         kept_entropy = [scores_entropy[i] for i in frames]
         if ecfg.normalize:
@@ -244,3 +306,302 @@ class GroundingEngine:
             "score_cos": score_cos,
             "num_windows": len(plan_idx),
         }
+
+    def ground_windows_batch(
+        self,
+        features: np.ndarray,
+        queries: Sequence[Dict[str, Any]],
+        question_key: str = "mad_grounding",
+        movie_key=None,
+    ) -> List[Dict[str, Any]]:
+        """Dense grounding for several queries over one movie in shared
+        chunks (the throughput mode).
+
+        queries: each {"sentence": str, "query_feats": [Qt, d] | None,
+        "query_cls": [d] | None}. Rows of all queries pack densely into
+        chunks of eval_cfg.batch, query-major; per-row splice plans carry
+        each query's prompt (one length for all: the longest), and the query
+        features ride as one [Q, Qt, d] device stack picked per row by the
+        plan's qsel index. Results equal per-query ground_windows calls."""
+        ecfg = self.eval_cfg
+        Q = len(queries)
+        if Q == 0:
+            return []
+        plan_idx = self._stage1_plan_idx(len(features))
+        if not len(plan_idx):
+            return [{"answers": [], "scores_entropy": [], "score_cos": [], "frames": {}}
+                    for _ in range(Q)]
+        feats_dev = self._features_to_device(features, movie_key)
+        chunk = max(ecfg.batch, 1)
+        n = len(plan_idx)
+        ids_list = [self._prompt_ids(q["sentence"], QUESTIONS[question_key]) for q in queries]
+        max_len = max(len(i) for i in ids_list) - 1 + ecfg.num_frames + ecfg.max_new_tokens
+        plans = [build_splice_plan(ids, ecfg.num_frames, max_len) for ids in ids_list]
+        qf_all, qv_all = self._query_feats_stack(queries, features.shape[-1], "ground_windows_batch")
+
+        row_q = np.repeat(np.arange(Q, dtype=np.int32), n)
+        row_w = np.tile(np.arange(n, dtype=np.int32), Q)
+        total = Q * n
+        pending = []
+        for start in range(0, total, chunk):
+            end = min(start + chunk, total)
+            sel_q, sel_w = row_q[start:end], row_w[start:end]
+            if end - start < chunk:  # pad the tail chunk to the chunk size
+                pad = chunk - (end - start)
+                sel_q = np.concatenate([sel_q, np.repeat(sel_q[-1:], pad)])
+                sel_w = np.concatenate([sel_w, np.repeat(sel_w[-1:], pad)])
+            plan_np = stack_plans([plans[qi] for qi in sel_q])
+            if qf_all is not None:
+                plan_np["qsel"] = sel_q
+            pending.append((end - start,
+                            self._run_chunk(plan_np, plan_idx[sel_w], feats_dev, qf_all, qv_all)))
+
+        col = 0 if ecfg.score == "max_entropy" else 2
+        answers_all: List[str] = []
+        entropy_all: List[float] = []
+        for n_valid, out in pending:
+            chunk_answers, stats = self._read_chunk(out)
+            answers_all.extend(chunk_answers[:n_valid])
+            entropy_all.extend(stats[:n_valid, col].tolist())
+        return [
+            self._stage1_finalize(answers_all[qi * n : (qi + 1) * n],
+                                  entropy_all[qi * n : (qi + 1) * n], plan_idx, feats_dev,
+                                  q.get("query_cls"))
+            for qi, q in enumerate(queries)
+        ]
+
+    # ---------------------------------------------------------------- stage 2
+
+    @staticmethod
+    def _stage2_row_bucket(n_pass: int) -> int:
+        """The smallest row bucket (REVISIONLLM_S2_ROW_BUCKETS, default
+        "7,10,14") that fits `n_pass` stage-2 passes; the largest when none
+        does, and the passes then run as several calls of that size. Padding
+        to a few fixed shapes keeps the shapes a later CUDA-graph capture
+        needs."""
+        buckets = sorted(
+            int(b) for b in os.environ.get("REVISIONLLM_S2_ROW_BUCKETS", "7,10,14").split(",")
+        )
+        fit = [b for b in buckets if b >= max(n_pass, 1)]
+        return min(fit) if fit else max(buckets)
+
+    def _stage2_passes(self, win_idx: np.ndarray, rng: np.random.Generator):
+        """Every (zoom, call) pass: each sees exactly eval_cfg.batch window
+        tokens (windows repeated `zoom` times), shuffled by `rng`, so all
+        passes share one shape and run as rows of one call. Returns (starts,
+        permutations, zooms, the call counter within each zoom, [batch, T]
+        frame indices per pass)."""
+        ecfg = self.eval_cfg
+        starts: List[int] = []
+        indexes: List[np.ndarray] = []
+        hierarchy_zooms: List[int] = []
+        call_in_zoom: List[int] = []
+        row_idx: List[np.ndarray] = []
+        V = len(win_idx)
+        for zoom in ecfg.hierarchy_zooms:
+            batch = max(ecfg.batch // zoom, 1)
+            for i in range(int(np.ceil(V / batch))):
+                call_in_zoom.append(i)
+                start = i * batch
+                end = min(start + batch, V)
+                if end - start < batch:
+                    start = max(end - batch, 0)
+                starts.append(start)
+                row = win_idx[start : start + batch]
+                if len(row) < batch:
+                    row = np.concatenate([row, np.repeat(row[-1:], batch - len(row), axis=0)], 0)
+                perm = rng.permutation(row.shape[0])
+                indexes.append(perm)
+                row = row[perm]
+                if zoom > 1:
+                    row = np.repeat(row, zoom, axis=0)
+                hierarchy_zooms.append(zoom)
+                row_idx.append(row)
+        return starts, indexes, hierarchy_zooms, call_in_zoom, row_idx
+
+    def _stage2_win_idx(self, ctx_len: int) -> np.ndarray:
+        """[V, num_frames] frame indices of every strided window."""
+        ecfg = self.eval_cfg
+        clip_length = int(ecfg.debug_window * ecfg.feature_fps)
+        bounds = W.strided_window_bounds(ctx_len, clip_length, ecfg.stride)
+        return np.asarray(W.window_frame_indices(bounds, ecfg.num_frames), np.int32)
+
+    def _run_stage2_rows(self, flat_rows: List[np.ndarray], plans: List,
+                         flat_q: List[int], feats_dev, qf, qv, qsel: bool):
+        """Run the passes as rows of calls of one row bucket (the last
+        padded by repeating its last row); returns (answers, 1 / mean
+        entropy, 1 / max entropy) per pass."""
+        row_batch = self._stage2_row_bucket(len(flat_rows))
+        pending = []
+        for rstart in range(0, len(flat_rows), row_batch):
+            rows = flat_rows[rstart : rstart + row_batch]
+            sel_q = flat_q[rstart : rstart + row_batch]
+            n_rows = len(rows)
+            if n_rows < row_batch:
+                rows = rows + [rows[-1]] * (row_batch - n_rows)
+                sel_q = sel_q + [sel_q[-1]] * (row_batch - n_rows)
+            plan_np = stack_plans([plans[qi] for qi in sel_q])
+            if qsel:
+                plan_np["qsel"] = np.asarray(sel_q, np.int32)
+            pending.append((n_rows, self._run_chunk(plan_np, np.stack(rows, axis=0), feats_dev,
+                                                    qf, qv)))
+        answers: List[str] = []
+        mean_entropy: List[float] = []
+        max_entropy: List[float] = []
+        for n_rows, out in pending:
+            chunk_answers, stats = self._read_chunk(out)
+            answers.extend(chunk_answers[:n_rows])
+            for r in range(n_rows):
+                max_entropy.append(1.0 / max(stats[r, 0], 1e-9))
+                mean_entropy.append(1.0 / max(stats[r, 2], 1e-9))
+        return answers, mean_entropy, max_entropy
+
+    def retrieve(
+        self,
+        features: np.ndarray,
+        sentence: str,
+        query_feats: Optional[np.ndarray] = None,
+        query_cls: Optional[np.ndarray] = None,
+        grounding_windows: Optional[List[int]] = None,
+        rng: Optional[np.random.Generator] = None,
+        question_key: str = "retrieval",
+        movie_key=None,
+    ) -> Dict[str, Any]:
+        """Hierarchical coarse retrieval with multi-scale zoom passes.
+
+        features [ctx_l, d]. Every pass sees eval_cfg.batch window-CLS
+        tokens; all passes of all zooms are rows of one call (or of a few
+        calls of the largest row bucket). Window slicing, shuffling and zoom
+        repetition happen in index space; frames are gathered on the device
+        from the resident movie. grounding_windows restricts the windows (a
+        stage-1 prefilter)."""
+        rng = rng or np.random.default_rng(42)
+        win_idx = self._stage2_win_idx(len(features))
+        if grounding_windows is None:
+            grounding_windows = list(range(len(win_idx)))
+        else:
+            win_idx = win_idx[np.asarray(grounding_windows, np.int32)]
+        feats_dev = self._features_to_device(features, movie_key)
+        ids = self._prompt_ids(sentence, QUESTIONS[question_key])
+        starts, indexes, zooms, calls, row_idx = self._stage2_passes(win_idx, rng)
+        num_videos = row_idx[0].shape[0] if row_idx else self.eval_cfg.batch
+        plan = build_splice_plan(
+            ids, num_videos, len(ids) - 1 + num_videos + self.eval_cfg.max_new_tokens
+        )
+        qf = qv = None
+        if query_feats is not None:
+            qf, qv = self._broadcast_query_feats(
+                query_feats, self._stage2_row_bucket(len(row_idx)))
+        answers, mean_entropy, max_entropy = self._run_stage2_rows(
+            row_idx, [plan], [0] * len(row_idx), feats_dev, qf, qv, qsel=False)
+        return self._stage2_finalize(
+            answers, mean_entropy, max_entropy, starts, indexes, zooms, calls, row_idx,
+            grounding_windows, len(win_idx), feats_dev, query_cls,
+        )
+
+    def _stage2_finalize(
+        self,
+        answers: List[str],
+        mean_entropy: List[float],
+        max_entropy: List[float],
+        starts: List[int],
+        indexes: List[np.ndarray],
+        hierarchy_zooms: List[int],
+        call_in_zoom: List[int],
+        row_idx: List[np.ndarray],
+        grounding_windows: List[int],
+        V: int,
+        feats_dev: torch.Tensor,
+        query_cls: Optional[np.ndarray],
+    ) -> Dict[str, Any]:
+        """The scoring tail of retrieve: each parsed answer is mapped back
+        through zoom, permutation and prefilter (with the within-zoom index
+        quirk of metrics.stage2_chosen_windows), and the +-1 window
+        neighbourhood of the pass's rows is scored by CLIP cosine against
+        the query CLS, in one device call; 0.0 for a pass whose answer holds
+        no integer."""
+        score_cos: List[float] = []
+        if query_cls is not None and answers:
+            chosen = M.stage2_chosen_windows(
+                answers, starts, indexes, hierarchy_zooms, call_in_zoom, grounding_windows,
+                [ri.shape[0] for ri in row_idx],
+            )
+            to_score = [row_idx[p][n2] for p, ns in enumerate(chosen) if ns for n2 in ns]
+            scores_flat: List[float] = []
+            if to_score:
+                prop_idx = np.stack(to_score, axis=0)
+                scores_flat = self._cosine_scores(
+                    feats_dev, prop_idx, np.ones(prop_idx.shape, bool), query_cls)
+            it = iter(scores_flat)
+            for ns in chosen:
+                if ns is None:
+                    score_cos.append(0.0)
+                else:
+                    score_cos.extend(next(it) for _ in ns)
+        return {
+            "answers": answers,
+            "starts": starts,
+            "indexes": [idx.tolist() for idx in indexes],
+            "hierarchy_zooms": hierarchy_zooms,
+            "mean_entropy": mean_entropy,
+            "max_entropy": max_entropy,
+            "score_cos": score_cos,
+            "grounding_windows": grounding_windows,
+            "num_windows": V,
+        }
+
+    def retrieve_batch(
+        self,
+        features: np.ndarray,
+        queries: Sequence[Dict[str, Any]],
+        question_key: str = "retrieval",
+        movie_key=None,
+    ) -> List[Dict[str, Any]]:
+        """Hierarchical retrieval for several queries over one movie, all
+        their passes as rows of as few row-bucket calls as fit (the
+        throughput mode).
+
+        queries: each {"sentence", "query_feats", "query_cls",
+        "grounding_windows": list | None, "rng": np.random.Generator |
+        None}. Results equal per-query retrieve calls (each query's rng
+        drives its shuffles)."""
+        Q = len(queries)
+        if Q == 0:
+            return []
+        plan_idx = self._stage2_win_idx(len(features))
+        feats_dev = self._features_to_device(features, movie_key)
+        per_q = []
+        for q in queries:
+            gw = q.get("grounding_windows")
+            win_idx = plan_idx
+            if gw is None:
+                gw = list(range(len(plan_idx)))
+            else:
+                win_idx = plan_idx[np.asarray(gw, np.int32)]
+            rng = q.get("rng") or np.random.default_rng(42)
+            per_q.append((gw, len(win_idx)) + self._stage2_passes(win_idx, rng))
+
+        num_videos = per_q[0][6][0].shape[0] if per_q[0][6] else self.eval_cfg.batch
+        ids_list = [self._prompt_ids(q["sentence"], QUESTIONS[question_key]) for q in queries]
+        max_len = max(len(i) for i in ids_list) - 1 + num_videos + self.eval_cfg.max_new_tokens
+        plans = [build_splice_plan(ids, num_videos, max_len) for ids in ids_list]
+        qf_all, qv_all = self._query_feats_stack(queries, features.shape[-1], "retrieve_batch")
+
+        flat_rows: List[np.ndarray] = []
+        flat_q: List[int] = []
+        for qi, p in enumerate(per_q):
+            flat_rows.extend(p[6])
+            flat_q.extend([qi] * len(p[6]))
+        answers, mean_e, max_e = self._run_stage2_rows(
+            flat_rows, plans, flat_q, feats_dev, qf_all, qv_all, qsel=qf_all is not None)
+
+        results = []
+        off = 0
+        for qi, (gw, V, starts, indexes, zooms, calls, row_idx) in enumerate(per_q):
+            k = len(row_idx)
+            results.append(self._stage2_finalize(
+                answers[off : off + k], mean_e[off : off + k], max_e[off : off + k], starts,
+                indexes, zooms, calls, row_idx, gw, V, feats_dev, queries[qi].get("query_cls"),
+            ))
+            off += k
+        return results

@@ -50,11 +50,14 @@ def generate(
     max_new_tokens: int,
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    shared_prefix_len: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Decode `max_new_tokens` for a right-padded batch of spliced prompts.
 
     embeds [B, T, D], positions [B, T], prompt_lens [B]. Returns tokens,
-    entropy, logprob and valid, each [B, G].
+    entropy, logprob and valid, each [B, G]. When every row shares its first
+    `shared_prefix_len` embeddings (the engine's window batches do), the
+    prefill runs that prefix once (llama.prefill_shared_prefix).
 
     Greedy (temperature 0) matches JAX token for token. temperature > 0
     samples from softmax(logits / temperature) with `generator`; it cannot
@@ -65,10 +68,16 @@ def generate(
     B = embeds.shape[0]
     G = max_new_tokens
     prompt_lens = prompt_lens.to(torch.int32)
-    logits, prompt_kv = llama.prefill_kv(
-        cfg, params, embeds, positions, kv_lens=prompt_lens,
-        kv_quant=_kv8_enabled(embeds.device),
-    )
+    kv_quant = _kv8_enabled(embeds.device)
+    if shared_prefix_len > 1 and B > 1:
+        logits, prompt_kv = llama.prefill_shared_prefix(
+            cfg, params, embeds, positions, shared_prefix_len, kv_lens=prompt_lens,
+            kv_quant=kv_quant,
+        )
+    else:
+        logits, prompt_kv = llama.prefill_kv(
+            cfg, params, embeds, positions, kv_lens=prompt_lens, kv_quant=kv_quant,
+        )
     gen_cache = llama.init_gen_cache(cfg, B, G, embeds.dtype, embeds.device)
 
     done = torch.zeros(B, dtype=torch.bool, device=embeds.device)

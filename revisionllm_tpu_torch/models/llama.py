@@ -12,9 +12,11 @@ each decode step's attention is one ops.decode_attention launch per layer
 (kernel K3). Training (`forward_hidden(trainable=True)`) applies LoRA in
 line and takes ops.flash_attention.trainable_attention (the row-4 kernels);
 `remat=True` recomputes each layer in the backward
-(torch.utils.checkpoint, in place of jax.checkpoint). The P-tuning prefix,
-shared-prefix prefill, the serving slab and the ChatGLM2 geometry wait for
-later slices.
+(torch.utils.checkpoint, in place of jax.checkpoint). The shared-prefix
+prefill (`prefill_shared_prefix`) runs the rows' common prompt prefix once
+and the rest through ops.flash_attention.flash_attention_prefixed (row 6 on
+the card). The P-tuning prefix, the serving slab and the ChatGLM2 geometry
+wait for later slices.
 """
 
 from __future__ import annotations
@@ -27,7 +29,11 @@ from torch.utils.checkpoint import checkpoint
 
 from revisionllm_tpu_torch.config import LlamaConfig
 from revisionllm_tpu_torch.ops.decode_attention import decode_attention
-from revisionllm_tpu_torch.ops.flash_attention import attention, trainable_attention
+from revisionllm_tpu_torch.ops.flash_attention import (
+    attention,
+    flash_attention_prefixed,
+    trainable_attention,
+)
 from revisionllm_tpu_torch.ops.norms import rms_norm
 from revisionllm_tpu_torch.ops.quant import q8_apply, q8_apply_multi, quantize_int8
 from revisionllm_tpu_torch.ops.rope import apply_rope_tables, rope_angles, rope_tables
@@ -292,6 +298,77 @@ def prefill_kv(
     else:
         idx = (kv_lens.long() - 1).clamp(min=0)
         last = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+    return logits_from_hidden(params, last), cache
+
+
+def prefill_shared_prefix(
+    cfg: LlamaConfig,
+    params: Params,
+    embeds: torch.Tensor,
+    positions: torch.Tensor,
+    prefix_len: int,
+    kv_lens: Optional[torch.Tensor] = None,
+    kv_quant: bool = False,
+) -> Tuple[torch.Tensor, Params]:
+    """Prefill where every row shares its first `prefix_len` embeddings (the
+    engine's window batches share their prompt up to the video block).
+
+    The prefix runs once at B = 1 (K1 and K2 on the card); each layer of the
+    rest [B, T - P] attends to [the prefix kv | its own causal block]
+    through `flash_attention_prefixed` (row 6 on the card, two lse pieces
+    and a merge on the CPU). Returns what `prefill_kv` returns: logits at
+    each row's last position and the prompt cache [L, B, T, KH, hd], the
+    prefix broadcast and then the rest. kv_quant=True quantizes it layer by
+    layer (per (position, head) scales, the same numbers as JAX's quantizing
+    the whole bf16 cache at the end), so the full bf16 cache never exists."""
+    _check_cfg(cfg)
+    B, T, _ = embeds.shape
+    P = prefix_len
+    L, H, KH, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    _, prefix_kv = forward_hidden(cfg, params, embeds[:1, :P], positions[:1, :P], return_kv=True)
+    T2 = T - P
+    rope = rope_tables(*rope_angles(positions[:, P:], hd, cfg.rope_theta))
+    rest_lens = None if kv_lens is None else (kv_lens.to(torch.int32) - P).clamp(min=0)
+    kv_dtype = torch.int8 if kv_quant else embeds.dtype
+    cache = {n: torch.empty((L, B, T, KH, hd), dtype=kv_dtype, device=embeds.device)
+             for n in ("k", "v")}
+    if kv_quant:
+        for n in ("k", "v"):
+            cache[f"{n}_scale"] = torch.empty((L, B, T, KH), dtype=torch.float32,
+                                              device=embeds.device)
+
+    def store(i, name, prefix, rest):
+        """Layer i of the cache: the prefix [1, P, KH, hd] broadcast over the
+        rows, then the rest [B, T2, KH, hd]."""
+        for sl, t in ((slice(0, P), prefix), (slice(P, T), rest)):
+            if kv_quant:
+                tq, ts = _quantize_rows(t)
+                cache[name][i, :, sl] = tq
+                cache[f"{name}_scale"][i, :, sl] = ts[..., 0]
+            else:
+                cache[name][i, :, sl] = t
+
+    x = embeds[:, P:]
+    for i in range(L):
+        lp = layer_params(params, i)
+        pk, pv = prefix_kv["k"][i], prefix_kv["v"][i]
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
+        qm, km, vm = q8_apply_multi(h, (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
+        q = apply_rope_tables(qm.reshape(B, T2, H, hd), *rope)
+        k = apply_rope_tables(km.reshape(B, T2, KH, hd), *rope)
+        v = vm.reshape(B, T2, KH, hd)
+        o = flash_attention_prefixed(q, k, v, pk, pv, kv_lens=rest_lens)
+        x = x + q8_apply(o.reshape(B, T2, H * hd), lp["o_proj"])
+        h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+        x = x + _mlp_block(lp, h)
+        store(i, "k", pk, k)
+        store(i, "v", pv, v)
+    hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+    if kv_lens is None:
+        last = hidden[:, -1]
+    else:
+        idx = (kv_lens.long() - 1 - P).clamp(min=0)
+        last = hidden[torch.arange(B, device=hidden.device), idx]
     return logits_from_hidden(params, last), cache
 
 

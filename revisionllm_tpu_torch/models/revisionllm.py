@@ -21,6 +21,8 @@ from revisionllm_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
 
+HIERARCHY_CHUNK = 256  # windows per adapter call for the hierarchy input
+
 
 def init_vision_params(
     adapter_cfg: AdapterConfig, seed: int = 1, d_in: int = 768,
@@ -43,12 +45,34 @@ def encode_video(
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
 ) -> torch.Tensor:
-    """Frame features [B, T, d], one window per row -> LLM token block
-    [B, T, hidden] (temporal) or [B, 1, hidden] (cls). The hierarchy input
-    [B, V, T, d] of stage-2 retrieval waits for that slice."""
+    """Frame features -> LLM token block. images [B, T, d], one window per
+    row -> [B, T, hidden] (temporal) or [B, 1, hidden] (cls); or the
+    hierarchy input [B, V, T, d] of stage-2 retrieval, V windows per row ->
+    [B, V, hidden], one CLS token per window.
+
+    The hierarchy input runs as B * V windows, the query features repeated
+    V times in place for each row (jnp.repeat on axis 0; Tensor.repeat would
+    tile the batch instead), in slices of HIERARCHY_CHUNK windows: the
+    adapter's f32 attention scores for a stage-2 batch of 1400 windows would
+    take several GB at once."""
+    proj = vision_params["mm_projector"]
+    if images.dim() == 4:
+        B, V, T, d = images.shape
+        flat = images.reshape(B * V, T, d)
+        qf = None if query_feats is None else query_feats.repeat_interleave(V, dim=0)
+        qv = None if query_valid is None else query_valid.repeat_interleave(V, dim=0)
+        toks = [
+            clip_encoder_forward(
+                adapter_cfg, proj, flat[i : i + HIERARCHY_CHUNK],
+                None if qf is None else qf[i : i + HIERARCHY_CHUNK],
+                None if qv is None else qv[i : i + HIERARCHY_CHUNK],
+                deterministic, generator,
+            )
+            for i in range(0, B * V, HIERARCHY_CHUNK)
+        ]
+        return torch.cat(toks, dim=0).reshape(B, V, -1)
     return clip_encoder_forward(
-        adapter_cfg, vision_params["mm_projector"], images, query_feats, query_valid,
-        deterministic, generator,
+        adapter_cfg, proj, images, query_feats, query_valid, deterministic, generator,
     )
 
 
@@ -127,9 +151,12 @@ def generate_grounding(
     max_new_tokens: int = 32,
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    shared_prefix_len: int = 0,
 ) -> Dict[str, torch.Tensor]:
     """Full inference call: encode windows -> splice -> batched decode.
-    Returns tokens/entropy/logprob/valid [B, G] and entropy_stats [B, 4]."""
+    Returns tokens/entropy/logprob/valid [B, G] and entropy_stats [B, 4].
+    `shared_prefix_len` marks the leading tokens every row shares, which
+    the prefill then runs once (generation.generate)."""
     video_tokens = encode_video(adapter_cfg, vision_params, images, query_feats, query_valid)
     embeds, positions, lengths = assemble_inputs(
         params, plan, video_tokens, memory_tokens, dtype=llama.torch_dtype(cfg.dtype)
@@ -137,6 +164,7 @@ def generate_grounding(
     out = generation.generate(
         cfg, params, embeds, positions, lengths, eos_id=eos_id,
         max_new_tokens=max_new_tokens, temperature=temperature, generator=generator,
+        shared_prefix_len=shared_prefix_len,
     )
     out["entropy_stats"] = generation.entropy_stats_from_steps(out["entropy"], out["valid"])
     return out

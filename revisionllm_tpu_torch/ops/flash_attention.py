@@ -16,6 +16,13 @@ its three wrappers launch the row-4 kernels; on a CPU tensor they run their
 plain versions (the same maths step by step in f32), where JAX runs
 mha_reference. The two agree except on rows that see no key, which training
 never makes (column 0 is always live).
+
+The shared-prefix prefill attends over a B = 1 prefix and the row's own
+causal block. `flash_attention_prefixed` (row 6) does that in one online
+softmax on the card; on the CPU it runs two `mha_reference_lse` pieces and
+`merge_attention_pieces`, as JAX does off the TPU. `flash_attention_lse`
+(row 5, the LSE forward for any S) is what `attention_lse` launches on a
+CUDA tensor, and the card's two-piece reference for row 6.
 """
 
 from __future__ import annotations
@@ -69,6 +76,18 @@ def flash_attention_plain(
     return o.to(q.dtype)
 
 
+def _bf16_kernel_inputs(name, q, *rest):
+    """Check a forward kernel's inputs: q [B, T, H, 128]; every tensor bf16,
+    contiguous and 16-byte aligned on q's device."""
+    if q.shape[-1] != 128:
+        raise ValueError(f"{name} kernel: head_dim must be 128, got q{tuple(q.shape)}")
+    for t in (q,) + rest:
+        if not (t.dtype == torch.bfloat16 and t.device == q.device and t.is_contiguous()
+                and t.data_ptr() % 16 == 0):
+            raise ValueError(f"{name} kernel takes contiguous 16-byte-aligned bf16 tensors "
+                             "on one device")
+
+
 def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     kv_lens: Optional[torch.Tensor] = None, sm_scale: Optional[float] = None,
@@ -87,15 +106,8 @@ def flash_attention(
     if d != 128 or H % KH or k.shape != (B, S, KH, d) or v.shape != k.shape:
         raise ValueError(f"flash_attention kernel: unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)}")
     kernels.forbid_grad("flash_attention", q, k, v)
-    dev = q.device
-    if not all(t.dtype == torch.bfloat16 and t.device == dev and t.is_contiguous()
-               and t.data_ptr() % 16 == 0 for t in (q, k, v)):
-        raise ValueError("flash_attention kernel takes contiguous 16-byte-aligned bf16 "
-                         "q, k, v on one device")
-    if kv_lens is None:
-        lens = torch.full((B,), S, dtype=torch.int32, device=dev)
-    else:
-        lens = kv_lens.to(device=dev, dtype=torch.int32).clamp(max=S).contiguous()
+    _bf16_kernel_inputs("flash_attention", q, k, v)
+    lens = _lens_i32(kv_lens, B, S, q.device)
     out = torch.empty_like(q)
     fn = kernels.function(
         "flash_attention", "flash_attn_fwd_bf16",
@@ -262,12 +274,7 @@ def _vjp_args(name, q, k, *rest):
     KH = k.shape[2]
     if d != 128 or H % KH or k.shape != (B, T, KH, d):
         raise ValueError(f"{name} kernel: unsupported shapes q{tuple(q.shape)} k{tuple(k.shape)}")
-    dev = q.device
-    for t in (q, k) + rest:
-        if not (t.dtype == torch.bfloat16 and t.device == dev and t.is_contiguous()
-                and t.data_ptr() % 16 == 0):
-            raise ValueError(f"{name} kernel takes contiguous 16-byte-aligned bf16 tensors "
-                             "on one device")
+    _bf16_kernel_inputs(name, q, k, *rest)
     return B, T, H, KH, d
 
 
@@ -283,6 +290,26 @@ def _stats_f32(name, *stats):
             raise ValueError(f"{name} kernel takes contiguous f32 lse and delta [B, H, T]")
 
 
+def _launch_fwd_lse(name, q, k, v, lens, causal, sm_scale):
+    """Launch the LSE forward (rows 4 and 5: K2's body with the LSE output)
+    on checked bf16 q [B, T, H, d] and k/v [B, S, KH, d] with int32 lens
+    [B] (each <= S); counts the launch under `name`. Returns (o, lse
+    [B, H, T] f32)."""
+    B, T, H, d = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    fn = kernels.function(
+        "flash_attention", "flash_fwd_lse_bf16",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    )
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
+             lse.data_ptr(), B, T, S, H, KH, d, float(sm_scale), int(causal), kernels.stream_of(q))
+    kernels.check_launch(name, err)
+    kernels.LAUNCHES[name] += 1
+    return out, lse
+
+
 def flash_fwd_lse(q, k, v, *, causal=True, kv_lens=None, sm_scale=None):
     """q [B, T, H, d], k/v [B, T, KH, d] -> (o [B, T, H, d], lse [B, H, T]
     f32). A CPU tensor takes `flash_fwd_lse_plain`; a CUDA tensor launches
@@ -296,18 +323,8 @@ def flash_fwd_lse(q, k, v, *, causal=True, kv_lens=None, sm_scale=None):
         raise ValueError("flash_fwd_lse kernel: v must have k's shape")
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
-    lens = _lens_i32(kv_lens, B, T, q.device)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    fn = kernels.function(
-        "flash_attention", "flash_fwd_lse_bf16",
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    )
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), B, T, H, KH, d, float(sm_scale), int(causal), kernels.stream_of(q))
-    kernels.check_launch("flash_fwd_lse", err)
-    kernels.LAUNCHES["flash_fwd_lse"] += 1
-    return out, lse
+    return _launch_fwd_lse("flash_fwd_lse", q, k, v, _lens_i32(kv_lens, B, T, q.device),
+                           causal, sm_scale)
 
 
 def flash_dq(q, k, v, do, lse, delta, *, causal=True, kv_lens=None, sm_scale=None):
@@ -398,3 +415,129 @@ def trainable_attention(
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     return FlashMHA.apply(q, k, v, kv_lens, causal, float(sm_scale))
+
+
+# ---------------------------------------------------------------------------
+# Rows 5 and 6: the LSE forward for any S, and the shared-prefix attention
+# ---------------------------------------------------------------------------
+
+
+def mha_reference_lse(q, k, v, *, causal=True, kv_lens=None, sm_scale=None):
+    """JAX's mha_reference_lse (:798), in f32: (o [B, T, H, d] in q's type,
+    lse [B, T, H] f32). Its l is never 0, so a row that sees no key averages
+    every column and gets lse = NEG_INF + log(S), about NEG_INF (JAX's
+    -NEG_INF branch is never taken): in a merge that piece weighs 0."""
+    B, T, H, d = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    kf = k.float().repeat_interleave(H // KH, dim=2)
+    vf = v.float().repeat_interleave(H // KH, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", q.float(), kf) * sm_scale
+    mask = _kv_mask(B, T, S, kv_lens, causal, q.device)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhts,bshd->bthd", p / torch.where(l == 0, torch.ones_like(l), l), vf)
+    l, m = l[..., 0], m[..., 0]
+    lse = torch.where(l > 0, m + torch.log(torch.where(l == 0, torch.ones_like(l), l)),
+                      torch.full_like(l, -NEG_INF))
+    return o.to(q.dtype), lse.transpose(1, 2)
+
+
+def merge_attention_pieces(o1, lse1, o2, lse2):
+    """Combine two attention outputs [B, T, H, d] over disjoint kv sets by
+    their lse [B, T, H]: weights softmax(lse1, lse2), in f32, returned in
+    o1's type (JAX :844)."""
+    m = torch.maximum(lse1, lse2)
+    w1 = torch.exp(lse1 - m)
+    w2 = torch.exp(lse2 - m)
+    denom = w1 + w2
+    return (o1.float() * (w1 / denom)[..., None]
+            + o2.float() * (w2 / denom)[..., None]).to(o1.dtype)
+
+
+def flash_attention_lse_plain(q, k, v, *, causal=True, kv_lens=None, sm_scale=None):
+    """Row 5's maths (`flash_fwd_lse_plain`, for any S): (o [B, T, H, d],
+    lse [B, T, H] f32), lse = LSE_EMPTY and o = 0 for a row that sees no
+    key."""
+    o, lse = flash_fwd_lse_plain(q, k, v, causal=causal, kv_lens=kv_lens, sm_scale=sm_scale)
+    return o, lse.transpose(1, 2)
+
+
+def flash_attention_lse(q, k, v, *, causal=True, kv_lens=None, sm_scale=None):
+    """q [B, T, H, d], k/v [B, S, KH, d] (S != T allowed) -> (o [B, T, H,
+    d], lse [B, T, H] f32), JAX's flash_attention_lse (:721). A CPU tensor
+    takes `flash_attention_lse_plain`; a CUDA tensor launches row 5, the
+    LSE forward of csrc/flash_attention.cu (bf16, d = 128); its [B, H, T]
+    lse is returned transposed."""
+    if q.device.type == "cpu":
+        return flash_attention_lse_plain(q, k, v, causal=causal, kv_lens=kv_lens,
+                                         sm_scale=sm_scale)
+    kernels.forbid_grad("flash_attention_lse", q, k, v)
+    _bf16_kernel_inputs("flash_attention_lse", q, k, v)
+    B, T, H, d = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    if H % KH or k.shape != (B, S, KH, d) or v.shape != k.shape:
+        raise ValueError(f"flash_attention_lse kernel: unsupported shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} v{tuple(v.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    o, lse = _launch_fwd_lse("flash_attention_lse", q, k, v, _lens_i32(kv_lens, B, S, q.device),
+                             causal, sm_scale)
+    return o, lse.transpose(1, 2)
+
+
+def attention_lse(q, k, v, *, causal=True, kv_lens=None, sm_scale=None):
+    """Row 5 on a CUDA tensor; `mha_reference_lse` on the CPU (JAX :834)."""
+    if q.device.type == "cuda":
+        return flash_attention_lse(q, k, v, causal=causal, kv_lens=kv_lens, sm_scale=sm_scale)
+    return mha_reference_lse(q, k, v, causal=causal, kv_lens=kv_lens, sm_scale=sm_scale)
+
+
+def flash_attention_prefixed_plain(q, k, v, prefix_k, prefix_v, *, kv_lens=None, sm_scale=None):
+    """Row 6's plain version, the twin of JAX's prefixed_attention_reference
+    (:1035): attention over the broadcast prefix (not causal) and over the
+    row's own k/v (causal, kv_lens), each by `mha_reference_lse` in f32,
+    merged by their lse."""
+    B = q.shape[0]
+    pk = prefix_k.expand((B,) + tuple(prefix_k.shape[1:]))
+    pv = prefix_v.expand((B,) + tuple(prefix_v.shape[1:]))
+    o1, lse1 = mha_reference_lse(q, pk, pv, causal=False, sm_scale=sm_scale)
+    o2, lse2 = mha_reference_lse(q, k, v, causal=True, kv_lens=kv_lens, sm_scale=sm_scale)
+    return merge_attention_pieces(o1, lse1, o2, lse2)
+
+
+def flash_attention_prefixed(q, k, v, prefix_k, prefix_v, *, kv_lens=None, sm_scale=None):
+    """q [B, T, H, d], k/v [B, T, KH, d] in local positions (causal, kv_lens
+    [B] live rows each), prefix_k/v [1, P, KH, d] visible to every row ->
+    o [B, T, H, d] (JAX's flash_attention_prefixed, :945). A CPU tensor takes
+    `flash_attention_prefixed_plain`; a CUDA tensor launches row 6, one
+    online softmax over the prefix tiles and then the causal tiles (bf16,
+    d = 128)."""
+    if q.device.type == "cpu":
+        return flash_attention_prefixed_plain(q, k, v, prefix_k, prefix_v, kv_lens=kv_lens,
+                                              sm_scale=sm_scale)
+    kernels.forbid_grad("flash_attention_prefixed", q, k, v, prefix_k, prefix_v)
+    _bf16_kernel_inputs("flash_attention_prefixed", q, k, v, prefix_k, prefix_v)
+    B, T, H, d = q.shape
+    KH, P = k.shape[2], prefix_k.shape[1]
+    if (H % KH or k.shape != (B, T, KH, d) or v.shape != k.shape or P < 1
+            or prefix_k.shape != (1, P, KH, d) or prefix_v.shape != prefix_k.shape):
+        raise ValueError(f"flash_attention_prefixed kernel: unsupported shapes q{tuple(q.shape)} "
+                         f"k{tuple(k.shape)} prefix_k{tuple(prefix_k.shape)}")
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    lens = _lens_i32(kv_lens, B, T, q.device).clamp(min=0)
+    out = torch.empty_like(q)
+    fn = kernels.function(
+        "flash_attention", "flash_prefix_fwd_bf16",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p],
+    )
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), prefix_k.data_ptr(), prefix_v.data_ptr(),
+             lens.data_ptr(), out.data_ptr(), B, T, P, H, KH, d, float(sm_scale),
+             kernels.stream_of(q))
+    kernels.check_launch("flash_attention_prefixed", err)
+    kernels.LAUNCHES["flash_attention_prefixed"] += 1
+    return out

@@ -1,9 +1,10 @@
 """Window slicing and frame subsampling over long feature tracks.
 
 Host planning (NumPy) is a copy of revisionllm_tpu/ops/windows.py: the
-stage-1 dense 50%-overlap windows, each linspace-resampled to a fixed frame
-count. `gather_windows` is the torch gather that builds the whole window
-batch on the device from the resident movie.
+stage-1 dense 50%-overlap windows and the stage-2 strided windows, each
+linspace-resampled to a fixed frame count, and the stage-2 ground-truth
+window ids. `gather_windows` is the torch gather that builds the whole
+window batch on the device from the resident movie.
 """
 
 from __future__ import annotations
@@ -37,6 +38,26 @@ def dense_window_bounds(ctx_l: int, clip_length: int) -> List[Tuple[int, int]]:
     return bounds
 
 
+def num_windows_strided(ctx_l: int, clip_length: int, stride: int) -> int:
+    """Number of stride-overlap windows (stage-2 retrieval)."""
+    return math.ceil(ctx_l / (clip_length // stride)) - 1
+
+
+def strided_window_bounds(ctx_l: int, clip_length: int, stride: int) -> List[Tuple[int, int]]:
+    """(start, end) per stage-2 window: start = i * clip_length // stride,
+    end = min(start + clip_length, ctx_l - 1), and a short tail window's
+    start shifted back so it is full length."""
+    n = num_windows_strided(ctx_l, clip_length, stride)
+    bounds = []
+    for i in range(n):
+        start = max(i * (clip_length // stride), 0)
+        end = min(i * (clip_length // stride) + clip_length, ctx_l - 1)
+        if end - start < clip_length:
+            start = end - clip_length
+        bounds.append((start, end))
+    return bounds
+
+
 def window_frame_indices(
     bounds: List[Tuple[int, int]], num_frames: int
 ) -> np.ndarray:
@@ -47,10 +68,26 @@ def window_frame_indices(
 
 
 def gather_windows(features: torch.Tensor, frame_indices) -> torch.Tensor:
-    """features [ctx_l, d] on the device; frame_indices [num_windows,
-    num_frames] -> [num_windows, num_frames, d], one gather on the device."""
+    """features [ctx_l, d] on the device; frame_indices of any shape, such
+    as [num_windows, num_frames] or stage-2's [rows, windows, num_frames]
+    -> that shape plus d, one gather on the device."""
     idx = torch.as_tensor(np.asarray(frame_indices), dtype=torch.long, device=features.device)
     return features[idx]
+
+
+def get_ground_truth_windows(start: float, end: float, duration: float) -> Tuple[List[int], int]:
+    """GT seconds -> coarse retrieval window ids and the window count (clip
+    length 0.2 s and a slide window of 450 units: the MAD retrieval grid)."""
+    clip_len = 0.2
+    start = start / clip_len
+    end = end / clip_len
+    slide_window_size = int(900 / 2)
+    matched = list(
+        range(math.floor(start / slide_window_size), math.ceil(end / slide_window_size) + 1)
+    )
+    duration = duration / clip_len
+    duration = math.ceil(duration / slide_window_size) + 1
+    return matched, duration
 
 
 def timestamp_to_frame_token(duration: float, x: float, num_frames: int) -> str:

@@ -58,3 +58,39 @@ def test_planted_faults_fail_the_limits(grads, n):
         for bad in (scaled, dropped):
             rel, worst = chip_smoke.rel_errs(bad, want)
             assert worst >= 4 * chip_smoke.VJP_TILE_TOL, (rel, worst)
+
+
+@pytest.mark.parametrize("P", [25, 70])
+def test_prefix_planted_faults_fail_the_limits(P):
+    """Row 6's planted faults, on its plain version: the prefix's last
+    64-row tile dropped (all of a prefix of one tile) and the last causal
+    tile scaled by 0.9 each move the worst (64-row tile, head) block by 10%
+    or more, four times the card's tile limit and more; `hold` rejects a
+    fault that passes and returns the max abs error of a good result."""
+    gen = torch.Generator().manual_seed(1)
+    T2 = 150
+    q, k, v = (torch.randn((B, T2, H, D), generator=gen).to(torch.bfloat16) for _ in range(3))
+    pk, pv = (torch.randn((1, P, H, D), generator=gen).to(torch.bfloat16) for _ in range(2))
+    lens = torch.tensor([T2])
+    want = FA.flash_attention_prefixed_plain(q, k, v, pk, pv, kv_lens=lens)
+    scaled = want.clone()
+    scaled[:, 128:T2] *= 0.9
+    for bad in (chip_smoke.dropped_prefix_tile(q, k, v, pk, pv, lens), scaled):
+        rel, worst = chip_smoke.rel_errs(bad, want)
+        assert worst >= 4 * chip_smoke.VJP_TILE_TOL, (rel, worst)
+    assert chip_smoke.hold("row 6", want, want, {"x0.9": scaled}) == 0.0
+    with pytest.raises(AssertionError, match="accept planted faults"):
+        chip_smoke.hold("row 6", want, want, {"none": want.clone()})
+
+
+def test_stage2_geometry_of_the_pipeline():
+    """The kernels phase sizes stage 2 as the pipeline runs it: 143 strided
+    windows, 6 + 3 + 2 passes, the 14-row bucket; the prompts' shared
+    prefix is the same for both stages."""
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+
+    assert chip_smoke.stage2_passes_1h() == 11
+    assert GroundingEngine._stage2_row_bucket(11) == 14
+    p1, t1, live1 = chip_smoke.prompt_geometry("mad_grounding", 250, 12)
+    p2, t2, live2 = chip_smoke.prompt_geometry("retrieval", 100, 8)
+    assert p1 == p2 > 1 and t1 == live1 + 12 and t2 == live2 + 8

@@ -11,50 +11,23 @@ import pytest
 import torch
 
 from revisionllm_tpu.config import AdapterConfig as JAdapter
-from revisionllm_tpu.config import EvalConfig as JEval
-from revisionllm_tpu.eval.engine import GroundingEngine as JEngine
 from revisionllm_tpu.models import llama as jllama
 from revisionllm_tpu.models import multimodal as jmm
 from revisionllm_tpu.models import revisionllm as jrl
 from revisionllm_tpu.ops import windows as jwin
-from revisionllm_tpu.utils.testing import FakeTokenizer as JTok
 from revisionllm_tpu_torch.config import AdapterConfig as TAdapter
-from revisionllm_tpu_torch.config import EvalConfig as TEval
-from revisionllm_tpu_torch.eval.engine import GroundingEngine as TEngine
 from revisionllm_tpu_torch.models import multimodal as tmm
 from revisionllm_tpu_torch.models import revisionllm as trl
 from revisionllm_tpu_torch.ops import windows as twin
-from revisionllm_tpu_torch.utils.testing import FakeTokenizer as TTok
 
-from torch_parity import np_of, tiny_cfgs, to_torch
+from torch_parity import (S1_EVAL, adapter_kw, assert_stage1_equal, engines, np_of,
+                          tiny_cfgs, to_torch)
 
 torch.set_num_threads(2)
 
 
-def _adapter_kw(hidden, **kw):
-    return {**dict(d_model=16, num_heads=4, num_layers=2, ffn_dim=32, hidden_size=hidden,
-                   clip_adapter_text=True, hierarchy=False, feature_mode="temporal"), **kw}
-
-
 def _engines(kv_heads=4, **ecfg_kw):
-    """The tests/test_engine_batch.py engine (tiny f32 Llama, ClipEncoder
-    temporal adapter, FakeTokenizer) in both packages, on JAX's weights."""
-    jcfg, tcfg = tiny_cfgs(kv_heads)
-    kw = _adapter_kw(jcfg.hidden_size)
-    params = jllama.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
-    vision = jrl.init_vision_params(JAdapter(**kw), jax.random.PRNGKey(1), d_in=16)
-    ekw = dict(debug_window=20, num_frames=16, feature_fps=2.0, batch=4, stride=2,
-               max_new_tokens=6, **ecfg_kw)
-    engines = []
-    for Engine, Adapter, Eval, Tok, cfg, p, v, extra in (
-        (JEngine, JAdapter, JEval, JTok, jcfg, params, vision, {}),
-        (TEngine, TAdapter, TEval, TTok, tcfg, to_torch(params), to_torch(vision), {"device": "cpu"}),
-    ):
-        tok = Tok()
-        for i in range(300):
-            tok._id(str(i))
-        engines.append(Engine(cfg, Adapter(**kw), p, v, tok, Eval(**ekw), **extra))
-    return engines
+    return engines(False, {**S1_EVAL, **ecfg_kw}, kv_heads)
 
 
 @pytest.fixture(scope="module")
@@ -66,17 +39,6 @@ def query():
     return movie, qf, qc / np.linalg.norm(qc)
 
 
-def _assert_stage1_equal(want, got):
-    """Identical answers and proposal frames; scores within rtol 1e-4 (as
-    tests/test_engine_batch.py holds the batched path to the sequential)."""
-    assert got["answers"] == want["answers"]
-    assert got["frames"] == want["frames"]
-    assert got["num_windows"] == want["num_windows"]
-    for k in ("scores", "scores_entropy", "score_cos"):
-        np.testing.assert_allclose(np.asarray(got[k], np.float64), np.asarray(want[k], np.float64),
-                                   rtol=1e-4, atol=1e-5, err_msg=k)
-
-
 @pytest.mark.parametrize("kv_heads", [4, 2], ids=["mha", "gqa"])
 def test_ground_windows_matches_jax(query, kv_heads):
     movie, qf, qc = query
@@ -84,9 +46,9 @@ def test_ground_windows_matches_jax(query, kv_heads):
     want = jeng.ground_windows(movie, "a red car drives by.", qf, qc)
     got = teng.ground_windows(movie, "a red car drives by.", qf, qc, movie_key="m")
     assert got["num_windows"] == 19 and len(got["answers"]) == 19  # 5 chunks, tail padded
-    _assert_stage1_equal(want, got)
+    assert_stage1_equal(want, got)
     again = teng.ground_windows(movie, "a red car drives by.", qf, qc, movie_key="m")
-    _assert_stage1_equal(got, again)  # the cached device movie serves the repeat
+    assert_stage1_equal(got, again)  # the cached device movie serves the repeat
 
 
 @pytest.mark.parametrize("exact_cosine", ["0", "1"])
@@ -108,14 +70,14 @@ def test_stage1_finalize_scoring_matches_jax(query, exact_cosine, monkeypatch):
                                  jeng._features_to_device(movie), qc, time.time())
     got = teng._stage1_finalize(answers, ent, plan_idx, teng._features_to_device(movie), qc)
     assert len(got["score_cos"]) == len(got["frames"]) > 0
-    _assert_stage1_equal(want, got)
+    assert_stage1_equal(want, got)
 
 
 @pytest.mark.parametrize("mode", ["temporal", "cls"])
 @pytest.mark.parametrize("with_text", [True, False])
 def test_encode_video_matches_jax(mode, with_text):
     """The ClipEncoder adapter in f32 (rtol/atol 1e-5)."""
-    kw = _adapter_kw(32, feature_mode=mode)
+    kw = adapter_kw(32, feature_mode=mode)
     jv = jrl.init_vision_params(JAdapter(**kw), jax.random.PRNGKey(3), d_in=16)
     rng = np.random.default_rng(1)
     images = rng.normal(size=(3, 10, 16)).astype(np.float32)

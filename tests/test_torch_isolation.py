@@ -43,7 +43,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert res["bad"] == []
     for mod in ("ops.quant", "ops.flash_attention", "ops.decode_attention", "models.llama",
                 "models.generation", "eval.engine", "models.weights", "utils.kernels",
-                "models.lora", "train.trainer", "train.train_cli", "data.dataset"):
+                "models.lora", "train.trainer", "train.train_cli", "data.dataset",
+                "ops.windows", "models.revisionllm", "models.adapter", "eval.metrics",
+                "eval.stage1", "eval.stage2", "eval.fusion", "eval.loader",
+                "data.prefetcher", "utils.cli"):
         assert f"revisionllm_tpu_torch.{mod}" in res["imported"]
 
 
@@ -95,6 +98,10 @@ def test_host_copies_match_the_jax_package():
     for text in ("From 12 to 40.", "3 and 9", "In video 7", "Not Present"):
         assert tm.parse_span(text) == jm.parse_span(text)
         assert tm.parse_single(text) == jm.parse_single(text)
+    answers = ["From 12 to 40.", "Not Present", "From 249 to 249", "From 5 to 5"]
+    for plus in (False, True):
+        assert tm.stage1_iou(answers, (0.1, 0.3), 250, 1000, [0.5, 0.2, 0.9, 0.1], plus) == \
+            jm.stage1_iou(answers, (0.1, 0.3), 250, 1000, [0.5, 0.2, 0.9, 0.1], plus)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
@@ -124,6 +131,8 @@ def test_wrappers_count_nothing_on_the_cpu():
     g = torch.randn(1, 3, 2, 32)
     decode_attention.decode_attention(torch.randn(1, 2, 1, 32), qkv, qkv, None, None, g, g,
                                       torch.tensor([8]), 1)
+    flash_attention.flash_attention_lse(qkv, g, g, causal=False)
+    flash_attention.flash_attention_prefixed(qkv, qkv, qkv, g[:, :2], g[:, :2])
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 

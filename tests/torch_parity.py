@@ -29,3 +29,59 @@ def tiny_cfgs(num_kv_heads=4, vocab_size=512):
 
     kw = {**JCfg.tiny(vocab_size).__dict__, "dtype": "float32", "num_kv_heads": num_kv_heads}
     return JCfg(**kw), TCfg(**kw)
+
+
+S1_EVAL = dict(debug_window=20, num_frames=16, feature_fps=2.0, batch=4, stride=2,
+               max_new_tokens=6)
+
+
+def adapter_kw(hidden, hierarchy=False, **kw):
+    """A narrow ClipEncoder T2V adapter: temporal, or hierarchy cls."""
+    return {**dict(d_model=16, num_heads=4, num_layers=2, ffn_dim=32, hidden_size=hidden,
+                   clip_adapter_text=True, hierarchy=hierarchy,
+                   feature_mode="cls" if hierarchy else "temporal"), **kw}
+
+
+def engines(hierarchy=False, ecfg_kw=S1_EVAL, kv_heads=4):
+    """The tests/test_engine_batch.py engine (tiny f32 Llama, ClipEncoder
+    adapter, FakeTokenizer with the numbers 0-299) in both packages, on
+    JAX's weights: (JAX engine, port engine on the CPU)."""
+    import jax.numpy as jnp
+
+    from revisionllm_tpu.config import AdapterConfig as JAdapter
+    from revisionllm_tpu.config import EvalConfig as JEval
+    from revisionllm_tpu.eval.engine import GroundingEngine as JEngine
+    from revisionllm_tpu.models import llama as jllama
+    from revisionllm_tpu.models import revisionllm as jrl
+    from revisionllm_tpu.utils.testing import FakeTokenizer as JTok
+    from revisionllm_tpu_torch.config import AdapterConfig as TAdapter
+    from revisionllm_tpu_torch.config import EvalConfig as TEval
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine as TEngine
+    from revisionllm_tpu_torch.utils.testing import FakeTokenizer as TTok
+
+    jcfg, tcfg = tiny_cfgs(kv_heads)
+    kw = adapter_kw(jcfg.hidden_size, hierarchy)
+    params = jllama.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    vision = jrl.init_vision_params(JAdapter(**kw), jax.random.PRNGKey(1), d_in=16)
+    out = []
+    for Engine, Adapter, Eval, Tok, cfg, p, v, extra in (
+        (JEngine, JAdapter, JEval, JTok, jcfg, params, vision, {}),
+        (TEngine, TAdapter, TEval, TTok, tcfg, to_torch(params), to_torch(vision),
+         {"device": "cpu"}),
+    ):
+        tok = Tok()
+        for i in range(300):
+            tok._id(str(i))
+        out.append(Engine(cfg, Adapter(**kw), p, v, tok, Eval(**ecfg_kw), **extra))
+    return out
+
+
+def assert_stage1_equal(want, got):
+    """Identical answers and proposal frames; scores within rtol 1e-4 (as
+    tests/test_engine_batch.py holds the batched path to the sequential)."""
+    assert got["answers"] == want["answers"]
+    assert got["frames"] == want["frames"]
+    assert got["num_windows"] == want["num_windows"]
+    for k in ("scores", "scores_entropy", "score_cos"):
+        np.testing.assert_allclose(np.asarray(got[k], np.float64), np.asarray(want[k], np.float64),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
