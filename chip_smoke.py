@@ -6,8 +6,8 @@
 Every run goes through every phase, so every number it prints was
 measured in that run. Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the eight CUDA kernels (rows 4 and 5 share one __global__) from
-     the four sources in csrc/ (one nvcc per source, all in parallel);
+  2. build the eleven CUDA kernels (rows 4 and 5 share one __global__) from
+     the seven sources in csrc/ (one nvcc per source, all in parallel);
   3. each kernel against its plain PyTorch version on the card, at the
      stage-1 shapes (Vicuna-7B, chunk of 64 windows): max error against the
      stated tolerance, device time of the kernel, of the plain version and of
@@ -67,10 +67,24 @@ measured in that run. Phases:
      where the call's time goes;
  11. stage-2 retrieve and its shared-prefix prefill with the kernels on the
      card against the plain path on the CPU, at full width, 2 layers and
-     one seed, on a 10-minute movie: first-step logits and answers.
+     one seed, on a 10-minute movie: first-step logits and answers;
+ 12. rows 7 (int4_matmul, at the decode step's four shapes), 8
+     (w8a8_mlp_fused, at the prefill's M = 64 x T, K 4096, N 11008) and 9
+     (decode_step_fused, B 64 on the slice's weights) against their plain
+     versions by the limits of phase 7, each with planted faults that must
+     fail, device times, bounds and a yardstick (torch.matmul on the
+     dequantized weight; two torch._int_mm and the epilogue; the split
+     decode step);
+ 13. configurations A (int8, REVISIONLLM_FUSED_MLP=1 and
+     REVISIONLLM_MEGAKERNEL=1) and B (int4 weights) through ground_windows
+     on the 1-hour movie at Vicuna-7B width and depth: chunk latency, q/s,
+     peak memory, launches (fails unless A gives 32 row-8 and 11 row-9
+     launches and no K3, and B 2476 row-7 launches), prefill and decode-step
+     wall, enqueue and busy ms; then each against the CPU as in phase 5.
 
-The kernel checks of phases 3, 7 and 10 run first, after the build; the
-pipeline runs after phase 6 on the slice's weights, before training.
+The kernel checks of phases 3, 7, 10 and 12 run first, after the build
+(row 9's after phase 4, on the slice's weights); phase 13 runs after phase
+6; the pipeline runs after it, before training.
 Prints phase lines, then one JSON line of per-kernel numbers, the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Exits non-zero,
 with no result line, when CUDA is missing, when run outside a checkout of
@@ -97,6 +111,7 @@ ITERS = 20                  # timed calls per kernel and shape
 RUNS = 3                    # timed ground_windows runs
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 BF16_OPS_PER_S = 989e12     # H100 SXM data sheet, dense
+INT8_OPS_PER_S = 1979e12    # H100 SXM data sheet, dense
 REPLACES = {
     "int8_matmul": "revisionllm_tpu/ops/quant.py:46",
     "flash_attention": "revisionllm_tpu/ops/flash_attention.py:40",
@@ -106,16 +121,23 @@ REPLACES = {
     "flash_dkv": "revisionllm_tpu/ops/flash_attention.py:464",
     "flash_attention_lse": "revisionllm_tpu/ops/flash_attention.py:721",
     "flash_attention_prefixed": "revisionllm_tpu/ops/flash_attention.py:859",
+    "int4_matmul": "revisionllm_tpu/ops/quant.py:580",
+    "w8a8_mlp_fused": "revisionllm_tpu/ops/quant.py:732",
+    "decode_step_fused": "revisionllm_tpu/ops/decode_step.py:135",
 }
 SOURCES = {
     "int8_matmul": "int8_matmul", "flash_attention": "flash_attention",
     "decode_attention": "decode_attention", "flash_fwd_lse": "flash_attention",
     "flash_dq": "flash_attention_vjp", "flash_dkv": "flash_attention_vjp",
     "flash_attention_lse": "flash_attention", "flash_attention_prefixed": "flash_attention",
+    "int4_matmul": "int4_matmul", "w8a8_mlp_fused": "w8a8_mlp_fused",
+    "decode_step_fused": "decode_step",
 }
 SERVING = ("int8_matmul", "flash_attention", "decode_attention")
 TRAINING = ("flash_fwd_lse", "flash_dq", "flash_dkv")
 PIPELINE = ("flash_attention_lse", "flash_attention_prefixed")
+FUSED = ("w8a8_mlp_fused", "decode_step_fused")   # configuration A
+INT4 = ("int4_matmul",)                            # configuration B
 SENTENCE = "a man opens the old door"
 TRAIN_STEPS = 6             # timed train steps after one warm-up
 
@@ -124,9 +146,9 @@ def say(msg: str) -> None:
     print(f"# {msg}", flush=True)
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, ops_per_s: float = BF16_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / BF16_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -152,6 +174,9 @@ KERNEL_GROUPS = (
     ("row 4 flash_fwd_lse", r"flash_fwd_lse_kernel"),
     ("row 4 flash_dq", r"flash_dq_kernel"),
     ("row 4 flash_dkv", r"flash_dkv_kernel"),
+    ("row 7 int4_matmul (q4_matmul + q4_finalize)", r"q4_matmul_kernel|q4_finalize_kernel"),
+    ("row 8 w8a8_mlp_fused (GEMM + requantize)", r"mlp_gemm_kernel|mlp_quant_kernel"),
+    ("row 9 decode_step_fused", r"decode_step_kernel"),
     ("W8A8 GEMM (torch._int_mm)", r"gemm_s8|s8gemm|imma"),
     ("other library GEMMs", r"gemm|nvjet|xmma|cutlass"),
 )
@@ -414,12 +439,13 @@ def check_decode_attention(dev, iters):
 # ------------------------------------------------------------------ phase 4
 
 
-def make_engine(cfg, acfg, ecfg, device, dtype, seed=0):
-    """Random int8 Vicuna params (built one layer at a time) and adapter."""
+def make_engine(cfg, acfg, ecfg, device, dtype, seed=0, quantize="int8"):
+    """Random int8 (or int4) Vicuna params (built one layer at a time) and
+    adapter."""
     from revisionllm_tpu_torch.eval.engine import GroundingEngine
     from revisionllm_tpu_torch.models import llama, revisionllm
 
-    params = llama.init_params(cfg, seed=seed, dtype=dtype, device=device, quantize=True)
+    params = llama.init_params(cfg, seed=seed, dtype=dtype, device=device, quantize=quantize)
     vision = revisionllm.init_vision_params(acfg, seed=seed + 1, d_in=acfg.d_model,
                                             dtype=dtype, device=device)
     return GroundingEngine(cfg, acfg, params, vision, fake_tokenizer(), ecfg, device=device)
@@ -504,20 +530,22 @@ def phase_slice(dev, runs):
     return launches, setup
 
 
-def phase_profile(dev, setup):
-    """Where one chunk's time goes, on the slice's engine and inputs. For the
-    adapter + splice, the prefill and each decode step: the wall time by
-    CUDA events from an idle device, the host's time to enqueue the part,
-    and the device's busy time (its kernels summed under torch.profiler).
-    A part whose wall time matches its enqueue time and exceeds its busy
-    time is paced by the host. Then one ground_windows under the profiler,
-    its kernel time by group."""
+def step_breakdown(eng, movie, qf_np, mega=False):
+    """Where a chunk's time goes, on the engine's 64 windows of the movie, in
+    the current switches: for the adapter + splice, the prefill and a decode
+    step (the median of 11; the megakernel's step, decode_step_mega, when
+    `mega`, else the split step), the wall time by CUDA events from an idle
+    device, the host's time to enqueue the part, and the device's busy time
+    (its kernels summed under torch.profiler; the step's at step 5). A part
+    whose wall time matches its enqueue time and exceeds its busy time is
+    paced by the host."""
     import torch
     from revisionllm_tpu_torch.constants import QUESTIONS
-    from revisionllm_tpu_torch.models import llama, revisionllm
+    from revisionllm_tpu_torch.models import generation, llama, revisionllm
     from revisionllm_tpu_torch.models.multimodal import build_splice_plan, stack_plans
+    from revisionllm_tpu_torch.ops import decode_step as DS
 
-    eng, movie, qf_np, _ = setup
+    dev = eng.device
     cfg, acfg = eng.llama_cfg, eng.adapter_cfg
     ids = eng._prompt_ids(SENTENCE, QUESTIONS["mad_grounding"])
     plan = {k: torch.as_tensor(v, device=dev) for k, v in stack_plans(
@@ -539,38 +567,60 @@ def phase_profile(dev, setup):
         return out, a.elapsed_time(b), host
 
     def adapter():
-        images = feats[idx[:64]].to(torch.bfloat16)
-        video = revisionllm.encode_video(acfg, eng.vision_params, images, qf)
+        video = revisionllm.encode_video(acfg, eng.vision_params, feats[idx].to(torch.bfloat16), qf)
         return revisionllm.assemble_inputs(eng.params, plan, video, dtype=torch.bfloat16)
 
-    def prefill(embeds, pos, lens):
-        return llama.prefill_kv(cfg, eng.params, embeds, pos, kv_lens=lens, kv_quant=True)
-
+    out = {}
     for _ in range(2):  # the first pass warms up
-        (embeds, pos, lens), ad_wall, ad_host = timed(adapter)
-        (logits, pkv), pf_wall, pf_host = timed(lambda: prefill(embeds, pos, lens))
-        gen = llama.init_gen_cache(cfg, 64, 12, torch.bfloat16, dev)
+        (embeds, pos, lens), out["adapter_wall"], out["adapter_host"] = timed(adapter)
+        lens = lens.to(torch.int32)
+        prefill = partial(llama.prefill_kv, cfg, eng.params, embeds, pos, kv_lens=lens,
+                          kv_quant=True)
+        (logits, pkv), out["prefill_wall"], out["prefill_host"] = timed(prefill)
         tok = llama.embed_tokens(eng.params, logits.argmax(-1)[:, None])
-        steps = []
-        for g in range(11):
-            step = partial(llama.decode_step_split, cfg, eng.params, pkv, lens, gen, g, tok)
-            (logits, gen), wall, host = timed(step)
-            steps.append((wall, host))
-    _, ad_busy, _ = profiled(adapter)
-    _, pf_busy, _ = profiled(lambda: prefill(embeds, pos, lens))
-    _, st_busy, st_events = profiled(partial(llama.decode_step_split, cfg, eng.params, pkv, lens, gen, 5, tok))
-    st_wall = float(np.median([w for w, _ in steps]))
-    st_host = float(np.median([h for _, h in steps]))
-    say(f"profile: adapter+splice wall {ad_wall:.2f} ms, host enqueue {ad_host:.2f} ms, "
-        f"device busy {ad_busy:.2f} ms")
-    say(f"profile: prefill wall {pf_wall:.2f} ms, host enqueue {pf_host:.2f} ms, device busy {pf_busy:.2f} ms")
-    say(f"profile: decode step (median of 11) wall {st_wall:.2f} ms, host enqueue {st_host:.2f} ms; "
-        f"device busy {st_busy:.2f} ms at step 5 (idle share {max(0.0, 1 - st_busy / st_wall) * 100:.1f}%); "
-        f"11 steps wall {sum(w for w, _ in steps):.1f} ms")
-    groups, _ = group_kernels(st_events)
-    say("profile: decode step 5 kernels: " + "; ".join(
-        f"{label} {ms:.3f} ms x{n}" for label, (ms, n) in groups.items() if n))
+        if mega:
+            pkv = DS.pack_prompt_kv(pkv)
+            gen = DS.init_gen_cache(cfg.num_layers, 64, cfg.num_kv_heads, cfg.head_dim, 12,
+                                    torch.bfloat16, dev)
+            step = partial(generation.decode_step_mega, cfg, eng.params, pkv, lens, gen)
+        else:
+            gen = llama.init_gen_cache(cfg, 64, 12, torch.bfloat16, dev)
+            step = partial(llama.decode_step_split, cfg, eng.params, pkv, lens, gen)
+        steps = [timed(partial(step, g, tok))[1:] for g in range(11)]
+    _, out["adapter_busy"], _ = profiled(adapter)
+    _, out["prefill_busy"], _ = profiled(prefill)
+    _, out["step_busy"], events = profiled(partial(step, 5, tok))
+    out["step_wall"] = float(np.median([w for w, _ in steps]))
+    out["step_host"] = float(np.median([h for _, h in steps]))
+    out["steps_wall"] = sum(w for w, _ in steps)
+    groups, _ = group_kernels(events)
+    out["step_kernels"] = "; ".join(f"{label} {ms:.3f} ms x{n}"
+                                    for label, (ms, n) in groups.items() if n)
+    del pkv, gen, step
+    torch.cuda.empty_cache()
+    return out
 
+
+def say_breakdown(tag, parts):
+    say(f"{tag}: adapter+splice wall {parts['adapter_wall']:.2f} ms, host enqueue "
+        f"{parts['adapter_host']:.2f} ms, device busy {parts['adapter_busy']:.2f} ms")
+    say(f"{tag}: prefill wall {parts['prefill_wall']:.2f} ms, host enqueue "
+        f"{parts['prefill_host']:.2f} ms, device busy {parts['prefill_busy']:.2f} ms")
+    say(f"{tag}: decode step (median of 11) wall {parts['step_wall']:.2f} ms, host enqueue "
+        f"{parts['step_host']:.2f} ms; device busy {parts['step_busy']:.2f} ms at step 5 (idle "
+        f"share {max(0.0, 1 - parts['step_busy'] / parts['step_wall']) * 100:.1f}%); 11 steps "
+        f"wall {parts['steps_wall']:.1f} ms")
+    say(f"{tag}: decode step 5 kernels: {parts['step_kernels']}")
+
+
+def phase_profile(dev, setup):
+    """Where one chunk's time goes, on the slice's engine and inputs
+    (step_breakdown), then one ground_windows under the profiler, its
+    kernel time by group."""
+    import torch
+
+    eng, movie, qf_np, _ = setup
+    say_breakdown("profile", step_breakdown(eng, movie, qf_np))
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -605,10 +655,12 @@ def _to(tree, device, grad=False):
     return tree.to(device)
 
 
-def compare_paths(dev, cfg, acfg, batch, num_frames, new_tokens, seed=0):
+def compare_paths(dev, cfg, acfg, batch, num_frames, new_tokens, seed=0, quantize="int8"):
     """Kernel path on `dev` against the plain path on the CPU, from the same
     seed, serving numerics on both (W8A8, KV8, f32 attention scores on the
-    CPU as in K2). Returns (max |logit diff|, max |logit|, token agreement)."""
+    CPU as in K2), in the current switches, on int8 or int4 weights.
+    Returns (max |logit diff|, max |logit|, token agreement, max entropy
+    diff)."""
     import torch
     from revisionllm_tpu_torch.constants import IMAGE_TOKEN_INDEX
     from revisionllm_tpu_torch.models import generation, llama, revisionllm
@@ -616,7 +668,8 @@ def compare_paths(dev, cfg, acfg, batch, num_frames, new_tokens, seed=0):
     from revisionllm_tpu_torch.ops import flash_attention, quant
 
     cpu = torch.device("cpu")
-    params = llama.init_params(cfg, seed=seed, dtype=torch.bfloat16, device=cpu, quantize=True)
+    params = llama.init_params(cfg, seed=seed, dtype=torch.bfloat16, device=cpu,
+                               quantize=quantize)
     vision = revisionllm.init_vision_params(acfg, seed=seed + 1, d_in=acfg.d_model,
                                             dtype=torch.bfloat16, device=cpu)
     rng = np.random.default_rng(seed)
@@ -639,31 +692,43 @@ def compare_paths(dev, cfg, acfg, batch, num_frames, new_tokens, seed=0):
             logits, _ = llama.prefill_kv(cfg, p, embeds, pos, kv_lens=lens, kv_quant=True)
             gen = revisionllm.generate_grounding(cfg, acfg, p, vp, plan, im, q, eos_id=2,
                                                  max_new_tokens=new_tokens)
-            outs[device.type] = (logits.float().cpu(), gen["tokens"].cpu())
+            outs[device.type] = (logits.float().cpu(), gen["tokens"].cpu(),
+                                 gen["entropy"].float().cpu())
     finally:
         quant.set_w8a8(None)
         generation.set_kv8(None)
         flash_attention.set_attn_bf16(None)
-    (lk, tk), (lp, tp) = outs[dev.type], outs["cpu"]
+    (lk, tk, ek), (lp, tp, ep) = outs[dev.type], outs["cpu"]
     diff = (lk - lp).abs().max().item()
     agree = (tk == tp).float().mean().item()
-    return diff, lp.abs().max().item(), agree
+    return diff, lp.abs().max().item(), agree, (ek - ep).abs().max().item()
 
 
-def phase_compare(dev):
+def phase_compare(dev, label="int8 serving", quantize="int8", env=None, launched=()):
+    """One compare_paths run in the configuration's switches; fails unless
+    the first-step logits agree within 5% of the largest, and unless the
+    card's run launched each kernel of `launched`."""
     from revisionllm_tpu_torch.config import AdapterConfig, LlamaConfig
+    from revisionllm_tpu_torch.utils import kernels
 
     cfg = LlamaConfig(num_layers=2)
     acfg = AdapterConfig(clip_adapter_text=True, hierarchy=False, feature_mode="temporal",
                          hidden_size=cfg.hidden_size)
     t0 = time.perf_counter()
-    diff, scale, agree = compare_paths(dev, cfg, acfg, batch=2, num_frames=250, new_tokens=12)
+    kernels.reset_launches()
+    with switched(env or {}):
+        diff, scale, agree, ent = compare_paths(dev, cfg, acfg, batch=2, num_frames=250,
+                                                new_tokens=12, quantize=quantize)
+    missing = [k for k in launched if kernels.LAUNCHES[k] == 0]
     # bf16 activations, and int8 activation or KV quantization can round a
     # value across a boundary on one side only: 5% of the largest logit
     tol = 5e-2 * max(1.0, scale)
-    say(f"compare: Vicuna-7B width, 2 layers, kernels on the card vs plain on the CPU: "
-        f"first-step logits max_abs_diff {diff:.4e} (tol {tol:.3e}, max |logit| {scale:.3f}); "
-        f"greedy tokens agree {agree * 100:.1f}% ({time.perf_counter() - t0:.1f} s)")
+    say(f"compare ({label}): Vicuna-7B width, 2 layers, kernels on the card vs plain on the "
+        f"CPU: first-step logits max_abs_diff {diff:.4e} (tol {tol:.3e}, max |logit| "
+        f"{scale:.3f}); greedy tokens agree {agree * 100:.1f}%; entropy max_abs_diff "
+        f"{ent:.3e} ({time.perf_counter() - t0:.1f} s)")
+    if missing:
+        raise AssertionError(f"compare ({label}): kernels never launched on the card: {missing}")
     if not diff <= tol:
         raise AssertionError(f"logits differ by {diff} > {tol}")
 
@@ -1685,6 +1750,356 @@ def phase_pipeline_compare(dev):
         raise AssertionError(f"stage-2 logits differ by {diff} > {tol}")
 
 
+# ------------------------------------------------------------------ phase 12
+
+
+def hold_cols(label, got, want, faults=None, cols=128):
+    """`hold` for a [M, N] output, by blocks of 64 rows x `cols` columns."""
+    import torch.nn.functional as F
+
+    def view(t):
+        t = t.float()
+        return F.pad(t, (0, -t.shape[1] % cols)).reshape(1, t.shape[0], -1, cols)
+
+    return hold(label, view(got), view(want), {k: view(v) for k, v in (faults or {}).items()})
+
+
+def check_int4_matmul(dev, iters):
+    """Row 7 at the decode step's shapes (M 64; q/k/v/o, gate/up, down, the
+    lm_head) against its plain version by relative L2 error, whole and per
+    (64-row, 128-column) block, with a planted fault (the two nibbles of
+    each byte swapped) that must fail; then other heights, a K of 33 groups
+    and an N no multiple of 128, and 300 rows (two launches), correctness
+    only. Times one decode step's 225 launches: kernel, plain, and
+    torch.matmul on the dequantized bf16 weight."""
+    import torch
+    from revisionllm_tpu_torch.ops import quant as Q
+
+    M = 64
+    shapes = [(4096, 4096, 4 * 32), (4096, 11008, 2 * 32), (11008, 4096, 32), (4096, 32000, 1)]
+    gen = torch.Generator(device=dev).manual_seed(13)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    worst = 0.0
+    details = []
+    for K, N, per_step in shapes:
+        x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+        copies = max(1, math.ceil(128e6 / (K * N // 2)))
+        ws = []
+        for _ in range(copies):
+            q, s = Q.quantize_int4(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5)
+            ws.append((q, s, Q.dequantize_int4(q, s, torch.bfloat16)))
+        q, s = ws[0][:2]
+        got = Q.int4_matmul(x, q, s)
+        want = Q.int4_matmul_plain(x, q, s)
+        swapped = Q.int4_matmul_plain(x, ((q & 0xF) << 4) | (q >> 4), s)
+        torch.cuda.synchronize()
+        err = hold_cols(f"int4_matmul M={M} K={K} N={N}", got, want, {"nibbles swapped": swapped})
+        worst = max(worst, err)
+        pick = cycled(ws)
+        ms = device_ms(lambda: Q.int4_matmul(x, *pick()[:2]), iters)
+        plain = device_ms(lambda: Q.int4_matmul_plain(x, *pick()[:2]), max(3, iters // 4))
+        lib = device_ms(lambda: torch.matmul(x, pick()[2]), iters)
+        nbytes = M * K * 2 + K * N // 2 + (K // 128) * N * 4 + M * N * 2
+        ops = 2.0 * M * K * N
+        b, by = bound(nbytes, ops)
+        say(f"int4_matmul M={M} K={K} N={N}: kernel {ms:.4f} ms plain {plain:.4f} ms "
+            f"torch.matmul(bf16 W) {lib:.4f} ms bound {b:.4f} ms ({by}) "
+            f"[{per_step} launches per decode step]")
+        details.append({"K": K, "N": N, "ms": ms, "plain_ms": plain, "library_ms": lib,
+                        "bound_ms": b, "per_decode_step": per_step})
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib)):
+            tot[key] += per_step * val
+        tot["bytes"] += per_step * nbytes
+        tot["ops"] += per_step * ops
+        del ws, pick
+    for M2, K2, N2 in ((1, 4096, 4096), (200, 4096, 4096), (300, 4224, 4112)):
+        x = torch.randn((M2, K2), generator=gen, device=dev).to(torch.bfloat16)
+        q, s = Q.quantize_int4(torch.randn((K2, N2), generator=gen, device=dev) * K2 ** -0.5)
+        worst = max(worst, hold_cols(f"int4_matmul M={M2} K={K2} N={N2}", Q.int4_matmul(x, q, s),
+                                     Q.int4_matmul_plain(x, q, s)))
+    b, by = bound(tot["bytes"], tot["ops"])
+    return {
+        "name": "int4_matmul", "max_abs_err": worst, "ms": tot["ms"],
+        "plain_ms": tot["plain_ms"], "bound_ms": b, "bound_by": by,
+        "library_ms": tot["library_ms"],
+        "unit": "one decode step at B=64 (225 launches: 32 layers x 7 + lm_head); library: "
+                "torch.matmul on the dequantized bf16 weight",
+        "shapes": details,
+    }
+
+
+def _quantize_per_row(h):
+    absmax = h.abs().amax(dim=-1, keepdim=True)
+    hs = absmax.clamp_min(1e-30) / 127.0
+    return h.div(hs).round_().clamp_(-127, 127).mul_(hs)
+
+
+def check_fused_mlp(dev, iters):
+    """Row 8 at the stage-1 prefill's shape (M = 64 rows x the prompt's T,
+    K 4096, N 11008) against its plain version: hs to 1e-6 relative, hq
+    within +-1 and at least 99.9% equal (tests/test_quant.py:392-410's
+    measure), and the dequantized output by relative L2 error, whole and
+    per (64-row, 128-column) block, with two planted faults that must fail:
+    the absmax taken over the first 64 columns only (a GEMM epilogue that
+    quantizes its own tile) and silu left out. Times the kernel, the plain
+    version and two torch._int_mm on column-major weights with the same
+    epilogue (the yardstick)."""
+    import torch
+    from revisionllm_tpu_torch.ops import quant as Q
+
+    T = prompt_geometry("mad_grounding", 250, 12)[1]
+    M, K, N = 64 * T, 4096, 11008
+    gen = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
+    xq, xs = Q.quantize_activation_rows(x)
+    gq, gs = Q.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5)
+    uq, us = Q.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5)
+    args = (xq, xs, gq, gs, uq, us)
+    hq, hs = Q.w8a8_mlp_fused(*args)
+    pq, ps = Q.w8a8_mlp_fused_plain(*args)
+    torch.cuda.synchronize()
+    hs_rel = ((hs - ps).abs() / ps).max().item()
+    dq = (hq.int() - pq.int()).abs()
+    equal = (dq == 0).float().mean().item()
+    say(f"w8a8_mlp_fused M={M} K={K} N={N}: hs max relative diff {hs_rel:.2e} (tol 1e-6); "
+        f"hq max |diff| {dq.max().item()} (tol 1), equal {equal * 100:.4f}% (tol 99.9%)")
+    if not (hs_rel <= 1e-6 and dq.max().item() <= 1 and equal >= 0.999):
+        raise AssertionError("w8a8_mlp_fused differs from its plain version")
+    del dq
+    g = torch._int_mm(xq, gq.t().contiguous().t()).float() * xs * gs
+    u = torch._int_mm(xq, uq.t().contiguous().t()).float() * xs * us
+    h = (g / (1.0 + torch.exp(-g))) * u
+    hs_tile = h[:, :64].abs().amax(dim=-1, keepdim=True).clamp_min(1e-30) / 127.0
+    faults = {"absmax over the first 64 columns": h.div(hs_tile).round_().clamp_(-127, 127)
+              .mul_(hs_tile),
+              "silu left out": _quantize_per_row(g * u)}
+    del g, u, h
+    err = hold_cols(f"w8a8_mlp_fused M={M} dequantized output", hq.float() * hs,
+                    pq.float() * ps, faults)
+    del faults
+    g_cm, u_cm = gq.t().contiguous().t(), uq.t().contiguous().t()
+
+    def library():
+        g = torch._int_mm(xq, g_cm).float() * xs * gs
+        u = torch._int_mm(xq, u_cm).float() * xs * us
+        h = (g / (1.0 + torch.exp(-g))) * u
+        absmax = h.abs().amax(dim=-1, keepdim=True)
+        hs = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+        return torch.clamp(torch.round(h / hs), -127, 127).to(torch.int8), hs
+
+    ms = device_ms(lambda: Q.w8a8_mlp_fused(*args), iters)
+    plain = device_ms(lambda: Q.w8a8_mlp_fused_plain(*args), max(3, iters // 4))
+    lib = device_ms(library, max(3, iters // 4))
+    nbytes = M * K + 2 * K * N + 2 * N * 4 + M * 4 + M * N + M * 4
+    b, by = bound(nbytes, 4.0 * M * K * N, INT8_OPS_PER_S)
+    say(f"w8a8_mlp_fused M={M} K={K} N={N}: kernel {ms:.4f} ms plain {plain:.4f} ms "
+        f"two torch._int_mm + epilogue {lib:.4f} ms bound {b:.4f} ms ({by}, 1979 TOPS int8)")
+    return {"name": "w8a8_mlp_fused", "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "unit": f"one launch = one layer of the chunk-64 prefill (M={M}); library: two "
+                    f"torch._int_mm on column-major weights and the epilogue in PyTorch"}
+
+
+def check_decode_step(dev, iters, params):
+    """Row 9 at the stage-1 decode step's shape on the slice's Vicuna-7B
+    int8 weights: B 64, the prompt's T, ragged prompt lengths, a bf16 gen
+    cache at the last step (11 live slots). Both sides round the same
+    values to bf16, but a value one f32 ulp from a rounding boundary rounds
+    the other way on one side now and then, and over random layers those
+    flips compound (relative L2 2.0e-3 after one layer, 4.8e-3 after two,
+    3.7e-2 after 32, on the H100). So the hidden state and every layer's
+    new k/v are held by the rows 4-6 limits at 2 layers of the full width,
+    with two planted faults that must fail them (one K slice of the last
+    layer's down product dropped; the second half of every prompt
+    masked), and at all 32 layers by relative L2 within 1e-1. Times the
+    32-layer kernel, its plain version and the split step
+    (llama.decode_step_split, K1 + K3 and glue, lm_head included) at the
+    same inputs (the yardstick)."""
+    import torch
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.models import llama
+    from revisionllm_tpu_torch.ops import decode_step as DS
+    from revisionllm_tpu_torch.ops.rope import rope_angles
+
+    cfg = LlamaConfig()
+    L, H, hd, D = cfg.num_layers, cfg.num_heads, cfg.head_dim, cfg.hidden_size
+    _, T, live = prompt_geometry("mad_grounding", 250, 12)
+    B, G = 64, 12
+    step = G - 1
+    gen = torch.Generator(device=dev).manual_seed(16)
+    lens = torch.randint(live - 20, live + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    lens[0] = live
+    kv = torch.randint(-127, 128, (L, B, 2, H, T, hd), generator=gen, device=dev,
+                       dtype=torch.int8)
+    kvsc = torch.rand((L, B, 2, H, T), generator=gen, device=dev) * 0.02 + 0.005
+    pkv = {"kv": kv, "kvsc": kvsc}
+    genkv = (torch.randn((L, 2, B, H, 16, hd), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    ids = torch.randint(3, cfg.vocab_size, (B,), generator=gen, device=dev)
+    x = params["embed"][ids]
+    cos, sin = (t[:, 0] for t in rope_angles((lens + step)[:, None], hd, cfg.rope_theta))
+    args = (lens, step, x, cos, sin)
+    eps = cfg.rms_norm_eps
+
+    def depth(tree, n):
+        return {**tree, "layers": {k: ({kk: vv[:n] for kk, vv in v.items()}
+                                       if isinstance(v, dict) else v[:n])
+                                   for k, v in tree["layers"].items()}}
+
+    p2, kv2 = depth(params, 2), {"kv": kv[:2], "kvsc": kvsc[:2]}
+    gk, gp = genkv[:2].clone(), genkv[:2].clone()
+    got, _ = DS.decode_step_fused(p2, kv2, gk, *args, eps=eps)
+    want, _ = DS.decode_step_fused_plain(p2, kv2, gp, *args, eps=eps)
+    down = p2["layers"]["down_proj"]
+    cut = {"q8": down["q8"].clone(), "scale": down["scale"]}
+    cut["q8"][1, :1024] = 0
+    f_slice, _ = DS.decode_step_fused_plain(
+        {**p2, "layers": {**p2["layers"], "down_proj": cut}}, kv2, genkv[:2].clone(), *args,
+        eps=eps)
+    f_half, _ = DS.decode_step_fused_plain(p2, kv2, genkv[:2].clone(), lens // 2, *args[1:],
+                                           eps=eps)
+    torch.cuda.synchronize()
+    err = hold_cols(f"decode_step_fused 2 layers B={B} S={T} step={step} hidden", got, want, {
+        "a K slice of the last down product dropped": f_slice,
+        "the second half of every prompt masked": f_half})
+    new = [t[:, :, :, :, step].reshape(2 * 2 * B, H * hd) for t in (gk, gp)]
+    err = max(err, hold_cols("decode_step_fused 2 layers new k/v (slot step)", *new))
+    del f_slice, f_half, new, cut
+
+    gk, gp = genkv.clone(), genkv.clone()
+    got, _ = DS.decode_step_fused(params, pkv, gk, *args, eps=eps)
+    want, _ = DS.decode_step_fused_plain(params, pkv, gp, *args, eps=eps)
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    kv_rel = ((gk[:, :, :, :, step].float() - gp[:, :, :, :, step].float()).norm()
+              / gp[:, :, :, :, step].float().norm()).item()
+    say(f"decode_step_fused 32 layers: hidden relative L2 {rel:.3e}, new k/v {kv_rel:.3e} "
+        f"(tol 1e-1: the flips compound over the layers), finite {bool(got.isfinite().all())}")
+    if not (rel <= 1e-1 and kv_rel <= 1e-1 and bool(got.isfinite().all())):
+        raise AssertionError(f"decode_step_fused at 32 layers: relative L2 {rel}, {kv_rel}")
+
+    plain_iters = max(2, iters // 10)
+    ms = device_ms(lambda: DS.decode_step_fused(params, pkv, gk, *args, eps=cfg.rms_norm_eps),
+                   iters)
+    plain = device_ms(lambda: DS.decode_step_fused_plain(params, pkv, gp, *args,
+                                                         eps=cfg.rms_norm_eps), plain_iters)
+    del gp
+    split = {"k": kv[:, :, 0].permute(0, 1, 3, 2, 4).contiguous(),
+             "v": kv[:, :, 1].permute(0, 1, 3, 2, 4).contiguous(),
+             "k_scale": kvsc[:, :, 0].permute(0, 1, 3, 2).contiguous(),
+             "v_scale": kvsc[:, :, 1].permute(0, 1, 3, 2).contiguous()}
+    gsplit = {"k": genkv[:, 0, :, :, :G].permute(0, 1, 3, 2, 4).contiguous(),
+              "v": genkv[:, 1, :, :, :G].permute(0, 1, 3, 2, 4).contiguous()}
+    lib = device_ms(lambda: llama.decode_step_split(cfg, params, split, lens, gsplit, step,
+                                                    x[:, None]), plain_iters)
+    del split, gsplit
+    mats = sum(w["q8"].numel() + w["scale"].numel() * 4 for n, w in params["layers"].items()
+               if isinstance(w, dict))
+    nlive = int(lens.sum())
+    nbytes = (mats + 2 * L * D * 2 + L * nlive * H * (2 * hd + 8)
+              + L * 2 * B * H * (step + 1) * hd * 2 + 2 * B * D * 2 + 2 * B * hd * 4 + B * 4)
+    ops = 2.0 * B * sum(w["q8"].numel() for w in params["layers"].values()
+                        if isinstance(w, dict)) + 4.0 * L * H * hd * (nlive + B * (step + 1))
+    b, by = bound(nbytes, ops)
+    say(f"decode_step_fused B={B} S={T} step={step} (32 layers): kernel {ms:.4f} ms plain "
+        f"{plain:.4f} ms decode_step_split (K1 + K3 + glue, lm_head included) {lib:.4f} ms "
+        f"bound {b:.4f} ms ({by})")
+    del pkv, kv, kvsc, genkv, gk
+    torch.cuda.empty_cache()
+    return {"name": "decode_step_fused", "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "unit": "one launch = one whole decode step of the chunk-64 stage-1 decode; "
+                    "library: the split step (decode_step_split) at the same inputs"}
+
+
+# ------------------------------------------------------------------ phase 13
+
+
+CONFIGS = {
+    # A: int8 weights, W8A8 prefill, KV8, row 8 in every prefill layer, row 9
+    # for every decode step (the lm_head on K1 after the prefill and each step)
+    "A (fused int8)": {
+        "env": {"REVISIONLLM_FUSED_MLP": "1", "REVISIONLLM_MEGAKERNEL": "1"},
+        "quantize": "int8", "kernels": FUSED,
+        "launches": {"w8a8_mlp_fused": 32, "decode_step_fused": 11, "decode_attention": 0,
+                     "int4_matmul": 0, "int8_matmul": 12}},
+    # B: group-128 int4 weights (lm_head too), KV8; row 7 for the 7 matrices
+    # of every layer and the lm_head at each of the 11 steps and the
+    # prefill's lm_head, which dequantizes the rest
+    "B (int4)": {
+        "env": {}, "quantize": "int4", "kernels": INT4,
+        "launches": {"int4_matmul": 11 * (32 * 7 + 1) + 1, "int8_matmul": 0,
+                     "decode_attention": 11 * 32, "w8a8_mlp_fused": 0, "decode_step_fused": 0}},
+}
+SWITCHES = ("REVISIONLLM_FUSED_MLP", "REVISIONLLM_MEGAKERNEL", "REVISIONLLM_Q4_PALLAS")
+
+
+class switched:
+    """Sets the configuration's switches in os.environ (the others unset)
+    while inside, as a user would set them before running the engine."""
+
+    def __init__(self, env):
+        self.env = env
+
+    def __enter__(self):
+        self.old = {k: os.environ.pop(k, None) for k in SWITCHES}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k in SWITCHES:
+            os.environ.pop(k, None)
+            if self.old[k] is not None:
+                os.environ[k] = self.old[k]
+
+
+def phase_configs(dev, setup, runs):
+    """Configurations A and B through ground_windows on the 1-hour movie at
+    Vicuna-7B width and depth: chunk latency (median of `runs`), q/s, peak
+    memory, launches in one run (fails unless they are the expected ones,
+    rows 8 and 9 in A, row 7 in B, and unless the 57 entropies are finite),
+    and where a chunk's time goes (prefill and decode step: wall, host
+    enqueue, device busy). A runs on the slice's int8 engine; B on an int4
+    engine from the same seed. Returns {label: launches}."""
+    import torch
+
+    slice_engine, movie, qf, qc = setup
+    out = {}
+    for label, conf in CONFIGS.items():
+        if conf["quantize"] == "int8":
+            eng = slice_engine
+        else:
+            t0 = time.perf_counter()
+            eng = make_engine(slice_engine.llama_cfg, slice_engine.adapter_cfg,
+                              slice_engine.eval_cfg, dev, torch.bfloat16, quantize="int4")
+            torch.cuda.synchronize()
+            say(f"config {label}: int4 Vicuna-7B weights (group 128, lm_head too) built from "
+                f"seed 0 in {time.perf_counter() - t0:.1f} s")
+        with switched(conf["env"]):
+            t0 = time.perf_counter()
+            eng.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
+            torch.cuda.synchronize()
+            warm = time.perf_counter() - t0
+            torch.cuda.reset_peak_memory_stats()
+            res, launches, lat = run_slice(eng, movie, qf, qc, runs)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            check_result(res, 57)
+            chunk_s = float(np.median(lat))
+            say(f"config {label}: switches {conf['env'] or 'none'}; warm-up {warm:.3f} s; "
+                f"ground_windows x{runs}: latencies {[round(x, 4) for x in lat]} s; chunk latency "
+                f"(median) {chunk_s * 1e3:.1f} ms; q/s {1 / chunk_s:.4f}; peak memory "
+                f"{peak:.2f} GiB; entropies finite")
+            say(f"config {label}: launches in one ground_windows: "
+                + str({k: n for k, n in launches.items() if n}))
+            bad = {k: (launches[k], n) for k, n in conf["launches"].items() if launches[k] != n}
+            if bad:
+                raise AssertionError(f"config {label}: launches (got, expected) {bad}")
+            say_breakdown(f"config {label}", step_breakdown(
+                eng, movie, qf, mega="REVISIONLLM_MEGAKERNEL" in conf["env"]))
+        out[label] = launches
+        if eng is not slice_engine:
+            del eng
+            torch.cuda.empty_cache()
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1724,19 +2139,26 @@ def main() -> int:
             say(f"ptxas {name}: registers per instantiation {regs}; spill-store bytes {spills}")
 
     records = {}
-    for check in (check_int8_matmul, check_flash_attention, check_decode_attention):
+    for check in (check_int8_matmul, check_flash_attention, check_decode_attention,
+                  check_int4_matmul, check_fused_mlp):
         rec = check(dev, ITERS)
         records[rec["name"]] = rec
     for rec in check_flash_vjp(dev, ITERS) + check_prefix_attention(dev, ITERS):
         records[rec["name"]] = rec
-    for name, rec in records.items():
-        rec.update(route="cuda", source=f"revisionllm_tpu_torch/csrc/{SOURCES[name]}.cu",
-                   replaces=REPLACES[name])
     launches, setup = phase_slice(dev, RUNS)
     for name in SERVING:
         records[name]["launches"] = launches[name]
+    records["decode_step_fused"] = check_decode_step(dev, ITERS, setup[0].params)
+    for name, rec in records.items():
+        rec.update(route="cuda", source=f"revisionllm_tpu_torch/csrc/{SOURCES[name]}.cu",
+                   replaces=REPLACES[name])
     phase_compare(dev)
     phase_profile(dev, setup)
+    launches = phase_configs(dev, setup, RUNS)
+    for label, conf in CONFIGS.items():
+        for name in conf["kernels"]:
+            records[name]["launches"] = launches[label][name]
+        phase_compare(dev, f"config {label}", conf["quantize"], conf["env"], conf["kernels"])
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:

@@ -4,7 +4,10 @@ Counterpart of revisionllm_tpu/models/generation.py::generate: prefill once,
 then a greedy decode loop that computes each step's softmax entropy and the
 chosen token's log-probability in f32, and masks rows after their eos. The
 `lax.scan` becomes a Python loop that only enqueues device work (no host
-sync inside the loop).
+sync inside the loop). With REVISIONLLM_MEGAKERNEL=1 (or set_megakernel)
+each decode step is one ops.decode_step launch (row 9 on the card), then the
+final norm and the lm_head, wherever JAX takes that path (generation.py:
+165-172); every other step is llama.decode_step_split.
 """
 
 from __future__ import annotations
@@ -16,6 +19,9 @@ import torch
 
 from revisionllm_tpu_torch.config import LlamaConfig
 from revisionllm_tpu_torch.models import llama
+from revisionllm_tpu_torch.ops import decode_step as DS
+from revisionllm_tpu_torch.ops.norms import rms_norm
+from revisionllm_tpu_torch.ops.rope import rope_angles
 
 _KV8: Optional[bool] = None
 
@@ -37,6 +43,40 @@ def _kv8_enabled(device: torch.device) -> bool:
     if env is not None:
         return env == "1"
     return device.type == "cuda"
+
+
+_MEGAKERNEL: Optional[bool] = None
+
+
+def set_megakernel(enabled: Optional[bool]) -> None:
+    """Override the megakernel switch (None = back to the environment)."""
+    global _MEGAKERNEL
+    _MEGAKERNEL = enabled
+
+
+def _megakernel_enabled() -> bool:
+    """The fused whole-step decode (ops/decode_step.py): set_megakernel,
+    else REVISIONLLM_MEGAKERNEL=1; off by default, as in JAX. It also needs
+    the int8 tree and KV8 (`generate` checks)."""
+    if _MEGAKERNEL is not None:
+        return _MEGAKERNEL
+    return os.environ.get("REVISIONLLM_MEGAKERNEL", "0") == "1"
+
+
+def decode_step_mega(cfg: LlamaConfig, params: Dict[str, Any], pkv: Dict[str, torch.Tensor],
+                     prompt_lens: torch.Tensor, gen_cache: torch.Tensor, step: int,
+                     token_embeds: torch.Tensor) -> torch.Tensor:
+    """One megakernel decode step (JAX's generate, generation.py:207-228):
+    the rope angles at prompt_lens + step, one ops.decode_step call over
+    the packed prompt cache (gen_cache [L, 2, B, KH, Gp, hd] gets this
+    step's k/v), the final norm and the lm_head. token_embeds [B, 1, D];
+    returns logits [B, V] f32."""
+    cos, sin = rope_angles((prompt_lens + step)[:, None], cfg.head_dim, cfg.rope_theta)
+    hidden, _ = DS.decode_step_fused(params, pkv, gen_cache, prompt_lens, step,
+                                     token_embeds[:, 0], cos[:, 0], sin[:, 0],
+                                     eps=cfg.rms_norm_eps)
+    h = rms_norm(hidden[:, None, :], params["final_norm"], cfg.rms_norm_eps)
+    return llama.logits_from_hidden(params, h[:, 0])
 
 
 def generate(
@@ -78,7 +118,23 @@ def generate(
         logits, prompt_kv = llama.prefill_kv(
             cfg, params, embeds, positions, kv_lens=prompt_lens, kv_quant=kv_quant,
         )
-    gen_cache = llama.init_gen_cache(cfg, B, G, embeds.dtype, embeds.device)
+    use_mega = (
+        _megakernel_enabled() and kv_quant and "k_scale" in prompt_kv
+        and DS.supports_megakernel(cfg, params)
+    )
+    if use_mega:
+        pkv = DS.pack_prompt_kv(prompt_kv)
+        del prompt_kv  # the split cache is not read again
+        gen_cache = DS.init_gen_cache(cfg.num_layers, B, cfg.num_kv_heads, cfg.head_dim, G,
+                                      embeds.dtype, embeds.device)
+    else:
+        gen_cache = llama.init_gen_cache(cfg, B, G, embeds.dtype, embeds.device)
+
+    def decode_one(g, tok_embed):
+        if use_mega:
+            return decode_step_mega(cfg, params, pkv, prompt_lens, gen_cache, g, tok_embed)
+        return llama.decode_step_split(
+            cfg, params, prompt_kv, prompt_lens, gen_cache, g, tok_embed)[0]
 
     done = torch.zeros(B, dtype=torch.bool, device=embeds.device)
     tokens, entropies, logprobs, valids = [], [], [], []
@@ -97,9 +153,7 @@ def generate(
         token_out = torch.where(valid, token, torch.full_like(token, eos_id))
         if g + 1 < G:
             tok_embed = llama.embed_tokens(params, token_out[:, None]).to(embeds.dtype)
-            logits, gen_cache = llama.decode_step_split(
-                cfg, params, prompt_kv, prompt_lens, gen_cache, g, tok_embed
-            )
+            logits = decode_one(g, tok_embed)
         done = done | (token_out == eos_id)
         tokens.append(token_out)
         entropies.append(entropy)

@@ -15,12 +15,15 @@ line and takes ops.flash_attention.trainable_attention (the row-4 kernels);
 (torch.utils.checkpoint, in place of jax.checkpoint). The shared-prefix
 prefill (`prefill_shared_prefix`) runs the rows' common prompt prefix once
 and the rest through ops.flash_attention.flash_attention_prefixed (row 6 on
-the card). The P-tuning prefix, the serving slab and the ChatGLM2 geometry
-wait for later slices.
+the card). With REVISIONLLM_FUSED_MLP=1 every int8 MLP tail runs through
+ops.quant.w8a8_mlp_fused (row 8 on the card). Int4 trees ({"q4", "scale4"})
+run through the same dispatch (row 7). The P-tuning prefix, the serving slab
+and the ChatGLM2 geometry wait for later slices.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -35,7 +38,16 @@ from revisionllm_tpu_torch.ops.flash_attention import (
     trainable_attention,
 )
 from revisionllm_tpu_torch.ops.norms import rms_norm
-from revisionllm_tpu_torch.ops.quant import q8_apply, q8_apply_multi, quantize_int8
+from revisionllm_tpu_torch.ops.quant import (
+    _is_q8,
+    q8_apply,
+    q8_apply_multi,
+    quantize_activation_rows,
+    quantize_int4,
+    quantize_int8,
+    w8a8_mlp_fused,
+    w8a8_prequant_matmul,
+)
 from revisionllm_tpu_torch.ops.rope import apply_rope_tables, rope_angles, rope_tables
 from revisionllm_tpu_torch.utils.device import resolve_device
 
@@ -77,47 +89,57 @@ def init_params(
     seed: int = 0,
     dtype=None,
     device=None,
-    quantize: bool = False,
+    quantize: Union[bool, str] = False,
     quantize_lm_head: bool = True,
 ) -> Params:
     """Random init (scaled normal) from `seed`, on `device` (default CUDA).
 
-    quantize=True draws one layer's matrix at a time and keeps only its int8
-    values and scales, so a 7B tree never holds a full-precision copy; the
-    lm_head is quantized too unless quantize_lm_head=False (the training
-    base keeps a dense lm_head, as train_cli does), and the embedding keeps
-    `dtype`. The numbers
-    differ from the JAX package's init (another generator); parity tests
-    carry JAX's weights across with models/weights.py instead."""
+    quantize=True (or "int8") draws one layer's matrix at a time and keeps
+    only its int8 values and scales, so a 7B tree never holds a
+    full-precision copy; quantize="int4" keeps group-128 int4 weights
+    ({"q4", "scale4"}, as quantize_llama_params_int4). The lm_head is
+    quantized too unless quantize_lm_head=False (the training base keeps a
+    dense lm_head, as train_cli does), and the embedding keeps `dtype`. The
+    numbers differ from the JAX package's init (another generator); parity
+    tests carry JAX's weights across with models/weights.py instead."""
     device = resolve_device(device)
     dtype = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     dims = _dims(cfg)
     L = cfg.num_layers
+    fmt = {False: None, True: "int8", "int8": "int8", "int4": "int4"}[quantize]
 
     def normal(shape, std):
         return torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * std
 
-    def matrix(n, din, dout, quantize=quantize):
-        # one [din, dout] draw at a time, so quantize=True holds at most one
-        # layer's matrix in f32; n=None gives an unstacked matrix
+    def matrix(n, din, dout, fmt=fmt):
+        # one [din, dout] draw at a time, so a quantized tree holds at most
+        # one layer's matrix in f32; n=None gives an unstacked matrix
         std = din ** -0.5
-        if quantize:
+        if fmt == "int8":
             out = {
                 "q8": torch.empty((n or 1, din, dout), dtype=torch.int8, device=device),
                 "scale": torch.empty((n or 1, dout), dtype=torch.float32, device=device),
+            }
+        elif fmt == "int4":
+            out = {
+                "q4": torch.empty((n or 1, din // 2, dout), dtype=torch.uint8, device=device),
+                "scale4": torch.empty((n or 1, din // 128, dout), dtype=torch.float32,
+                                      device=device),
             }
         else:
             out = torch.empty((n or 1, din, dout), dtype=dtype, device=device)
         for i in range(n or 1):
             w = normal((din, dout), std)
-            if quantize:
+            if fmt == "int8":
                 out["q8"][i], out["scale"][i] = quantize_int8(w)
+            elif fmt == "int4":
+                out["q4"][i], out["scale4"][i] = quantize_int4(w)
             else:
                 out[i] = w.to(dtype)
         if n is None:
-            return {k: v[0] for k, v in out.items()} if quantize else out[0]
+            return {k: v[0] for k, v in out.items()} if fmt else out[0]
         return out
 
     layers: Params = {}
@@ -129,7 +151,8 @@ def init_params(
         "embed": normal((cfg.vocab_size, cfg.hidden_size), 0.02).to(dtype),
         "layers": layers,
         "final_norm": torch.ones((cfg.hidden_size,), dtype=dtype, device=device),
-        "lm_head": matrix(None, cfg.hidden_size, cfg.vocab_size, quantize and quantize_lm_head),
+        "lm_head": matrix(None, cfg.hidden_size, cfg.vocab_size,
+                          fmt if quantize_lm_head else None),
     }
 
 
@@ -179,8 +202,36 @@ def _attention_block(cfg, lp, x, rope, kv_lens, lora_lp=None, lora_scale=0.0, tr
     return _lora_apply(o, lp["o_proj"], lo, lora_scale), k, v
 
 
+_FUSED_MLP: Optional[bool] = None
+
+
+def set_fused_mlp(enabled: Optional[bool]) -> None:
+    """Override the fused-MLP switch (None = back to the environment)."""
+    global _FUSED_MLP
+    _FUSED_MLP = enabled
+
+
+def _fused_mlp_enabled() -> bool:
+    """REVISIONLLM_FUSED_MLP=1 (default off, as in JAX): the SwiGLU tail of
+    every int8 MLP runs through ops.quant.w8a8_mlp_fused."""
+    if _FUSED_MLP is not None:
+        return _FUSED_MLP
+    return os.environ.get("REVISIONLLM_FUSED_MLP", "0") == "1"
+
+
 def _mlp_block(lp, x, lora_lp=None, lora_scale=0.0):
     if lora_lp is None:
+        if _fused_mlp_enabled() and _is_q8(lp["gate_proj"]) and _is_q8(lp["down_proj"]):
+            # JAX's fused branch (llama.py:238-262): it checks neither W8A8
+            # nor M, so the decode step takes it too when the megakernel is
+            # off. The down_proj input leaves row 8 already quantized
+            x2 = x.reshape(-1, x.shape[-1])
+            xq, xs = quantize_activation_rows(x2)
+            hq, hs = w8a8_mlp_fused(xq, xs, lp["gate_proj"]["q8"], lp["gate_proj"]["scale"],
+                                    lp["up_proj"]["q8"], lp["up_proj"]["scale"])
+            out = w8a8_prequant_matmul(hq, hs, lp["down_proj"]["q8"], lp["down_proj"]["scale"],
+                                       out_dtype=x.dtype)
+            return out.reshape(*x.shape[:-1], out.shape[-1])
         g_lin, up = q8_apply_multi(x, (lp["gate_proj"], lp["up_proj"]))
         return q8_apply(F.silu(g_lin) * up, lp["down_proj"])
     g_lin, up = (_lora_apply(x, lp[n], lora_lp.get(n), lora_scale) for n in ("gate_proj", "up_proj"))

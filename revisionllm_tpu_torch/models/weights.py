@@ -2,12 +2,13 @@
 revisionllm_tpu/models/convert.py's hand-over to the device.
 
 `params_from_numpy` turns a parameter tree given as nested dicts / lists of
-NumPy arrays -- the JAX package's llama tree (including {"q8", "scale"}
-leaves), its vision (ClipEncoder) tree or a LoRA tree, e.g.
-`jax.tree.map(np.asarray, params)` -- into the same tree of torch tensors on
-`device`; `requires_grad=True` marks the floating-point leaves of a tree to
-be trained (LoRA, vision). Loading HF checkpoints
-(convert.py, eval/loader.py) waits until real weights are in the repository.
+NumPy arrays -- the JAX package's llama tree (including int8 {"q8",
+"scale"} and int4 {"q4", "scale4"} leaves), its vision (ClipEncoder) tree
+or a LoRA tree, e.g. `jax.tree.map(np.asarray, params)` -- into the same
+tree of torch tensors on `device`; `requires_grad=True` marks the
+floating-point leaves of a tree to be trained (LoRA, vision). Loading HF
+checkpoints (convert.py, eval/loader.py) waits until real weights are in
+the repository.
 """
 
 from __future__ import annotations
@@ -37,12 +38,13 @@ def params_from_numpy(
 ) -> Any:
     """Nested dicts / lists / tuples of arrays -> the same structure of
     tensors on `device`. `dtype`, when given, casts floating-point leaves,
-    except int8 scales ("scale" leaves), which stay f32; int8 stays int8."""
+    except the quantization scales ("scale" and "scale4" leaves), which stay
+    f32; int8 stays int8 and packed int4 stays uint8."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype, k, requires_grad) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device, dtype, _key, requires_grad) for v in tree)
-    t = _tensor(tree, device, dtype, keep=_key == "scale")
+    t = _tensor(tree, device, dtype, keep=_key in ("scale", "scale4"))
     if requires_grad and t.is_floating_point():
         t.requires_grad_(True)
     return t

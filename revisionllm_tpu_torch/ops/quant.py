@@ -13,6 +13,12 @@ keeps JAX's dispatch rule (ops/quant.py:237-276):
   as if the matmul were exact;
 - otherwise exact dequantization, then a matmul.
 
+Int4 weights ({"q4", "scale4"}, group-wise, two nibbles a byte) take
+`q4_apply`: row 7 (`int4_matmul`, csrc/int4_matmul.cu) at M <= 256 or with
+REVISIONLLM_Q4_PALLAS=all, else dequantize-then-matmul. The fused W8A8 MLP
+tail (`w8a8_mlp_fused`, row 8, csrc/w8a8_mlp_fused.cu) and
+`w8a8_prequant_matmul` serve models/llama.py's REVISIONLLM_FUSED_MLP branch.
+
 `set_exact_trace(True)` (the trainer's `_dequant_trace`) sends every call to
 the differentiable dequantize-then-matmul route, on any device and any M, as
 JAX's exact-trace rule does (:221-234). K1 and `torch._int_mm` have no
@@ -59,13 +65,17 @@ def int8_matmul_plain(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor) 
     return (acc * scale).to(x.dtype).reshape(*x.shape[:-1], N)
 
 
-def _q8_plan(M: int, K: int, N: int, device: torch.device) -> Tuple[int, int, int, int]:
-    """(mt, padded N, K splits, K rows per split) for K1, cached per shape.
+def _plan(M: int, K: int, N: int, device: torch.device,
+          w_stage: int = 64 * 128) -> Tuple[int, int, int, int]:
+    """(mt, padded N, K splits, K rows per split) for K1 and row 7, cached
+    per shape.
 
-    Mirrors csrc/int8_matmul.cu: blocks of 128 columns, 64-row stages, 4
-    stages of x and int8 W plus one widened W tile in shared memory. K is
+    Mirrors csrc/int8_matmul.cu and csrc/int4_matmul.cu: blocks of 128
+    columns, 64-row stages, 4 stages of x and of the weight tile (`w_stage`
+    bytes: 64 x 128 int8 for K1; 32 x 128 packed bytes and a row of 128 f32
+    group scales for row 7) plus one widened W tile in shared memory. K is
     split so that the grid fills one wave of resident blocks."""
-    key = (M, K, N, device.index)
+    key = (M, K, N, device.index, w_stage)
     plan = _PLANS.get(key)
     if plan is None:
         mt = 1
@@ -73,7 +83,7 @@ def _q8_plan(M: int, K: int, N: int, device: torch.device) -> Tuple[int, int, in
             mt *= 2
         n_pad = -(-N // 128) * 128
         k_tiles = -(-K // 64)
-        smem = 4 * (mt * 16 * 72 * 2 + 64 * 128) + 64 * 136 * 2
+        smem = 4 * (mt * 16 * 72 * 2 + w_stage) + 64 * 136 * 2
         per_sm = max(1, min((228 * 1024) // (smem + 1024), 8))
         slots = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
         splitk = max(1, min(round(slots / (n_pad // 128)), k_tiles))
@@ -108,7 +118,7 @@ def int8_matmul(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor) -> tor
             f"{tuple(x2.shape)}, w {w_q8.dtype} {tuple(w_q8.shape)}, scale {scale.dtype} "
             f"{tuple(scale.shape)}"
         )
-    mt, n_pad, splitk, k_per_split = _q8_plan(M, K, N, dev)
+    mt, n_pad, splitk, k_per_split = _plan(M, K, N, dev)
     ws = torch.empty((splitk, mt * 16, n_pad), dtype=torch.float32, device=dev)
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     fn = kernels.function(
@@ -124,8 +134,9 @@ def int8_matmul(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor) -> tor
     return out.reshape(*x.shape[:-1], N)
 
 
-def _quantize_activation_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-row absmax int8 of [..., K] -> (int8 [M, K], f32 scale [M, 1])."""
+def quantize_activation_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row absmax int8 of [..., K] -> (int8 [M, K], f32 scale [M, 1]):
+    the dynamic-activation half of W8A8 (JAX's quantize_activation_rows)."""
     x2 = x.reshape(-1, x.shape[-1])
     # abs and max are exact in x's own type, so this is the f32 absmax
     absmax = x2.abs().amax(dim=-1, keepdim=True).float()
@@ -135,23 +146,29 @@ def _quantize_activation_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
     return x_q8, x_scale
 
 
+def _int8_dot(x_q8: torch.Tensor, w_q8: torch.Tensor) -> torch.Tensor:
+    """Exact int32 product of int8 x [M, K] and int8 w [K, N]. On the card
+    torch._int_mm wants M > 16 (fewer rows are padded to 17) and takes
+    cuBLAS's fast int8 kernel only for a column-major weight, so the weight
+    is transposed for the call (the stored layout stays [K, N] row-major, as
+    in JAX). The copy is redone on every call: a known cost, queued in
+    ROADMAP's speed work."""
+    M = x_q8.shape[0]
+    if x_q8.is_cuda:
+        xp = torch.nn.functional.pad(x_q8, (0, 0, 0, 17 - M)) if M <= 16 else x_q8
+        return torch._int_mm(xp, w_q8.t().contiguous().t())[:M]
+    if M > 16:
+        return torch._int_mm(x_q8, w_q8)
+    return x_q8.int() @ w_q8.int()
+
+
 def _w8a8_product(
     x: torch.Tensor, x_q8: torch.Tensor, x_scale: torch.Tensor,
     w_q8: torch.Tensor, w_scale: torch.Tensor,
 ) -> torch.Tensor:
-    # int8 x int8 -> exact int32. torch._int_mm wants M > 16 on the card,
-    # where cuBLAS takes its fast int8 kernel only for a column-major
-    # weight, so the weight is transposed for the call (the stored layout
-    # stays [K, N] row-major, as in JAX). The copy is redone on every call:
-    # a known cost, queued in ROADMAP's speed work
     if x_q8.is_cuda:
         kernels.forbid_grad("torch._int_mm (W8A8)", x, x_scale, w_scale)
-        acc = torch._int_mm(x_q8, w_q8.t().contiguous().t())
-    elif x_q8.shape[0] > 16:
-        acc = torch._int_mm(x_q8, w_q8)
-    else:
-        acc = x_q8.int() @ w_q8.int()
-    out = torch.mul(acc, x_scale)  # int32 -> f32 rounding as acc.float()
+    out = torch.mul(_int8_dot(x_q8, w_q8), x_scale)  # int32 -> f32 rounding as acc.float()
     out.mul_(w_scale)
     return out.to(x.dtype).reshape(*x.shape[:-1], w_q8.shape[-1])
 
@@ -165,7 +182,7 @@ class _W8A8Product(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, *weights):
-        x_q8, x_scale = _quantize_activation_rows(x)
+        x_q8, x_scale = quantize_activation_rows(x)
         pairs = list(zip(weights[0::2], weights[1::2]))
         ctx.save_for_backward(*weights)
         return tuple(_w8a8_product(x, x_q8, x_scale, wq, ws) for wq, ws in pairs)
@@ -229,7 +246,10 @@ def _is_q8(w) -> bool:
 
 
 def q8_apply(x: torch.Tensor, w) -> torch.Tensor:
-    """Matmul dispatch: w is a dense [K, N] tensor or a {'q8', 'scale'} dict."""
+    """Matmul dispatch: w is a dense [K, N] tensor, a {'q8', 'scale'} dict
+    or an int4 {'q4', 'scale4'} dict (q4_apply)."""
+    if isinstance(w, dict) and "q4" in w:
+        return q4_apply(x, w)
     if not _is_q8(w):
         return x @ w
     if _EXACT_TRACE:
@@ -246,7 +266,8 @@ def q8_apply_multi(x: torch.Tensor, ws: Sequence):
     """Apply several matrices to the SAME activation, sharing one activation
     quantization on the W8A8 path (bit-exact vs separate w8a8_matmul calls,
     with the summed straight-through gradient); per-matrix q8_apply
-    otherwise, and always under the exact trace."""
+    otherwise (int4 weights included, as JAX's :296-313), and always under
+    the exact trace."""
     ws = tuple(ws)
     M = x.numel() // x.shape[-1]
     if not (
@@ -301,3 +322,216 @@ def quantize_llama_params(params, quantize_lm_head: bool = True):
         q, s = quantize_int8(params["lm_head"])
         out["lm_head"] = {"q8": q, "scale": s}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Int4 (W4A16): group-wise weights, two nibbles a byte; kernel row 7
+# ---------------------------------------------------------------------------
+
+Q4_GROUP = 128
+
+
+def quantize_int4(w: torch.Tensor, group: int = Q4_GROUP) -> Tuple[torch.Tensor, torch.Tensor]:
+    """w: [..., K, N] -> (uint8 [..., K//2, N], f32 scales [..., K//group, N]).
+
+    Group-wise absmax along K per output column, int4 range [-7, 7]; rows 2i
+    (low nibble) and 2i+1 (high nibble) pack into byte i, as JAX's
+    quantize_int4."""
+    K, N = w.shape[-2], w.shape[-1]
+    if K % group or K % 2:
+        raise ValueError(f"K={K} must be a multiple of the group {group} and of 2")
+    wf = w.float().reshape(*w.shape[:-2], K // group, group, N)
+    absmax = wf.abs().amax(dim=-2)
+    scale = torch.where(absmax > 0, absmax / 7.0, torch.ones_like(absmax))
+    q = torch.clamp(torch.round(wf / scale.unsqueeze(-2)), -7, 7).to(torch.int32)
+    q = q.reshape(*w.shape[:-2], K, N)
+    packed = (q[..., 0::2, :] & 0xF) | ((q[..., 1::2, :] & 0xF) << 4)
+    return packed.to(torch.uint8), scale
+
+
+def unpack_int4(packed: torch.Tensor) -> torch.Tensor:
+    """uint8 [..., K//2, N] -> int8 [..., K, N] in [-8, 7]: each nibble
+    moved to the top of an int8 and shifted back arithmetically, which
+    sign-extends it (JAX's unpack_int4 returns the same values as int32)."""
+    lo = (packed << 4).view(torch.int8) >> 4
+    hi = packed.view(torch.int8) >> 4
+    K2, N = packed.shape[-2], packed.shape[-1]
+    return torch.stack([lo, hi], dim=-2).reshape(*packed.shape[:-2], 2 * K2, N)
+
+
+def dequantize_int4(packed: torch.Tensor, scale: torch.Tensor, dtype=torch.bfloat16,
+                    group: int = Q4_GROUP) -> torch.Tensor:
+    """q * scale per group in f32, rounded once to `dtype`."""
+    q = unpack_int4(packed)
+    K, N = q.shape[-2], q.shape[-1]
+    qg = q.reshape(*q.shape[:-2], K // group, group, N).float()
+    return (qg * scale.unsqueeze(-2)).reshape(*q.shape[:-2], K, N).to(dtype)
+
+
+def int4_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
+                      group: int = Q4_GROUP) -> torch.Tensor:
+    """Row 7's maths step by step: the weight q * scale rounded to x's type
+    (as the Pallas body does before its dot, quant.py:603-607), then the
+    product with f32 accumulation, cast to x's type."""
+    w = dequantize_int4(w_packed, scale, x.dtype, group)
+    K, N = w.shape
+    acc = x.reshape(-1, K).float() @ w.float()
+    return acc.to(x.dtype).reshape(*x.shape[:-1], N)
+
+
+def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
+                group: int = Q4_GROUP) -> torch.Tensor:
+    """x: [..., K]; w_packed: [K//2, N] uint8; scale: [K//group, N] f32 ->
+    [..., N] in x's type.
+
+    A CPU tensor takes `int4_matmul_plain`; a CUDA tensor launches row 7
+    (csrc/int4_matmul.cu), one launch per 256 rows of x (the decode step's
+    M is 64; REVISIONLLM_Q4_PALLAS=all sends the prefill's rows too)."""
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, w_packed, scale, group)
+    kernels.forbid_grad("int4_matmul", x, scale)
+    K = x.shape[-1]
+    N = w_packed.shape[-1]
+    x2 = x.reshape(-1, K)
+    M = x2.shape[0]
+    dev = x.device
+    if not (
+        M >= 1 and group == Q4_GROUP and K % group == 0 and N % 16 == 0
+        and w_packed.shape == (K // 2, N) and scale.shape == (K // group, N)
+        and x2.dtype == torch.bfloat16 and w_packed.dtype == torch.uint8
+        and scale.dtype == torch.float32 and w_packed.device == dev and scale.device == dev
+        and x2.is_contiguous() and w_packed.is_contiguous() and scale.is_contiguous()
+        and x2.data_ptr() % 16 == 0 and w_packed.data_ptr() % 16 == 0
+        and scale.data_ptr() % 16 == 0
+    ):
+        raise ValueError(
+            "int4_matmul kernel takes contiguous 16-byte-aligned bf16 x [M, K%128==0], uint8 "
+            f"w [K/2, N%16==0] and f32 scale [K/128, N], group 128, on one device; got x "
+            f"{x2.dtype} {tuple(x2.shape)}, w {w_packed.dtype} {tuple(w_packed.shape)}, scale "
+            f"{scale.dtype} {tuple(scale.shape)}, group {group}"
+        )
+    out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
+    fn = kernels.function(
+        "int4_matmul", "q4_matmul_bf16",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    )
+    for m0 in range(0, M, KERNEL_MAX_M):
+        rows = min(KERNEL_MAX_M, M - m0)
+        mt, n_pad, splitk, k_per_split = _plan(rows, K, N, dev, 32 * 128 + 128 * 4)
+        ws = torch.empty((splitk, mt * 16, n_pad), dtype=torch.float32, device=dev)
+        err = fn(
+            x2[m0:].data_ptr(), w_packed.data_ptr(), scale.data_ptr(), ws.data_ptr(),
+            out[m0:].data_ptr(), rows, K, N, mt, splitk, k_per_split, kernels.stream_of(x2),
+        )
+        kernels.check_launch("int4_matmul", err)
+        kernels.LAUNCHES["int4_matmul"] += 1
+    return out.reshape(*x.shape[:-1], N)
+
+
+def _q4_all_kernel() -> bool:
+    """REVISIONLLM_Q4_PALLAS=all: every int4 matmul, the prefill's too, takes
+    row 7 instead of dequantize-then-matmul (JAX's _q4_all_pallas)."""
+    return os.environ.get("REVISIONLLM_Q4_PALLAS", "") == "all"
+
+
+def q4_apply(x: torch.Tensor, w, group: int = Q4_GROUP) -> torch.Tensor:
+    """Matmul for {'q4', 'scale4'} weights, JAX's rule (quant.py:677-692):
+    M <= 256 (every decode matmul) or REVISIONLLM_Q4_PALLAS=all -> row 7;
+    otherwise (the prefill) the weight dequantized to x's type, then one
+    matmul. Under the exact trace always the dequant route."""
+    M = x.numel() // x.shape[-1]
+    if not _EXACT_TRACE and (M <= KERNEL_MAX_M or _q4_all_kernel()):
+        return int4_matmul(x, w["q4"], w["scale4"], group)
+    return x @ dequantize_int4(w["q4"], w["scale4"], x.dtype, group)
+
+
+def quantize_llama_params_int4(params, group: int = Q4_GROUP, quantize_lm_head: bool = True):
+    """Int4 variant of quantize_llama_params (the 7B weights in 3.4 GB):
+    stacked layer matrices (and the lm_head) become {'q4', 'scale4'} dicts."""
+    out = dict(params)
+    layers = {}
+    for name, w in params["layers"].items():
+        if w.ndim < 3 or name.endswith("_norm") or name.endswith("_bias"):
+            layers[name] = w
+        else:
+            q, s = quantize_int4(w, group)
+            layers[name] = {"q4": q, "scale4": s}
+    out["layers"] = layers
+    if quantize_lm_head and not isinstance(params["lm_head"], dict):
+        q, s = quantize_int4(params["lm_head"], group)
+        out["lm_head"] = {"q4": q, "scale4": s}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Fused W8A8 MLP tail (REVISIONLLM_FUSED_MLP): kernel row 8
+# ---------------------------------------------------------------------------
+
+
+def w8a8_mlp_fused_plain(x_q8, x_scale, g_q8, g_scale, u_q8, u_scale):
+    """Row 8's maths (JAX's w8a8_mlp_reference, quant.py:869-881): exact
+    int32 gate and up dots, f32 rescale, h = silu(g) * u in f32 as
+    g / (1 + exp(-g)) * u, per-row absmax over all N, int8 quantization.
+    Returns (h_q8 [M, N] int8, h_scale [M, 1] f32)."""
+    g = _int8_dot(x_q8, g_q8).float() * x_scale * g_scale[None, :]
+    u = _int8_dot(x_q8, u_q8).float() * x_scale * u_scale[None, :]
+    h = (g / (1.0 + torch.exp(-g))) * u
+    absmax = h.abs().amax(dim=-1, keepdim=True)
+    hs = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    return torch.clamp(torch.round(h / hs), -127, 127).to(torch.int8), hs
+
+
+def w8a8_mlp_fused(x_q8, x_scale, g_q8, g_scale, u_q8, u_scale):
+    """(x_q8 [M, K] int8, x_scale [M, 1] f32) x gate/up ([K, N] int8, [N]
+    f32) -> (h_q8 [M, N] int8, h_scale [M, 1] f32), h = silu(x G) * (x U).
+
+    A CPU tensor takes `w8a8_mlp_fused_plain`; a CUDA tensor launches row 8
+    (csrc/w8a8_mlp_fused.cu: the int8 GEMM with the SwiGLU epilogue, then
+    the per-row requantization), and the bf16 [M, N] intermediate never
+    exists."""
+    if x_q8.device.type == "cpu":
+        return w8a8_mlp_fused_plain(x_q8, x_scale, g_q8, g_scale, u_q8, u_scale)
+    kernels.forbid_grad("w8a8_mlp_fused", x_scale, g_scale, u_scale)
+    M, K = x_q8.shape
+    N = g_q8.shape[-1]
+    dev = x_q8.device
+    ints = (x_q8, g_q8, u_q8)
+    floats = (x_scale, g_scale, u_scale)
+    if not (
+        M >= 1 and K % 16 == 0 and N % 16 == 0 and x_scale.shape == (M, 1)
+        and g_q8.shape == (K, N) and u_q8.shape == (K, N)
+        and g_scale.shape == (N,) and u_scale.shape == (N,)
+        and all(t.dtype == torch.int8 and t.device == dev and t.is_contiguous()
+                and t.data_ptr() % 16 == 0 for t in ints)
+        and all(t.dtype == torch.float32 and t.device == dev and t.is_contiguous()
+                for t in floats)
+    ):
+        raise ValueError(
+            "w8a8_mlp_fused kernel takes contiguous 16-byte-aligned int8 x [M, K%16==0], "
+            "gate/up [K, N%16==0] and f32 scales [M, 1], [N] on one device; got x "
+            f"{x_q8.dtype} {tuple(x_q8.shape)}, gate {g_q8.dtype} {tuple(g_q8.shape)}, "
+            f"x_scale {x_scale.dtype} {tuple(x_scale.shape)}"
+        )
+    h = torch.empty((M, N), dtype=torch.float32, device=dev)
+    rowmax = torch.zeros((M,), dtype=torch.float32, device=dev)
+    hq = torch.empty((M, N), dtype=torch.int8, device=dev)
+    hs = torch.empty((M, 1), dtype=torch.float32, device=dev)
+    fn = kernels.function("w8a8_mlp_fused", "w8a8_mlp_fused",
+                          [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    err = fn(x_q8.data_ptr(), x_scale.data_ptr(), g_q8.data_ptr(), g_scale.data_ptr(),
+             u_q8.data_ptr(), u_scale.data_ptr(), h.data_ptr(), rowmax.data_ptr(),
+             hq.data_ptr(), hs.data_ptr(), M, K, N, kernels.stream_of(x_q8))
+    kernels.check_launch("w8a8_mlp_fused", err)
+    kernels.LAUNCHES["w8a8_mlp_fused"] += 1
+    return hq, hs
+
+
+def w8a8_prequant_matmul(x_q8: torch.Tensor, x_scale: torch.Tensor, w_q8: torch.Tensor,
+                         w_scale: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """int8 x int8 for an activation that is already quantized (row 8's
+    output): exact int32 product, (acc * x_scale * w_scale) in f32, cast to
+    out_dtype. An int8 dot outside any Pallas kernel in JAX (:856-866), so
+    here `torch._int_mm` as for W8A8."""
+    if x_q8.is_cuda:
+        kernels.forbid_grad("torch._int_mm (W8A8)", x_scale, w_scale)
+    return (_int8_dot(x_q8, w_q8).float() * x_scale * w_scale).to(out_dtype)

@@ -33,15 +33,20 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("int8_matmul", "flash_attention", "decode_attention", "flash_attention_vjp")
+KERNELS = (
+    "int8_matmul", "flash_attention", "decode_attention", "flash_attention_vjp",
+    "int4_matmul", "w8a8_mlp_fused", "decode_step",
+)
 # launch counters, one per kernel: flash_attention.cu holds K2, the LSE
 # forward (row 4's flash_fwd_lse and row 5's flash_attention_lse, counted
 # by their wrappers) and row 6 (flash_attention_prefixed),
-# flash_attention_vjp.cu row 4's dq and dk/dv
+# flash_attention_vjp.cu row 4's dq and dk/dv; int4_matmul.cu row 7,
+# w8a8_mlp_fused.cu row 8, decode_step.cu row 9 (decode_step_fused)
 COUNTERS = (
     "int8_matmul", "flash_attention", "decode_attention",
     "flash_fwd_lse", "flash_dq", "flash_dkv",
     "flash_attention_lse", "flash_attention_prefixed",
+    "int4_matmul", "w8a8_mlp_fused", "decode_step_fused",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -4,6 +4,7 @@ mis-scaled or dropped tile even where the whole tensor barely moves. Runs
 on the CPU on the plain versions (causal, T = 512, two heads)."""
 
 import math
+import os
 import sys
 from pathlib import Path
 
@@ -94,3 +95,49 @@ def test_stage2_geometry_of_the_pipeline():
     p1, t1, live1 = chip_smoke.prompt_geometry("mad_grounding", 250, 12)
     p2, t2, live2 = chip_smoke.prompt_geometry("retrieval", 100, 8)
     assert p1 == p2 > 1 and t1 == live1 + 12 and t2 == live2 + 8
+
+
+def test_row7_and_row8_planted_faults_fail_the_limits():
+    """Rows 7 and 8's planted faults, on their plain versions: the nibbles
+    of each byte swapped; the absmax taken over the first 64 columns only
+    and silu left out. Each moves the worst (64-row, 128-column) block by
+    far more than the card's tile limit; the plain versions hold against
+    themselves."""
+    from revisionllm_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator().manual_seed(2)
+    x = torch.randn((64, 256), generator=gen).to(torch.bfloat16)
+    q, s = Q.quantize_int4(torch.randn((256, 384), generator=gen) * 256 ** -0.5)
+    want = Q.int4_matmul_plain(x, q, s)
+    bad = Q.int4_matmul_plain(x, ((q & 0xF) << 4) | (q >> 4), s)
+    assert chip_smoke.hold_cols("row 7", want, want, {"nibbles swapped": bad}) == 0.0
+    xq, xs = Q.quantize_activation_rows(torch.randn((128, 256), generator=gen))
+    gq, gs = Q.quantize_int8(torch.randn((256, 512), generator=gen) * 256 ** -0.5)
+    uq, us = Q.quantize_int8(torch.randn((256, 512), generator=gen) * 256 ** -0.5)
+    hq, hs = Q.w8a8_mlp_fused_plain(xq, xs, gq, gs, uq, us)
+    g = (xq.int() @ gq.int()).float() * xs * gs
+    u = (xq.int() @ uq.int()).float() * xs * us
+    h = (g / (1.0 + torch.exp(-g))) * u
+    tile = h[:, :64].abs().amax(dim=-1, keepdim=True) / 127.0
+    out = hq.float() * hs
+    for bad in (h.div(tile).round().clamp(-127, 127) * tile, chip_smoke._quantize_per_row(g * u)):
+        assert chip_smoke.hold_cols("row 8", out, out, {"fault": bad}) == 0.0
+
+
+def test_configurations_expect_the_chunk_launches(monkeypatch):
+    """One stage-1 chunk is one prefill and 11 decode steps of 32 layers:
+    A launches row 8 once per prefill layer and row 9 once per step (the
+    lm_head on K1 after the prefill and each step), B row 7 for the 7
+    matrices of every layer and the lm_head at each step, plus the
+    prefill's lm_head (M = 64 <= 256). `switched` sets a configuration's
+    switches and restores the environment."""
+    a, b = (conf["launches"] for conf in chip_smoke.CONFIGS.values())
+    assert (a["w8a8_mlp_fused"], a["decode_step_fused"], a["int8_matmul"]) == (32, 11, 12)
+    assert b["int4_matmul"] == 11 * (32 * 7 + 1) + 1 and b["decode_attention"] == 11 * 32
+    monkeypatch.setenv("REVISIONLLM_Q4_PALLAS", "all")
+    monkeypatch.delenv("REVISIONLLM_MEGAKERNEL", raising=False)
+    with chip_smoke.switched({"REVISIONLLM_MEGAKERNEL": "1"}):
+        assert os.environ["REVISIONLLM_MEGAKERNEL"] == "1"
+        assert "REVISIONLLM_Q4_PALLAS" not in os.environ
+    assert os.environ["REVISIONLLM_Q4_PALLAS"] == "all"
+    assert "REVISIONLLM_MEGAKERNEL" not in os.environ

@@ -46,7 +46,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models.lora", "train.trainer", "train.train_cli", "data.dataset",
                 "ops.windows", "models.revisionllm", "models.adapter", "eval.metrics",
                 "eval.stage1", "eval.stage2", "eval.fusion", "eval.loader",
-                "data.prefetcher", "utils.cli"):
+                "data.prefetcher", "utils.cli", "ops.decode_step"):
         assert f"revisionllm_tpu_torch.{mod}" in res["imported"]
 
 
@@ -133,6 +133,36 @@ def test_wrappers_count_nothing_on_the_cpu():
                                       torch.tensor([8]), 1)
     flash_attention.flash_attention_lse(qkv, g, g, causal=False)
     flash_attention.flash_attention_prefixed(qkv, qkv, qkv, g[:, :2], g[:, :2])
+    q4, s4 = quant.quantize_int4(torch.randn(128, 16))
+    quant.int4_matmul(torch.randn(4, 128), q4, s4)
+    xq, xs = quant.quantize_activation_rows(torch.randn(4, 32))
+    quant.w8a8_mlp_fused(xq, xs, q, s, q, s)
+    assert all(n == 0 for n in kernels.LAUNCHES.values())
+
+
+def test_megakernel_takes_its_plain_version_on_the_cpu():
+    """ops/decode_step.py: a CPU tensor runs the plain version, launches
+    nothing and writes this step's k/v into gen slot `step` only."""
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.models import llama
+    from revisionllm_tpu_torch.ops import decode_step
+    from revisionllm_tpu_torch.ops.rope import rope_angles
+    from revisionllm_tpu_torch.utils import kernels
+
+    cfg = LlamaConfig(vocab_size=64, hidden_size=256, intermediate_size=256, num_layers=1,
+                      num_heads=2, num_kv_heads=2, head_dim=128)
+    params = llama.init_params(cfg, seed=0, dtype=torch.float32, device="cpu", quantize=True)
+    lens = torch.tensor([5, 3])
+    pkv = {"kv": torch.randint(-127, 128, (1, 2, 2, 2, 5, 128), dtype=torch.int8),
+           "kvsc": torch.rand(1, 2, 2, 2, 5) * 0.02}
+    gen = decode_step.init_gen_cache(1, 2, 2, 128, 3, torch.float32)
+    cos, sin = (t[:, 0] for t in rope_angles((lens + 1)[:, None], 128))
+    kernels.reset_launches()
+    hidden, gen = decode_step.decode_step_fused(params, pkv, gen, lens, 1, torch.randn(2, 256),
+                                                cos, sin)
+    assert hidden.shape == (2, 256) and hidden.isfinite().all() and gen.shape[4] == 8
+    assert gen[:, :, :, :, 1].abs().sum() > 0
+    assert not gen[:, :, :, :, 0].any() and not gen[:, :, :, :, 2:].any()
     assert all(n == 0 for n in kernels.LAUNCHES.values())
 
 

@@ -81,7 +81,7 @@ def test_w8a8_matches_jax():
     want = JQ.w8a8_matmul(jnp.asarray(x), jnp.asarray(q), jnp.asarray(s))
     got = TQ.w8a8_matmul(torch.from_numpy(x), torch.from_numpy(q), torch.from_numpy(s))
     np.testing.assert_allclose(np_of(got), np_of(want), rtol=1e-6, atol=1e-6)
-    xq, _ = TQ._quantize_activation_rows(torch.from_numpy(x))
+    xq, _ = TQ.quantize_activation_rows(torch.from_numpy(x))
     xf = x.astype(np.float32)
     absmax = np.abs(xf).max(-1, keepdims=True)
     jxq = np.asarray(jnp.clip(jnp.round(jnp.asarray(xf) / jnp.asarray(absmax / 127.0)), -127, 127))

@@ -42,10 +42,12 @@ def adapter_kw(hidden, hierarchy=False, **kw):
                    feature_mode="cls" if hierarchy else "temporal"), **kw}
 
 
-def engines(hierarchy=False, ecfg_kw=S1_EVAL, kv_heads=4):
+def engines(hierarchy=False, ecfg_kw=S1_EVAL, kv_heads=4, quantize=None):
     """The tests/test_engine_batch.py engine (tiny f32 Llama, ClipEncoder
     adapter, FakeTokenizer with the numbers 0-299) in both packages, on
-    JAX's weights: (JAX engine, port engine on the CPU)."""
+    JAX's weights, transformed by the JAX function `quantize` when given
+    (e.g. quantize_llama_params_int4): (JAX engine, port engine on the
+    CPU)."""
     import jax.numpy as jnp
 
     from revisionllm_tpu.config import AdapterConfig as JAdapter
@@ -62,6 +64,8 @@ def engines(hierarchy=False, ecfg_kw=S1_EVAL, kv_heads=4):
     jcfg, tcfg = tiny_cfgs(kv_heads)
     kw = adapter_kw(jcfg.hidden_size, hierarchy)
     params = jllama.init_params(jcfg, jax.random.PRNGKey(0), jnp.float32)
+    if quantize is not None:
+        params = quantize(params)
     vision = jrl.init_vision_params(JAdapter(**kw), jax.random.PRNGKey(1), d_in=16)
     out = []
     for Engine, Adapter, Eval, Tok, cfg, p, v, extra in (
