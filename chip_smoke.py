@@ -6,8 +6,9 @@
 Every run goes through every phase, so every number it prints was
 measured in that run. Phases:
   1. the card's name and power limit (nvidia-smi);
-  2. build the eleven CUDA kernels (rows 4 and 5 share one __global__) from
-     the seven sources in csrc/ (one nvcc per source, all in parallel);
+  2. build the twelve CUDA kernels (rows 4 and 5 share one __global__) from
+     the eight sources in csrc/ (one nvcc per source, all in parallel; rows 9
+     and 10 share csrc/decode_common.cuh);
   3. each kernel against its plain PyTorch version on the card, at the
      stage-1 shapes (Vicuna-7B, chunk of 64 windows): max error against the
      stated tolerance, device time of the kernel, of the plain version and of
@@ -69,22 +70,29 @@ measured in that run. Phases:
      card against the plain path on the CPU, at full width, 2 layers and
      one seed, on a 10-minute movie: first-step logits and answers;
  12. rows 7 (int4_matmul, at the decode step's four shapes), 8
-     (w8a8_mlp_fused, at the prefill's M = 64 x T, K 4096, N 11008) and 9
-     (decode_step_fused, B 64 on the slice's weights) against their plain
-     versions by the limits of phase 7, each with planted faults that must
-     fail, device times, bounds and a yardstick (torch.matmul on the
-     dequantized weight; two torch._int_mm and the epilogue; the split
-     decode step);
+     (w8a8_mlp_fused, at the prefill's M = 64 x T, K 4096, N 11008), 9
+     (decode_step_fused, B 64 on the slice's weights) and 10
+     (decode_step_serve, B 64 on the slice's weights packed into the serving
+     chunks, a unified slab at step 11) against their plain versions by the
+     limits of phase 7 (rows 9 and 10 at 2 layers, and their 32-layer gap),
+     each with planted faults that must fail, device times, bounds and a
+     yardstick (torch.matmul on the dequantized weight; two torch._int_mm
+     and the epilogue; the split decode step; row 9 on the standard tree
+     and the split step on the packed tree);
  13. configurations A (int8, REVISIONLLM_FUSED_MLP=1 and
-     REVISIONLLM_MEGAKERNEL=1) and B (int4 weights) through ground_windows
+     REVISIONLLM_MEGAKERNEL=1), B (int4 weights) and C (the int8 tree packed
+     into the serving chunks, REVISIONLLM_SERVE=1) through ground_windows
      on the 1-hour movie at Vicuna-7B width and depth: chunk latency, q/s,
      peak memory, launches (fails unless A gives 32 row-8 and 11 row-9
-     launches and no K3, and B 2476 row-7 launches), prefill and decode-step
-     wall, enqueue and busy ms; then each against the CPU as in phase 5.
+     launches and no K3, B 2476 row-7 launches, and C 11 row-10, 12 K1 and
+     32 K2 launches and no K3, row 8 or row 9), prefill and decode-step
+     wall, enqueue and busy ms; then each against the CPU as in phase 5 (C
+     on both sides through the serve path, the CPU's through row 10's plain
+     version).
 
 The kernel checks of phases 3, 7, 10 and 12 run first, after the build
-(row 9's after phase 4, on the slice's weights); phase 13 runs after phase
-6; the pipeline runs after it, before training.
+(rows 9 and 10 after phase 4, on the slice's weights); phase 13 runs after
+phase 6; the pipeline runs after it, before training.
 Prints phase lines, then one JSON line of per-kernel numbers, the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Exits non-zero,
 with no result line, when CUDA is missing, when run outside a checkout of
@@ -124,6 +132,7 @@ REPLACES = {
     "int4_matmul": "revisionllm_tpu/ops/quant.py:580",
     "w8a8_mlp_fused": "revisionllm_tpu/ops/quant.py:732",
     "decode_step_fused": "revisionllm_tpu/ops/decode_step.py:135",
+    "decode_step_serve": "revisionllm_tpu/ops/decode_serve.py:227",
 }
 SOURCES = {
     "int8_matmul": "int8_matmul", "flash_attention": "flash_attention",
@@ -131,13 +140,14 @@ SOURCES = {
     "flash_dq": "flash_attention_vjp", "flash_dkv": "flash_attention_vjp",
     "flash_attention_lse": "flash_attention", "flash_attention_prefixed": "flash_attention",
     "int4_matmul": "int4_matmul", "w8a8_mlp_fused": "w8a8_mlp_fused",
-    "decode_step_fused": "decode_step",
+    "decode_step_fused": "decode_step", "decode_step_serve": "decode_serve",
 }
 SERVING = ("int8_matmul", "flash_attention", "decode_attention")
 TRAINING = ("flash_fwd_lse", "flash_dq", "flash_dkv")
 PIPELINE = ("flash_attention_lse", "flash_attention_prefixed")
 FUSED = ("w8a8_mlp_fused", "decode_step_fused")   # configuration A
 INT4 = ("int4_matmul",)                            # configuration B
+SERVE = ("decode_step_serve",)                     # configuration C
 SENTENCE = "a man opens the old door"
 TRAIN_STEPS = 6             # timed train steps after one warm-up
 
@@ -176,7 +186,8 @@ KERNEL_GROUPS = (
     ("row 4 flash_dkv", r"flash_dkv_kernel"),
     ("row 7 int4_matmul (q4_matmul + q4_finalize)", r"q4_matmul_kernel|q4_finalize_kernel"),
     ("row 8 w8a8_mlp_fused (GEMM + requantize)", r"mlp_gemm_kernel|mlp_quant_kernel"),
-    ("row 9 decode_step_fused", r"decode_step_kernel"),
+    ("row 9 decode_step_fused", r"step_kernel<.*GenCacheAttn"),
+    ("row 10 decode_step_serve", r"step_kernel<.*SlabAttn"),
     ("W8A8 GEMM (torch._int_mm)", r"gemm_s8|s8gemm|imma"),
     ("other library GEMMs", r"gemm|nvjet|xmma|cutlass"),
 )
@@ -530,11 +541,13 @@ def phase_slice(dev, runs):
     return launches, setup
 
 
-def step_breakdown(eng, movie, qf_np, mega=False):
+def step_breakdown(eng, movie, qf_np, step_kind="split"):
     """Where a chunk's time goes, on the engine's 64 windows of the movie, in
     the current switches: for the adapter + splice, the prefill and a decode
-    step (the median of 11; the megakernel's step, decode_step_mega, when
-    `mega`, else the split step), the wall time by CUDA events from an idle
+    step (the median of 11; `step_kind` "split" the split step, "mega" the
+    megakernel's step decode_step_mega, "serve" the serving layout's
+    decode_step_serve after a prefill into the unified slab), the wall time
+    by CUDA events from an idle
     device, the host's time to enqueue the part, and the device's busy time
     (its kernels summed under torch.profiler; the step's at step 5). A part
     whose wall time matches its enqueue time and exceeds its busy time is
@@ -575,10 +588,14 @@ def step_breakdown(eng, movie, qf_np, mega=False):
         (embeds, pos, lens), out["adapter_wall"], out["adapter_host"] = timed(adapter)
         lens = lens.to(torch.int32)
         prefill = partial(llama.prefill_kv, cfg, eng.params, embeds, pos, kv_lens=lens,
-                          kv_quant=True)
+                          kv_quant=True, kv_slab_slots=12 if step_kind == "serve" else None)
         (logits, pkv), out["prefill_wall"], out["prefill_host"] = timed(prefill)
         tok = llama.embed_tokens(eng.params, logits.argmax(-1)[:, None])
-        if mega:
+        if step_kind == "serve":
+            gen = None
+            step = partial(generation.decode_step_serve, cfg, eng.params, pkv, embeds.shape[1],
+                           lens)
+        elif step_kind == "mega":
             pkv = DS.pack_prompt_kv(pkv)
             gen = DS.init_gen_cache(cfg.num_layers, 64, cfg.num_kv_heads, cfg.head_dim, 12,
                                     torch.bfloat16, dev)
@@ -655,21 +672,27 @@ def _to(tree, device, grad=False):
     return tree.to(device)
 
 
-def compare_paths(dev, cfg, acfg, batch, num_frames, new_tokens, seed=0, quantize="int8"):
+def compare_paths(dev, cfg, acfg, batch, num_frames, new_tokens, seed=0, quantize="int8",
+                  pack=False):
     """Kernel path on `dev` against the plain path on the CPU, from the same
     seed, serving numerics on both (W8A8, KV8, f32 attention scores on the
-    CPU as in K2), in the current switches, on int8 or int4 weights.
-    Returns (max |logit diff|, max |logit|, token agreement, max entropy
-    diff)."""
+    CPU as in K2), in the current switches, on int8 or int4 weights, the
+    int8 layers packed into the serving chunks with `pack`. Returns (max
+    |logit diff|, max |logit|, token agreement, max entropy diff, calls of
+    row 10's plain version on the CPU side)."""
     import torch
     from revisionllm_tpu_torch.constants import IMAGE_TOKEN_INDEX
     from revisionllm_tpu_torch.models import generation, llama, revisionllm
     from revisionllm_tpu_torch.models.multimodal import build_splice_plan, stack_plans
-    from revisionllm_tpu_torch.ops import flash_attention, quant
+    from revisionllm_tpu_torch.ops import decode_serve, flash_attention, quant
 
     cpu = torch.device("cpu")
     params = llama.init_params(cfg, seed=seed, dtype=torch.bfloat16, device=cpu,
                                quantize=quantize)
+    if pack:
+        params["layers"] = decode_serve.pack_serving_weights(params["layers"])
+    plain_serve = decode_serve.decode_step_serve_plain
+    calls = []
     vision = revisionllm.init_vision_params(acfg, seed=seed + 1, d_in=acfg.d_model,
                                             dtype=torch.bfloat16, device=cpu)
     rng = np.random.default_rng(seed)
@@ -680,6 +703,7 @@ def compare_paths(dev, cfg, acfg, batch, num_frames, new_tokens, seed=0, quantiz
     quant.set_w8a8(True)
     generation.set_kv8(True)
     flash_attention.set_attn_bf16(False)
+    decode_serve.decode_step_serve_plain = lambda *a, **k: calls.append(1) or plain_serve(*a, **k)
     try:
         outs = {}
         for device in (dev, cpu):
@@ -698,16 +722,20 @@ def compare_paths(dev, cfg, acfg, batch, num_frames, new_tokens, seed=0, quantiz
         quant.set_w8a8(None)
         generation.set_kv8(None)
         flash_attention.set_attn_bf16(None)
+        decode_serve.decode_step_serve_plain = plain_serve
     (lk, tk, ek), (lp, tp, ep) = outs[dev.type], outs["cpu"]
     diff = (lk - lp).abs().max().item()
     agree = (tk == tp).float().mean().item()
-    return diff, lp.abs().max().item(), agree, (ek - ep).abs().max().item()
+    return diff, lp.abs().max().item(), agree, (ek - ep).abs().max().item(), len(calls)
 
 
-def phase_compare(dev, label="int8 serving", quantize="int8", env=None, launched=()):
+def phase_compare(dev, label="int8 serving", quantize="int8", env=None, launched=(),
+                  pack=False):
     """One compare_paths run in the configuration's switches; fails unless
-    the first-step logits agree within 5% of the largest, and unless the
-    card's run launched each kernel of `launched`."""
+    the first-step logits agree within 5% of the largest, unless the card's
+    run launched each kernel of `launched`, and, where that is row 10,
+    unless the CPU side ran row 10's plain version (so a compare of two
+    split paths cannot pass)."""
     from revisionllm_tpu_torch.config import AdapterConfig, LlamaConfig
     from revisionllm_tpu_torch.utils import kernels
 
@@ -717,9 +745,11 @@ def phase_compare(dev, label="int8 serving", quantize="int8", env=None, launched
     t0 = time.perf_counter()
     kernels.reset_launches()
     with switched(env or {}):
-        diff, scale, agree, ent = compare_paths(dev, cfg, acfg, batch=2, num_frames=250,
-                                                new_tokens=12, quantize=quantize)
+        diff, scale, agree, ent, plain_calls = compare_paths(
+            dev, cfg, acfg, batch=2, num_frames=250, new_tokens=12, quantize=quantize, pack=pack)
     missing = [k for k in launched if kernels.LAUNCHES[k] == 0]
+    if "decode_step_serve" in launched and plain_calls == 0:
+        missing.append("decode_step_serve_plain on the CPU")
     # bf16 activations, and int8 activation or KV quantization can round a
     # value across a boundary on one side only: 5% of the largest logit
     tol = 5e-2 * max(1.0, scale)
@@ -728,7 +758,7 @@ def phase_compare(dev, label="int8 serving", quantize="int8", env=None, launched
         f"{scale:.3f}); greedy tokens agree {agree * 100:.1f}%; entropy max_abs_diff "
         f"{ent:.3e} ({time.perf_counter() - t0:.1f} s)")
     if missing:
-        raise AssertionError(f"compare ({label}): kernels never launched on the card: {missing}")
+        raise AssertionError(f"compare ({label}): never launched: {missing}")
     if not diff <= tol:
         raise AssertionError(f"logits differ by {diff} > {tol}")
 
@@ -1900,6 +1930,13 @@ def check_fused_mlp(dev, iters):
                     f"torch._int_mm on column-major weights and the epilogue in PyTorch"}
 
 
+def first_layers(tree, n):
+    """The tree with its stacked layers cut to the first n (views)."""
+    return {**tree, "layers": {k: ({kk: vv[:n] for kk, vv in v.items()}
+                                   if isinstance(v, dict) else v[:n])
+                               for k, v in tree["layers"].items()}}
+
+
 def check_decode_step(dev, iters, params):
     """Row 9 at the stage-1 decode step's shape on the slice's Vicuna-7B
     int8 weights: B 64, the prompt's T, ragged prompt lengths, a bf16 gen
@@ -1940,12 +1977,7 @@ def check_decode_step(dev, iters, params):
     args = (lens, step, x, cos, sin)
     eps = cfg.rms_norm_eps
 
-    def depth(tree, n):
-        return {**tree, "layers": {k: ({kk: vv[:n] for kk, vv in v.items()}
-                                       if isinstance(v, dict) else v[:n])
-                                   for k, v in tree["layers"].items()}}
-
-    p2, kv2 = depth(params, 2), {"kv": kv[:2], "kvsc": kvsc[:2]}
+    p2, kv2 = first_layers(params, 2), {"kv": kv[:2], "kvsc": kvsc[:2]}
     gk, gp = genkv[:2].clone(), genkv[:2].clone()
     got, _ = DS.decode_step_fused(p2, kv2, gk, *args, eps=eps)
     want, _ = DS.decode_step_fused_plain(p2, kv2, gp, *args, eps=eps)
@@ -2010,6 +2042,168 @@ def check_decode_step(dev, iters, params):
                     "library: the split step (decode_step_split) at the same inputs"}
 
 
+def serve_inputs(cfg, params, B, T, live, G, dev, seed=17):
+    """Row 10's inputs at the stage-1 decode step: the packed layers
+    (pack_serving_weights, block 1024), B ragged prompt lengths in [live -
+    20, live] (row 0 the longest), a random unified slab with s0 = T and Sp =
+    round_up(T + G, 128) -- random in the dead range and past s0 + step too,
+    which the step must not read --, the embeddings of random tokens and
+    the rope angles at the last step, G - 1. Returns (packed, slab, args),
+    args = (prompt_lens, step, x, cos, sin, s0)."""
+    import torch
+    from revisionllm_tpu_torch.ops import decode_serve as DSV
+    from revisionllm_tpu_torch.ops.rope import rope_angles
+
+    layers = params["layers"]
+    L, H, hd = layers["q_proj"]["q8"].shape[0], cfg.num_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(live - 20, live + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    lens[0] = live
+    Sp = -(-(T + G) // 128) * 128
+    slab = {"kv": torch.randint(-127, 128, (L, B, 2, H, Sp, hd), generator=gen, device=dev,
+                                dtype=torch.int8),
+            "kvsc": torch.rand((L, B, 2, H, Sp), generator=gen, device=dev) * 0.02 + 0.005}
+    step = G - 1
+    ids = torch.randint(3, cfg.vocab_size, (B,), generator=gen, device=dev)
+    x = params["embed"][ids]
+    cos, sin = (t[:, 0] for t in rope_angles((lens + step)[:, None], hd, cfg.rope_theta))
+    return DSV.pack_serving_weights(layers), slab, (lens, step, x, cos, sin, T)
+
+
+def serve_faults(packed, slab, args, eps):
+    """Row 10's planted faults, on its plain version: the dead range [plen,
+    s0) read as if it held prompt keys (prompt lengths set to s0), and the
+    last column chunk of every layer's gate product dropped. Each returns
+    the faulty hidden state."""
+    import torch
+    from revisionllm_tpu_torch.ops import decode_serve as DSV
+
+    lens, step, x, cos, sin, s0 = args
+    gate = packed["gate_proj"]
+    cut = {"q8c": gate["q8c"].clone(), "scale": gate["scale"]}
+    cut["q8c"][:, -1] = 0
+    scratch = {k: v.clone() for k, v in slab.items()}
+    return {
+        "the dead range [plen, s0) unmasked": DSV.decode_step_serve_plain(
+            packed, scratch, torch.full_like(lens, s0), *args[1:], eps=eps)[0],
+        "the last gate chunk dropped": DSV.decode_step_serve_plain(
+            {**packed, "gate_proj": cut}, scratch, *args, eps=eps)[0],
+    }
+
+
+def serve_matrix_work(cfg, packed):
+    """(bytes, multiply-adds per row) of row 10's layer matrices up to their
+    logical extents: each int8 matrix and its f32 column scales, counting
+    gate/up's first F columns and down's first F rows only. The Fp padding
+    (zero columns with zero scale, zero rows) adds exact zeros that the
+    function does not need, so the bound leaves it out, as row 9's does."""
+    hq, hkv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    F = cfg.intermediate_size
+    nbytes = macs = 0
+    for name, N in (("q_proj", hq), ("k_proj", hkv), ("v_proj", hkv),
+                    ("o_proj", cfg.hidden_size), ("gate_proj", F), ("up_proj", F)):
+        L, _, K, _ = packed[name]["q8c"].shape
+        nbytes += L * N * (K + 4)
+        macs += L * K * N
+    L, _, _, D = packed["down_proj"]["q8r"].shape
+    return nbytes + L * D * (F + 4), macs + L * F * D
+
+
+def landed(slab, s0, step):
+    """The k/v a step landed at s0 + step, dequantized: [L * B * 2, H * hd]."""
+    kv = slab["kv"][:, :, :, :, s0 + step].float() * slab["kvsc"][:, :, :, :, s0 + step, None]
+    return kv.reshape(-1, kv.shape[-2] * kv.shape[-1])
+
+
+def check_decode_serve(dev, iters, params, row9_ms):
+    """Row 10 at the stage-1 decode step's shape on the slice's Vicuna-7B
+    int8 weights packed into the serving chunks (serve_inputs): B 64, s0 =
+    the prompt's T, step 11. As for row 9, bf16 rounding flips compound over
+    random layers, so the hidden state and every layer's landed new k/v
+    (dequantized) are held by the rows 4-6 limits at 2 layers of the full
+    width, with two planted faults that must fail them (serve_faults), and
+    at all 32 layers by relative L2 within 1e-1. Times the 32-layer kernel
+    with its landing (the wrapper's call), its plain version and, as
+    yardsticks (no single PyTorch call computes the step), row 9 on the
+    standard tree at the same shape (`row9_ms`, check_decode_step's time in
+    this run) and decode_step_split on the packed tree (K1 per column chunk
+    + K3 + glue, lm_head included)."""
+    import torch
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.models import llama
+    from revisionllm_tpu_torch.ops import decode_serve as DSV
+
+    cfg = LlamaConfig()
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    _, T, live = prompt_geometry("mad_grounding", 250, 12)
+    B, G = 64, 12
+    eps = cfg.rms_norm_eps
+    packed, slab, args = serve_inputs(cfg, params, B, T, live, G, dev)
+    lens, step, x, cos, sin, s0 = args
+
+    p2 = first_layers({"layers": packed}, 2)["layers"]
+    slab2 = {"kv": slab["kv"][:2], "kvsc": slab["kvsc"][:2]}
+    got, _ = DSV.decode_step_serve(p2, slab2, *args, eps=eps)
+    got_kv = landed(slab2, s0, step)
+    want, _ = DSV.decode_step_serve_plain(p2, slab2, *args, eps=eps)
+    want_kv = landed(slab2, s0, step)
+    faults = serve_faults(p2, slab2, args, eps)
+    torch.cuda.synchronize()
+    err = hold_cols(f"decode_step_serve 2 layers B={B} s0={s0} step={step} hidden", got, want,
+                    faults)
+    err = max(err, hold_cols("decode_step_serve 2 layers new k/v (landed at s0 + step, "
+                             "dequantized)", got_kv, want_kv))
+    del faults, got_kv, want_kv
+
+    got, _ = DSV.decode_step_serve(packed, slab, *args, eps=eps)
+    got_kv = landed(slab, s0, step)
+    want, _ = DSV.decode_step_serve_plain(packed, slab, *args, eps=eps)
+    want_kv = landed(slab, s0, step)
+    rel = ((got.float() - want.float()).norm() / want.float().norm()).item()
+    kv_rel = ((got_kv - want_kv).norm() / want_kv.norm()).item()
+    say(f"decode_step_serve 32 layers: hidden relative L2 {rel:.3e}, new k/v {kv_rel:.3e} "
+        f"(tol 1e-1: the flips compound over the layers), finite {bool(got.isfinite().all())}")
+    if not (rel <= 1e-1 and kv_rel <= 1e-1 and bool(got.isfinite().all())):
+        raise AssertionError(f"decode_step_serve at 32 layers: relative L2 {rel}, {kv_rel}")
+    del got_kv, want_kv
+
+    plain_iters = max(2, iters // 10)
+    ms = device_ms(lambda: DSV.decode_step_serve(packed, slab, *args, eps=eps), iters)
+    plain = device_ms(lambda: DSV.decode_step_serve_plain(packed, slab, *args, eps=eps),
+                      plain_iters)
+    kv = slab["kv"]
+    split = {"k": kv[:, :, 0, :, :T].permute(0, 1, 3, 2, 4).contiguous(),
+             "v": kv[:, :, 1, :, :T].permute(0, 1, 3, 2, 4).contiguous(),
+             "k_scale": slab["kvsc"][:, :, 0, :, :T].permute(0, 1, 3, 2).contiguous(),
+             "v_scale": slab["kvsc"][:, :, 1, :, :T].permute(0, 1, 3, 2).contiguous()}
+    gsplit = llama.init_gen_cache(cfg, B, G, torch.bfloat16, dev)
+    tree = {**params, "layers": packed}
+    split_ms = device_ms(lambda: llama.decode_step_split(cfg, tree, split, lens, gsplit, step,
+                                                         x[:, None]), plain_iters)
+    del split, gsplit
+    mats, macs = serve_matrix_work(cfg, packed)
+    keys = int(lens.sum()) + B * step
+    nbytes = (mats + 2 * L * cfg.hidden_size * 2 + L * keys * H * (2 * hd + 8)
+              + L * 2 * B * H * hd * 4 + L * 2 * B * H * (hd + 4)
+              + 2 * B * cfg.hidden_size * 2 + 2 * B * hd * 4 + B * 4)
+    ops = 2.0 * B * macs + 4.0 * L * H * hd * (keys + B)
+    b, by = bound(nbytes, ops)
+    say(f"decode_step_serve B={B} s0={s0} step={step} (32 layers, packed block 1024, Fp "
+        f"{packed['gate_proj']['scale'].shape[1]}): kernel + landing {ms:.4f} ms plain "
+        f"{plain:.4f} ms; yardsticks: row 9 on the standard tree {row9_ms:.4f} ms, "
+        f"decode_step_split on the packed tree (K1 per chunk + K3 + glue, lm_head included) "
+        f"{split_ms:.4f} ms; bound {b:.4f} ms ({by})")
+    del packed, slab, kv
+    torch.cuda.empty_cache()
+    return {"name": "decode_step_serve", "max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b, "bound_by": by, "library_ms": None,
+            "row9_standard_ms": row9_ms, "split_packed_ms": split_ms,
+            "unit": "one launch and its landing = one whole decode step of the chunk-64 "
+                    "stage-1 decode over the packed tree; no single PyTorch call computes it "
+                    "(library_ms null): yardsticks row 9 on the standard tree and "
+                    "decode_step_split on the packed tree"}
+
+
 # ------------------------------------------------------------------ phase 13
 
 
@@ -2018,18 +2212,29 @@ CONFIGS = {
     # for every decode step (the lm_head on K1 after the prefill and each step)
     "A (fused int8)": {
         "env": {"REVISIONLLM_FUSED_MLP": "1", "REVISIONLLM_MEGAKERNEL": "1"},
-        "quantize": "int8", "kernels": FUSED,
+        "quantize": "int8", "pack": False, "step": "mega", "kernels": FUSED,
         "launches": {"w8a8_mlp_fused": 32, "decode_step_fused": 11, "decode_attention": 0,
                      "int4_matmul": 0, "int8_matmul": 12}},
     # B: group-128 int4 weights (lm_head too), KV8; row 7 for the 7 matrices
     # of every layer and the lm_head at each of the 11 steps and the
     # prefill's lm_head, which dequantizes the rest
     "B (int4)": {
-        "env": {}, "quantize": "int4", "kernels": INT4,
+        "env": {}, "quantize": "int4", "pack": False, "step": "split", "kernels": INT4,
         "launches": {"int4_matmul": 11 * (32 * 7 + 1) + 1, "int8_matmul": 0,
                      "decode_attention": 11 * 32, "w8a8_mlp_fused": 0, "decode_step_fused": 0}},
+    # C: the int8 tree packed into the serving chunks (pack_serving_weights
+    # on the card, as bench.py:98-106), W8A8 prefill over the column chunks
+    # into the unified slab, KV8; row 10 for every decode step (the lm_head,
+    # which stays standard, on K1 after the prefill and each step)
+    "C (packed int8 serving)": {
+        "env": {"REVISIONLLM_SERVE": "1"}, "quantize": "int8", "pack": True, "step": "serve",
+        "kernels": SERVE,
+        "launches": {"decode_step_serve": 11, "int8_matmul": 12, "flash_attention": 32,
+                     "decode_attention": 0, "decode_step_fused": 0, "w8a8_mlp_fused": 0,
+                     "int4_matmul": 0}},
 }
-SWITCHES = ("REVISIONLLM_FUSED_MLP", "REVISIONLLM_MEGAKERNEL", "REVISIONLLM_Q4_PALLAS")
+SWITCHES = ("REVISIONLLM_FUSED_MLP", "REVISIONLLM_MEGAKERNEL", "REVISIONLLM_Q4_PALLAS",
+            "REVISIONLLM_SERVE")
 
 
 class switched:
@@ -2051,19 +2256,35 @@ class switched:
 
 
 def phase_configs(dev, setup, runs):
-    """Configurations A and B through ground_windows on the 1-hour movie at
-    Vicuna-7B width and depth: chunk latency (median of `runs`), q/s, peak
-    memory, launches in one run (fails unless they are the expected ones,
-    rows 8 and 9 in A, row 7 in B, and unless the 57 entropies are finite),
-    and where a chunk's time goes (prefill and decode step: wall, host
-    enqueue, device busy). A runs on the slice's int8 engine; B on an int4
-    engine from the same seed. Returns {label: launches}."""
+    """Configurations A, B and C through ground_windows on the 1-hour movie
+    at Vicuna-7B width and depth: chunk latency (median of `runs`), q/s,
+    peak memory, launches in one run (fails unless they are the expected
+    ones, rows 8 and 9 in A, row 7 in B, row 10 in C, and unless the 57
+    entropies are finite), and where a chunk's time goes (prefill and
+    decode step: wall, host enqueue, device busy). A runs on the slice's
+    int8 engine; B on an int4 engine from the same seed; C on an engine
+    over the slice's int8 tree packed on the card (the standard tree stays
+    resident for the phases after this one, so C's peak memory holds both).
+    Returns {label: launches}."""
     import torch
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+    from revisionllm_tpu_torch.ops import decode_serve as DSV
 
     slice_engine, movie, qf, qc = setup
     out = {}
     for label, conf in CONFIGS.items():
-        if conf["quantize"] == "int8":
+        if conf["pack"]:
+            t0 = time.perf_counter()
+            se = slice_engine
+            eng = GroundingEngine(
+                se.llama_cfg, se.adapter_cfg,
+                {**se.params, "layers": DSV.pack_serving_weights(se.params["layers"])},
+                se.vision_params, se.tokenizer, se.eval_cfg, device=dev)
+            torch.cuda.synchronize()
+            say(f"config {label}: the slice's int8 layers packed on the card (block 1024, F "
+                f"padded to {eng.params['layers']['gate_proj']['scale'].shape[1]}) in "
+                f"{time.perf_counter() - t0:.1f} s; the standard tree stays resident")
+        elif conf["quantize"] == "int8":
             eng = slice_engine
         else:
             t0 = time.perf_counter()
@@ -2091,8 +2312,7 @@ def phase_configs(dev, setup, runs):
             bad = {k: (launches[k], n) for k, n in conf["launches"].items() if launches[k] != n}
             if bad:
                 raise AssertionError(f"config {label}: launches (got, expected) {bad}")
-            say_breakdown(f"config {label}", step_breakdown(
-                eng, movie, qf, mega="REVISIONLLM_MEGAKERNEL" in conf["env"]))
+            say_breakdown(f"config {label}", step_breakdown(eng, movie, qf, conf["step"]))
         out[label] = launches
         if eng is not slice_engine:
             del eng
@@ -2149,6 +2369,8 @@ def main() -> int:
     for name in SERVING:
         records[name]["launches"] = launches[name]
     records["decode_step_fused"] = check_decode_step(dev, ITERS, setup[0].params)
+    records["decode_step_serve"] = check_decode_serve(dev, ITERS, setup[0].params,
+                                                      records["decode_step_fused"]["ms"])
     for name, rec in records.items():
         rec.update(route="cuda", source=f"revisionllm_tpu_torch/csrc/{SOURCES[name]}.cu",
                    replaces=REPLACES[name])
@@ -2158,7 +2380,8 @@ def main() -> int:
     for label, conf in CONFIGS.items():
         for name in conf["kernels"]:
             records[name]["launches"] = launches[label][name]
-        phase_compare(dev, f"config {label}", conf["quantize"], conf["env"], conf["kernels"])
+        phase_compare(dev, f"config {label}", conf["quantize"], conf["env"], conf["kernels"],
+                      conf["pack"])
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:

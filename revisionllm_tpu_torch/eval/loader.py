@@ -4,10 +4,15 @@ revisionllm_tpu/eval/loader.py.
 `build_engine_from_args` assembles an engine from an HF checkpoint and its
 tokenizer. It waits for the checkpoint loader (ROADMAP Queue A step 9b)
 and raises until then; `stage1.run` and `stage2.run` take an engine built
-by the caller.
+by the caller. `serving_params_host` is the serving quantization that it
+will apply to the converted checkpoint before the transfer to the card.
 """
 
 from __future__ import annotations
+
+import os
+
+import torch
 
 from revisionllm_tpu_torch.config import AdapterConfig, EvalConfig
 
@@ -51,6 +56,30 @@ def eval_cfg_from_args(args) -> EvalConfig:
             int(z) for z in str(getattr(args, "zooms", None) or "4,2,1").split(",")
         ),
     )
+
+
+def serving_params_host(llama_cfg, params, device):
+    """A converted checkpoint's NumPy tree, quantized in host RAM for serving
+    on `device` (revisionllm_tpu/eval/loader.py:85-101), so a 7B tree never
+    stages its bf16 copy on the card: REVISIONLLM_QUANT=int8 (the default on
+    CUDA; "none" on the CPU) quantizes every layer matrix and the lm_head;
+    then REVISIONLLM_SERVE=1 packs the layers into the serving chunks
+    (ops.decode_serve) where supports_serve holds, so the packed copy
+    replaces the standard one and decode takes row 10."""
+    from revisionllm_tpu_torch.ops.decode_serve import supports_serve
+    from revisionllm_tpu_torch.ops.quant import (
+        pack_serving_weights_host,
+        quantize_llama_params_host,
+    )
+
+    default_quant = "int8" if torch.device(device).type == "cuda" else "none"
+    if os.environ.get("REVISIONLLM_QUANT", default_quant) != "int8":
+        return params
+    params = quantize_llama_params_host(params)
+    if os.environ.get("REVISIONLLM_SERVE", "0") == "1" and supports_serve(llama_cfg, params):
+        params = dict(params)
+        params["layers"] = pack_serving_weights_host(params["layers"])
+    return params
 
 
 def build_engine_from_args(args):

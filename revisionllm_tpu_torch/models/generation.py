@@ -7,7 +7,13 @@ chosen token's log-probability in f32, and masks rows after their eos. The
 sync inside the loop). With REVISIONLLM_MEGAKERNEL=1 (or set_megakernel)
 each decode step is one ops.decode_step launch (row 9 on the card), then the
 final norm and the lm_head, wherever JAX takes that path (generation.py:
-165-172); every other step is llama.decode_step_split.
+165-172). A tree packed by ops.decode_serve.pack_serving_weights takes the
+serving layout instead (generation.py:131-219): the full prefill writes the
+unified int8 KV slab (a shared-prefix prefill's split cache is repacked into
+it), and each step is one ops.decode_serve launch (row 10 on the card), then
+the final norm and the lm_head; REVISIONLLM_SERVE=0 (or set_serve(False))
+sends the packed tree through decode_step_split instead. Every other step is
+llama.decode_step_split.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from revisionllm_tpu_torch.config import LlamaConfig
 from revisionllm_tpu_torch.models import llama
+from revisionllm_tpu_torch.ops import decode_serve as DSV
 from revisionllm_tpu_torch.ops import decode_step as DS
 from revisionllm_tpu_torch.ops.norms import rms_norm
 from revisionllm_tpu_torch.ops.rope import rope_angles
@@ -63,6 +70,42 @@ def _megakernel_enabled() -> bool:
     return os.environ.get("REVISIONLLM_MEGAKERNEL", "0") == "1"
 
 
+_SERVE: Optional[bool] = None
+
+
+def set_serve(enabled: Optional[bool]) -> None:
+    """Override the serving-layout switch (None = back to the environment)."""
+    global _SERVE
+    _SERVE = enabled
+
+
+def _serve_enabled() -> Optional[bool]:
+    """The serving-layout decode (ops/decode_serve.py): set_serve, else
+    REVISIONLLM_SERVE=0/1, else None, which follows the weight layout: a
+    packed tree decodes through it, a standard tree cannot (JAX's
+    generation.py:85-98). It also needs KV8 (`generate` checks)."""
+    if _SERVE is not None:
+        return _SERVE
+    env = os.environ.get("REVISIONLLM_SERVE")
+    return None if env is None else env == "1"
+
+
+def decode_step_serve(cfg: LlamaConfig, params: Dict[str, Any], slab: Dict[str, torch.Tensor],
+                      s0: int, prompt_lens: torch.Tensor, step: int,
+                      token_embeds: torch.Tensor) -> torch.Tensor:
+    """One serving-layout decode step (JAX's generate, generation.py:
+    207-228): the rope angles at prompt_lens + step, one ops.decode_serve
+    call over the packed layers and the slab (which gets this step's k/v at
+    s0 + step), the final norm and the lm_head. token_embeds [B, 1, D];
+    returns logits [B, V] f32."""
+    cos, sin = rope_angles((prompt_lens + step)[:, None], cfg.head_dim, cfg.rope_theta)
+    hidden, _ = DSV.decode_step_serve(params["layers"], slab, prompt_lens, step,
+                                      token_embeds[:, 0], cos[:, 0], sin[:, 0], s0,
+                                      eps=cfg.rms_norm_eps)
+    h = rms_norm(hidden[:, None, :], params["final_norm"], cfg.rms_norm_eps)
+    return llama.logits_from_hidden(params, h[:, 0])
+
+
 def decode_step_mega(cfg: LlamaConfig, params: Dict[str, Any], pkv: Dict[str, torch.Tensor],
                      prompt_lens: torch.Tensor, gen_cache: torch.Tensor, step: int,
                      token_embeds: torch.Tensor) -> torch.Tensor:
@@ -105,10 +148,15 @@ def generate(
 
     JAX's scan also runs a decode step after the last token and discards its
     logits; this loop skips that step, which changes no output."""
-    B = embeds.shape[0]
+    B, T = embeds.shape[:2]
     G = max_new_tokens
     prompt_lens = prompt_lens.to(torch.int32)
     kv_quant = _kv8_enabled(embeds.device)
+    lq = params["layers"].get("q_proj")
+    serve_intent = (
+        isinstance(lq, dict) and "q8c" in lq and _serve_enabled() is not False and kv_quant
+        and DSV.supports_serve(cfg, params)
+    )
     if shared_prefix_len > 1 and B > 1:
         logits, prompt_kv = llama.prefill_shared_prefix(
             cfg, params, embeds, positions, shared_prefix_len, kv_lens=prompt_lens,
@@ -117,12 +165,19 @@ def generate(
     else:
         logits, prompt_kv = llama.prefill_kv(
             cfg, params, embeds, positions, kv_lens=prompt_lens, kv_quant=kv_quant,
+            kv_slab_slots=G if serve_intent else None,
         )
     use_mega = (
-        _megakernel_enabled() and kv_quant and "k_scale" in prompt_kv
+        not serve_intent and _megakernel_enabled() and kv_quant and "k_scale" in prompt_kv
         and DS.supports_megakernel(cfg, params)
     )
-    if use_mega:
+    if serve_intent:
+        if "kv" in prompt_kv:
+            slab, s0 = prompt_kv, T
+        else:  # the shared-prefix prefill's split cache
+            slab, s0 = DSV.pack_unified_kv(prompt_kv, G)
+        del prompt_kv  # the split cache is not read again
+    elif use_mega:
         pkv = DS.pack_prompt_kv(prompt_kv)
         del prompt_kv  # the split cache is not read again
         gen_cache = DS.init_gen_cache(cfg.num_layers, B, cfg.num_kv_heads, cfg.head_dim, G,
@@ -131,6 +186,8 @@ def generate(
         gen_cache = llama.init_gen_cache(cfg, B, G, embeds.dtype, embeds.device)
 
     def decode_one(g, tok_embed):
+        if serve_intent:
+            return decode_step_serve(cfg, params, slab, s0, prompt_lens, g, tok_embed)
         if use_mega:
             return decode_step_mega(cfg, params, pkv, prompt_lens, gen_cache, g, tok_embed)
         return llama.decode_step_split(

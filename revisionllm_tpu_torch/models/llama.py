@@ -17,8 +17,10 @@ prefill (`prefill_shared_prefix`) runs the rows' common prompt prefix once
 and the rest through ops.flash_attention.flash_attention_prefixed (row 6 on
 the card). With REVISIONLLM_FUSED_MLP=1 every int8 MLP tail runs through
 ops.quant.w8a8_mlp_fused (row 8 on the card). Int4 trees ({"q4", "scale4"})
-run through the same dispatch (row 7). The P-tuning prefix, the serving slab
-and the ChatGLM2 geometry wait for later slices.
+run through the same dispatch (row 7), and so do the serving-packed chunks of
+ops/decode_serve.py (ops.quant.q8c_apply); `prefill_kv(kv_slab_slots=G)`
+writes that path's unified int8 KV slab. The P-tuning prefix and the
+ChatGLM2 geometry wait for later slices.
 """
 
 from __future__ import annotations
@@ -266,6 +268,7 @@ def forward_hidden(
     lora_scale: float = 0.0,
     trainable: bool = False,
     remat: bool = False,
+    kv_slab_slots: Optional[int] = None,
 ):
     """Full-sequence forward. embeds [B, T, D], positions [B, T].
 
@@ -273,6 +276,11 @@ def forward_hidden(
     per-layer cache {"k", "v"} [L, B, T, KH, hd], which kv_quant=True writes
     as int8 plus per-(position, head) scales {"k_scale", "v_scale"}
     [L, B, T, KH] layer by layer, so a full-precision cache never exists.
+    kv_slab_slots=G (with kv_quant) writes the same int8 values and scales
+    straight into the unified serving slab of ops.decode_serve instead,
+    {"kv": [L, B, 2, KH, Sp, hd] int8, "kvsc": [L, B, 2, KH, Sp] f32} with
+    Sp = round_up(T + G, 128), zero past T: the split cache is never
+    allocated beside it.
 
     Training: `lora` (models/lora.py tree) adds scale * x A B to every
     adapted matmul; trainable=True takes the differentiable attention
@@ -285,7 +293,14 @@ def forward_hidden(
     L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     rope = rope_tables(*rope_angles(positions, hd, cfg.rope_theta))
     cache = None
-    if return_kv:
+    if kv_slab_slots is not None:
+        assert kv_quant, "kv_slab_slots requires kv_quant=True"
+        Sp = -(-(T + kv_slab_slots) // 128) * 128
+        cache = {
+            "kv": torch.zeros((L, B, 2, KH, Sp, hd), dtype=torch.int8, device=embeds.device),
+            "kvsc": torch.zeros((L, B, 2, KH, Sp), dtype=torch.float32, device=embeds.device),
+        }
+    elif return_kv:
         kv_dtype = torch.int8 if kv_quant else embeds.dtype
         shape = (L, B, T, KH, hd)
         cache = {
@@ -311,7 +326,12 @@ def forward_hidden(
                            use_reentrant=False)
             continue
         x, k, v = layer(x, lp, lora_lp)
-        if cache is not None:
+        if kv_slab_slots is not None:
+            for j, t in enumerate((k, v)):
+                tq, ts = _quantize_rows(t)
+                cache["kv"][i, :, j, :, :T] = tq.permute(0, 2, 1, 3)
+                cache["kvsc"][i, :, j, :, :T] = ts[..., 0].permute(0, 2, 1)
+        elif cache is not None:
             if kv_quant:
                 for name, t in (("k", k), ("v", v)):
                     tq, ts = _quantize_rows(t)
@@ -321,7 +341,7 @@ def forward_hidden(
                 cache["k"][i] = k
                 cache["v"][i] = v
     hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    if return_kv:
+    if return_kv or kv_slab_slots is not None:
         return hidden, cache
     return hidden
 
@@ -338,11 +358,16 @@ def prefill_kv(
     positions: torch.Tensor,
     kv_lens: Optional[torch.Tensor] = None,
     kv_quant: bool = False,
+    kv_slab_slots: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Params]:
     """Prefill: (logits at each row's last position [B, V], read-only prompt
-    cache {"k", "v"[, "k_scale", "v_scale"]} [L, B, T, KH, hd])."""
+    cache {"k", "v"[, "k_scale", "v_scale"]} [L, B, T, KH, hd]).
+    kv_slab_slots=G (with kv_quant) returns the unified serving slab
+    {"kv", "kvsc"} of ops.decode_serve with G generation slots (s0 = T)
+    instead of the split cache."""
     hidden, cache = forward_hidden(
-        cfg, params, embeds, positions, kv_lens, return_kv=True, kv_quant=kv_quant
+        cfg, params, embeds, positions, kv_lens, return_kv=True, kv_quant=kv_quant,
+        kv_slab_slots=kv_slab_slots,
     )
     if kv_lens is None:
         last = hidden[:, -1]

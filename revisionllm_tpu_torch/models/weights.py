@@ -3,7 +3,8 @@ revisionllm_tpu/models/convert.py's hand-over to the device.
 
 `params_from_numpy` turns a parameter tree given as nested dicts / lists of
 NumPy arrays -- the JAX package's llama tree (including int8 {"q8",
-"scale"} and int4 {"q4", "scale4"} leaves), its vision (ClipEncoder) tree
+"scale"}, int4 {"q4", "scale4"} and serving-packed {"q8c"} / {"q8r"}
+leaves), its vision (ClipEncoder) tree
 or a LoRA tree, e.g. `jax.tree.map(np.asarray, params)` -- into the same
 tree of torch tensors on `device`; `requires_grad=True` marks the
 floating-point leaves of a tree to be trained (LoRA, vision). Loading HF
@@ -39,7 +40,7 @@ def params_from_numpy(
     """Nested dicts / lists / tuples of arrays -> the same structure of
     tensors on `device`. `dtype`, when given, casts floating-point leaves,
     except the quantization scales ("scale" and "scale4" leaves), which stay
-    f32; int8 stays int8 and packed int4 stays uint8."""
+    f32; int8 (q8, q8c, q8r) stays int8 and packed int4 stays uint8."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype, k, requires_grad) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -18,6 +18,9 @@ Int4 weights ({"q4", "scale4"}, group-wise, two nibbles a byte) take
 REVISIONLLM_Q4_PALLAS=all, else dequantize-then-matmul. The fused W8A8 MLP
 tail (`w8a8_mlp_fused`, row 8, csrc/w8a8_mlp_fused.cu) and
 `w8a8_prequant_matmul` serve models/llama.py's REVISIONLLM_FUSED_MLP branch.
+The serving-packed layout of ops/decode_serve.py ({"q8c"} column chunks,
+{"q8r"} row chunks) takes `q8c_apply`, the same three routes per chunk;
+`q8_apply_multi` sends it matrix by matrix, as JAX does.
 
 `set_exact_trace(True)` (the trainer's `_dequant_trace`) sends every call to
 the differentiable dequantize-then-matmul route, on any device and any M, as
@@ -164,13 +167,17 @@ def _int8_dot(x_q8: torch.Tensor, w_q8: torch.Tensor) -> torch.Tensor:
 
 def _w8a8_product(
     x: torch.Tensor, x_q8: torch.Tensor, x_scale: torch.Tensor,
-    w_q8: torch.Tensor, w_scale: torch.Tensor,
+    w_q8: torch.Tensor, w_scale: torch.Tensor, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
+    """One W8A8 product in x's type, or written into `out` ([M, N] of x's
+    type, a column slice of a wider output) with the same rounding."""
     if x_q8.is_cuda:
         kernels.forbid_grad("torch._int_mm (W8A8)", x, x_scale, w_scale)
-    out = torch.mul(_int8_dot(x_q8, w_q8), x_scale)  # int32 -> f32 rounding as acc.float()
-    out.mul_(w_scale)
-    return out.to(x.dtype).reshape(*x.shape[:-1], w_q8.shape[-1])
+    acc = torch.mul(_int8_dot(x_q8, w_q8), x_scale)  # int32 -> f32 rounding as acc.float()
+    acc.mul_(w_scale)
+    if out is not None:
+        return out.copy_(acc)
+    return acc.to(x.dtype).reshape(*x.shape[:-1], w_q8.shape[-1])
 
 
 class _W8A8Product(torch.autograd.Function):
@@ -178,18 +185,28 @@ class _W8A8Product(torch.autograd.Function):
     with JAX's straight-through VJP: the rounding in the quantization has a
     zero derivative, so the backward is dx = sum_i g_i dequant(W_i)^T in f32,
     cast to the cotangent's type, as if each product were exact
-    (revisionllm_tpu/ops/quant.py:181-187, :335-343)."""
+    (revisionllm_tpu/ops/quant.py:181-187, :335-343, :374-380). With `concat`
+    the products are written side by side into one [..., sum N_i] output (the
+    column chunks of q8c_apply) instead of returned one by one."""
 
     @staticmethod
-    def forward(ctx, x, *weights):
+    def forward(ctx, x, concat, *weights):
         x_q8, x_scale = quantize_activation_rows(x)
         pairs = list(zip(weights[0::2], weights[1::2]))
         ctx.save_for_backward(*weights)
-        return tuple(_w8a8_product(x, x_q8, x_scale, wq, ws) for wq, ws in pairs)
+        ctx.widths = [wq.shape[-1] for wq, _ in pairs] if concat else None
+        if not concat:
+            return tuple(_w8a8_product(x, x_q8, x_scale, wq, ws) for wq, ws in pairs)
+        out = torch.empty((x_q8.shape[0], sum(ctx.widths)), dtype=x.dtype, device=x.device)
+        for (wq, ws), part in zip(pairs, out.split(ctx.widths, dim=-1)):
+            _w8a8_product(x, x_q8, x_scale, wq, ws, out=part)
+        return out.reshape(*x.shape[:-1], out.shape[-1])
 
     @staticmethod
     def backward(ctx, *gs):
         weights = ctx.saved_tensors
+        if ctx.widths is not None:
+            gs = gs[0].split(ctx.widths, dim=-1)
         gx = None
         for g, wq, ws in zip(gs, weights[0::2], weights[1::2]):
             if g is None:
@@ -199,13 +216,13 @@ class _W8A8Product(torch.autograd.Function):
             gx = part if gx is None else gx + part
         if gx is not None:
             gx = gx.to(next(g for g in gs if g is not None).dtype)
-        return (gx,) + (None,) * len(weights)
+        return (gx, None) + (None,) * len(weights)
 
 
 def w8a8_matmul(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
     """Dynamic-activation int8 matmul: per-row absmax quantize x, int8 x int8
     with int32 accumulation, rescale. Straight-through gradient to x."""
-    return _W8A8Product.apply(x, w_q8, w_scale)[0]
+    return _W8A8Product.apply(x, False, w_q8, w_scale)[0]
 
 
 _W8A8: Optional[bool] = None
@@ -246,10 +263,13 @@ def _is_q8(w) -> bool:
 
 
 def q8_apply(x: torch.Tensor, w) -> torch.Tensor:
-    """Matmul dispatch: w is a dense [K, N] tensor, a {'q8', 'scale'} dict
-    or an int4 {'q4', 'scale4'} dict (q4_apply)."""
+    """Matmul dispatch: w is a dense [K, N] tensor, a {'q8', 'scale'} dict,
+    an int4 {'q4', 'scale4'} dict (q4_apply) or a serving-packed chunk dict
+    ({'q8c'} or {'q8r'}, q8c_apply)."""
     if isinstance(w, dict) and "q4" in w:
         return q4_apply(x, w)
+    if isinstance(w, dict) and ("q8c" in w or "q8r" in w):
+        return q8c_apply(x, w)
     if not _is_q8(w):
         return x @ w
     if _EXACT_TRACE:
@@ -275,7 +295,67 @@ def q8_apply_multi(x: torch.Tensor, ws: Sequence):
         and M > KERNEL_MAX_M and _w8a8_enabled(x.device)
     ):
         return tuple(q8_apply(x, w) for w in ws)
-    return _W8A8Product.apply(x, *(t for w in ws for t in (w["q8"], w["scale"])))
+    return _W8A8Product.apply(x, False, *(t for w in ws for t in (w["q8"], w["scale"])))
+
+
+# ---------------------------------------------------------------------------
+# The serving-packed layout (ops/decode_serve.py): column and row chunks
+# ---------------------------------------------------------------------------
+
+
+def q8c_apply(x: torch.Tensor, w) -> torch.Tensor:
+    """q8_apply over the serving-packed layout (revisionllm_tpu/ops/quant.py:
+    386-440).
+
+    - {'q8c': [nc, K, BN], 'scale': [Np]} column chunks: at M <= 256 one
+      `int8_matmul` (K1) per chunk, concatenated; above that W8A8 over the
+      chunks when it is on (one shared activation quantization, one
+      product per chunk into its columns of one output, bit-equal to
+      `w8a8_matmul` on the unpacked weight), else exact dequantization. The
+      exact route rounds the scale to x's type before the product, as JAX's
+      does (`q8c.astype(x.dtype) * scale.astype(x.dtype)`), which in bf16 is
+      not the standard route's f32 product. Padded columns carry zero scale,
+      so the outputs past the logical N are exactly 0.
+    - {'q8r': [ncf, BF, N], 'scale': [N]} row chunks: the padded [Fp, N]
+      matrix through the standard dispatch (x carries Fp columns; zero rows
+      add nothing).
+
+    `set_exact_trace(True)` sends every call to the exact route."""
+    if "q8r" in w:
+        q8r = w["q8r"]
+        return q8_apply(x, {"q8": q8r.reshape(-1, q8r.shape[-1]), "scale": w["scale"]})
+    q8c, scale = w["q8c"], w["scale"]
+    nc, K, BN = q8c.shape
+    M = x.numel() // x.shape[-1]
+    if not _EXACT_TRACE and M <= KERNEL_MAX_M:
+        return torch.cat([int8_matmul(x, q8c[j], scale[j * BN:(j + 1) * BN]) for j in range(nc)],
+                         dim=-1)
+    scale_r = scale.reshape(nc, BN)
+    if not _EXACT_TRACE and _w8a8_enabled(x.device):
+        return _W8A8Product.apply(x, True, *(t for j in range(nc) for t in (q8c[j], scale_r[j])))
+    wf = q8c.to(x.dtype) * scale_r[:, None, :].to(x.dtype)
+    out = torch.matmul(x.reshape(1, M, K), wf)  # [nc, M, BN]
+    return out.permute(1, 0, 2).reshape(*x.shape[:-1], nc * BN)
+
+
+def pack_serving_weights_host(layers: dict, block_n: int = 1024, block_f: int = 1024) -> dict:
+    """Host-RAM (NumPy) front of ops.decode_serve.pack_serving_weights for
+    the loader (revisionllm_tpu/ops/quant.py:443-486): the arrays go through
+    the same packer as CPU tensors and come back as arrays, so the packed
+    copy never sits beside the standard one on the card."""
+    import numpy as np
+
+    from revisionllm_tpu_torch.ops.decode_serve import pack_serving_weights
+
+    def cpu(w):
+        arrays = {k: np.asarray(v) for k, v in w.items()}
+        return {k: torch.from_numpy(a if a.flags.writeable else a.copy())
+                for k, a in arrays.items()}
+
+    packed = pack_serving_weights({n: cpu(w) if isinstance(w, dict) else w
+                                   for n, w in layers.items()}, block_n, block_f)
+    return {n: {k: v.numpy() for k, v in w.items()} if isinstance(w, dict) else w
+            for n, w in packed.items()}
 
 
 def quantize_llama_params_host(params, quantize_lm_head: bool = True):

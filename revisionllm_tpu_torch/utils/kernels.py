@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` has a plain C interface. It is compiled by nvcc for
 sm_90a into its own shared library, at first use, into `build/kernels/` at
 the root of the checkout (listed in .gitignore), and loaded with ctypes.
-The library's file name carries a hash of its source and flags, so an edited
-source is rebuilt and a stale library is never loaded. `build()` starts one
+The library's file name carries a hash of its source, of the shared headers
+(`csrc/*.cuh`) and of the flags, so an edited source or header is rebuilt and
+a stale library is never loaded. `build()` starts one
 nvcc per source, all together, and waits for them.
 
 Every wrapper adds one to its kernel's count in `LAUNCHES` where it launches
@@ -35,18 +36,19 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = (
     "int8_matmul", "flash_attention", "decode_attention", "flash_attention_vjp",
-    "int4_matmul", "w8a8_mlp_fused", "decode_step",
+    "int4_matmul", "w8a8_mlp_fused", "decode_step", "decode_serve",
 )
 # launch counters, one per kernel: flash_attention.cu holds K2, the LSE
 # forward (row 4's flash_fwd_lse and row 5's flash_attention_lse, counted
 # by their wrappers) and row 6 (flash_attention_prefixed),
 # flash_attention_vjp.cu row 4's dq and dk/dv; int4_matmul.cu row 7,
-# w8a8_mlp_fused.cu row 8, decode_step.cu row 9 (decode_step_fused)
+# w8a8_mlp_fused.cu row 8, decode_step.cu row 9 (decode_step_fused),
+# decode_serve.cu row 10 (decode_step_serve)
 COUNTERS = (
     "int8_matmul", "flash_attention", "decode_attention",
     "flash_fwd_lse", "flash_dq", "flash_dkv",
     "flash_attention_lse", "flash_attention_prefixed",
-    "int4_matmul", "w8a8_mlp_fused", "decode_step_fused",
+    "int4_matmul", "w8a8_mlp_fused", "decode_step_fused", "decode_step_serve",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -75,7 +77,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    tag = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{tag}.so"
 
 

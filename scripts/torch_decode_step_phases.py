@@ -3,13 +3,14 @@
 
     python3 scripts/torch_decode_step_phases.py [CONST=VALUE ...] [--cut l2,nomma,nowiden]
 
-Needs one CUDA GPU and nvcc. Builds an instrumented copy of
-revisionllm_tpu_torch/csrc/decode_step.cu into build/ in which block 0
-reads %globaltimer after every grid barrier, runs one decode step of
+Needs one CUDA GPU and nvcc. Builds decode_step.cu into build/ against an
+instrumented copy of revisionllm_tpu_torch/csrc/decode_common.cuh (the
+layer loop and phases that rows 9 and 10 share) in which block 0 reads
+%globaltimer after every grid barrier, runs one decode step of
 Vicuna-7B (32 layers, int8 weights from seed 0, B 64, a random int8 prompt
 cache of 300 positions, step 11) three times, and prints the mean time of
 each of the eight phases of a layer. CONST=VALUE overrides a constexpr of
-the source (e.g. STAGES=6); --cut takes experiments that break the results
+the header (e.g. STAGES=6); --cut takes experiments that break the results
 on purpose, to see what a part costs: `l2` loads every weight chunk from the
 same 128 columns (L2 hits instead of device memory), `nomma` drops the
 tensor-core products, `nowiden` drops the int8 -> bf16 tile stores.
@@ -33,7 +34,8 @@ sys.path.insert(0, str(ROOT))
 PHASES = ("rows: residual + norm", "q/k/v products", "attention", "o product",
           "rows: residual + norm", "gate/up products", "silu * up", "down product")
 CUTS = {
-    "l2": [("ok ? W + (size_t)k * N + n0 + col : W", "ok ? W + (size_t)k * N + col : W")],
+    "l2": [("ok ? W + (size_t)k * cw + col : W",
+            "ok ? a.w[first_mat + mi] + (size_t)l * K * N + (size_t)k * cw + col : W")],
     "nomma": [("wmma::mma_sync(acc[i], afrag, bfrag, acc[i]);", "")],
     # the tile store happens only for one unlikely byte pair, so the compiler
     # keeps the conversion but the stores are gone
@@ -47,23 +49,26 @@ STAMP = ("{ if (blockIdx.x == 0 && threadIdx.x == 0) { unsigned long long t; "
 
 
 def instrumented(consts, cuts):
-    src = (ROOT / "revisionllm_tpu_torch" / "csrc" / "decode_step.cu").read_text()
+    """(the instrumented decode_common.cuh, decode_step.cu with read_stamps)."""
+    csrc = ROOT / "revisionllm_tpu_torch" / "csrc"
+    src = (csrc / "decode_common.cuh").read_text()
     for name, value in consts.items():
         src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};", src)
         if n != 1:
-            raise SystemExit(f"no constexpr int {name} in decode_step.cu")
+            raise SystemExit(f"no constexpr int {name} in decode_common.cuh")
     for cut in cuts:
         for a, b in CUTS[cut]:
             if a not in src:
-                raise SystemExit(f"--cut {cut}: its line is not in decode_step.cu any more")
+                raise SystemExit(f"--cut {cut}: its line is not in decode_common.cuh any more")
             src = src.replace(a, b)
     src = src.replace("namespace {\n",
                       "__device__ unsigned long long g_stamps[2048];\nnamespace {\n", 1)
-    head, body = src.split("decode_step_kernel(Args a) {", 1)
+    head, body = src.split("step_kernel(Args a) {", 1)
     body = body.replace("cg::grid_group grid = cg::this_grid();",
                         "cg::grid_group grid = cg::this_grid();\n  int ns = 0;\n  " + STAMP, 1)
     body = body.replace("grid.sync();", "grid.sync(); " + STAMP)
-    return (head + "decode_step_kernel(Args a) {" + body
+    return (head + "step_kernel(Args a) {" + body,
+            (csrc / "decode_step.cu").read_text()
             + '\nextern "C" int read_stamps(void* dst) {\n'
               "  return (int)cudaMemcpyFromSymbol(dst, g_stamps, sizeof(g_stamps));\n}\n")
 
@@ -86,10 +91,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("needs a CUDA GPU", file=sys.stderr)
         return 2
-    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = kernels.BUILD_DIR / f"decode_step_phases_{os.getpid()}.cu"
+    work = kernels.BUILD_DIR / f"decode_step_phases_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    src = work / "decode_step.cu"
     lib_path = src.with_suffix(".so")
-    src.write_text(instrumented(consts, cuts))
+    header, src_text = instrumented(consts, cuts)
+    (work / "decode_common.cuh").write_text(header)
+    src.write_text(src_text)
     subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib_path), str(src)],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(lib_path))

@@ -1,0 +1,78 @@
+"""Same-card A/B of the stage-1 serving cell between checkouts of the
+repository.
+
+For each root given, in the order given, one process in that checkout
+builds its kernels and runs its own `chip_smoke.py` stage-1 slice
+(Vicuna-7B, 32 layers, int8 weights from seed 0, the 1-hour movie, 57
+windows in one chunk of 64): a warm-up `ground_windows`, `--runs` timed
+chunks, then `step_breakdown` (prefill and decode step: wall, host enqueue,
+device busy). Each process prints one JSON line; this script prints them
+and a summary. Run the two checkouts as A, B, B, A so that drift on the
+host falls on both. Needs one CUDA card:
+
+    python3 scripts/torch_stage1_ab.py PARENT CHANGE CHANGE PARENT [--runs 5]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+CHILD = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke as cs
+from revisionllm_tpu_torch.utils import kernels
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+kernels.build()
+dev = torch.device("cuda")
+eng, movie, qf, qc = cs.slice_setup(dev)
+eng.ground_windows(movie, cs.SENTENCE, qf, qc, movie_key="movie0")
+torch.cuda.synchronize()
+res, launches, lat = cs.run_slice(eng, movie, qf, qc, RUNS)
+cs.check_result(res, 57)
+parts = cs.step_breakdown(eng, movie, qf)
+parts = {k: v for k, v in parts.items() if isinstance(v, float)}
+print(json.dumps({"latencies_ms": [x * 1e3 for x in lat],
+                  "chunk_ms": float(np.median(lat)) * 1e3, **parts}), flush=True)
+"""
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("roots", nargs="+", help="checkouts of the repository, in run order")
+    ap.add_argument("--runs", type=int, default=5, help="timed chunks per process")
+    args = ap.parse_args()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    rows = []
+    for root in args.roots:
+        root = Path(root).resolve()
+        proc = subprocess.run([sys.executable, "-c", CHILD.replace("RUNS", str(args.runs))],
+                              cwd=root, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", file=sys.stderr)
+            return proc.returncode
+        rec = {"root": str(root), **json.loads(proc.stdout.strip().splitlines()[-1])}
+        rows.append(rec)
+        print(json.dumps(rec), flush=True)
+    for rec in rows:
+        print(f"{rec['root']}: chunk {rec['chunk_ms']:.1f} ms (runs "
+              f"{', '.join(f'{x:.1f}' for x in rec['latencies_ms'])}); prefill wall "
+              f"{rec['prefill_wall']:.2f} host {rec['prefill_host']:.2f} busy "
+              f"{rec['prefill_busy']:.2f} ms; decode step wall {rec['step_wall']:.2f} host "
+              f"{rec['step_host']:.2f} busy {rec['step_busy']:.2f} ms; 11 steps "
+              f"{rec['steps_wall']:.1f} ms", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

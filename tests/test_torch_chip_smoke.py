@@ -131,7 +131,7 @@ def test_configurations_expect_the_chunk_launches(monkeypatch):
     matrices of every layer and the lm_head at each step, plus the
     prefill's lm_head (M = 64 <= 256). `switched` sets a configuration's
     switches and restores the environment."""
-    a, b = (conf["launches"] for conf in chip_smoke.CONFIGS.values())
+    a, b = (chip_smoke.CONFIGS[k]["launches"] for k in ("A (fused int8)", "B (int4)"))
     assert (a["w8a8_mlp_fused"], a["decode_step_fused"], a["int8_matmul"]) == (32, 11, 12)
     assert b["int4_matmul"] == 11 * (32 * 7 + 1) + 1 and b["decode_attention"] == 11 * 32
     monkeypatch.setenv("REVISIONLLM_Q4_PALLAS", "all")
@@ -141,3 +141,93 @@ def test_configurations_expect_the_chunk_launches(monkeypatch):
         assert "REVISIONLLM_Q4_PALLAS" not in os.environ
     assert os.environ["REVISIONLLM_Q4_PALLAS"] == "all"
     assert "REVISIONLLM_MEGAKERNEL" not in os.environ
+
+
+def test_row10_planted_faults_fail_the_limits():
+    """Row 10's check (serve_inputs, serve_faults, landed) on its plain
+    version at a narrow width that packs into 1024-column chunks (D 1024,
+    8 heads, F 2752 padded to 3072), 2 layers, B 64: the dead range read as
+    prompt and the last gate chunk dropped each move the worst (64-row,
+    128-column) block of the hidden state by five times the card's block
+    limit and more; the plain version holds against itself, hidden and
+    landed k/v."""
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.models import llama
+    from revisionllm_tpu_torch.ops import decode_serve as DSV
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=1024, intermediate_size=2752, num_layers=2,
+                      num_heads=8, num_kv_heads=8, head_dim=128, dtype="bfloat16")
+    params = llama.init_params(cfg, seed=0, device="cpu", quantize="int8")
+    packed, slab, args = chip_smoke.serve_inputs(cfg, params, 64, 60, 48, 12,
+                                                 torch.device("cpu"))
+    assert packed["gate_proj"]["q8c"].shape == (2, 3, 1024, 1024)
+    assert slab["kv"].shape == (2, 64, 2, 8, 128, 128) and args[1] == 11 and args[5] == 60
+    want, _ = DSV.decode_step_serve_plain(packed, slab, *args, eps=cfg.rms_norm_eps)
+    kv = chip_smoke.landed(slab, 60, 11)
+    assert kv.shape == (2 * 64 * 2, 1024) and bool(kv.isfinite().all())
+    faults = chip_smoke.serve_faults(packed, slab, args, cfg.rms_norm_eps)
+    for bad in faults.values():
+        rel, worst = chip_smoke.rel_errs(*(t.float().reshape(1, 64, 8, 128) for t in (bad, want)))
+        assert worst >= 5 * chip_smoke.VJP_TILE_TOL, (rel, worst)
+    assert chip_smoke.hold_cols("row 10", want, want, faults) == 0.0
+    assert chip_smoke.hold_cols("row 10 k/v", kv, kv) == 0.0
+
+
+def test_row10_bound_counts_no_padding():
+    """Row 10's bound counts its matrices up to their logical extents: the
+    bytes and multiply-adds of the standard int8 tree it was packed from,
+    not the Fp padding (F 2752 padded to 3072 here)."""
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.models import llama
+    from revisionllm_tpu_torch.ops import decode_serve as DSV
+
+    cfg = LlamaConfig(vocab_size=512, hidden_size=1024, intermediate_size=2752, num_layers=2,
+                      num_heads=8, num_kv_heads=8, head_dim=128, dtype="bfloat16")
+    layers = llama.init_params(cfg, seed=0, device="cpu", quantize="int8")["layers"]
+    packed = DSV.pack_serving_weights(layers)
+    mats = [w for n, w in layers.items() if isinstance(w, dict)]
+    assert len(mats) == 7
+    nbytes, macs = chip_smoke.serve_matrix_work(cfg, packed)
+    assert nbytes == sum(w["q8"].numel() + 4 * w["scale"].numel() for w in mats)
+    assert macs == sum(w["q8"].numel() for w in mats)
+    padded = sum(t.numel() * t.element_size() for w in packed.values() if isinstance(w, dict)
+                 for t in w.values())
+    assert padded - nbytes == 2 * (3 * 1024 * 320 + 2 * 320 * 4)
+
+
+def test_configuration_c_expects_the_serve_launches(monkeypatch):
+    """C's chunk is one prefill and 11 decode steps over the packed tree:
+    row 10 once per step, K1 only for the standard lm_head (after the
+    prefill and each step), K2 once per prefill layer, no K3, row 8 or row
+    9. REVISIONLLM_SERVE is one of the switches `switched` sets and
+    restores, and the CPU side of C's compare must reach row 10's plain
+    version."""
+    c = chip_smoke.CONFIGS["C (packed int8 serving)"]
+    assert c["env"] == {"REVISIONLLM_SERVE": "1"} and c["pack"] and c["step"] == "serve"
+    assert c["launches"] == {"decode_step_serve": 11, "int8_matmul": 12, "flash_attention": 32,
+                             "decode_attention": 0, "decode_step_fused": 0,
+                             "w8a8_mlp_fused": 0, "int4_matmul": 0}
+    assert c["kernels"] == ("decode_step_serve",)
+    assert chip_smoke.REPLACES["decode_step_serve"] == "revisionllm_tpu/ops/decode_serve.py:227"
+    assert chip_smoke.SOURCES["decode_step_serve"] == "decode_serve"
+    monkeypatch.setenv("REVISIONLLM_SERVE", "0")
+    with chip_smoke.switched(c["env"]):
+        assert os.environ["REVISIONLLM_SERVE"] == "1"
+    assert os.environ["REVISIONLLM_SERVE"] == "0"
+    with chip_smoke.switched({}):
+        assert "REVISIONLLM_SERVE" not in os.environ
+
+
+def test_kernel_groups_name_rows_9_and_10():
+    """The breakdown's groups find rows 9 and 10 by their __global__ names
+    (one step_kernel template over each row's attention phase), so neither
+    falls into the PyTorch elementwise group."""
+    names = ["void (anonymous namespace)::step_kernel<(anonymous namespace)::GenCacheAttn>"
+             "((anonymous namespace)::Args)",
+             "void (anonymous namespace)::step_kernel<(anonymous namespace)::SlabAttn>"
+             "((anonymous namespace)::Args)"]
+    events = [type("Event", (), {"name": n, "device_time_total": 2000.0})() for n in names]
+    groups, other = chip_smoke.group_kernels(events)
+    assert groups["row 9 decode_step_fused"] == [2.0, 1]
+    assert groups["row 10 decode_step_serve"] == [2.0, 1]
+    assert other == {}

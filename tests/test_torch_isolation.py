@@ -46,7 +46,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "models.lora", "train.trainer", "train.train_cli", "data.dataset",
                 "ops.windows", "models.revisionllm", "models.adapter", "eval.metrics",
                 "eval.stage1", "eval.stage2", "eval.fusion", "eval.loader",
-                "data.prefetcher", "utils.cli", "ops.decode_step"):
+                "data.prefetcher", "utils.cli", "ops.decode_step", "ops.decode_serve"):
         assert f"revisionllm_tpu_torch.{mod}" in res["imported"]
 
 
