@@ -8,7 +8,10 @@ measured in that run. Phases:
   1. the card's name and power limit (nvidia-smi);
   2. build the twelve CUDA kernels (rows 4 and 5 share one __global__) from
      the eight sources in csrc/ (one nvcc per source, all in parallel; rows 9
-     and 10 share csrc/decode_common.cuh);
+     and 10 share csrc/decode_common.cuh, K2 and rows 4-6
+     csrc/attention_common.cuh), and print each kernel's registers, shared
+     memory and spill bytes from ptxas (fails if an attention kernel
+     spills);
   3. each kernel against its plain PyTorch version on the card, at the
      stage-1 shapes (Vicuna-7B, chunk of 64 windows): max error against the
      stated tolerance, device time of the kernel, of the plain version and of
@@ -30,11 +33,15 @@ measured in that run. Phases:
      GEMM and the rest, and the device's idle share;
   7. the row-4 kernels (forward with LSE, dq, dk/dv) against their plain
      versions at the training shape (B = 1, H = 32, T = S = 2048, d = 128,
-     causal), at full length and at a ragged kv_len of 330: the relative
-     L2 error of each whole output and of each of its (64-row tile, head)
-     blocks against stated limits, two planted faults that must fail those
-     limits, device times, the data-sheet bound, and SDPA's forward and
-     backward as the yardstick;
+     causal), at full length and at a ragged kv_len of 330 (both recorded:
+     the ragged numbers as the record, the full ones under "full"): the
+     relative L2 error of each whole output and of each of its (64-row
+     tile, head) blocks against stated limits, two planted faults on the
+     kernels' 64-row tiles that must fail those limits, device times, the
+     data-sheet bound, and SDPA's forward and backward as the yardstick;
+     then K2 and row 4 against their plain versions, correctness only, on
+     the edge cases EDGE_CASES (kv_len 1, 63, 64, 65, 127, 128, 129; T 2000;
+     GQA 32 over 8; not causal);
   8. the training slice through its entry point, train_cli.main: QLoRA at
      Vicuna-7B width and depth (the stage1_dense preset: int8 frozen base
      made from a seed, dense bf16 lm_head, LoRA r 64 on all seven linears,
@@ -224,6 +231,72 @@ def profiled(fn):
         torch.cuda.synchronize()
     events = kernel_events(prof)
     return out, sum(e.device_time_total for e in events) / 1e3, events
+
+
+# the attention kernels, each with the C function of its library that gives
+# its dynamic shared memory: (library, function, arguments)
+ATTENTION_KERNELS = {
+    "flash_fwd_kernel": ("flash_attention", "flash_fwd_smem_bytes", ()),
+    "flash_fwd_lse_kernel": ("flash_attention", "flash_fwd_smem_bytes", ()),
+    "flash_prefix_kernel": ("flash_attention", "flash_fwd_smem_bytes", ()),
+    "flash_dq_kernel": ("flash_attention_vjp", "flash_vjp_smem_bytes", (0,)),
+    "flash_dkv_kernel": ("flash_attention_vjp", "flash_vjp_smem_bytes", (1,)),
+}
+
+
+def ptxas_entries(text):
+    """[(kernel, registers, static shared bytes, spill-store bytes,
+    spill-load bytes)] of each entry function in one `ptxas -v` log."""
+    def last_name(mangled):
+        # the innermost of the length-prefixed names of an Itanium-mangled
+        # symbol: _ZN<len><namespace><len><kernel>E... -> kernel
+        i, name = 2 + mangled.startswith("_ZN"), mangled
+        while i < len(mangled) and mangled[i].isdigit():
+            j = i
+            while mangled[j].isdigit():
+                j += 1
+            n = int(mangled[i:j])
+            name, i = mangled[j:j + n], j + n
+        return name
+
+    out = []
+    for chunk in text.split("Compiling entry function '")[1:]:
+        mangled = chunk.split("'", 1)[0]
+        regs = re.search(r"Used (\d+) registers", chunk)
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        out.append((last_name(mangled), int(regs.group(1)) if regs else 0,
+                    int(smem.group(1)) if smem else 0,
+                    int(spill.group(1)) if spill else 0, int(spill.group(2)) if spill else 0))
+    return out
+
+
+def report_ptxas(kernels, libs=None):
+    """Print the registers, shared memory and spill bytes of every kernel in
+    `libs` (default: all) from the build's ptxas reports (the attention
+    kernels' dynamic shared memory from their libraries); fail if an
+    attention kernel spills or has no report."""
+    import ctypes
+
+    spilled, seen = [], set()
+    for lib in libs or kernels.KERNELS:
+        log = kernels.library_path(lib).with_suffix(".log")
+        if not log.exists():
+            continue
+        for name, regs, smem, st, ld in ptxas_entries(log.read_text()):
+            extra = ""
+            if name in ATTENTION_KERNELS:
+                seen.add(name)
+                src, sym, args = ATTENTION_KERNELS[name]
+                fn = kernels.function(src, sym, [ctypes.c_int] * len(args))
+                extra = f" + {fn(*args)} B dynamic"
+                if st or ld:
+                    spilled.append(name)
+            say(f"ptxas {lib} {name}: {regs} registers, {smem} B static shared memory{extra}, "
+                f"spill stores {st} B, spill loads {ld} B")
+    if spilled or seen != set(ATTENTION_KERNELS):
+        raise AssertionError(f"attention kernels spill to local memory: {spilled}; "
+                             f"without a ptxas report: {set(ATTENTION_KERNELS) - seen}")
 
 
 def device_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -767,15 +840,43 @@ def phase_compare(dev, label="int8 serving", quantize="int8", env=None, launched
 
 
 def _pairs(T, lens, causal=True):
-    """Live (row, column) pairs of causal attention over T rows with kv_len
-    per batch row."""
-    t_idx = np.arange(T)
-    return sum(int(np.minimum(t_idx + 1 if causal else T, n).sum()) for n in lens)
+    """Live (row, column) pairs of attention over T rows with kv_len per
+    batch row (causal: row >= column)."""
+    seen = np.arange(T) + 1 if causal else np.full(T, T)  # columns row t may see
+    return sum(int(np.minimum(seen, n).sum()) for n in lens)
 
 
-TILE = 64                   # rows per tile of the row-4 kernels
+TILE = 64                   # rows of a q or kv tile of the attention kernels (attention_common.cuh)
 VJP_TOL = 1e-2              # relative L2 error of a whole o, dq, dk or dv
 VJP_TILE_TOL = 2e-2         # ... and of each of its (64-row tile, head) blocks
+# the correctness-only cases of the row-4 kernels and K2 on the card:
+# (label, B, T, H, KH, causal, kv_lens), each kv_len on its own batch row
+EDGE_LENS = (1, 63, 64, 65, 127, 128, 129)
+EDGE_CASES = (
+    ("kv_len at the tile edges, causal", len(EDGE_LENS), 256, 4, 4, True, EDGE_LENS),
+    ("kv_len at the tile edges, not causal", len(EDGE_LENS), 256, 4, 4, False, EDGE_LENS),
+    ("T 2000 (not a multiple of the tile)", 2, 2000, 32, 32, True, (2000, 1999)),
+    ("GQA 32 query heads over 8 kv heads", 2, 512, 32, 8, True, (512, 300)),
+    ("not causal", 2, 300, 8, 8, False, (300, 129)),
+)
+
+
+def row4_bounds(B, H, T, d, lens, causal=True):
+    """{kernel: (bound ms, "bytes" or "operations")} of row 4's three
+    kernels on q/k/v/dO [B, T, H, d] with kv_len lens[b] per batch row:
+    each input read once (k and v only to kv_len), each output written once,
+    and 2 d flops a product for each live (row, column) pair: 2 products in
+    the forward, 3 in dq (S, dP, dQ), 4 in dk/dv (S, dP, dV, dK)."""
+    pairs = _pairs(T, lens, causal)
+    rows_b = B * T * H * d * 2          # one bf16 [B, T, H, d] tensor, all rows
+    kv_b = int(sum(lens)) * H * d * 2   # one bf16 k or v, live rows only
+    stat_b = B * H * T * 4              # one f32 lse or delta
+    return {
+        "flash_fwd_lse": bound(2 * rows_b + 2 * kv_b + stat_b + B * 4, 4.0 * H * d * pairs),
+        "flash_dq": bound(3 * rows_b + 2 * kv_b + 2 * stat_b + B * 4, 6.0 * H * d * pairs),
+        # dk and dv are written for all T rows (zeros past kv_len)
+        "flash_dkv": bound(4 * rows_b + 2 * kv_b + 2 * stat_b + B * 4, 8.0 * H * d * pairs),
+    }
 
 
 def rel_errs(got, want):
@@ -816,9 +917,64 @@ def hold(label, got, want, faults=None):
     return err
 
 
+def check_flash_edges(dev, cases=EDGE_CASES):
+    """Correctness only: K2's forward, row 4's forward with the LSE, dq and
+    dk/dv against their plain versions on each of `cases` (kv_len on both
+    sides of a tile edge, T not a multiple of the tile, GQA, not causal), by
+    the limits of `hold` and 1e-3 on the LSE. Returns the worst max abs
+    error of each kernel."""
+    import torch
+    from revisionllm_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst = {name: 0.0 for name in ("flash_attention",) + TRAINING}
+    for label, B, T, H, KH, causal, lens in cases:
+        q, do = (torch.randn((B, T, H, 128), generator=gen, device=dev).to(torch.bfloat16)
+                 for _ in range(2))
+        k, v = (torch.randn((B, T, KH, 128), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(2))
+        kw = dict(causal=causal, kv_lens=torch.tensor(lens, dtype=torch.int32, device=dev))
+        o, lse = FA.flash_fwd_lse(q, k, v, **kw)
+        o2, lse2 = FA.flash_fwd_lse_plain(q, k, v, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        args = (q, k, v, do, lse, delta)
+        dq, (dk, dv) = FA.flash_dq(*args, **kw), FA.flash_dkv(*args, **kw)
+        dq2, (dk2, dv2) = FA.flash_dq_plain(*args, **kw), FA.flash_dkv_plain(*args, **kw)
+        k2 = FA.flash_attention(q, k, v, **kw)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        lse_err = (lse - lse2).abs().max().item()
+        tag = f"{label} (B={B} T={T} H={H} KH={KH} kv_lens {list(lens)})"
+        say(f"flash_fwd_lse {tag}: lse max_abs_err {lse_err:.3e} (tol 1e-3)")
+        if not lse_err <= 1e-3:
+            raise AssertionError(f"flash_fwd_lse {tag}: lse max_abs_err {lse_err} > 1e-3")
+        # Where kv_len is 1 every row sees one key: p = 1 and dp = delta, so
+        # dq and dk are 0 in exact arithmetic, and kernel and plain version
+        # both hold only f32 rounding residue, which a relative error cannot
+        # judge. There they are held to stay below 1e-3 of the largest
+        # element of the other batch rows; every other row by `hold`.
+        one = torch.tensor([n == 1 for n in lens], device=dev)
+        for name, tname, got, want in (
+                ("flash_attention", "o", k2, o2), ("flash_fwd_lse", "o", o, o2),
+                ("flash_dq", "dq", dq, dq2), ("flash_dkv", "dk", dk, dk2),
+                ("flash_dkv", "dv", dv, dv2)):
+            if tname in ("dq", "dk") and bool(one.any()):
+                scale = want[~one].float().abs().max().item()
+                resid = max(got[one].float().abs().max().item(), want[one].float().abs().max().item())
+                say(f"{name} {tname} {tag}, kv_len 1 rows (0 in exact arithmetic): largest "
+                    f"{resid:.3e} against {scale:.3e} elsewhere (limit 1e-3 of it)")
+                if not resid <= 1e-3 * scale:
+                    raise AssertionError(f"{name} {tname} {tag}: kv_len 1 rows reach {resid}")
+                got, want = got[~one], want[~one]
+            worst[name] = max(worst[name], hold(f"{name} {tname} {tag}", got, want))
+    return worst
+
+
 def check_flash_vjp(dev, iters):
-    """Row 4 at the training shape. Returns the three kernel records (the
-    ragged case, which is what a training batch gives them)."""
+    """Row 4 at the training shape, at full length and at the training
+    batch's ragged kv_len. Returns the three kernel records: the ragged
+    case, which is what a training batch gives them, with the full-length
+    numbers under "full"."""
     import torch
     import torch.nn.functional as F
     from revisionllm_tpu_torch.ops import flash_attention as FA
@@ -836,9 +992,10 @@ def check_flash_vjp(dev, iters):
     # every (64-row tile, head) block (2e-2): bf16 rounding of P, dS and
     # the output is about 2^-9 relative, and a kernel that mis-scales,
     # skips or misplaces one tile of rows or keys moves its blocks by far
-    # more. Two planted faults must fail these limits: the last live tile
-    # scaled by 0.9, and the last live kv tile dropped (the plain version
-    # at kv_len cut to that tile's start). lse is f32: 1e-3 absolute.
+    # more. Two planted faults, on the kernels' own 64-row tiles, must fail
+    # these limits: the last live tile scaled by 0.9, and the last live kv
+    # tile dropped (the plain version at kv_len cut to that tile's start).
+    # lse is f32: 1e-3 absolute.
     records = {name: {"name": name, "max_abs_err": 0.0} for name in TRAINING}
     for label, n in (("full", T), ("ragged", 330)):
         lens = torch.full((B,), n, dtype=torch.int32, device=dev)
@@ -889,19 +1046,10 @@ def check_flash_vjp(dev, iters):
         out = sdpa(qt, kt, vt)
         l_bwd = device_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True), iters)
         del out
-        lh = [n] * B
-        pairs = _pairs(T, lh)
-        rows_b = B * T * H * d * 2          # one bf16 [B, T, H, d] tensor, all rows
-        kv_b = B * n * H * d * 2            # one bf16 k or v, live rows only
-        stat_b = B * H * T * 4              # one f32 lse or delta
-        bounds = {
-            "flash_fwd_lse": bound(2 * rows_b + 2 * kv_b + stat_b + B * 4, 4.0 * H * d * pairs),
-            "flash_dq": bound(3 * rows_b + 2 * kv_b + 2 * stat_b + B * 4, 6.0 * H * d * pairs),
-            # dk and dv are written for all T rows (zeros past kv_len)
-            "flash_dkv": bound(4 * rows_b + 2 * kv_b + 2 * stat_b + B * 4, 8.0 * H * d * pairs),
-        }
+        bounds = row4_bounds(B, H, T, d, [n] * B)
         times = {"flash_fwd_lse": (t_fwd, p_fwd, l_fwd), "flash_dq": (t_dq, p_dq, l_bwd),
                  "flash_dkv": (t_dkv, p_dkv, l_bwd)}
+        say(f"row 4 backward (dq + dk/dv) kv_len={n} ({label}): {t_dq + t_dkv:.4f} ms")
         for name in TRAINING:
             ms, plain, lib = times[name]
             b, by = bounds[name]
@@ -910,11 +1058,12 @@ def check_flash_vjp(dev, iters):
                 f"max_abs_err {errs[name]:.3e} kernel {ms:.4f} ms plain {plain:.4f} ms "
                 f"{lib_label}{' is_causal' if mask is None else ' masked'} {lib:.4f} ms "
                 f"bound {b:.4f} ms ({by})")
+            rec = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by, library_ms=lib)
             if label == "ragged":
-                records[name].update(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by,
-                                     library_ms=lib,
-                                     unit=f"one launch = one layer, T=2048, kv_len {n} "
-                                          f"(library: {lib_label}, masked)")
+                records[name].update(rec, unit=f"one launch = one layer, T=2048, kv_len {n} "
+                                               f"(library: {lib_label}, masked)")
+            else:
+                records[name]["full"] = dict(rec, kv_len=n, library=f"{lib_label}, is_causal")
     return [records[name] for name in TRAINING]
 
 
@@ -2350,13 +2499,7 @@ def main() -> int:
     t0 = time.perf_counter()
     secs = kernels.build()
     say(f"build: {time.perf_counter() - t0:.1f} s wall, per kernel {json.dumps({k: round(v, 1) for k, v in secs.items()})}")
-    for name in kernels.KERNELS:
-        log = kernels.library_path(name).with_suffix(".log")
-        if log.exists():
-            text = log.read_text()
-            regs = sorted({int(m) for m in re.findall(r"Used (\d+) registers", text)})
-            spills = sorted({int(m) for m in re.findall(r"(\d+) bytes spill stores", text)})
-            say(f"ptxas {name}: registers per instantiation {regs}; spill-store bytes {spills}")
+    report_ptxas(kernels)
 
     records = {}
     for check in (check_int8_matmul, check_flash_attention, check_decode_attention,
@@ -2365,6 +2508,8 @@ def main() -> int:
         records[rec["name"]] = rec
     for rec in check_flash_vjp(dev, ITERS) + check_prefix_attention(dev, ITERS):
         records[rec["name"]] = rec
+    for name, err in check_flash_edges(dev).items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     launches, setup = phase_slice(dev, RUNS)
     for name in SERVING:
         records[name]["launches"] = launches[name]

@@ -1,7 +1,7 @@
 // Row 4, backward: dq and dk/dv of flash attention for training, q/k/v
 // [B, T, H|KH, 128] bf16 with T == S. The forward with the per-row
 // log-sum-exp is row 4's third kernel, flash_fwd_lse_kernel, which shares
-// kernel K2's body in flash_attention.cu.
+// kernel K2's tile step in flash_attention.cu.
 //
 // Replaces the Pallas bodies of revisionllm_tpu/ops/flash_attention.py
 // behind make_flash_mha (:526):
@@ -21,303 +21,363 @@
 // products of 2 * T^2 / 2 * H * d flops each, 52 and 69 us at 989 TFLOP/s
 // against 15-20 us of bytes; with the live kv_lens of a training batch (a
 // few hundred of 2048 columns) most tiles are skipped and bytes bound them.
-// The design, simple first: one block of 4 warps per (64-row tile, head,
-// batch row); on Hopper blocks run in parallel, so the TPU grid's sequential
-// axis becomes a loop inside the block. dq owns a q tile and loops over kv
-// tiles; dk/dv owns a kv tile and loops over q tiles, so every block owns its
-// output tile: no atomics, deterministic sums. Products run on the tensor
-// cores through WMMA 16x16x16 (bf16 in, f32 accumulation), and dq, dk and dv
-// accumulate in WMMA fragments (registers). Tiles in the causal future and
-// tiles at or past kv_lens[b] are never loaded, as the Pallas kernels skip
-// them with pl.when. wgmma and TMA come later.
+//
+// The design is FlashAttention-2's with Hopper's wgmma for every product
+// (attention_common.cuh), and it stays two kernels: dq owns a q tile and
+// loops over kv tiles; dk/dv owns a kv tile and loops over q tiles, so every
+// block owns its output tile: no atomics, deterministic sums (S and dP are
+// computed in both, 7 products where one fused kernel with f32 atomics on dq
+// would take 5). A block is one warpgroup (4 warps, 16 rows each) over a
+// 64-row tile; the tiles it walks stream through a two-stage cp.async ring in
+// the 128-byte-swizzled layout.
+//   dq: Q and dO sit in registers as A fragments (ldmatrix, once); per K/V
+//   tile, S = Q K^T and dP = dO V^T are wgmma.m64n64k16 with K and V read
+//   K-major, and stay in registers; dS is rounded to bf16 and repacked there
+//   as the A fragments of dQ += dS K, wgmma.m64n128k16 with K read MN-major.
+//   dk/dv: K and V stay in shared memory as the A operands of S^T = K Q^T and
+//   dP^T = V dO^T (wgmma with both operands from shared memory: dK and dV,
+//   64 x 128 f32 over the warpgroup, hold 128 registers a thread already);
+//   Q/dO tiles with their lse and delta rows stream through the ring. P^T
+//   and dS^T are rounded to bf16 and repacked in registers as the A
+//   fragments of dV += P^T dO and dK += dS^T Q, dO and Q read MN-major.
+// The mask is applied only on tiles that cross the diagonal, kv_len or T.
+// Tiles in the causal future and tiles at or past kv_lens[b] are never
+// loaded, as the Pallas kernels skip them with pl.when; causal q tiles (dq)
+// and kv tiles (dk/dv) are launched longest first. Outputs leave through
+// shared memory in 16-byte stores. About 100 KB of shared memory a block, so
+// two blocks share an SM.
+//
+// Measured by chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700.00 W: dq
+// 0.1328 ms and dk/dv 0.1785 ms at full length (bounds 0.0521 and 0.0695
+// ms, operations), 0.0562 and 0.0832 ms at kv_len 330 (PERF.md's kernel
+// table).
 //
 // Plain C interface, bound with ctypes by revisionllm_tpu_torch/ops/flash_attention.py.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
-using namespace nvcuda;
+using namespace attn;
 
 namespace {
 
-constexpr int D = 128;         // head_dim (Vicuna)
-constexpr int BQ = 64;         // query rows per tile
-constexpr int BKV = 64;        // kv rows per tile
-constexpr int THREADS = 128;   // 4 warps x 16 rows
-constexpr int DS = D + 8;      // bf16 row stride of q/k/v/dO tiles
-constexpr int SS = BKV + 4;    // f32 row stride of score tiles
-constexpr int PS = BKV + 8;    // bf16 row stride of P / dS tiles
-constexpr int OS = D + 4;      // f32 row stride of the output staging tile
-constexpr int VPR = D / 8;     // 16-byte vectors per row
-constexpr float LSE_EMPTY = 2.0e30f;  // lse of a row that sees no key
+constexpr int STAGES = 2;  // cp.async ring depth
 
-constexpr size_t TILE_BYTES = (size_t)64 * DS * 2;   // one bf16 [64, D] tile
-constexpr size_t SCORE_BYTES = (size_t)64 * SS * 4;  // one f32 [64, 64] tile
-constexpr size_t P_BYTES = (size_t)64 * PS * 2;      // one bf16 [64, 64] tile
-static_assert(2 * SCORE_BYTES >= (size_t)64 * OS * 4, "staging tile fits two score tiles");
-static_assert(BQ == BKV, "causal tile skipping assumes square tiles");
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// rows [t0, t0 + 64) of head `head` of a [B, rows, heads, D] tensor into a
-// [64, DS] shared tile; rows at or past `rows` are zero
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int b,
-                                          int t0, int rows, int heads, int head, int tid) {
-  for (int i = tid; i < 64 * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8, t = t0 + r;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (t < rows)
-      val = *reinterpret_cast<const uint4*>(src + (((size_t)b * rows + t) * heads + head) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * DS + c) = val;
-  }
-}
-
-// out[16, 64] (f32, stride SS) = a[16, D] . bt[64, D]^T, both bf16 stride DS
-__device__ __forceinline__ void rows_dot_tile(const __nv_bfloat16* a, const __nv_bfloat16* bt,
-                                              float* out) {
-  FragC acc[BKV / 16];
-#pragma unroll
-  for (int n = 0; n < BKV / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, a + kk * 16, DS);
-#pragma unroll
-    for (int n = 0; n < BKV / 16; ++n) {
-      // bt^T as a column-major B: element (d, s) at bt[s * DS + d]
-      FragBc fb;
-      wmma::load_matrix_sync(fb, bt + n * 16 * DS + kk * 16, DS);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < BKV / 16; ++n)
-    wmma::store_matrix_sync(out + n * 16, acc[n], SS, wmma::mem_row_major);
-}
-
-// acc[16, D] += p[16, 64] (bf16, stride PS) . m[64, D] (bf16, stride DS)
-__device__ __forceinline__ void acc_rows_times_tile(FragC (&acc)[D / 16], const __nv_bfloat16* p,
-                                                    const __nv_bfloat16* m) {
-#pragma unroll
-  for (int kk = 0; kk < 64 / 16; ++kk) {
-    FragA fa;
-    wmma::load_matrix_sync(fa, p + kk * 16, PS);
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      FragBr fb;
-      wmma::load_matrix_sync(fb, m + kk * 16 * DS + n * 16, DS);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// one warp's 16 accumulated rows -> bf16 rows [t0 + 16 warp, ...) of head
-// `head` of a [B, rows, heads, D] tensor, through the f32 staging tile
-__device__ __forceinline__ void store_rows(FragC (&acc)[D / 16], float* stage,
-                                           __nv_bfloat16* dst, int b, int t0, int rows,
-                                           int heads, int head, int warp, int lane) {
-  float* mine = stage + warp * 16 * OS;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n)
-    wmma::store_matrix_sync(mine + n * 16, acc[n], OS, wmma::mem_row_major);
-  __syncwarp();
-  for (int e = lane; e < 16 * D; e += 32) {
-    const int rr = e / D, c = e % D, t = t0 + warp * 16 + rr;
-    if (t < rows)
-      dst[(((size_t)b * rows + t) * heads + head) * D + c] = __float2bfloat16(mine[rr * OS + c]);
-  }
-  __syncwarp();
-}
-
-// lse and delta ([B, H, T] f32) of rows [t0, t0 + 64) into shared memory;
-// rows at or past T get the empty-row LSE, so their p is 0
-__device__ __forceinline__ void load_row_stats(float* lse_s, float* dl_s, const float* lse,
-                                               const float* delta, int b, int h, int H,
-                                               int T, int t0, int tid) {
-  for (int i = tid; i < 64; i += THREADS) {
-    const int t = t0 + i;
-    const size_t off = ((size_t)b * H + h) * T + t;
-    lse_s[i] = t < T ? lse[off] : LSE_EMPTY;
-    dl_s[i] = t < T ? delta[off] : 0.0f;
-  }
+// the causal tiles run longest first
+__device__ __forceinline__ int grid_tile(int causal) {
+  return causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
 }
 
 // ------------------------------------------------------------------ dq
 
-struct DqLayout {
-  static constexpr size_t q_off = 0;
-  static constexpr size_t do_off = q_off + TILE_BYTES;
-  static constexpr size_t k_off = do_off + TILE_BYTES;
-  static constexpr size_t v_off = k_off + TILE_BYTES;
-  static constexpr size_t s_off = v_off + TILE_BYTES;
-  static constexpr size_t dp_off = s_off + SCORE_BYTES;
-  static constexpr size_t ds_off = dp_off + SCORE_BYTES;
-  static constexpr size_t lse_off = ds_off + P_BYTES;
-  static constexpr size_t dl_off = lse_off + 64 * 4;
-  static constexpr size_t bytes = dl_off + 64 * 4;
-};
+// STAGES x (K, V) swizzled, the padded q tile (then dq's staging), the
+// padded dO tile, and slack to align the ring
+constexpr size_t DQ_RING_OFF = 0;
+constexpr size_t DQ_Q_OFF = STAGES * 2 * SW_TILE_BYTES;
+constexpr size_t DQ_DO_OFF = DQ_Q_OFF + TILE_BYTES;
+constexpr size_t DQ_SMEM_BYTES = DQ_DO_OFF + TILE_BYTES + 1024;
+
+// one kv tile of the warpgroup: S = Q K^T and dP = dO V^T, p = exp(s - lse)
+// under the mask, dS = p (dP - delta) sm_scale, dQ += dS K. Row g of a warp
+// is query row0, row g + 8 is row0 + 8; lse2 is in log2 units.
+template <bool MASK>
+__device__ __forceinline__ void dq_step(uint32_t (&qf)[D / 16][4], uint32_t (&df)[D / 16][4],
+                                        float (&acc)[D / 8][4], const unsigned char* ks,
+                                        const unsigned char* vs, const float (&lse2)[2],
+                                        const float (&dl)[2], int s0, int kv_len, int causal,
+                                        int row0, float scale2, float sm_scale, int lane) {
+  float s[TILE / 8][4], dp[TILE / 8][4];
+  pin<TILE / 8>(s);
+  pin<TILE / 8>(dp);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)  // S = Q K^T
+    wgmma_m64n64k16(s, qf[kk], k_major(ks, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)  // dP = dO V^T
+    wgmma_m64n64k16(dp, df[kk], k_major(vs, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait0();
+  pin<TILE / 8>(s);
+  pin<TILE / 8>(dp);
+  pin<D / 16>(qf);
+  pin<D / 16>(df);
+  const int c0 = s0 + 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < TILE / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e >> 1;
+      float p = ex2(s[n][e] * scale2 - lse2[r]);
+      if (MASK) {
+        const int col = c0 + n * 8 + (e & 1), row = row0 + 8 * r;
+        if (!(col < kv_len && (!causal || row >= col))) p = 0.0f;
+      }
+      dp[n][e] = p * (dp[n][e] - dl[r]) * sm_scale;
+    }
+  }
+  uint32_t da[TILE / 16][4];
+  pack_a<TILE>(da, dp);
+  pin<D / 8>(acc);
+  pin<TILE / 16>(da);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk)  // dQ += dS K
+    wgmma_m64n128k16_tb(acc, da[kk], mn_major(ks, kk), 1);
+  wgmma_commit();
+  wgmma_wait0();
+  pin<D / 8>(acc);
+  pin<TILE / 16>(da);
+}
 
 __global__ void __launch_bounds__(THREADS) flash_dq_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ dq, int T, int H, int KH,
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ kv_lens, bf16* __restrict__ dq, int T, int H, int KH,
     float sm_scale, int causal) {
-  using L = DqLayout;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
-  __nv_bfloat16* dos = reinterpret_cast<__nv_bfloat16*>(smem + L::do_off);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
-  float* ss = reinterpret_cast<float*>(smem + L::s_off);
-  float* dps = reinterpret_cast<float*>(smem + L::dp_off);
-  __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(smem + L::ds_off);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
-  float* dl_s = reinterpret_cast<float*>(smem + L::dl_off);
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ring = smem + DQ_RING_OFF;
+  bf16* qs = reinterpret_cast<bf16*>(smem + DQ_Q_OFF);
+  bf16* dos = reinterpret_cast<bf16*>(smem + DQ_DO_OFF);
+  const int q0 = grid_tile(causal) * TILE, h = blockIdx.y, b = blockIdx.z;
   const int kh = h / (H / KH);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kv_len = min(kv_lens[b], T);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kv_len = max(0, min(kv_lens[b], T));
+  const int kv_end = causal ? min(kv_len, q0 + TILE) : kv_len;
+  const int n_tiles = (kv_end + TILE - 1) / TILE;
+  const size_t q_stride = (size_t)H * D, kv_stride = (size_t)KH * D;
+  const size_t q_base = ((size_t)b * T + q0) * q_stride + (size_t)h * D;
+  const bf16* kb = k + (size_t)b * T * kv_stride + (size_t)kh * D;
+  const bf16* vb = v + (size_t)b * T * kv_stride + (size_t)kh * D;
 
-  load_tile(qs, q, b, q0, T, H, h, tid);
-  load_tile(dos, dout, b, q0, T, H, h, tid);
-  load_row_stats(lse_s, dl_s, lse, delta, b, h, H, T, q0, tid);
+  load_tile_async(qs, q + q_base, q_stride, T - q0);
+  load_tile_async(dos, dout + q_base, q_stride, T - q0);
+  cp_async_commit();
+  if (n_tiles > 0) {
+    load_tile_sw128(ring, kb, kv_stride, kv_len);
+    load_tile_sw128(ring + SW_TILE_BYTES, vb, kv_stride, kv_len);
+  }
+  cp_async_commit();
+  cp_async_wait<1>();  // Q and dO have landed
+  __syncthreads();
+  uint32_t qf[D / 16][4], df[D / 16][4];
+  load_a(qf, qs + warp * 16 * DS, lane);
+  load_a(df, dos + warp * 16 * DS, lane);
 
-  int kv_end = kv_len;
-  if (causal) kv_end = min(kv_end, q0 + BQ);
-  const int n_tiles = kv_end > 0 ? (kv_end + BKV - 1) / BKV : 0;
-
-  FragC acc[D / 16];
+  // this lane's two rows: their lse (log2 units) and delta; rows past T get
+  // the empty-row LSE, so their p is 0
+  const int row0 = q0 + warp * 16 + (lane >> 2);
+  float lse2[2], dl[2];
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
+  for (int r = 0; r < 2; ++r) {
+    const int t = row0 + 8 * r;
+    const size_t off = ((size_t)b * H + h) * T + t;
+    lse2[r] = (t < T ? lse[off] : LSE_EMPTY) * LOG2E;
+    dl[r] = t < T ? delta[off] : 0.0f;
+  }
+  const float scale2 = sm_scale * LOG2E;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.0f;
 
   for (int j = 0; j < n_tiles; ++j) {
-    const int s0 = j * BKV;
-    __syncthreads();  // the previous tile's K and V are no longer read
-    load_tile(ks, k, b, s0, T, KH, kh, tid);
-    load_tile(vs, v, b, s0, T, KH, kh, tid);
-    __syncthreads();
-
-    rows_dot_tile(qs + warp * 16 * DS, ks, ss + warp * 16 * SS);    // S = Q K^T
-    rows_dot_tile(dos + warp * 16 * DS, vs, dps + warp * 16 * SS);  // dP = dO V^T
-    __syncwarp();
-    for (int e = lane; e < 16 * BKV; e += 32) {
-      const int rr = e / BKV, c = e % BKV, r = warp * 16 + rr;
-      const int t = q0 + r, col = s0 + c;
-      const bool ok = col < kv_len && (!causal || t >= col);
-      const float p = ok ? expf(ss[r * SS + c] * sm_scale - lse_s[r]) : 0.0f;
-      const float ds = p * (dps[r * SS + c] - dl_s[r]) * sm_scale;
-      dss[r * PS + c] = __float2bfloat16(ds);
+    if (j + 1 < n_tiles) {
+      unsigned char* st = ring + ((j + 1) % STAGES) * 2 * SW_TILE_BYTES;
+      const size_t off = (size_t)(j + 1) * TILE * kv_stride;
+      load_tile_sw128(st, kb + off, kv_stride, kv_len - (j + 1) * TILE);
+      load_tile_sw128(st + SW_TILE_BYTES, vb + off, kv_stride, kv_len - (j + 1) * TILE);
     }
-    __syncwarp();
-    acc_rows_times_tile(acc, dss + warp * 16 * PS, ks);  // dQ += dS K
+    cp_async_commit();
+    cp_async_wait<1>();   // tile j has landed
+    fence_proxy_async();  // ... and is visible to wgmma's reads
+    __syncthreads();
+    const int s0 = j * TILE;
+    const unsigned char* ks = ring + (j % STAGES) * 2 * SW_TILE_BYTES;
+    // interior tiles (wholly below kv_len and the diagonal) take no mask
+    const bool full = s0 + TILE <= kv_len && (!causal || s0 + TILE - 1 <= q0);
+    if (full)
+      dq_step<false>(qf, df, acc, ks, ks + SW_TILE_BYTES, lse2, dl, s0, kv_len, causal, row0,
+                     scale2, sm_scale, lane);
+    else
+      dq_step<true>(qf, df, acc, ks, ks + SW_TILE_BYTES, lse2, dl, s0, kv_len, causal, row0,
+                    scale2, sm_scale, lane);
+    __syncthreads();  // stage j % STAGES is free for tile j + STAGES
   }
-  __syncthreads();  // the staging tile overlaps every warp's score rows
-  store_rows(acc, ss, dq, b, q0, T, H, h, warp, lane);
+  cp_async_wait<0>();
+  // each warp stages its own 16 rows of the q tile, which only it read
+  store_rows(acc, 1.0f, 1.0f, qs + warp * 16 * DS, dq + q_base + (size_t)warp * 16 * q_stride,
+             q_stride, T - q0 - warp * 16, lane);
 }
 
 // ------------------------------------------------------------------ dk, dv
 
-struct DkvLayout {
-  static constexpr size_t k_off = 0;
-  static constexpr size_t v_off = k_off + TILE_BYTES;
-  static constexpr size_t q_off = v_off + TILE_BYTES;
-  static constexpr size_t do_off = q_off + TILE_BYTES;
-  static constexpr size_t st_off = do_off + TILE_BYTES;
-  static constexpr size_t dpt_off = st_off + SCORE_BYTES;
-  static constexpr size_t pt_off = dpt_off + SCORE_BYTES;
-  static constexpr size_t dst_off = pt_off + P_BYTES;
-  static constexpr size_t lse_off = dst_off + P_BYTES;
-  static constexpr size_t dl_off = lse_off + 64 * 4;
-  static constexpr size_t bytes = dl_off + 64 * 4;
-};
+// the swizzled K and V tiles, STAGES x (Q, dO) swizzled (after the loop,
+// dk's and dv's staging), STAGES x (64 lse, 64 delta), slack to align
+constexpr size_t DKV_K_OFF = 0;
+constexpr size_t DKV_V_OFF = SW_TILE_BYTES;
+constexpr size_t DKV_RING_OFF = 2 * SW_TILE_BYTES;
+constexpr size_t DKV_STAT_OFF = DKV_RING_OFF + STAGES * 2 * SW_TILE_BYTES;
+constexpr size_t DKV_SMEM_BYTES = DKV_STAT_OFF + STAGES * 2 * TILE * 4 + 1024;
+static_assert(2 * SW_TILE_BYTES >= TILE_BYTES, "a ring stage holds a padded staging tile");
 
-__global__ void __launch_bounds__(THREADS) flash_dkv_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
-    const float* __restrict__ lse, const float* __restrict__ delta,
-    const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ dk,
-    __nv_bfloat16* __restrict__ dv, int T, int H, int KH, float sm_scale, int causal) {
-  using L = DkvLayout;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k_off);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + L::v_off);
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q_off);
-  __nv_bfloat16* dos = reinterpret_cast<__nv_bfloat16*>(smem + L::do_off);
-  float* sts = reinterpret_cast<float*>(smem + L::st_off);
-  float* dpts = reinterpret_cast<float*>(smem + L::dpt_off);
-  __nv_bfloat16* pts = reinterpret_cast<__nv_bfloat16*>(smem + L::pt_off);
-  __nv_bfloat16* dsts = reinterpret_cast<__nv_bfloat16*>(smem + L::dst_off);
-  float* lse_s = reinterpret_cast<float*>(smem + L::lse_off);
-  float* dl_s = reinterpret_cast<float*>(smem + L::dl_off);
+// the Q/dO tile of q rows q0.. of head h into a ring stage, and their lse and
+// delta rows into `stats` (64 each)
+__device__ __forceinline__ void copy_q_async(unsigned char* st, float* stats, const bf16* q,
+                                        const bf16* dout, const float* lse, const float* delta,
+                                        int b, int h, int q0, int T, int H) {
+  const size_t q_stride = (size_t)H * D;
+  const size_t base = ((size_t)b * T + q0) * q_stride + (size_t)h * D;
+  load_tile_sw128(st, q + base, q_stride, T - q0);
+  load_tile_sw128(st + SW_TILE_BYTES, dout + base, q_stride, T - q0);
+  const int i = threadIdx.x;  // one f32 a thread: lse, then delta
+  const int r = i & (TILE - 1);
+  const size_t off = ((size_t)b * H + h) * T + q0;
+  const bool ok = q0 + r < T;
+  cp_async4(stats + i, (i < TILE ? lse : delta) + off + (ok ? r : 0), ok);
+}
+static_assert(THREADS == 2 * TILE, "copy_q_async copies one lse or delta value a thread");
 
-  const int s0 = blockIdx.x * BKV;
-  const int kh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int group = H / KH;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kv_len = min(kv_lens[b], T);
-
-  FragC dk_acc[D / 16], dv_acc[D / 16];
+// one q tile of the warpgroup: S^T = K Q^T and dP^T = V dO^T, P^T and
+// dS^T under the mask, dV += P^T dO and dK += dS^T Q. Row g of a warp is kv
+// row row0, row g + 8 is row0 + 8; lse_s and dl_s hold the tile's 64 q rows.
+template <bool MASK>
+__device__ __forceinline__ void dkv_step(float (&dk)[D / 8][4], float (&dv)[D / 8][4],
+                                         const unsigned char* ks, const unsigned char* vs,
+                                         const unsigned char* qs, const unsigned char* dos,
+                                         const float* lse_s, const float* dl_s, int q0, int T,
+                                         int kv_len, int causal, int row0, float scale2,
+                                         float sm_scale, int lane) {
+  float p[TILE / 8][4], ds[TILE / 8][4];
+  pin<TILE / 8>(p);
+  pin<TILE / 8>(ds);
+  wgmma_fence();
 #pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.0f);
-    wmma::fill_fragment(dv_acc[n], 0.0f);
-  }
-
-  // a kv tile at or past kv_len gets no gradient (zeros are still written)
-  if (s0 < kv_len) {
-    load_tile(ks, k, b, s0, T, KH, kh, tid);
-    load_tile(vs, v, b, s0, T, KH, kh, tid);
-    // causal: q rows before s0 never see this tile
-    const int q_start = causal ? s0 : 0;
-    for (int g = 0; g < group; ++g) {
-      const int h = kh * group + g;
-      for (int q0 = q_start; q0 < T; q0 += BQ) {
-        __syncthreads();  // the previous q tile, its stats and P^T are no longer read
-        load_tile(qs, q, b, q0, T, H, h, tid);
-        load_tile(dos, dout, b, q0, T, H, h, tid);
-        load_row_stats(lse_s, dl_s, lse, delta, b, h, H, T, q0, tid);
-        __syncthreads();
-
-        rows_dot_tile(ks + warp * 16 * DS, qs, sts + warp * 16 * SS);    // S^T = K Q^T
-        rows_dot_tile(vs + warp * 16 * DS, dos, dpts + warp * 16 * SS);  // dP^T = V dO^T
-        __syncwarp();
-        for (int e = lane; e < 16 * BQ; e += 32) {
-          const int rr = e / BQ, c = e % BQ, r = warp * 16 + rr;
-          const int s = s0 + r, t = q0 + c;
-          const bool ok = s < kv_len && t < T && (!causal || t >= s);
-          const float p = ok ? expf(sts[r * SS + c] * sm_scale - lse_s[c]) : 0.0f;
-          const float ds = p * (dpts[r * SS + c] - dl_s[c]) * sm_scale;
-          pts[r * PS + c] = __float2bfloat16(p);
-          dsts[r * PS + c] = __float2bfloat16(ds);
-        }
-        __syncwarp();
-        acc_rows_times_tile(dv_acc, pts + warp * 16 * PS, dos);  // dV += P^T dO
-        acc_rows_times_tile(dk_acc, dsts + warp * 16 * PS, qs);  // dK += dS^T Q
+  for (int kk = 0; kk < D / 16; ++kk)  // S^T = K Q^T: rows kv, columns q
+    wgmma_m64n64k16_ss(p, k_major(ks, kk), k_major(qs, kk), kk > 0);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)  // dP^T = V dO^T
+    wgmma_m64n64k16_ss(ds, k_major(vs, kk), k_major(dos, kk), kk > 0);
+  wgmma_commit();
+  wgmma_wait0();
+  pin<TILE / 8>(p);
+  pin<TILE / 8>(ds);
+  const int c = 2 * (lane & 3);
+#pragma unroll
+  for (int n = 0; n < TILE / 8; ++n) {
+    const float2 l2 = *reinterpret_cast<const float2*>(lse_s + n * 8 + c);
+    const float2 d2 = *reinterpret_cast<const float2*>(dl_s + n * 8 + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = ex2(p[n][e] * scale2 - (e & 1 ? l2.y : l2.x) * LOG2E);
+      if (MASK) {
+        const int t = q0 + n * 8 + c + (e & 1), s = row0 + 8 * (e >> 1);
+        if (!(t < T && s < kv_len && (!causal || t >= s))) x = 0.0f;
       }
+      p[n][e] = x;
+      ds[n][e] = x * (ds[n][e] - (e & 1 ? d2.y : d2.x)) * sm_scale;
     }
   }
-  __syncthreads();  // the staging tile overlaps every warp's score rows
-  float* stage = sts;
-  store_rows(dk_acc, stage, dk, b, s0, T, KH, kh, warp, lane);
-  store_rows(dv_acc, stage, dv, b, s0, T, KH, kh, warp, lane);
+  uint32_t pa[TILE / 16][4], da[TILE / 16][4];
+  pack_a<TILE>(pa, p);
+  pack_a<TILE>(da, ds);
+  pin<D / 8>(dv);
+  pin<D / 8>(dk);
+  pin<TILE / 16>(pa);
+  pin<TILE / 16>(da);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk)  // dV += P^T dO
+    wgmma_m64n128k16_tb(dv, pa[kk], mn_major(dos, kk), 1);
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk)  // dK += dS^T Q
+    wgmma_m64n128k16_tb(dk, da[kk], mn_major(qs, kk), 1);
+  wgmma_commit();
+  wgmma_wait0();
+  pin<D / 8>(dv);
+  pin<D / 8>(dk);
+  pin<TILE / 16>(pa);
+  pin<TILE / 16>(da);
 }
 
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+__global__ void __launch_bounds__(THREADS) flash_dkv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const bf16* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+    const int* __restrict__ kv_lens, bf16* __restrict__ dk, bf16* __restrict__ dv, int T, int H,
+    int KH, float sm_scale, int causal) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ks = smem + DKV_K_OFF;
+  unsigned char* vs = smem + DKV_V_OFF;
+  unsigned char* ring = smem + DKV_RING_OFF;
+  float* stats = reinterpret_cast<float*>(smem + DKV_STAT_OFF);
+  const int s0 = grid_tile(causal) * TILE, kh = blockIdx.y, b = blockIdx.z;
+  const int group = H / KH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kv_len = max(0, min(kv_lens[b], T));
+  const size_t kv_stride = (size_t)KH * D;
+  const size_t kv_base = ((size_t)b * T + s0) * kv_stride + (size_t)kh * D;
+  // a kv tile at or past kv_len gets no gradient (zeros are still written);
+  // causal: q rows before s0 never see this tile
+  const int q_start = causal ? s0 : 0;
+  const int n_q = s0 < kv_len ? (T - q_start + TILE - 1) / TILE : 0;
+  const int n_tiles = group * n_q;  // (query head of the group, q tile) pairs
+
+  load_tile_sw128(ks, k + kv_base, kv_stride, kv_len - s0);
+  load_tile_sw128(vs, v + kv_base, kv_stride, kv_len - s0);
+  cp_async_commit();
+  if (n_tiles > 0) copy_q_async(ring, stats, q, dout, lse, delta, b, kh * group, q_start, T, H);
+  cp_async_commit();
+
+  float dka[D / 8][4], dva[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    dka[n][0] = dka[n][1] = dka[n][2] = dka[n][3] = 0.0f;
+    dva[n][0] = dva[n][1] = dva[n][2] = dva[n][3] = 0.0f;
+  }
+  const int row0 = s0 + warp * 16 + (lane >> 2);
+  const float scale2 = sm_scale * LOG2E;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    if (j + 1 < n_tiles) {
+      const int g = (j + 1) / n_q, q0 = q_start + ((j + 1) % n_q) * TILE;
+      const int st = (j + 1) % STAGES;
+      copy_q_async(ring + st * 2 * SW_TILE_BYTES, stats + st * 2 * TILE, q, dout, lse, delta, b,
+              kh * group + g, q0, T, H);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();   // tile j (and the K/V tiles) have landed
+    fence_proxy_async();  // ... and are visible to wgmma's reads
+    __syncthreads();
+    const int q0 = q_start + (j % n_q) * TILE;
+    const int st = j % STAGES;
+    const unsigned char* qs = ring + st * 2 * SW_TILE_BYTES;
+    const float* lse_s = stats + st * 2 * TILE;
+    const bool full = q0 + TILE <= T && s0 + TILE <= kv_len && (!causal || q0 >= s0 + TILE - 1);
+    if (full)
+      dkv_step<false>(dka, dva, ks, vs, qs, qs + SW_TILE_BYTES, lse_s, lse_s + TILE, q0, T,
+                      kv_len, causal, row0, scale2, sm_scale, lane);
+    else
+      dkv_step<true>(dka, dva, ks, vs, qs, qs + SW_TILE_BYTES, lse_s, lse_s + TILE, q0, T,
+                     kv_len, causal, row0, scale2, sm_scale, lane);
+    __syncthreads();  // stage j % STAGES is free for tile j + STAGES
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: it stages dk and dv
+  const int valid = T - s0 - warp * 16;
+  const size_t out = kv_base + (size_t)warp * 16 * kv_stride;
+  bf16* stage_k = reinterpret_cast<bf16*>(ring);
+  bf16* stage_v = reinterpret_cast<bf16*>(ring + 2 * SW_TILE_BYTES);
+  store_rows(dka, 1.0f, 1.0f, stage_k + warp * 16 * DS, dk + out, kv_stride, valid, lane);
+  store_rows(dva, 1.0f, 1.0f, stage_v + warp * 16 * DS, dv + out, kv_stride, valid, lane);
 }
 
 }  // namespace
+
+// dynamic shared memory of a dq (which == 0) or dk/dv (1) block
+extern "C" int flash_vjp_smem_bytes(int which) {
+  return (int)(which == 0 ? DQ_SMEM_BYTES : DKV_SMEM_BYTES);
+}
 
 // the forward's q/k/v and kv_lens, dout [B, T, H, D] bf16, lse and delta
 // [B, H, T] f32 -> dq [B, T, H, D] bf16
@@ -326,15 +386,14 @@ extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v, const 
                              int B, int T, int H, int KH, int d, float sm_scale, int causal,
                              void* stream) {
   if (d != D) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_dq_kernel, DqLayout::bytes);
+  cudaError_t err = allow_smem(flash_dq_kernel, DQ_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_dq_kernel<<<grid, THREADS, DqLayout::bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(dq), T, H, KH, sm_scale,
-      causal);
+  dim3 grid((T + TILE - 1) / TILE, H, B);
+  flash_dq_kernel<<<grid, THREADS, DQ_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(kv_lens), static_cast<bf16*>(dq),
+      T, H, KH, sm_scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -345,14 +404,13 @@ extern "C" int flash_dkv_bf16(const void* q, const void* k, const void* v, const
                               void* dv, int B, int T, int H, int KH, int d, float sm_scale,
                               int causal, void* stream) {
   if (d != D) return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_smem(flash_dkv_kernel, DkvLayout::bytes);
+  cudaError_t err = allow_smem(flash_dkv_kernel, DKV_SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + BKV - 1) / BKV, KH, B);
-  flash_dkv_kernel<<<grid, THREADS, DkvLayout::bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(kv_lens), static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), T, H, KH, sm_scale, causal);
+  dim3 grid((T + TILE - 1) / TILE, KH, B);
+  flash_dkv_kernel<<<grid, THREADS, DKV_SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(kv_lens), static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), T, H, KH, sm_scale, causal);
   return (int)cudaGetLastError();
 }
