@@ -10,8 +10,8 @@ measured in that run. Phases:
      the eight sources in csrc/ (one nvcc per source, all in parallel; rows 9
      and 10 share csrc/decode_common.cuh, K2 and rows 4-6
      csrc/attention_common.cuh), and print each kernel's registers, shared
-     memory and spill bytes from ptxas (fails if an attention kernel
-     spills);
+     memory and spill bytes from ptxas (fails if an attention kernel or
+     row 7 spills);
   3. each kernel against its plain PyTorch version on the card, at the
      stage-1 shapes (Vicuna-7B, chunk of 64 windows): max error against the
      stated tolerance, device time of the kernel, of the plain version and of
@@ -85,7 +85,9 @@ measured in that run. Phases:
      each with planted faults that must fail, device times, bounds and a
      yardstick (torch.matmul on the dequantized weight; two torch._int_mm
      and the epilogue; the split decode step; row 9 on the standard tree
-     and the split step on the packed tree);
+     and the split step on the packed tree); row 7 also at the edge cases
+     Q4_EDGES, bit-identical over two calls, and one kernel launch with no
+     workspace per call (read from the profiler and the allocator);
  13. configurations A (int8, REVISIONLLM_FUSED_MLP=1 and
      REVISIONLLM_MEGAKERNEL=1), B (int4 weights) and C (the int8 tree packed
      into the serving chunks, REVISIONLLM_SERVE=1) through ground_windows
@@ -191,7 +193,7 @@ KERNEL_GROUPS = (
     ("row 4 flash_fwd_lse", r"flash_fwd_lse_kernel"),
     ("row 4 flash_dq", r"flash_dq_kernel"),
     ("row 4 flash_dkv", r"flash_dkv_kernel"),
-    ("row 7 int4_matmul (q4_matmul + q4_finalize)", r"q4_matmul_kernel|q4_finalize_kernel"),
+    ("row 7 int4_matmul (q4_matmul, one launch)", r"q4_matmul_kernel"),
     ("row 8 w8a8_mlp_fused (GEMM + requantize)", r"mlp_gemm_kernel|mlp_quant_kernel"),
     ("row 9 decode_step_fused", r"step_kernel<.*GenCacheAttn"),
     ("row 10 decode_step_serve", r"step_kernel<.*SlabAttn"),
@@ -271,32 +273,39 @@ def ptxas_entries(text):
     return out
 
 
+# the kernels that must not spill: the attention kernels and row 7's
+NO_SPILL_KERNELS = {**ATTENTION_KERNELS,
+                    "q4_matmul_kernel": ("int4_matmul", "q4_matmul_smem_bytes", ())}
+
+
 def report_ptxas(kernels, libs=None):
     """Print the registers, shared memory and spill bytes of every kernel in
-    `libs` (default: all) from the build's ptxas reports (the attention
-    kernels' dynamic shared memory from their libraries); fail if an
-    attention kernel spills or has no report."""
+    `libs` (default: all) from the build's ptxas reports (the dynamic shared
+    memory of NO_SPILL_KERNELS from their libraries); fail if one of
+    NO_SPILL_KERNELS in `libs` spills or has no report."""
     import ctypes
 
+    libs = tuple(libs or kernels.KERNELS)
     spilled, seen = [], set()
-    for lib in libs or kernels.KERNELS:
+    for lib in libs:
         log = kernels.library_path(lib).with_suffix(".log")
         if not log.exists():
             continue
         for name, regs, smem, st, ld in ptxas_entries(log.read_text()):
             extra = ""
-            if name in ATTENTION_KERNELS:
+            if name in NO_SPILL_KERNELS:
                 seen.add(name)
-                src, sym, args = ATTENTION_KERNELS[name]
+                src, sym, args = NO_SPILL_KERNELS[name]
                 fn = kernels.function(src, sym, [ctypes.c_int] * len(args))
                 extra = f" + {fn(*args)} B dynamic"
                 if st or ld:
                     spilled.append(name)
             say(f"ptxas {lib} {name}: {regs} registers, {smem} B static shared memory{extra}, "
                 f"spill stores {st} B, spill loads {ld} B")
-    if spilled or seen != set(ATTENTION_KERNELS):
-        raise AssertionError(f"attention kernels spill to local memory: {spilled}; "
-                             f"without a ptxas report: {set(ATTENTION_KERNELS) - seen}")
+    expected = {k for k, (src, _, _) in NO_SPILL_KERNELS.items() if src in libs}
+    if spilled or seen != expected:
+        raise AssertionError(f"kernels spill to local memory: {spilled}; "
+                             f"without a ptxas report: {expected - seen}")
 
 
 def device_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -1943,17 +1952,70 @@ def hold_cols(label, got, want, faults=None, cols=128):
     return hold(label, view(got), view(want), {k: view(v) for k, v in (faults or {}).items()})
 
 
+# row 7's edge cases (M, K, N), correctness only: M 1 (15 padding rows of
+# 16), 16 and 17 on both sides of the 16-row tile, 65, 200 and 256 over
+# several 64-row m tiles (one launch), 300 (two launches); K 4224 (33 groups,
+# ranks of unequal length); N 4112 (a 16-column last block) and 32000
+Q4_EDGES = ((1, 4096, 4096), (1, 4224, 32000), (16, 4224, 4112), (17, 4096, 32000),
+            (64, 4224, 4112), (65, 4224, 4112), (200, 4096, 4096), (256, 4096, 11008),
+            (300, 4224, 4112))
+
+
+def dropped_last_rank(x, q, s, sms, resident):
+    """Row 7's plain version with the last K rank's tiles left out of the
+    sum: the result of a cluster sum that drops one partial (a planted
+    fault). x has at most 256 rows (one launch); `sms` and `resident` as
+    q4_plan takes them."""
+    from revisionllm_tpu_torch.ops import quant as Q
+
+    K = x.shape[-1]
+    plan = Q.q4_plan(x.shape[0], K, q.shape[1], sms, resident)
+    t0, nk = Q.q4_rank_tiles(plan.k_tiles, plan.splitk)[-1]
+    xd = x.clone()
+    xd[:, t0 * Q.Q4_BK:(t0 + nk) * Q.Q4_BK] = 0
+    return Q.int4_matmul_plain(xd, q, s)
+
+
+def q4_one_kernel(label, fn, launches):
+    """One call of `fn` under torch.profiler must run `launches` kernels,
+    each q4_matmul_kernel (no q4_finalize_kernel), and allocate only the
+    output (no f32 workspace)."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    _, _, events = profiled(fn)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    names = [e.name for e in events]
+    if len(names) != launches or not all("q4_matmul_kernel" in n for n in names) or allocs != 1:
+        raise AssertionError(f"{label}: expected {launches} q4_matmul_kernel launches and one "
+                             f"allocation (the output), got kernels {names}, {allocs} allocations")
+
+
 def check_int4_matmul(dev, iters):
     """Row 7 at the decode step's shapes (M 64; q/k/v/o, gate/up, down, the
     lm_head) against its plain version by relative L2 error, whole and per
-    (64-row, 128-column) block, with a planted fault (the two nibbles of
-    each byte swapped) that must fail; then other heights, a K of 33 groups
-    and an N no multiple of 128, and 300 rows (two launches), correctness
-    only. Times one decode step's 225 launches: kernel, plain, and
-    torch.matmul on the dequantized bf16 weight."""
+    (64-row, 128-column) block, with two planted faults that must fail (the
+    two nibbles of each byte swapped; the last K rank's partial dropped
+    from the cluster sum); two calls on the same inputs must be
+    bit-identical, and one call must be one q4_matmul_kernel launch that
+    allocates only its output. Then the edge cases Q4_EDGES, correctness
+    only. The C library's shared memory must be the plan's, and clusters of
+    each size must fit (cudaOccupancyMaxActiveClusters). Times one
+    decode step's 225 launches: kernel, plain, and torch.matmul on the
+    dequantized bf16 weight."""
     import torch
     from revisionllm_tpu_torch.ops import quant as Q
+    from revisionllm_tpu_torch.utils import kernels
 
+    smem = kernels.function("int4_matmul", "q4_matmul_smem_bytes", [])()
+    if smem != Q.q4_smem_bytes():
+        raise AssertionError(f"int4_matmul: the library's shared memory is {smem} B, the "
+                             f"plan's {Q.q4_smem_bytes()} B")
+    resident = Q.q4_resident(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    say(f"int4_matmul: {smem} B of shared memory a block; resident clusters of "
+        f"{Q.Q4_SPLITS} blocks: {resident} on {sms} SMs")
     M = 64
     shapes = [(4096, 4096, 4 * 32), (4096, 11008, 2 * 32), (11008, 4096, 32), (4096, 32000, 1)]
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -1968,11 +2030,19 @@ def check_int4_matmul(dev, iters):
             q, s = Q.quantize_int4(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5)
             ws.append((q, s, Q.dequantize_int4(q, s, torch.bfloat16)))
         q, s = ws[0][:2]
+        plan = Q.q4_plan(M, K, N, sms, resident)
         got = Q.int4_matmul(x, q, s)
+        again = Q.int4_matmul(x, q, s)
         want = Q.int4_matmul_plain(x, q, s)
         swapped = Q.int4_matmul_plain(x, ((q & 0xF) << 4) | (q >> 4), s)
+        dropped = dropped_last_rank(x, q, s, sms, resident)
         torch.cuda.synchronize()
-        err = hold_cols(f"int4_matmul M={M} K={K} N={N}", got, want, {"nibbles swapped": swapped})
+        if not torch.equal(got, again):
+            raise AssertionError(f"int4_matmul K={K} N={N}: two calls differ")
+        err = hold_cols(f"int4_matmul M={M} K={K} N={N} (S {plan.splitk}, "
+                        f"{plan.n_tiles} clusters)", got, want,
+                        {"nibbles swapped": swapped, "last K rank dropped": dropped})
+        q4_one_kernel(f"int4_matmul K={K} N={N}", lambda: Q.int4_matmul(x, q, s), 1)
         worst = max(worst, err)
         pick = cycled(ws)
         ms = device_ms(lambda: Q.int4_matmul(x, *pick()[:2]), iters)
@@ -1984,19 +2054,23 @@ def check_int4_matmul(dev, iters):
         say(f"int4_matmul M={M} K={K} N={N}: kernel {ms:.4f} ms plain {plain:.4f} ms "
             f"torch.matmul(bf16 W) {lib:.4f} ms bound {b:.4f} ms ({by}) "
             f"[{per_step} launches per decode step]")
-        details.append({"K": K, "N": N, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                        "bound_ms": b, "per_decode_step": per_step})
+        details.append({"K": K, "N": N, "splitk": plan.splitk, "ms": ms, "plain_ms": plain,
+                        "library_ms": lib, "bound_ms": b, "per_decode_step": per_step})
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib)):
             tot[key] += per_step * val
         tot["bytes"] += per_step * nbytes
         tot["ops"] += per_step * ops
         del ws, pick
-    for M2, K2, N2 in ((1, 4096, 4096), (200, 4096, 4096), (300, 4224, 4112)):
+    for M2, K2, N2 in Q4_EDGES:
         x = torch.randn((M2, K2), generator=gen, device=dev).to(torch.bfloat16)
         q, s = Q.quantize_int4(torch.randn((K2, N2), generator=gen, device=dev) * K2 ** -0.5)
         worst = max(worst, hold_cols(f"int4_matmul M={M2} K={K2} N={N2}", Q.int4_matmul(x, q, s),
                                      Q.int4_matmul_plain(x, q, s)))
+    q4_one_kernel(f"int4_matmul M={M2}", lambda: Q.int4_matmul(x, q, s),
+                  -(-M2 // Q.KERNEL_MAX_M))
     b, by = bound(tot["bytes"], tot["ops"])
+    say(f"int4_matmul one decode step: kernel {tot['ms']:.4f} ms, torch.matmul(bf16 W) "
+        f"{tot['library_ms']:.4f} ms, bound {b:.4f} ms ({by})")
     return {
         "name": "int4_matmul", "max_abs_err": worst, "ms": tot["ms"],
         "plain_ms": tot["plain_ms"], "bound_ms": b, "bound_by": by,

@@ -1,0 +1,127 @@
+// The building blocks of the weight-only decode matmuls that do not depend
+// on how the weights are packed: row 7 (csrc/int4_matmul.cu, W4A16) now,
+// and K1 (csrc/int8_matmul.cu, W8A16) when it takes the same design. The
+// tensor-core pieces they use (wgmma with A from registers and x as a
+// 128-byte-swizzled B operand, its descriptors and fences, the swizzled
+// tile loader) are csrc/attention_common.cuh's. Here:
+//   - the cp.async ring helpers (16-byte .cg copies, zero-filled past the
+//     live rows and columns);
+//   - the bf16x2 packing and a wait for all but N wgmma groups;
+//   - the split-K reduction across a thread-block cluster: every rank leaves
+//     its f32 partial tile in its own shared memory, and rank r sums its
+//     1/S slice of the tile over ranks 0..S-1, in rank order, through
+//     distributed shared memory, then rounds and stores it as bf16. No
+//     partial sum reaches device memory, and the order of the sums is fixed,
+//     so the result is deterministic.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace wonly {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, bypassing L1; when !pred nothing is
+// read and the 16 bytes are zero (src must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(pred ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// wait until at most N of this thread's committed wgmma groups are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// two floats rounded to bf16, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the cluster barrier: every thread of every block of the cluster arrives
+// (its shared-memory writes released) and waits (the others' acquired)
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the address of `p` (this block's shared memory) in block `rank`'s shared
+// memory, for ld.shared::cluster
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, int rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(a) : "memory");
+  return v;
+}
+
+// The split-K sum over the block's cluster of S <= 8 blocks along the K
+// axis (its rank r = blockIdx.y, S = gridDim.y). `part` is this rank's f32
+// partial tile [MP][RS] in shared memory (columns [0, BN) live), written by
+// the block. Rank r takes float4s [r Q / S, (r + 1) Q / S) of the Q = MP *
+// BN / 4 float4s of the tile, adds them over ranks 0..S-1 in that order and
+// stores rows < rows and columns < N of out [.., N] (row stride N) as bf16.
+// Each float4's S reads (distributed shared memory, ld.shared::cluster) are
+// issued together, so a float4 costs one latency.
+template <int MP, int BN, int RS, int THREADS>
+__device__ __forceinline__ void cluster_sum_store(float* part, bf16* out, int rows, int N,
+                                                  int n0) {
+  const int S = gridDim.y, r = blockIdx.y;
+  uint32_t src[8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p) src[p] = cluster_addr(part, p < S ? p : r);
+  cluster_sync();  // every rank's partial tile is written
+  constexpr int Q = MP * BN / 4;
+  const int q0 = r * Q / S, q1 = (r + 1) * Q / S;
+#pragma unroll 2
+  for (int q = q0 + threadIdx.x; q < q1; q += THREADS) {
+    const int row = q / (BN / 4), col = (q % (BN / 4)) * 4;
+    const uint32_t off = (uint32_t)(row * RS + col) * 4;
+    float4 v[8];
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      if (p < S) v[p] = ld_cluster_f4(src[p] + off);
+    float4 s = v[0];
+#pragma unroll
+    for (int p = 1; p < 8; ++p)
+      if (p < S) {
+        s.x += v[p].x;
+        s.y += v[p].y;
+        s.z += v[p].z;
+        s.w += v[p].w;
+      }
+    if (row < rows && n0 + col < N) {
+      uint2 o;
+      o.x = pack_bf16(s.x, s.y);
+      o.y = pack_bf16(s.z, s.w);
+      *reinterpret_cast<uint2*>(out + (size_t)row * N + n0 + col) = o;
+    }
+  }
+  cluster_sync();  // no rank leaves while another still reads its tile
+}
+
+}  // namespace wonly

@@ -35,8 +35,9 @@ Quantization divides and rounds half to even (`torch.round`, like
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -68,17 +69,14 @@ def int8_matmul_plain(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor) 
     return (acc * scale).to(x.dtype).reshape(*x.shape[:-1], N)
 
 
-def _plan(M: int, K: int, N: int, device: torch.device,
-          w_stage: int = 64 * 128) -> Tuple[int, int, int, int]:
-    """(mt, padded N, K splits, K rows per split) for K1 and row 7, cached
-    per shape.
+def _plan(M: int, K: int, N: int, device: torch.device) -> Tuple[int, int, int, int]:
+    """(mt, padded N, K splits, K rows per split) for K1, cached per shape.
 
-    Mirrors csrc/int8_matmul.cu and csrc/int4_matmul.cu: blocks of 128
-    columns, 64-row stages, 4 stages of x and of the weight tile (`w_stage`
-    bytes: 64 x 128 int8 for K1; 32 x 128 packed bytes and a row of 128 f32
-    group scales for row 7) plus one widened W tile in shared memory. K is
-    split so that the grid fills one wave of resident blocks."""
-    key = (M, K, N, device.index, w_stage)
+    Mirrors csrc/int8_matmul.cu: blocks of 128 columns, 64-row stages, 4
+    stages of x and of the 64 x 128 int8 weight tile plus one widened W tile
+    in shared memory. K is split so that the grid fills one wave of resident
+    blocks."""
+    key = (M, K, N, device.index)
     plan = _PLANS.get(key)
     if plan is None:
         mt = 1
@@ -86,7 +84,7 @@ def _plan(M: int, K: int, N: int, device: torch.device,
             mt *= 2
         n_pad = -(-N // 128) * 128
         k_tiles = -(-K // 64)
-        smem = 4 * (mt * 16 * 72 * 2 + w_stage) + 64 * 136 * 2
+        smem = 4 * (mt * 16 * 72 * 2 + 64 * 128) + 64 * 136 * 2
         per_sm = max(1, min((228 * 1024) // (smem + 1024), 8))
         slots = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
         splitk = max(1, min(round(slots / (n_pad // 128)), k_tiles))
@@ -459,6 +457,93 @@ def int4_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tens
     return acc.to(x.dtype).reshape(*x.shape[:-1], N)
 
 
+# Row 7's tile geometry, mirrored from csrc/int4_matmul.cu
+Q4_BN = 128                # output columns of a block (one warpgroup)
+Q4_BK = 128                # K rows of a tile (64 packed rows, one scale group)
+Q4_MP = 64                 # x rows of a block
+Q4_STAGES = 2              # ring stages
+Q4_SPLITS = (1, 2, 4, 8)   # cluster sizes along K (8: the portable limit)
+
+
+class Q4Plan(NamedTuple):
+    m_tiles: int   # blocks of Q4_MP rows (the grid's z axis)
+    n_tiles: int   # blocks of Q4_BN columns (x axis)
+    splitk: int    # K ranks, one cluster (y axis)
+    k_tiles: int   # Q4_BK-row K tiles
+
+
+def q4_smem_bytes() -> int:
+    """A block's dynamic shared memory (csrc/int4_matmul.cu, SMEM): the ring
+    of Q4_STAGES stages, each x (Q4_MP x Q4_BK bf16, swizzled), packed W
+    (Q4_BK / 2 rows of Q4_BN + 32 bytes) and a row of Q4_BN f32 scales
+    rounded up to 1 KB, which the f32 partial tile (Q4_MP x (Q4_BN + 4))
+    reuses at the end, and 1 KB for the ring's 1024-byte alignment."""
+    stage = Q4_MP * Q4_BK * 2 + (Q4_BK // 2) * (Q4_BN + 32) + Q4_BN * 4
+    stage = -(-stage // 1024) * 1024
+    return max(Q4_STAGES * stage, Q4_MP * (Q4_BN + 4) * 4) + 1024
+
+
+@functools.lru_cache(maxsize=None)
+def q4_plan(M: int, K: int, N: int, sms: int, resident: Tuple[int, ...]) -> Q4Plan:
+    """Row 7's launch for M <= 256 rows on a card of `sms` SMs, where
+    resident[i] clusters of Q4_SPLITS[i] blocks fit at once (the kernel's
+    cudaOccupancyMaxActiveClusters; several blocks share an SM).
+
+    Each block takes Q4_MP rows (more rows take the grid's z axis). The K
+    splits S of a column tile form one cluster; S is the one of 1, 2, 4, 8
+    (at most the tile count) with the least modelled time, the smaller on a
+    tie: waves of resident clusters x (tiles a rank + 2, a block's fixed
+    cost: the ring's first tile and the sums) x (b + 1) / 2 for b blocks
+    sharing the busiest SM (co-resident blocks hide part of each other's
+    latency, so b of them take less than b times one). Fitted to the
+    splits timed by scripts/torch_int4_probe.py at the decode shapes."""
+    m_tiles = -(-M // Q4_MP)
+    n_tiles = -(-N // Q4_BN)
+    k_tiles = K // Q4_BK
+
+    def cost(i):
+        s = Q4_SPLITS[i]
+        clusters = n_tiles * m_tiles
+        waves = -(-clusters // max(1, resident[i]))
+        per_sm = -(-(-(-clusters // waves) * s) // sms)
+        return waves * (-(-k_tiles // s) + 2) * (per_sm + 1)
+
+    i = min((i for i, s in enumerate(Q4_SPLITS) if s <= k_tiles),
+            key=lambda i: (cost(i), Q4_SPLITS[i]))
+    return Q4Plan(m_tiles, n_tiles, Q4_SPLITS[i], k_tiles)
+
+
+def q4_rank_tiles(k_tiles: int, splitk: int) -> List[Tuple[int, int]]:
+    """(first tile, tile count) of each K rank, as the kernel splits them:
+    whole tiles, the first k_tiles % splitk ranks one tile more."""
+    base, rem = divmod(k_tiles, splitk)
+    return [(r * base + min(r, rem), base + (r < rem)) for r in range(splitk)]
+
+
+_RESIDENT: Dict[int, Tuple[int, ...]] = {}
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def q4_resident(device: torch.device) -> Tuple[int, ...]:
+    """How many clusters of each of Q4_SPLITS row 7 fits on `device` at
+    once (asked of the kernel's library once, then cached)."""
+    res = _RESIDENT.get(device.index)
+    if res is None:
+        fn = kernels.function("int4_matmul", "q4_matmul_max_clusters", [ctypes.c_int])
+        res = tuple(fn(s) for s in Q4_SPLITS)
+        if min(res) < 1:
+            raise RuntimeError(f"int4_matmul: clusters of {Q4_SPLITS} blocks fit {res} times")
+        _RESIDENT[device.index] = res
+    return res
+
+
 def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
                 group: int = Q4_GROUP) -> torch.Tensor:
     """x: [..., K]; w_packed: [K//2, N] uint8; scale: [K//group, N] f32 ->
@@ -466,7 +551,8 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
 
     A CPU tensor takes `int4_matmul_plain`; a CUDA tensor launches row 7
     (csrc/int4_matmul.cu), one launch per 256 rows of x (the decode step's
-    M is 64; REVISIONLLM_Q4_PALLAS=all sends the prefill's rows too)."""
+    M is 64; REVISIONLLM_Q4_PALLAS=all sends the prefill's rows too), with
+    the split that `q4_plan` picks."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, w_packed, scale, group)
     kernels.forbid_grad("int4_matmul", x, scale)
@@ -493,15 +579,14 @@ def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     fn = kernels.function(
         "int4_matmul", "q4_matmul_bf16",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
     for m0 in range(0, M, KERNEL_MAX_M):
         rows = min(KERNEL_MAX_M, M - m0)
-        mt, n_pad, splitk, k_per_split = _plan(rows, K, N, dev, 32 * 128 + 128 * 4)
-        ws = torch.empty((splitk, mt * 16, n_pad), dtype=torch.float32, device=dev)
+        plan = q4_plan(rows, K, N, _sm_count(dev), q4_resident(dev))
         err = fn(
-            x2[m0:].data_ptr(), w_packed.data_ptr(), scale.data_ptr(), ws.data_ptr(),
-            out[m0:].data_ptr(), rows, K, N, mt, splitk, k_per_split, kernels.stream_of(x2),
+            x2[m0:].data_ptr(), w_packed.data_ptr(), scale.data_ptr(), out[m0:].data_ptr(),
+            rows, K, N, plan.splitk, kernels.stream_of(x2),
         )
         kernels.check_launch("int4_matmul", err)
         kernels.LAUNCHES["int4_matmul"] += 1

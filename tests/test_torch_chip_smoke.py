@@ -99,18 +99,25 @@ def test_stage2_geometry_of_the_pipeline():
 
 def test_row7_and_row8_planted_faults_fail_the_limits():
     """Rows 7 and 8's planted faults, on their plain versions: the nibbles
-    of each byte swapped; the absmax taken over the first 64 columns only
-    and silu left out. Each moves the worst (64-row, 128-column) block by
-    far more than the card's tile limit; the plain versions hold against
-    themselves."""
+    of each byte swapped, and the last K rank's partial dropped from the
+    cluster sum (here 1 of 4 ranks); the absmax taken over the first 64
+    columns only and silu left out. Each moves the worst (64-row,
+    128-column) block by far more than the card's tile limit; the plain
+    versions hold against themselves."""
     from revisionllm_tpu_torch.ops import quant as Q
 
     gen = torch.Generator().manual_seed(2)
-    x = torch.randn((64, 256), generator=gen).to(torch.bfloat16)
-    q, s = Q.quantize_int4(torch.randn((256, 384), generator=gen) * 256 ** -0.5)
+    x = torch.randn((64, 512), generator=gen).to(torch.bfloat16)
+    q, s = Q.quantize_int4(torch.randn((512, 384), generator=gen) * 512 ** -0.5)
     want = Q.int4_matmul_plain(x, q, s)
     bad = Q.int4_matmul_plain(x, ((q & 0xF) << 4) | (q >> 4), s)
-    assert chip_smoke.hold_cols("row 7", want, want, {"nibbles swapped": bad}) == 0.0
+    resident = (396, 198, 92, 45)
+    assert Q.q4_plan(64, 512, 384, 132, resident).splitk == 4
+    dropped = chip_smoke.dropped_last_rank(x, q, s, 132, resident)
+    assert chip_smoke.hold_cols("row 7", want, want, {"nibbles swapped": bad,
+                                                      "last K rank dropped": dropped}) == 0.0
+    with pytest.raises(AssertionError, match="accept planted faults"):
+        chip_smoke.hold_cols("row 7", want, want, {"none": want.clone()})
     xq, xs = Q.quantize_activation_rows(torch.randn((128, 256), generator=gen))
     gq, gs = Q.quantize_int8(torch.randn((256, 512), generator=gen) * 256 ** -0.5)
     uq, us = Q.quantize_int8(torch.randn((256, 512), generator=gen) * 256 ** -0.5)
@@ -231,3 +238,24 @@ def test_kernel_groups_name_rows_9_and_10():
     assert groups["row 9 decode_step_fused"] == [2.0, 1]
     assert groups["row 10 decode_step_serve"] == [2.0, 1]
     assert other == {}
+
+
+def test_row7_checks_cover_the_edges_and_spills():
+    """Row 7's edge cases reach M 1, both sides of the 16-row tile, several
+    64-row m tiles and two launches, K 4224 and N 4112 and 32000; the
+    breakdown finds row 7 by its one kernel; ptxas's spill check covers it,
+    with its dynamic shared memory from its library."""
+    from revisionllm_tpu_torch.ops import quant as Q
+
+    ms = {m for m, _, _ in chip_smoke.Q4_EDGES}
+    assert {1, 16, 17, 65, 200, 256} <= ms and max(ms) > Q.KERNEL_MAX_M
+    assert {k for _, k, _ in chip_smoke.Q4_EDGES} >= {4224}
+    assert {n for _, _, n in chip_smoke.Q4_EDGES} >= {4112, 32000}
+    assert chip_smoke.NO_SPILL_KERNELS["q4_matmul_kernel"] == (
+        "int4_matmul", "q4_matmul_smem_bytes", ())
+    assert set(chip_smoke.ATTENTION_KERNELS) < set(chip_smoke.NO_SPILL_KERNELS)
+    name = "void (anonymous namespace)::q4_matmul_kernel(__nv_bfloat16 const*, " \
+           "unsigned char const*, float const*, __nv_bfloat16*, int, int, int)"
+    event = type("Event", (), {"name": name, "device_time_total": 3000.0})()
+    groups, other = chip_smoke.group_kernels([event])
+    assert groups["row 7 int4_matmul (q4_matmul, one launch)"] == [3.0, 1] and other == {}
