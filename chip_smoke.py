@@ -11,12 +11,16 @@ measured in that run. Phases:
      and 10 share csrc/decode_common.cuh, K2 and rows 4-6
      csrc/attention_common.cuh), and print each kernel's registers, shared
      memory and spill bytes from ptxas (fails if an attention kernel or
-     row 7 spills);
+     K1 or row 7 spills);
   3. each kernel against its plain PyTorch version on the card, at the
      stage-1 shapes (Vicuna-7B, chunk of 64 windows): max error against the
      stated tolerance, device time of the kernel, of the plain version and of
      one PyTorch library call for the same function, and the least time the
-     H100 SXM data sheet allows (3.35 TB/s; 989 TFLOP/s bf16);
+     H100 SXM data sheet allows (3.35 TB/s; 989 TFLOP/s bf16); K1
+     (int8_matmul) at the decode step's four shapes by the limits of phase 7
+     per (64-row, 128-column) block, with two planted faults that must fail,
+     bit-identical over two calls, one kernel launch with no workspace per
+     call, and at the edge cases K1_EDGES;
   4. the slice: GroundingEngine.ground_windows on a 1-hour movie (18 000
      frames of 768-d features, 57 windows of 250 frames in one chunk of 64,
      12 greedy tokens) with Vicuna-7B int8 weights made from a seed at full
@@ -29,7 +33,7 @@ measured in that run. Phases:
      the prefill and a decode step, the wall time, the host's time to
      enqueue it and the device's busy time (summed kernel time under
      torch.profiler); then one ground_windows under the profiler, its kernel
-     time grouped by hand-written kernel (K1 = matmul + finalize), library
+     time grouped by hand-written kernel, library
      GEMM and the rest, and the device's idle share;
   7. the row-4 kernels (forward with LSE, dq, dk/dv) against their plain
      versions at the training shape (B = 1, H = 32, T = S = 2048, d = 128,
@@ -187,7 +191,7 @@ def kernel_events(prof):
 # __global__ names, then the int8 GEMM of the W8A8 prefill (torch._int_mm),
 # then the other library GEMMs (the adapter's bf16 products)
 KERNEL_GROUPS = (
-    ("K1 int8_matmul (q8_matmul + q8_finalize)", r"q8_matmul_kernel|q8_finalize_kernel"),
+    ("K1 int8_matmul (q8_matmul, one launch)", r"q8_matmul_kernel"),
     ("K2 flash_attention", r"flash_fwd_kernel"),
     ("K3 decode_attention", r"decode_attn_kernel"),
     ("row 4 flash_fwd_lse", r"flash_fwd_lse_kernel"),
@@ -273,8 +277,9 @@ def ptxas_entries(text):
     return out
 
 
-# the kernels that must not spill: the attention kernels and row 7's
+# the kernels that must not spill: the attention kernels, K1's and row 7's
 NO_SPILL_KERNELS = {**ATTENTION_KERNELS,
+                    "q8_matmul_kernel": ("int8_matmul", "q8_matmul_smem_bytes", ()),
                     "q4_matmul_kernel": ("int4_matmul", "q4_matmul_smem_bytes", ())}
 
 
@@ -345,35 +350,79 @@ def cycled(items):
 # ------------------------------------------------------------------ phase 3
 
 
-def check_int8_matmul(dev, iters):
-    import torch
+# K1's edge cases (M, K, N), correctness only: M 1 (63 padding rows of 64),
+# 14 (the stage-2 bucket), 16 and 17, 25, 64, 65, 200 and 256 over several
+# 64-row m tiles; K 4104 (a tile of 8 rows, zero-filled past K) and 4224 (33
+# tiles, ranks of unequal length); N 1024 (a q8c_apply column chunk), 4112 (a
+# 16-column last block) and 32000
+K1_EDGES = ((1, 4096, 4096), (1, 4104, 32000), (14, 4096, 1024), (16, 4224, 4112),
+            (17, 4104, 4112), (25, 4096, 1024), (37, 4104, 4112), (64, 4224, 1024),
+            (65, 4104, 4112), (200, 4096, 4096), (256, 4224, 32000))
+DECODE_SHAPES = ((4096, 4096, 4 * 32), (4096, 11008, 2 * 32), (11008, 4096, 32), (4096, 32000, 1))
+
+
+def k1_rows_swapped(x, q, s):
+    """K1's plain version with rows 2i and 2i + 1 of q8 swapped: the k pair
+    of each bf16x2 A register reversed (a planted fault)."""
     from revisionllm_tpu_torch.ops import quant as Q
 
+    K, N = q.shape
+    return Q.int8_matmul_plain(x, q.reshape(K // 2, 2, N).flip(1).reshape(K, N), s)
+
+
+def check_int8_matmul(dev, iters):
+    """K1 at the decode step's shapes (M 64; q/k/v/o, gate/up, down, the
+    lm_head) against its plain version by relative L2 error, whole and per
+    (64-row, 128-column) block, with two planted faults that must fail
+    (neighbouring k rows 2i and 2i + 1 swapped; the last K rank's partial
+    dropped from the cluster sum); two calls on the same inputs must be
+    bit-identical, and one call must be one q8_matmul_kernel launch that
+    allocates only its output. Then the edge cases K1_EDGES, correctness
+    only. The C library's shared memory must be the plan's, and clusters of
+    each size must fit (cudaOccupancyMaxActiveClusters). Times one decode
+    step's 225 launches: kernel, plain, and torch.matmul on the bf16
+    weight."""
+    import torch
+    from revisionllm_tpu_torch.ops import quant as Q
+    from revisionllm_tpu_torch.utils import kernels
+
+    smem = kernels.function("int8_matmul", "q8_matmul_smem_bytes", [])()
+    if smem != Q.q8_smem_bytes():
+        raise AssertionError(f"int8_matmul: the library's shared memory is {smem} B, the "
+                             f"plan's {Q.q8_smem_bytes()} B")
+    resident = Q.q8_resident(dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    say(f"int8_matmul: {smem} B of shared memory a block; resident clusters of "
+        f"{Q.WONLY_SPLITS} blocks: {resident} on {sms} SMs")
     M = 64
-    # (K, N, launches per decode step): q/k/v/o, gate/up, down per layer x 32,
-    # then the lm_head
-    shapes = [(4096, 4096, 4 * 32), (4096, 11008, 2 * 32), (11008, 4096, 32), (4096, 32000, 1)]
     gen = torch.Generator(device=dev).manual_seed(3)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
     worst = 0.0
     details = []
-    for K, N, per_step in shapes:
+    for K, N, per_step in DECODE_SHAPES:
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
         copies = max(1, math.ceil(128e6 / (K * N)))
         ws = []
         for _ in range(copies):
             q, s = Q.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5)
             ws.append((q, s, Q.dequantize_int8(q, s, torch.bfloat16)))
-        got = Q.int8_matmul(x, ws[0][0], ws[0][1])
-        want = Q.int8_matmul_plain(x, ws[0][0], ws[0][1])
+        q, s = ws[0][:2]
+        plan = Q.q8_plan(M, K, N, sms, resident)
+        got = Q.int8_matmul(x, q, s)
+        again = Q.int8_matmul(x, q, s)
+        want = Q.int8_matmul_plain(x, q, s)
+        faults = {"k rows 2i, 2i + 1 swapped": k1_rows_swapped(x, q, s),
+                  "last K rank dropped": dropped_last_rank(x, q, s, plan, Q.Q8_BK,
+                                                           Q.int8_matmul_plain)}
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        # both round an f32 sum (taken in another order) to bf16: 2^-7 of
-        # the largest output is two bf16 steps
-        tol = 2.0 ** -7 * max(1.0, want.float().abs().max().item())
-        if not err <= tol:
-            raise AssertionError(f"int8_matmul {K}x{N}: max_abs_err {err} > {tol}")
+        if not torch.equal(got, again):
+            raise AssertionError(f"int8_matmul K={K} N={N}: two calls differ")
+        err = hold_cols(f"int8_matmul M={M} K={K} N={N} (S {plan.splitk}, "
+                        f"{plan.n_tiles} clusters)", got, want, faults)
+        one_kernel(f"int8_matmul K={K} N={N}", lambda: Q.int8_matmul(x, q, s), 1,
+                   "q8_matmul_kernel")
         worst = max(worst, err)
+        del faults
         pick = cycled(ws)
         ms = device_ms(lambda: Q.int8_matmul(x, *pick()[:2]), iters)
         plain = device_ms(lambda: Q.int8_matmul_plain(x, *pick()[:2]), iters)
@@ -381,33 +430,30 @@ def check_int8_matmul(dev, iters):
         nbytes = M * K * 2 + K * N + N * 4 + M * N * 2
         ops = 2.0 * M * K * N
         b, by = bound(nbytes, ops)
-        say(f"int8_matmul M={M} K={K} N={N}: max_abs_err {err:.3e} (tol {tol:.3e}) "
-            f"kernel {ms:.4f} ms plain {plain:.4f} ms torch.matmul(bf16 W) {lib:.4f} ms "
-            f"bound {b:.4f} ms ({by}) [{per_step} launches per decode step]")
-        details.append({"K": K, "N": N, "ms": ms, "plain_ms": plain, "library_ms": lib,
-                        "bound_ms": b, "per_decode_step": per_step})
+        say(f"int8_matmul M={M} K={K} N={N}: kernel {ms:.4f} ms plain {plain:.4f} ms "
+            f"torch.matmul(bf16 W) {lib:.4f} ms bound {b:.4f} ms ({by}) "
+            f"[{per_step} launches per decode step]")
+        details.append({"K": K, "N": N, "splitk": plan.splitk, "ms": ms, "plain_ms": plain,
+                        "library_ms": lib, "bound_ms": b, "per_decode_step": per_step})
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib)):
             tot[key] += per_step * val
         tot["bytes"] += per_step * nbytes
         tot["ops"] += per_step * ops
-    # other tile heights (chunks of 1 and 200 windows) and K, N that are no
-    # multiple of the tiles, correctness only
-    for M2, K2, N2 in ((1, 4096, 4096), (200, 4096, 4096), (37, 4104, 4112)):
+        del ws, pick
+    for M2, K2, N2 in K1_EDGES:
         x = torch.randn((M2, K2), generator=gen, device=dev).to(torch.bfloat16)
         q, s = Q.quantize_int8(torch.randn((K2, N2), generator=gen, device=dev) * K2 ** -0.5)
-        want = Q.int8_matmul_plain(x, q, s).float()
-        err = (Q.int8_matmul(x, q, s).float() - want).abs().max().item()
-        tol = 2.0 ** -7 * max(1.0, want.abs().max().item())
-        say(f"int8_matmul M={M2} K={K2} N={N2}: max_abs_err {err:.3e} (tol {tol:.3e})")
-        if not err <= tol:
-            raise AssertionError(f"int8_matmul M={M2} K={K2} N={N2}: max_abs_err {err} > {tol}")
-        worst = max(worst, err)
+        worst = max(worst, hold_cols(f"int8_matmul M={M2} K={K2} N={N2}", Q.int8_matmul(x, q, s),
+                                     Q.int8_matmul_plain(x, q, s)))
     b, by = bound(tot["bytes"], tot["ops"])
+    say(f"int8_matmul one decode step: kernel {tot['ms']:.4f} ms, torch.matmul(bf16 W) "
+        f"{tot['library_ms']:.4f} ms, bound {b:.4f} ms ({by})")
     return {
         "name": "int8_matmul", "max_abs_err": worst, "ms": tot["ms"],
         "plain_ms": tot["plain_ms"], "bound_ms": b, "bound_by": by,
         "library_ms": tot["library_ms"],
-        "unit": "one decode step at B=64 (225 launches: 32 layers x 7 + lm_head)",
+        "unit": "one decode step at B=64 (225 launches: 32 layers x 7 + lm_head); library: "
+                "torch.matmul on the bf16 weight",
         "shapes": details,
     }
 
@@ -1961,34 +2007,35 @@ Q4_EDGES = ((1, 4096, 4096), (1, 4224, 32000), (16, 4224, 4112), (17, 4096, 3200
             (300, 4224, 4112))
 
 
-def dropped_last_rank(x, q, s, sms, resident):
-    """Row 7's plain version with the last K rank's tiles left out of the
-    sum: the result of a cluster sum that drops one partial (a planted
-    fault). x has at most 256 rows (one launch); `sms` and `resident` as
-    q4_plan takes them."""
+def dropped_last_rank(x, q, s, plan, tile, plain):
+    """`plain` (row 7's or K1's plain version) with the last K rank of
+    `plan` (its tiles of `tile` rows) left out of the sum: the result of a
+    cluster sum that drops one partial (a planted fault). x has at most 256
+    rows (one launch)."""
     from revisionllm_tpu_torch.ops import quant as Q
 
-    K = x.shape[-1]
-    plan = Q.q4_plan(x.shape[0], K, q.shape[1], sms, resident)
-    t0, nk = Q.q4_rank_tiles(plan.k_tiles, plan.splitk)[-1]
+    t0, nk = Q.rank_tiles(plan.k_tiles, plan.splitk)[-1]
     xd = x.clone()
-    xd[:, t0 * Q.Q4_BK:(t0 + nk) * Q.Q4_BK] = 0
-    return Q.int4_matmul_plain(xd, q, s)
+    xd[:, t0 * tile:(t0 + nk) * tile] = 0
+    return plain(xd, q, s)
 
 
-def q4_one_kernel(label, fn, launches):
+def one_kernel(label, fn, launches, kernel):
     """One call of `fn` under torch.profiler must run `launches` kernels,
-    each q4_matmul_kernel (no q4_finalize_kernel), and allocate only the
-    output (no f32 workspace)."""
+    each `kernel` (no finalize kernel), and allocate only the output (no f32
+    workspace)."""
     import torch
 
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_stats()["allocation.all.allocated"]
-    _, _, events = profiled(fn)
-    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
-    names = [e.name for e in events]
-    if len(names) != launches or not all("q4_matmul_kernel" in n for n in names) or allocs != 1:
-        raise AssertionError(f"{label}: expected {launches} q4_matmul_kernel launches and one "
+    for _ in range(3):  # a trace that recorded no kernel at all is taken again
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_stats()["allocation.all.allocated"]
+        _, _, events = profiled(fn)
+        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+        names = [e.name for e in events]
+        if names:
+            break
+    if len(names) != launches or not all(kernel in n for n in names) or allocs != 1:
+        raise AssertionError(f"{label}: expected {launches} {kernel} launches and one "
                              f"allocation (the output), got kernels {names}, {allocs} allocations")
 
 
@@ -2015,14 +2062,13 @@ def check_int4_matmul(dev, iters):
     resident = Q.q4_resident(dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     say(f"int4_matmul: {smem} B of shared memory a block; resident clusters of "
-        f"{Q.Q4_SPLITS} blocks: {resident} on {sms} SMs")
+        f"{Q.WONLY_SPLITS} blocks: {resident} on {sms} SMs")
     M = 64
-    shapes = [(4096, 4096, 4 * 32), (4096, 11008, 2 * 32), (11008, 4096, 32), (4096, 32000, 1)]
     gen = torch.Generator(device=dev).manual_seed(13)
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "ops": 0.0}
     worst = 0.0
     details = []
-    for K, N, per_step in shapes:
+    for K, N, per_step in DECODE_SHAPES:
         x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
         copies = max(1, math.ceil(128e6 / (K * N // 2)))
         ws = []
@@ -2035,14 +2081,15 @@ def check_int4_matmul(dev, iters):
         again = Q.int4_matmul(x, q, s)
         want = Q.int4_matmul_plain(x, q, s)
         swapped = Q.int4_matmul_plain(x, ((q & 0xF) << 4) | (q >> 4), s)
-        dropped = dropped_last_rank(x, q, s, sms, resident)
+        dropped = dropped_last_rank(x, q, s, plan, Q.Q4_BK, Q.int4_matmul_plain)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"int4_matmul K={K} N={N}: two calls differ")
         err = hold_cols(f"int4_matmul M={M} K={K} N={N} (S {plan.splitk}, "
                         f"{plan.n_tiles} clusters)", got, want,
                         {"nibbles swapped": swapped, "last K rank dropped": dropped})
-        q4_one_kernel(f"int4_matmul K={K} N={N}", lambda: Q.int4_matmul(x, q, s), 1)
+        one_kernel(f"int4_matmul K={K} N={N}", lambda: Q.int4_matmul(x, q, s), 1,
+                   "q4_matmul_kernel")
         worst = max(worst, err)
         pick = cycled(ws)
         ms = device_ms(lambda: Q.int4_matmul(x, *pick()[:2]), iters)
@@ -2066,8 +2113,8 @@ def check_int4_matmul(dev, iters):
         q, s = Q.quantize_int4(torch.randn((K2, N2), generator=gen, device=dev) * K2 ** -0.5)
         worst = max(worst, hold_cols(f"int4_matmul M={M2} K={K2} N={N2}", Q.int4_matmul(x, q, s),
                                      Q.int4_matmul_plain(x, q, s)))
-    q4_one_kernel(f"int4_matmul M={M2}", lambda: Q.int4_matmul(x, q, s),
-                  -(-M2 // Q.KERNEL_MAX_M))
+    one_kernel(f"int4_matmul M={M2}", lambda: Q.int4_matmul(x, q, s),
+               -(-M2 // Q.KERNEL_MAX_M), "q4_matmul_kernel")
     b, by = bound(tot["bytes"], tot["ops"])
     say(f"int4_matmul one decode step: kernel {tot['ms']:.4f} ms, torch.matmul(bf16 W) "
         f"{tot['library_ms']:.4f} ms, bound {b:.4f} ms ({by})")

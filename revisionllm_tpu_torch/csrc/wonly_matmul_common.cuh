@@ -1,18 +1,21 @@
 // The building blocks of the weight-only decode matmuls that do not depend
-// on how the weights are packed: row 7 (csrc/int4_matmul.cu, W4A16) now,
-// and K1 (csrc/int8_matmul.cu, W8A16) when it takes the same design. The
-// tensor-core pieces they use (wgmma with A from registers and x as a
-// 128-byte-swizzled B operand, its descriptors and fences, the swizzled
-// tile loader) are csrc/attention_common.cuh's. Here:
+// on how the weights are packed: row 7 (csrc/int4_matmul.cu, W4A16) and K1
+// (csrc/int8_matmul.cu, W8A16). The tensor-core pieces they use (wgmma with
+// A from registers and x as a 128-byte-swizzled B operand, its descriptors
+// and fences, the swizzled tile loader) are csrc/attention_common.cuh's.
+// Here:
 //   - the cp.async ring helpers (16-byte .cg copies, zero-filled past the
 //     live rows and columns);
+//   - the mbarriers and the TMA tile copy of a ring filled by a producer
+//     warp (K1): a full and an empty barrier a stage, waits by phase parity;
 //   - the bf16x2 packing and a wait for all but N wgmma groups;
-//   - the split-K reduction across a thread-block cluster: every rank leaves
-//     its f32 partial tile in its own shared memory, and rank r sums its
-//     1/S slice of the tile over ranks 0..S-1, in rank order, through
-//     distributed shared memory, then rounds and stores it as bf16. No
-//     partial sum reaches device memory, and the order of the sums is fixed,
-//     so the result is deterministic.
+//   - the split-K reduction across a thread-block cluster (row 7; K1 has its
+//     own, which scales the columns): every rank leaves its f32 partial tile
+//     in its own shared memory, and rank r sums its 1/S slice of the tile
+//     over ranks 0..S-1, in rank order, through distributed shared memory,
+//     then rounds and stores it as bf16. No partial sum reaches device
+//     memory, and the order of the sums is fixed, so the result is
+//     deterministic.
 
 #pragma once
 
@@ -43,6 +46,72 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------- mbarriers
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// makes the barriers' initialisation visible to the other threads and to
+// the async proxy (the TMA unit) before anyone uses them
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_addr(bar)) : "memory");
+}
+
+// one arrival that also expects `bytes` more of asynchronous copies
+__device__ __forceinline__ void mbar_arrive_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_addr(bar)), "r"(bytes) : "memory");
+}
+
+// wait until the phase of parity `parity` of `bar` has completed. A wait of
+// more than 2^32 clocks (seconds) traps, so a broken ring ends the kernel
+// with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
+    if (done) return;
+    const long long now = clock64();
+    if (t0 == 0) t0 = now;
+    else if (now - t0 > (1ll << 32)) __trap();
+  }
+}
+
+// the TMA copy of the box at (c0 inner, c1 outer) of the tensor map `map`
+// (a __grid_constant__ kernel parameter) into dst, counted on `bar`;
+// elements outside the tensor are zeros
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_addr(bar))
+      : "memory");
+}
+
+// tma_load_2d with an L2 eviction policy (from createpolicy)
+__device__ __forceinline__ void tma_load_2d_hint(void* dst, const void* map, int c0, int c1,
+                                                 uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%2, %3}], [%4], %5;\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+         "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
 }
 
 // wait until at most N of this thread's committed wgmma groups are in flight

@@ -43,7 +43,6 @@ import torch
 
 from revisionllm_tpu_torch.utils import kernels
 
-_PLANS: Dict[tuple, Tuple[int, int, int, int]] = {}
 KERNEL_MAX_M = 256  # q8_apply sends M <= 256 rows to K1, as JAX's pallas_max_m
 
 
@@ -69,36 +68,121 @@ def int8_matmul_plain(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor) 
     return (acc * scale).to(x.dtype).reshape(*x.shape[:-1], N)
 
 
-def _plan(M: int, K: int, N: int, device: torch.device) -> Tuple[int, int, int, int]:
-    """(mt, padded N, K splits, K rows per split) for K1, cached per shape.
+# ---------------------------------------------------------------------------
+# The weight-only decode matmuls (K1 and row 7): launch planning they share
+# ---------------------------------------------------------------------------
 
-    Mirrors csrc/int8_matmul.cu: blocks of 128 columns, 64-row stages, 4
-    stages of x and of the 64 x 128 int8 weight tile plus one widened W tile
-    in shared memory. K is split so that the grid fills one wave of resident
-    blocks."""
-    key = (M, K, N, device.index)
-    plan = _PLANS.get(key)
-    if plan is None:
-        mt = 1
-        while mt * 16 < M:
-            mt *= 2
-        n_pad = -(-N // 128) * 128
-        k_tiles = -(-K // 64)
-        smem = 4 * (mt * 16 * 72 * 2 + 64 * 128) + 64 * 136 * 2
-        per_sm = max(1, min((228 * 1024) // (smem + 1024), 8))
-        slots = per_sm * torch.cuda.get_device_properties(device).multi_processor_count
-        splitk = max(1, min(round(slots / (n_pad // 128)), k_tiles))
-        k_per_split = -(-k_tiles // splitk) * 64
-        plan = (mt, n_pad, -(-K // k_per_split), k_per_split)
-        _PLANS[key] = plan
-    return plan
+WONLY_MP = 64                 # x rows of a block (the grid's z axis walks more)
+WONLY_BN = 128                # output columns of a block
+WONLY_SPLITS = (1, 2, 4, 8)   # cluster sizes along K (8: the portable limit)
+
+
+class SplitPlan(NamedTuple):
+    m_tiles: int   # blocks of 64 rows (the grid's z axis)
+    n_tiles: int   # blocks of 128 columns (x axis)
+    splitk: int    # K ranks, one cluster (y axis)
+    k_tiles: int   # 128-row K tiles
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(M: int, k_tiles: int, N: int, sms: int, resident: Tuple[int, ...]) -> SplitPlan:
+    """The launch of a weight-only decode matmul (K1 and row 7 share the
+    geometry: blocks of 64 rows x 128 columns, K in 128-row tiles) for M <=
+    256 rows on a card of `sms` SMs, where resident[i] clusters of
+    WONLY_SPLITS[i] blocks fit at once (the kernel's
+    cudaOccupancyMaxActiveClusters; several blocks share an SM).
+
+    Each block takes 64 rows (more rows take the grid's z axis). The K
+    splits S of a column tile form one cluster; S is the one of 1, 2, 4, 8
+    (at most the tile count) with the least modelled time, the smaller on a
+    tie: waves of resident clusters x (tiles a rank + 2, a block's fixed
+    cost: the ring's first tile and the sums) x (b + 1) / 2 for b blocks
+    sharing the busiest SM (co-resident blocks hide part of each other's
+    latency, so b of them take less than b times one). Fitted to the
+    splits timed by scripts/torch_int4_probe.py at row 7's decode shapes;
+    at K1's it picks the splits scripts/torch_int8_kernel.py timed
+    fastest too."""
+    m_tiles = -(-M // WONLY_MP)
+    n_tiles = -(-N // WONLY_BN)
+
+    def cost(i):
+        s = WONLY_SPLITS[i]
+        clusters = n_tiles * m_tiles
+        waves = -(-clusters // max(1, resident[i]))
+        per_sm = -(-(-(-clusters // waves) * s) // sms)
+        return waves * (-(-k_tiles // s) + 2) * (per_sm + 1)
+
+    i = min((i for i, s in enumerate(WONLY_SPLITS) if s <= k_tiles),
+            key=lambda i: (cost(i), WONLY_SPLITS[i]))
+    return SplitPlan(m_tiles, n_tiles, WONLY_SPLITS[i], k_tiles)
+
+
+def rank_tiles(k_tiles: int, splitk: int) -> List[Tuple[int, int]]:
+    """(first tile, tile count) of each K rank, as K1 and row 7 split them:
+    whole tiles, the first k_tiles % splitk ranks one tile more."""
+    base, rem = divmod(k_tiles, splitk)
+    return [(r * base + min(r, rem), base + (r < rem)) for r in range(splitk)]
+
+
+_RESIDENT: Dict[tuple, Tuple[int, ...]] = {}
+_SMS: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
+def _resident(name: str, symbol: str, device: torch.device) -> Tuple[int, ...]:
+    """How many clusters of each of WONLY_SPLITS kernel `name` fits on
+    `device` at once (asked of its library's `symbol` once, then cached)."""
+    res = _RESIDENT.get((name, device.index))
+    if res is None:
+        fn = kernels.function(name, symbol, [ctypes.c_int])
+        res = tuple(fn(s) for s in WONLY_SPLITS)
+        if min(res) < 1:
+            raise RuntimeError(f"{name}: clusters of {WONLY_SPLITS} blocks fit {res} times")
+        _RESIDENT[(name, device.index)] = res
+    return res
+
+
+# K1's tile geometry, mirrored from csrc/int8_matmul.cu
+Q8_BN = WONLY_BN           # output columns of a block (one consumer warpgroup)
+Q8_BK = 128                # K rows of a tile (the last may run past K: zeros)
+Q8_MP = WONLY_MP           # x rows of a block
+Q8_STAGES = 2              # ring stages
+
+
+def q8_smem_bytes() -> int:
+    """A block's dynamic shared memory (csrc/int8_matmul.cu, SMEM): the ring
+    of Q8_STAGES stages, each x (Q8_MP x Q8_BK bf16) and W (Q8_BK x Q8_BN
+    int8), both 128-byte swizzled, which the f32 partial tile (Q8_MP x
+    (Q8_BN + 4)) reuses at the end; a full and an empty 8-byte mbarrier a
+    stage; 1 KB for the ring's 1024-byte alignment."""
+    ring = Q8_STAGES * (Q8_MP * Q8_BK * 2 + Q8_BK * Q8_BN)
+    return max(ring, Q8_MP * (Q8_BN + 4) * 4) + 2 * Q8_STAGES * 8 + 1024
+
+
+def q8_plan(M: int, K: int, N: int, sms: int, resident: Tuple[int, ...]) -> SplitPlan:
+    """K1's launch for M <= 256 rows: `split_plan` over the Q8_BK-row tiles
+    of K (the last zero-filled past K) and Q8_BN-column blocks."""
+    return split_plan(M, -(-K // Q8_BK), N, sms, resident)
+
+
+def q8_resident(device: torch.device) -> Tuple[int, ...]:
+    """How many clusters of each of WONLY_SPLITS K1 fits on `device` at once."""
+    return _resident("int8_matmul", "q8_matmul_max_clusters", device)
 
 
 def int8_matmul(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """x: [..., K] (bf16 on the card); w_q8: [K, N] int8; scale: [N] f32 ->
     [..., N] in x's type. Leading dims of x flatten into M <= 256.
 
-    A CPU tensor takes `int8_matmul_plain`; a CUDA tensor launches K1."""
+    A CPU tensor takes `int8_matmul_plain`; a CUDA tensor launches K1
+    (csrc/int8_matmul.cu) once, with the split that `q8_plan` picks, and
+    allocates only the output."""
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w_q8, scale)
     kernels.forbid_grad("int8_matmul", x, scale)
@@ -119,16 +203,15 @@ def int8_matmul(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor) -> tor
             f"{tuple(x2.shape)}, w {w_q8.dtype} {tuple(w_q8.shape)}, scale {scale.dtype} "
             f"{tuple(scale.shape)}"
         )
-    mt, n_pad, splitk, k_per_split = _plan(M, K, N, dev)
-    ws = torch.empty((splitk, mt * 16, n_pad), dtype=torch.float32, device=dev)
+    plan = q8_plan(M, K, N, _sm_count(dev), q8_resident(dev))
     out = torch.empty((M, N), dtype=torch.bfloat16, device=dev)
     fn = kernels.function(
         "int8_matmul", "q8_matmul_bf16",
-        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
     )
     err = fn(
-        x2.data_ptr(), w_q8.data_ptr(), scale.data_ptr(), ws.data_ptr(), out.data_ptr(),
-        M, K, N, mt, splitk, k_per_split, kernels.stream_of(x2),
+        x2.data_ptr(), w_q8.data_ptr(), scale.data_ptr(), out.data_ptr(),
+        M, K, N, plan.splitk, kernels.stream_of(x2),
     )
     kernels.check_launch("int8_matmul", err)
     kernels.LAUNCHES["int8_matmul"] += 1
@@ -458,18 +541,10 @@ def int4_matmul_plain(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tens
 
 
 # Row 7's tile geometry, mirrored from csrc/int4_matmul.cu
-Q4_BN = 128                # output columns of a block (one warpgroup)
+Q4_BN = WONLY_BN           # output columns of a block (one warpgroup)
 Q4_BK = 128                # K rows of a tile (64 packed rows, one scale group)
-Q4_MP = 64                 # x rows of a block
+Q4_MP = WONLY_MP           # x rows of a block
 Q4_STAGES = 2              # ring stages
-Q4_SPLITS = (1, 2, 4, 8)   # cluster sizes along K (8: the portable limit)
-
-
-class Q4Plan(NamedTuple):
-    m_tiles: int   # blocks of Q4_MP rows (the grid's z axis)
-    n_tiles: int   # blocks of Q4_BN columns (x axis)
-    splitk: int    # K ranks, one cluster (y axis)
-    k_tiles: int   # Q4_BK-row K tiles
 
 
 def q4_smem_bytes() -> int:
@@ -483,65 +558,14 @@ def q4_smem_bytes() -> int:
     return max(Q4_STAGES * stage, Q4_MP * (Q4_BN + 4) * 4) + 1024
 
 
-@functools.lru_cache(maxsize=None)
-def q4_plan(M: int, K: int, N: int, sms: int, resident: Tuple[int, ...]) -> Q4Plan:
-    """Row 7's launch for M <= 256 rows on a card of `sms` SMs, where
-    resident[i] clusters of Q4_SPLITS[i] blocks fit at once (the kernel's
-    cudaOccupancyMaxActiveClusters; several blocks share an SM).
-
-    Each block takes Q4_MP rows (more rows take the grid's z axis). The K
-    splits S of a column tile form one cluster; S is the one of 1, 2, 4, 8
-    (at most the tile count) with the least modelled time, the smaller on a
-    tie: waves of resident clusters x (tiles a rank + 2, a block's fixed
-    cost: the ring's first tile and the sums) x (b + 1) / 2 for b blocks
-    sharing the busiest SM (co-resident blocks hide part of each other's
-    latency, so b of them take less than b times one). Fitted to the
-    splits timed by scripts/torch_int4_probe.py at the decode shapes."""
-    m_tiles = -(-M // Q4_MP)
-    n_tiles = -(-N // Q4_BN)
-    k_tiles = K // Q4_BK
-
-    def cost(i):
-        s = Q4_SPLITS[i]
-        clusters = n_tiles * m_tiles
-        waves = -(-clusters // max(1, resident[i]))
-        per_sm = -(-(-(-clusters // waves) * s) // sms)
-        return waves * (-(-k_tiles // s) + 2) * (per_sm + 1)
-
-    i = min((i for i, s in enumerate(Q4_SPLITS) if s <= k_tiles),
-            key=lambda i: (cost(i), Q4_SPLITS[i]))
-    return Q4Plan(m_tiles, n_tiles, Q4_SPLITS[i], k_tiles)
-
-
-def q4_rank_tiles(k_tiles: int, splitk: int) -> List[Tuple[int, int]]:
-    """(first tile, tile count) of each K rank, as the kernel splits them:
-    whole tiles, the first k_tiles % splitk ranks one tile more."""
-    base, rem = divmod(k_tiles, splitk)
-    return [(r * base + min(r, rem), base + (r < rem)) for r in range(splitk)]
-
-
-_RESIDENT: Dict[int, Tuple[int, ...]] = {}
-_SMS: Dict[int, int] = {}
-
-
-def _sm_count(device: torch.device) -> int:
-    n = _SMS.get(device.index)
-    if n is None:
-        n = _SMS[device.index] = torch.cuda.get_device_properties(device).multi_processor_count
-    return n
+def q4_plan(M: int, K: int, N: int, sms: int, resident: Tuple[int, ...]) -> SplitPlan:
+    """Row 7's launch: `split_plan` over the Q4_BK-row groups of K."""
+    return split_plan(M, K // Q4_BK, N, sms, resident)
 
 
 def q4_resident(device: torch.device) -> Tuple[int, ...]:
-    """How many clusters of each of Q4_SPLITS row 7 fits on `device` at
-    once (asked of the kernel's library once, then cached)."""
-    res = _RESIDENT.get(device.index)
-    if res is None:
-        fn = kernels.function("int4_matmul", "q4_matmul_max_clusters", [ctypes.c_int])
-        res = tuple(fn(s) for s in Q4_SPLITS)
-        if min(res) < 1:
-            raise RuntimeError(f"int4_matmul: clusters of {Q4_SPLITS} blocks fit {res} times")
-        _RESIDENT[device.index] = res
-    return res
+    """How many clusters of each of WONLY_SPLITS row 7 fits on `device` at once."""
+    return _resident("int4_matmul", "q4_matmul_max_clusters", device)
 
 
 def int4_matmul(x: torch.Tensor, w_packed: torch.Tensor, scale: torch.Tensor,

@@ -111,9 +111,9 @@ def test_row7_and_row8_planted_faults_fail_the_limits():
     q, s = Q.quantize_int4(torch.randn((512, 384), generator=gen) * 512 ** -0.5)
     want = Q.int4_matmul_plain(x, q, s)
     bad = Q.int4_matmul_plain(x, ((q & 0xF) << 4) | (q >> 4), s)
-    resident = (396, 198, 92, 45)
-    assert Q.q4_plan(64, 512, 384, 132, resident).splitk == 4
-    dropped = chip_smoke.dropped_last_rank(x, q, s, 132, resident)
+    plan = Q.q4_plan(64, 512, 384, 132, (396, 198, 92, 45))
+    assert plan.splitk == 4
+    dropped = chip_smoke.dropped_last_rank(x, q, s, plan, Q.Q4_BK, Q.int4_matmul_plain)
     assert chip_smoke.hold_cols("row 7", want, want, {"nibbles swapped": bad,
                                                       "last K rank dropped": dropped}) == 0.0
     with pytest.raises(AssertionError, match="accept planted faults"):
@@ -259,3 +259,45 @@ def test_row7_checks_cover_the_edges_and_spills():
     event = type("Event", (), {"name": name, "device_time_total": 3000.0})()
     groups, other = chip_smoke.group_kernels([event])
     assert groups["row 7 int4_matmul (q4_matmul, one launch)"] == [3.0, 1] and other == {}
+
+
+def test_k1_planted_faults_fail_the_limits():
+    """K1's planted faults, on its plain version: neighbouring k rows 2i and
+    2i + 1 of q8 swapped (the k pair of each bf16x2 A register reversed), and
+    the last K rank's partial dropped from the cluster sum (here 1 of 4
+    ranks). Each moves the worst (64-row, 128-column) block by far more than
+    the card's tile limit; the plain version holds against itself."""
+    from revisionllm_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator().manual_seed(4)
+    x = torch.randn((64, 512), generator=gen).to(torch.bfloat16)
+    q, s = Q.quantize_int8(torch.randn((512, 384), generator=gen) * 512 ** -0.5)
+    want = Q.int8_matmul_plain(x, q, s)
+    plan = Q.q8_plan(64, 512, 384, 132, (396, 198, 92, 45))
+    assert plan.splitk == 4
+    faults = {"k rows 2i, 2i + 1 swapped": chip_smoke.k1_rows_swapped(x, q, s),
+              "last K rank dropped": chip_smoke.dropped_last_rank(x, q, s, plan, Q.Q8_BK,
+                                                                  Q.int8_matmul_plain)}
+    assert chip_smoke.hold_cols("K1", want, want, faults) == 0.0
+    with pytest.raises(AssertionError, match="accept planted faults"):
+        chip_smoke.hold_cols("K1", want, want, {"none": want.clone()})
+
+
+def test_k1_checks_cover_the_edges_and_spills():
+    """K1's edge cases reach M 1, the stage-2 bucket 14, both sides of 16,
+    25, 64, 65, 200 and 256; K 4104 (a tail tile of 8 rows) and 4224; N 1024
+    (a q8c_apply chunk), 4112 and 32000. ptxas's spill check covers K1 with
+    its dynamic shared memory from its library, and the breakdown finds K1
+    by its one kernel."""
+    ms = {m for m, _, _ in chip_smoke.K1_EDGES}
+    assert {1, 14, 16, 17, 25, 64, 65, 200, 256} <= ms
+    assert max(ms) <= 256
+    assert {k for _, k, _ in chip_smoke.K1_EDGES} >= {4104, 4224}
+    assert {n for _, _, n in chip_smoke.K1_EDGES} >= {1024, 4112, 32000}
+    assert chip_smoke.NO_SPILL_KERNELS["q8_matmul_kernel"] == (
+        "int8_matmul", "q8_matmul_smem_bytes", ())
+    name = "void (anonymous namespace)::q8_matmul_kernel(CUtensorMap, CUtensorMap, " \
+           "float const*, __nv_bfloat16*, int, int, int)"
+    event = type("Event", (), {"name": name, "device_time_total": 4000.0})()
+    groups, other = chip_smoke.group_kernels([event])
+    assert groups["K1 int8_matmul (q8_matmul, one launch)"] == [4.0, 1] and other == {}

@@ -91,7 +91,7 @@ def emulate(x, q4, scale, resident, round_bf16):
     qpad[:, :N] = q4
     spad = np.zeros((K // GROUP, plan.n_tiles * BN), np.float32)
     spad[:, :N] = scale
-    ranks = TQ.q4_rank_tiles(plan.k_tiles, plan.splitk)
+    ranks = TQ.rank_tiles(plan.k_tiles, plan.splitk)
     # warpgroup wg's wgmma jj row 16 w + g + 8 h is column 128 wg + 32 w +
     # 4 g + 2 h + jj
     wgs = BN // 128
@@ -232,7 +232,7 @@ def test_plan_covers_k_once(M, K, N):
     assert TQ.q4_smem_bytes() <= 227 * 1024
     assert plan.m_tiles * MP >= M > (plan.m_tiles - 1) * MP
     assert plan.n_tiles * BN >= N > (plan.n_tiles - 1) * BN
-    ranks = TQ.q4_rank_tiles(plan.k_tiles, plan.splitk)
+    ranks = TQ.rank_tiles(plan.k_tiles, plan.splitk)
     rows = np.zeros(K, np.int64)
     for t0, nk in ranks:
         for tile in range(t0, t0 + nk):
@@ -252,6 +252,6 @@ def test_plan_at_the_decode_shapes():
     tiles not at all."""
     got = {(K, N): TQ.q4_plan(64, K, N, SMS, H100) for K, N in DECODE}
     assert [p.splitk for p in got.values()] == [8, 4, 8, 1]
-    assert {nk for _, nk in TQ.q4_rank_tiles(86, 8)} == {10, 11}
+    assert {nk for _, nk in TQ.rank_tiles(86, 8)} == {10, 11}
     assert got[(4096, 32000)].n_tiles == 250
     assert all(p.m_tiles == 1 for p in got.values())
