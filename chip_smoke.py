@@ -10,8 +10,8 @@ measured in that run. Phases:
      the eight sources in csrc/ (one nvcc per source, all in parallel; rows 9
      and 10 share csrc/decode_common.cuh, K2 and rows 4-6
      csrc/attention_common.cuh), and print each kernel's registers, shared
-     memory and spill bytes from ptxas (fails if an attention kernel or
-     K1 or row 7 spills);
+     memory and spill bytes from ptxas (fails if an attention kernel, K1,
+     row 7 or one of row 8's three kernels spills);
   3. each kernel against its plain PyTorch version on the card, at the
      stage-1 shapes (Vicuna-7B, chunk of 64 windows): max error against the
      stated tolerance, device time of the kernel, of the plain version and of
@@ -91,7 +91,11 @@ measured in that run. Phases:
      and the epilogue; the split decode step; row 9 on the standard tree
      and the split step on the packed tree); row 7 also at the edge cases
      Q4_EDGES, bit-identical over two calls, and one kernel launch with no
-     workspace per call (read from the profiler and the allocator);
+     workspace per call (read from the profiler and the allocator); row 8
+     also at the edge cases MLP_EDGES, bit-identical over two calls, its
+     three launches a call (transpose, GEMM, requantization) and the
+     scratch its wrapper names, each part's time, and a second yardstick
+     (the two torch._int_mm without the epilogue);
  13. configurations A (int8, REVISIONLLM_FUSED_MLP=1 and
      REVISIONLLM_MEGAKERNEL=1), B (int4 weights) and C (the int8 tree packed
      into the serving chunks, REVISIONLLM_SERVE=1) through ground_windows
@@ -198,7 +202,8 @@ KERNEL_GROUPS = (
     ("row 4 flash_dq", r"flash_dq_kernel"),
     ("row 4 flash_dkv", r"flash_dkv_kernel"),
     ("row 7 int4_matmul (q4_matmul, one launch)", r"q4_matmul_kernel"),
-    ("row 8 w8a8_mlp_fused (GEMM + requantize)", r"mlp_gemm_kernel|mlp_quant_kernel"),
+    ("row 8 w8a8_mlp_fused (transpose + GEMM + requantize)",
+     r"mlp_transpose_kernel|mlp_gemm_kernel|mlp_quant_kernel"),
     ("row 9 decode_step_fused", r"step_kernel<.*GenCacheAttn"),
     ("row 10 decode_step_serve", r"step_kernel<.*SlabAttn"),
     ("W8A8 GEMM (torch._int_mm)", r"gemm_s8|s8gemm|imma"),
@@ -277,10 +282,15 @@ def ptxas_entries(text):
     return out
 
 
-# the kernels that must not spill: the attention kernels, K1's and row 7's
+# the kernels that must not spill: the attention kernels, K1's, row 7's and
+# row 8's three
+ROW8_KERNELS = ("mlp_transpose_kernel", "mlp_gemm_kernel", "mlp_quant_kernel")
 NO_SPILL_KERNELS = {**ATTENTION_KERNELS,
                     "q8_matmul_kernel": ("int8_matmul", "q8_matmul_smem_bytes", ()),
-                    "q4_matmul_kernel": ("int4_matmul", "q4_matmul_smem_bytes", ())}
+                    "q4_matmul_kernel": ("int4_matmul", "q4_matmul_smem_bytes", ()),
+                    "mlp_gemm_kernel": ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (0,)),
+                    "mlp_transpose_kernel": ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (1,)),
+                    "mlp_quant_kernel": ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (2,))}
 
 
 def report_ptxas(kernels, libs=None):
@@ -2020,23 +2030,30 @@ def dropped_last_rank(x, q, s, plan, tile, plain):
     return plain(xd, q, s)
 
 
-def one_kernel(label, fn, launches, kernel):
-    """One call of `fn` under torch.profiler must run `launches` kernels,
-    each `kernel` (no finalize kernel), and allocate only the output (no f32
-    workspace)."""
+def call_kernels(label, fn, kernels, allocs=1):
+    """One call of `fn` under torch.profiler must run exactly `kernels` (one
+    launch each, in that order, each found by a part of its name) and make
+    `allocs` allocations."""
     import torch
 
     for _ in range(3):  # a trace that recorded no kernel at all is taken again
         torch.cuda.synchronize()
         before = torch.cuda.memory_stats()["allocation.all.allocated"]
         _, _, events = profiled(fn)
-        allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+        got = torch.cuda.memory_stats()["allocation.all.allocated"] - before
         names = [e.name for e in events]
         if names:
             break
-    if len(names) != launches or not all(kernel in n for n in names) or allocs != 1:
-        raise AssertionError(f"{label}: expected {launches} {kernel} launches and one "
-                             f"allocation (the output), got kernels {names}, {allocs} allocations")
+    if len(names) != len(kernels) or not all(k in n for k, n in zip(kernels, names)) \
+            or got != allocs:
+        raise AssertionError(f"{label}: expected the launches {list(kernels)} and {allocs} "
+                             f"allocations, got kernels {names}, {got} allocations")
+
+
+def one_kernel(label, fn, launches, kernel):
+    """One call of `fn` must run `launches` kernels, each `kernel` (no
+    finalize kernel), and allocate only the output (no f32 workspace)."""
+    call_kernels(label, fn, [kernel] * launches)
 
 
 def check_int4_matmul(dev, iters):
@@ -2134,49 +2151,59 @@ def _quantize_per_row(h):
     return h.div(hs).round_().clamp_(-127, 127).mul_(hs)
 
 
-def check_fused_mlp(dev, iters):
-    """Row 8 at the stage-1 prefill's shape (M = 64 rows x the prompt's T,
-    K 4096, N 11008) against its plain version: hs to 1e-6 relative, hq
-    within +-1 and at least 99.9% equal (tests/test_quant.py:392-410's
-    measure), and the dequantized output by relative L2 error, whole and
-    per (64-row, 128-column) block, with two planted faults that must fail:
-    the absmax taken over the first 64 columns only (a GEMM epilogue that
-    quantizes its own tile) and silu left out. Times the kernel, the plain
-    version and two torch._int_mm on column-major weights with the same
-    epilogue (the yardstick)."""
+# row 8's edge cases (M, K, N), held by the limits of the prefill shape: M 1
+# (127 zero rows in its tile), 64 (a split decode step's rows) and 130 (a
+# second row tile of 2 rows); K 80 (one stage, zeros past K) and 4112 (a
+# 16-byte last stage); N 160 (a 32-column last tile) and 11024 (16 columns)
+MLP_EDGES = ((1, 4096, 11008), (64, 4096, 11008), (130, 4112, 11024), (1, 80, 160),
+             (130, 80, 160), (64, 4112, 160))
+
+
+def mlp_inputs(gen, M, K, N, dev):
+    """Row 8's operands: bf16 activations quantized per row, gate and up
+    quantized per column."""
     import torch
     from revisionllm_tpu_torch.ops import quant as Q
 
-    T = prompt_geometry("mad_grounding", 250, 12)[1]
-    M, K, N = 64 * T, 4096, 11008
-    gen = torch.Generator(device=dev).manual_seed(15)
     x = torch.randn((M, K), generator=gen, device=dev).to(torch.bfloat16)
     xq, xs = Q.quantize_activation_rows(x)
     gq, gs = Q.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5)
     uq, us = Q.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5)
-    args = (xq, xs, gq, gs, uq, us)
-    hq, hs = Q.w8a8_mlp_fused(*args)
-    pq, ps = Q.w8a8_mlp_fused_plain(*args)
-    torch.cuda.synchronize()
+    return xq, xs, gq, gs, uq, us
+
+
+def hold_mlp(label, got, want, faults=None):
+    """Row 8's (hq, hs) against its plain version's: hs to 1e-6 relative, hq
+    within +-1 and at least 99.9% equal (tests/test_quant.py:392-410's
+    measure), and the dequantized output by `hold_cols` (each planted fault
+    must fail it). Returns the max abs error of the dequantized output."""
+    (hq, hs), (pq, ps) = got, want
     hs_rel = ((hs - ps).abs() / ps).max().item()
     dq = (hq.int() - pq.int()).abs()
-    equal = (dq == 0).float().mean().item()
-    say(f"w8a8_mlp_fused M={M} K={K} N={N}: hs max relative diff {hs_rel:.2e} (tol 1e-6); "
-        f"hq max |diff| {dq.max().item()} (tol 1), equal {equal * 100:.4f}% (tol 99.9%)")
-    if not (hs_rel <= 1e-6 and dq.max().item() <= 1 and equal >= 0.999):
-        raise AssertionError("w8a8_mlp_fused differs from its plain version")
+    worst, equal = dq.max().item(), (dq == 0).float().mean().item()
+    say(f"{label}: hs max relative diff {hs_rel:.2e} (tol 1e-6); hq max |diff| {worst} "
+        f"(tol 1), equal {equal * 100:.4f}% (tol 99.9%)")
+    if not (hs_rel <= 1e-6 and worst <= 1 and equal >= 0.999):
+        raise AssertionError(f"{label} differs from its plain version")
     del dq
-    g = torch._int_mm(xq, gq.t().contiguous().t()).float() * xs * gs
-    u = torch._int_mm(xq, uq.t().contiguous().t()).float() * xs * us
-    h = (g / (1.0 + torch.exp(-g))) * u
-    hs_tile = h[:, :64].abs().amax(dim=-1, keepdim=True).clamp_min(1e-30) / 127.0
-    faults = {"absmax over the first 64 columns": h.div(hs_tile).round_().clamp_(-127, 127)
-              .mul_(hs_tile),
-              "silu left out": _quantize_per_row(g * u)}
-    del g, u, h
-    err = hold_cols(f"w8a8_mlp_fused M={M} dequantized output", hq.float() * hs,
-                    pq.float() * ps, faults)
-    del faults
+    return hold_cols(f"{label} dequantized output", hq.float() * hs, pq.float() * ps, faults)
+
+
+def kernel_ms(fn, iters, names):
+    """{name: mean device ms a call} of the kernels whose names hold each
+    of `names`, over `iters` calls of fn under torch.profiler."""
+    _, _, events = profiled(lambda: [fn() for _ in range(iters)])
+    return {k: sum(e.device_time_total for e in events if k in e.name) / 1e3 / iters
+            for k in names}
+
+
+def mlp_yardsticks(args, iters):
+    """Row 8's two yardsticks, ms a call on args (x_q8, x_scale, g_q8,
+    g_scale, u_q8, u_scale): two torch._int_mm on column-major weights with
+    the epilogue in PyTorch, and the two torch._int_mm alone."""
+    import torch
+
+    xq, xs, gq, gs, uq, us = args
     g_cm, u_cm = gq.t().contiguous().t(), uq.t().contiguous().t()
 
     def library():
@@ -2187,17 +2214,84 @@ def check_fused_mlp(dev, iters):
         hs = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
         return torch.clamp(torch.round(h / hs), -127, 127).to(torch.int8), hs
 
+    return (device_ms(library, iters),
+            device_ms(lambda: (torch._int_mm(xq, g_cm), torch._int_mm(xq, u_cm)), iters))
+
+
+def check_fused_mlp(dev, iters):
+    """Row 8 at the stage-1 prefill's shape (M = 64 rows x the prompt's T,
+    K 4096, N 11008) against its plain version by `hold_mlp`, with two
+    planted faults that must fail: the absmax taken over the first 64
+    columns only (a GEMM epilogue that quantizes its own tile) and silu left
+    out. Two calls must be bit-identical, and one call must be its three
+    launches (transpose, GEMM, requantization) and allocate its outputs and
+    the three scratch tensors the wrapper names. Then the edge cases
+    MLP_EDGES by the same limits. Times the call and each of its kernels,
+    the plain version and the two yardsticks (`mlp_yardsticks`), and the
+    call and its kernels at M 64 (a split decode step's MLP)."""
+    import torch
+    from revisionllm_tpu_torch.ops import quant as Q
+
+    T = prompt_geometry("mad_grounding", 250, 12)[1]
+    M, K, N = 64 * T, 4096, 11008
+    gen = torch.Generator(device=dev).manual_seed(15)
+    args = mlp_inputs(gen, M, K, N, dev)
+    xq, xs, gq, gs, uq, us = args
+    got = Q.w8a8_mlp_fused(*args)
+    again = Q.w8a8_mlp_fused(*args)
+    want = Q.w8a8_mlp_fused_plain(*args)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError("w8a8_mlp_fused: two calls differ")
+    del again
+    g_cm, u_cm = gq.t().contiguous().t(), uq.t().contiguous().t()
+    g = torch._int_mm(xq, g_cm).float() * xs * gs
+    u = torch._int_mm(xq, u_cm).float() * xs * us
+    del g_cm, u_cm
+    h = (g / (1.0 + torch.exp(-g))) * u
+    hs_tile = h[:, :64].abs().amax(dim=-1, keepdim=True).clamp_min(1e-30) / 127.0
+    faults = {"absmax over the first 64 columns": h.div(hs_tile).round_().clamp_(-127, 127)
+              .mul_(hs_tile),
+              "silu left out": _quantize_per_row(g * u)}
+    del g, u, h
+    err = hold_mlp(f"w8a8_mlp_fused M={M} K={K} N={N}", got, want, faults)
+    del faults, got, want
+    call_kernels("w8a8_mlp_fused", lambda: Q.w8a8_mlp_fused(*args), ROW8_KERNELS, allocs=5)
+    for M2, K2, N2 in MLP_EDGES:
+        a2 = mlp_inputs(gen, M2, K2, N2, dev)
+        err = max(err, hold_mlp(f"w8a8_mlp_fused M={M2} K={K2} N={N2}",
+                                Q.w8a8_mlp_fused(*a2), Q.w8a8_mlp_fused_plain(*a2)))
+    del a2
+
     ms = device_ms(lambda: Q.w8a8_mlp_fused(*args), iters)
+    parts = kernel_ms(lambda: Q.w8a8_mlp_fused(*args), iters, ROW8_KERNELS)
     plain = device_ms(lambda: Q.w8a8_mlp_fused_plain(*args), max(3, iters // 4))
-    lib = device_ms(library, max(3, iters // 4))
+    lib, lib_gemm = mlp_yardsticks(args, max(3, iters // 4))
     nbytes = M * K + 2 * K * N + 2 * N * 4 + M * 4 + M * N + M * 4
+    scratch = 2 * 2 * K * N + 2 * 4 * M * N + 2 * 4 * M
     b, by = bound(nbytes, 4.0 * M * K * N, INT8_OPS_PER_S)
-    say(f"w8a8_mlp_fused M={M} K={K} N={N}: kernel {ms:.4f} ms plain {plain:.4f} ms "
-        f"two torch._int_mm + epilogue {lib:.4f} ms bound {b:.4f} ms ({by}, 1979 TOPS int8)")
+    b_scratch = (nbytes + scratch) / HBM_BYTES_PER_S * 1e3
+    say(f"w8a8_mlp_fused M={M} K={K} N={N}: kernel {ms:.4f} ms (transpose "
+        f"{parts['mlp_transpose_kernel']:.4f}, GEMM {parts['mlp_gemm_kernel']:.4f}, "
+        f"requantize {parts['mlp_quant_kernel']:.4f} ms under the profiler) plain {plain:.4f} ms "
+        f"two torch._int_mm + epilogue {lib:.4f} ms, two torch._int_mm alone {lib_gemm:.4f} ms; "
+        f"bound {b:.4f} ms ({by}, 1979 TOPS int8), bytes with the scratch {b_scratch:.4f} ms")
+    a64 = mlp_inputs(gen, 64, K, N, dev)
+    ms64 = device_ms(lambda: Q.w8a8_mlp_fused(*a64), iters)
+    parts64 = kernel_ms(lambda: Q.w8a8_mlp_fused(*a64), iters, ROW8_KERNELS)
+    lib64, gemm64 = mlp_yardsticks(a64, iters)
+    say(f"w8a8_mlp_fused M=64 K={K} N={N} (a split decode step's MLP): kernel {ms64:.4f} ms "
+        f"(transpose {parts64['mlp_transpose_kernel']:.4f}, GEMM {parts64['mlp_gemm_kernel']:.4f}, "
+        f"requantize {parts64['mlp_quant_kernel']:.4f} ms under the profiler), two "
+        f"torch._int_mm + epilogue {lib64:.4f} ms, alone {gemm64:.4f} ms")
     return {"name": "w8a8_mlp_fused", "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": lib,
-            "unit": f"one launch = one layer of the chunk-64 prefill (M={M}); library: two "
-                    f"torch._int_mm on column-major weights and the epilogue in PyTorch"}
+            "bound_ms": b, "bound_by": by, "library_ms": lib, "library_gemm_ms": lib_gemm,
+            "parts_ms": {"transpose": parts["mlp_transpose_kernel"],
+                         "gemm": parts["mlp_gemm_kernel"],
+                         "requantize": parts["mlp_quant_kernel"]},
+            "unit": f"one call = one layer of the chunk-64 prefill (M={M}); library: two "
+                    f"torch._int_mm on column-major weights and the epilogue in PyTorch "
+                    f"(library_gemm_ms: the two torch._int_mm alone)"}
 
 
 def first_layers(tree, n):

@@ -360,47 +360,6 @@ __global__ void __launch_bounds__(THREADS, MINB)
     sum_store<8>(part, ob, scale, rows, N, n0);
 }
 
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the driver's cuTensorMapEncodeTiled, found once through the runtime (so the
-// library needs no link against libcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 2-D row-major tensor [outer, inner] of `type` at `base` (row stride
-// row_bytes), copied in boxes of [box_outer, box_inner] with the 128-byte
-// swizzle; elements outside the tensor read as zeros
-bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
-            uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
-  const EncodeTiled fn = encode_tiled();
-  if (!fn) return false;
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {row_bytes};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 cudaError_t config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int M, int N, int splitk,
                    cudaStream_t stream) {
   static bool attr_set = false;
@@ -440,8 +399,9 @@ extern "C" int q8_matmul_bf16(const void* x, const void* w, const void* scale, v
                               int K, int N, int splitk, void* stream) {
   if (splitk != 1 && splitk != 2 && splitk != 4 && splitk != 8) return (int)cudaErrorInvalidValue;
   CUtensorMap tmap_x, tmap_w;
-  if (!encode(&tmap_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, BK / 2, MP) ||
-      !encode(&tmap_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, BN, BK))
+  if (!wonly::encode(&tmap_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, (uint64_t)K * 2, BK / 2,
+                     MP) ||
+      !wonly::encode(&tmap_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, K, N, BN, BK))
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[2];

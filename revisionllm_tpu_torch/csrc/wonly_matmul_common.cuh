@@ -7,7 +7,8 @@
 //   - the cp.async ring helpers (16-byte .cg copies, zero-filled past the
 //     live rows and columns);
 //   - the mbarriers and the TMA tile copy of a ring filled by a producer
-//     warp (K1): a full and an empty barrier a stage, waits by phase parity;
+//     warp (K1, row 8): a full and an empty barrier a stage, waits by phase
+//     parity, and the host's encoding of a tensor map;
 //   - the bf16x2 packing and a wait for all but N wgmma groups;
 //   - the split-K reduction across a thread-block cluster (row 7; K1 has its
 //     own, which scales the columns): every rank leaves its f32 partial tile
@@ -19,6 +20,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,6 +114,49 @@ __device__ __forceinline__ void tma_load_2d_hint(void* dst, const void* map, int
       :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
          "r"(smem_addr(bar)), "l"(policy)
       : "memory");
+}
+
+// ------------------------------------------------------- tensor maps (host)
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, found once through the runtime (so a
+// library needs no link against libcuda)
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 2-D row-major tensor [outer, inner] of `type` at `base` (row stride
+// row_bytes), copied in boxes of [box_outer, box_inner] with the 128-byte
+// swizzle; elements outside the tensor read as zeros
+inline bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
+                   uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
+  const EncodeTiled fn = encode_tiled();
+  if (!fn) return false;
+  const cuuint64_t dims[2] = {inner, outer};
+  const cuuint64_t strides[1] = {row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // wait until at most N of this thread's committed wgmma groups are in flight

@@ -675,9 +675,11 @@ def w8a8_mlp_fused(x_q8, x_scale, g_q8, g_scale, u_q8, u_scale):
     f32) -> (h_q8 [M, N] int8, h_scale [M, 1] f32), h = silu(x G) * (x U).
 
     A CPU tensor takes `w8a8_mlp_fused_plain`; a CUDA tensor launches row 8
-    (csrc/w8a8_mlp_fused.cu: the int8 GEMM with the SwiGLU epilogue, then
-    the per-row requantization), and the bf16 [M, N] intermediate never
-    exists."""
+    (csrc/w8a8_mlp_fused.cu: the weights turned K-major into a scratch, the
+    int8 wgmma GEMM with the SwiGLU epilogue into an f32 scratch h, then the
+    per-row requantization), and the bf16 [M, N] intermediate never exists.
+    The call allocates its two outputs and three scratch tensors: the
+    K-major weights [2, N, K] int8, h [M, N] f32 and the row absmax [M]."""
     if x_q8.device.type == "cpu":
         return w8a8_mlp_fused_plain(x_q8, x_scale, g_q8, g_scale, u_q8, u_scale)
     kernels.forbid_grad("w8a8_mlp_fused", x_scale, g_scale, u_scale)
@@ -701,15 +703,16 @@ def w8a8_mlp_fused(x_q8, x_scale, g_q8, g_scale, u_q8, u_scale):
             f"{x_q8.dtype} {tuple(x_q8.shape)}, gate {g_q8.dtype} {tuple(g_q8.shape)}, "
             f"x_scale {x_scale.dtype} {tuple(x_scale.shape)}"
         )
+    wt = torch.empty((2, N, K), dtype=torch.int8, device=dev)
     h = torch.empty((M, N), dtype=torch.float32, device=dev)
-    rowmax = torch.zeros((M,), dtype=torch.float32, device=dev)
+    rowmax = torch.empty((M,), dtype=torch.float32, device=dev)
     hq = torch.empty((M, N), dtype=torch.int8, device=dev)
     hs = torch.empty((M, 1), dtype=torch.float32, device=dev)
     fn = kernels.function("w8a8_mlp_fused", "w8a8_mlp_fused",
-                          [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                          [ctypes.c_void_p] * 11 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     err = fn(x_q8.data_ptr(), x_scale.data_ptr(), g_q8.data_ptr(), g_scale.data_ptr(),
-             u_q8.data_ptr(), u_scale.data_ptr(), h.data_ptr(), rowmax.data_ptr(),
-             hq.data_ptr(), hs.data_ptr(), M, K, N, kernels.stream_of(x_q8))
+             u_q8.data_ptr(), u_scale.data_ptr(), wt.data_ptr(), h.data_ptr(),
+             rowmax.data_ptr(), hq.data_ptr(), hs.data_ptr(), M, K, N, kernels.stream_of(x_q8))
     kernels.check_launch("w8a8_mlp_fused", err)
     kernels.LAUNCHES["w8a8_mlp_fused"] += 1
     return hq, hs

@@ -31,10 +31,11 @@ from __future__ import annotations
 import argparse
 import ctypes
 import math
-import re
 import subprocess
 import sys
 from pathlib import Path
+
+import kernel_variants as kv
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -77,47 +78,16 @@ def variant_source(spec: str) -> str:
     # the shared header's parts are cut in a copy inlined in place of its include
     src = src.replace('#include "wonly_matmul_common.cuh"\n',
                       (csrc / "wonly_matmul_common.cuh").read_text().replace("#pragma once\n", ""))
-    for item in filter(None, spec.split(",")):
-        if "=" in item:
-            name, value = item.split("=", 1)
-            src, n = re.subn(rf"constexpr int {name} = [^;]+;", f"constexpr int {name} = {value};",
-                             src)
-            if n != 1:
-                raise SystemExit(f"no constexpr int {name} in int4_matmul.cu")
-        else:
-            for a, b in CUTS[item]:
-                if a not in src:
-                    raise SystemExit(f"cut {item}: its line is not in int4_matmul.cu any more")
-                src = src.replace(a, b)
-    return src
+    return kv.variant_source(src, spec, CUTS, "int4_matmul.cu")
 
 
 def build(variants):
+    """{name: C function} of each variant, variants mapping a name to its SPEC."""
     from revisionllm_tpu_torch.utils import kernels
 
-    out = ROOT / "build" / "int4_probe"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, spec in variants.items():
-        cu = out / f"{name}.cu"
-        cu.write_text(variant_source(spec))
-        procs[name] = subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
-             str(out / f"{name}.so"), str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+    sources = {name: (variant_source(spec), spec, kernels.CSRC) for name, spec in variants.items()}
     libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise SystemExit(f"variant {name}: nvcc failed\n{log}")
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = re.findall(r"(\d+) bytes spill stores", log)
-        print(f"# {name} ({variants[name] or 'as is'}): registers {regs}, spill stores {spills}",
-              flush=True)
-        for line in log.splitlines():
-            if "wgmma" in line or "Performance" in line:
-                print(f"#   {line.strip()}", flush=True)
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
+    for name, lib in kv.build(sources, ROOT / "build" / "int4_probe").items():
         fn = lib.q4_matmul_bf16
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -172,7 +142,7 @@ def main() -> int:
                         raise RuntimeError(f"{name}: CUDA error {err}")
 
                 times[s] = cs.device_ms(call, cs.ITERS)
-                if not any(c in variants[name] for c in CUTS):
+                if not kv.has_cut(variants[name], CUTS):
                     q, sc = ws[0]
                     fn(x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), 64, K, N, s,
                        stream)

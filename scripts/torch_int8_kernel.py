@@ -40,11 +40,12 @@ from __future__ import annotations
 import argparse
 import ctypes
 import math
-import re
 import subprocess
 import sys
 import time
 from pathlib import Path
+
+import kernel_variants as kv
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
@@ -83,55 +84,26 @@ CUTS = {
 }
 
 
-def variant_source(spec: str) -> str:
-    src = (ROOT / "revisionllm_tpu_torch" / "csrc" / "int8_matmul.cu").read_text()
-    for item in filter(None, spec.split(",")):
-        if "=" in item:
-            name, value = item.split("=", 1)
-            src, n = re.subn(rf"constexpr int {name} = [^;]+;",
-                             f"constexpr int {name} = {value};", src)
-            if n != 1:
-                raise SystemExit(f"no constexpr int {name} in int8_matmul.cu")
-        else:
-            for a, b in CUTS[item]:
-                if a not in src:
-                    raise SystemExit(f"cut {item}: its line is not in int8_matmul.cu any more")
-                src = src.replace(a, b)
-    return src
+SRC = ROOT / "revisionllm_tpu_torch" / "csrc" / "int8_matmul.cu"
 
 
 def build(variants):
+    """{name: (C function, resident clusters of 1, 2, 4, 8)} of each
+    variant, variants mapping a name to its SPEC."""
     from revisionllm_tpu_torch.utils import kernels
 
-    out = ROOT / "build" / "int8_probe"
-    out.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name, spec in variants.items():
-        cu = out / f"{name}.cu"
-        cu.write_text(variant_source(spec))
-        procs[name] = subprocess.Popen(
-            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-I", str(kernels.CSRC), "-o",
-             str(out / f"{name}.so"), str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)
+    src = SRC.read_text()
+    sources = {name: (kv.variant_source(src, spec, CUTS, SRC.name), spec, kernels.CSRC)
+               for name, spec in variants.items()}
     libs = {}
-    for name, proc in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise SystemExit(f"variant {name}: nvcc failed\n{log}")
-        regs = re.findall(r"Used (\d+) registers", log)
-        spills = re.findall(r"(\d+) bytes spill stores", log)
-        lib = ctypes.CDLL(str(out / f"{name}.so"))
+    for name, lib in kv.build(sources, ROOT / "build" / "int8_probe").items():
         fn = lib.q8_matmul_bf16
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.q8_matmul_max_clusters.argtypes = [ctypes.c_int]
         resident = tuple(lib.q8_matmul_max_clusters(s) for s in (1, 2, 4, 8))
-        print(f"# {name} ({variants[name] or 'as is'}): registers {regs}, spill stores {spills}, "
-              f"{lib.q8_matmul_smem_bytes()} B shared memory, resident clusters of 1, 2, 4, 8: "
-              f"{resident}", flush=True)
-        for line in log.splitlines():
-            if "wgmma" in line or "Performance" in line:
-                print(f"#   {line.strip()}", flush=True)
+        print(f"# {name}: {lib.q8_matmul_smem_bytes()} B shared memory, resident clusters of "
+              f"1, 2, 4, 8: {resident}", flush=True)
         libs[name] = (fn, resident)
     return libs
 
@@ -210,7 +182,7 @@ def main() -> int:
                     if err:
                         raise RuntimeError(f"{name}: CUDA error {err}")
 
-                if not any(c in variants[name].split(",") for c in CUTS):
+                if not kv.has_cut(variants[name], CUTS):
                     q, sc = ws[0][:2]
                     fn(x.data_ptr(), q.data_ptr(), sc.data_ptr(), out.data_ptr(), 64, K, N, s,
                        stream)
@@ -222,7 +194,8 @@ def main() -> int:
             line = ", ".join(f"S {s} {ms * 1e3:.2f} us" for s, ms in times.items())
             print(f"{name} K={K} N={N}: {line}; plan S {plan}", flush=True)
             best[name] += per_step * min(times.values())
-            planned[name] += per_step * times[plan]
+            # nan when --splits leaves out the split the plan picks
+            planned[name] += per_step * times.get(plan, math.nan)
         del ws, pick
     print(f"torch.matmul(bf16 W): {library:.4f} ms a decode step", flush=True)
     for name in libs:

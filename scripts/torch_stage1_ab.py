@@ -1,16 +1,20 @@
-"""Same-card A/B of the stage-1 serving cell between checkouts of the
-repository.
+"""Same-card A/B of the stage-1 serving cell, or of configuration A,
+between checkouts of the repository.
 
 For each root given, in the order given, one process in that checkout
 builds its kernels and runs its own `chip_smoke.py` stage-1 slice
 (Vicuna-7B, 32 layers, int8 weights from seed 0, the 1-hour movie, 57
 windows in one chunk of 64): a warm-up `ground_windows`, `--runs` timed
 chunks, then `step_breakdown` (prefill and decode step: wall, host enqueue,
-device busy). Each process prints one JSON line; this script prints them
-and a summary. Run the two checkouts as A, B, B, A so that drift on the
-host falls on both. Needs one CUDA card:
+device busy). With `--config A` the slice runs under configuration A's
+switches (`chip_smoke.CONFIGS`: REVISIONLLM_FUSED_MLP=1 and
+REVISIONLLM_MEGAKERNEL=1, row 8 in every prefill layer, row 9 for every
+decode step) and its breakdown times row 9's step. Each process prints one
+JSON line with its launches; this script prints them and a summary. Run the
+two checkouts as A, B, B, A so that drift on the host falls on both. Needs
+one CUDA card:
 
-    python3 scripts/torch_stage1_ab.py PARENT CHANGE CHANGE PARENT [--runs 5]
+    python3 scripts/torch_stage1_ab.py PARENT CHANGE CHANGE PARENT [--runs 5] [--config A]
 """
 
 from __future__ import annotations
@@ -33,15 +37,19 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 kernels.build()
 dev = torch.device("cuda")
-eng, movie, qf, qc = cs.slice_setup(dev)
-eng.ground_windows(movie, cs.SENTENCE, qf, qc, movie_key="movie0")
-torch.cuda.synchronize()
-res, launches, lat = cs.run_slice(eng, movie, qf, qc, RUNS)
-cs.check_result(res, 57)
-parts = cs.step_breakdown(eng, movie, qf)
+conf = next((c for label, c in cs.CONFIGS.items() if label.split()[0] == __CONFIG__),
+            {"env": {}, "step": "split"})
+with cs.switched(conf["env"]):
+    eng, movie, qf, qc = cs.slice_setup(dev)
+    eng.ground_windows(movie, cs.SENTENCE, qf, qc, movie_key="movie0")
+    torch.cuda.synchronize()
+    res, launches, lat = cs.run_slice(eng, movie, qf, qc, RUNS)
+    cs.check_result(res, 57)
+    parts = cs.step_breakdown(eng, movie, qf, conf["step"])
 parts = {k: v for k, v in parts.items() if isinstance(v, float)}
 print(json.dumps({"latencies_ms": [x * 1e3 for x in lat],
-                  "chunk_ms": float(np.median(lat)) * 1e3, **parts}), flush=True)
+                  "chunk_ms": float(np.median(lat)) * 1e3,
+                  "launches": {k: n for k, n in launches.items() if n}, **parts}), flush=True)
 """
 
 
@@ -49,6 +57,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="+", help="checkouts of the repository, in run order")
     ap.add_argument("--runs", type=int, default=5, help="timed chunks per process")
+    ap.add_argument("--config", choices=("stage1", "A"), default="stage1",
+                    help="the stage-1 cell, or configuration A (row 8 and row 9)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -56,7 +66,8 @@ def main() -> int:
     rows = []
     for root in args.roots:
         root = Path(root).resolve()
-        proc = subprocess.run([sys.executable, "-c", CHILD.replace("RUNS", str(args.runs))],
+        child = CHILD.replace("RUNS", str(args.runs)).replace("__CONFIG__", repr(args.config))
+        proc = subprocess.run([sys.executable, "-c", child],
                               cwd=root, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], sep="\n", file=sys.stderr)

@@ -301,3 +301,51 @@ def test_k1_checks_cover_the_edges_and_spills():
     event = type("Event", (), {"name": name, "device_time_total": 4000.0})()
     groups, other = chip_smoke.group_kernels([event])
     assert groups["K1 int8_matmul (q8_matmul, one launch)"] == [4.0, 1] and other == {}
+
+
+def test_row8_checks_cover_the_edges_and_spills():
+    """Row 8's edge cases reach M 1, 64 and 130, K 80 and 4112, N 160 and
+    11024 (all multiples of 16, as the kernel takes); ptxas's spill check
+    covers its three kernels, with the GEMM's dynamic shared memory from its
+    library; the breakdown finds row 8 by each of its three kernels."""
+    ms = {m for m, _, _ in chip_smoke.MLP_EDGES}
+    ks = {k for _, k, _ in chip_smoke.MLP_EDGES}
+    ns = {n for _, _, n in chip_smoke.MLP_EDGES}
+    assert {1, 64, 130} <= ms and {80, 4112} <= ks and {160, 11024} <= ns
+    assert all(k % 16 == 0 for k in ks) and all(n % 16 == 0 for n in ns)
+    assert chip_smoke.ROW8_KERNELS == ("mlp_transpose_kernel", "mlp_gemm_kernel",
+                                       "mlp_quant_kernel")
+    for i, name in enumerate(("mlp_gemm_kernel", "mlp_transpose_kernel", "mlp_quant_kernel")):
+        assert chip_smoke.NO_SPILL_KERNELS[name] == ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (i,))
+    names = ["void (anonymous namespace)::mlp_transpose_kernel(signed char const*, signed char "
+             "const*, signed char*, unsigned int*, int, int, int)",
+             "void (anonymous namespace)::mlp_gemm_kernel(CUtensorMap, CUtensorMap, CUtensorMap, "
+             "float const*, float const*, float const*, float*, unsigned int*, int, int, int)",
+             "void (anonymous namespace)::mlp_quant_kernel(float const*, unsigned int const*, "
+             "signed char*, float*, int)"]
+    events = [type("Event", (), {"name": n, "device_time_total": 1000.0})() for n in names]
+    groups, other = chip_smoke.group_kernels(events)
+    assert groups["row 8 w8a8_mlp_fused (transpose + GEMM + requantize)"] == [3.0, 3]
+    assert other == {}
+
+
+def test_row8_measure_rejects_a_moved_code_or_scale():
+    """hold_mlp passes the plain version against itself and fails an hq off
+    by one in 1% of places (under 99.9% equal), an hq off by two in one
+    place, and an hs off by 1e-5 relative."""
+    from revisionllm_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator().manual_seed(8)
+    xq, xs = Q.quantize_activation_rows(torch.randn((128, 256), generator=gen))
+    gq, gs = Q.quantize_int8(torch.randn((256, 512), generator=gen) * 256 ** -0.5)
+    uq, us = Q.quantize_int8(torch.randn((256, 512), generator=gen) * 256 ** -0.5)
+    hq, hs = Q.w8a8_mlp_fused_plain(xq, xs, gq, gs, uq, us)
+    assert chip_smoke.hold_mlp("row 8", (hq, hs), (hq, hs)) == 0.0
+    moved = hq.clone()
+    moved.view(-1)[::100] = (moved.view(-1)[::100].int().clamp(-126, 126) + 1).to(torch.int8)
+    two = hq.clone()
+    two[0, 0] = (two[0, 0].int() + 2).clamp(-127, 127).to(torch.int8) if two[0, 0] < 126 \
+        else (two[0, 0].int() - 2).to(torch.int8)
+    for bad in ((moved, hs), (two, hs), (hq, hs * (1 + 1e-5))):
+        with pytest.raises(AssertionError, match="differs from its plain version"):
+            chip_smoke.hold_mlp("row 8", bad, (hq, hs))

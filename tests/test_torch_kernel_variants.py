@@ -1,0 +1,59 @@
+"""The kernel probes' source edits (scripts/kernel_variants.py and the
+CUTS of scripts/torch_int4_probe.py, torch_int8_kernel.py and
+torch_fused_mlp_kernel.py) against the CUDA sources as they are: every cut
+still finds its lines, overrides replace exactly one constexpr, and a stale
+edit or an unknown constant stops the probe. No GPU or nvcc is needed."""
+
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "scripts"))
+
+import kernel_variants as kv  # noqa: E402
+import torch_fused_mlp_kernel as mlp_probe  # noqa: E402
+import torch_int4_probe as int4_probe  # noqa: E402
+import torch_int8_kernel as int8_probe  # noqa: E402
+
+CSRC = ROOT / "revisionllm_tpu_torch" / "csrc"
+
+
+PROBES = {"int8": int8_probe.CUTS, "int4": int4_probe.CUTS, "mlp": mlp_probe.CUTS}
+
+
+def _variant(probe, spec):
+    """The source of one probe's variant, prepared as the probe prepares it."""
+    if probe == "int4":
+        return int4_probe.variant_source(spec)
+    src = int8_probe.SRC.read_text() if probe == "int8" else (ROOT / mlp_probe.SRC).read_text()
+    return kv.variant_source(src, spec, PROBES[probe], probe)
+
+
+@pytest.mark.parametrize("probe,cut", [(p, c) for p, cuts in PROBES.items() for c in cuts],
+                         ids=lambda v: v)
+def test_every_cut_still_applies(probe, cut):
+    assert _variant(probe, cut) != _variant(probe, "")
+    assert kv.has_cut(f"STAGES=3,{cut}", PROBES[probe])
+
+
+@pytest.mark.parametrize("name,value", [("STAGES", "3"), ("GROUP_M", "1")])
+def test_override_replaces_one_constexpr(name, value):
+    src = (CSRC / "w8a8_mlp_fused.cu").read_text()
+    got = kv.variant_source(src, f"{name}={value}", mlp_probe.CUTS, "w8a8_mlp_fused.cu")
+    assert f"constexpr int {name} = {value};" in got
+    assert got.count("constexpr int") == src.count("constexpr int")
+    assert not kv.has_cut(f"{name}={value}", mlp_probe.CUTS)
+
+
+def test_unknown_constant_stale_edit_and_unknown_edit_stop():
+    src = "constexpr int STAGES = 4;\nint a = 1;\n"
+    with pytest.raises(SystemExit, match="no constexpr int MINB"):
+        kv.variant_source(src, "MINB=2", {}, "x.cu")
+    with pytest.raises(SystemExit, match="not in x.cu any more"):
+        kv.variant_source(src, "cut", {"cut": [("int b = 2;", "")]}, "x.cu")
+    with pytest.raises(SystemExit, match="unknown edit nope"):
+        kv.variant_source(src, "nope", {"cut": []}, "x.cu")
+    assert kv.variant_source(src, "STAGES=2,cut", {"cut": [("int a = 1;", "int a = 0;")]},
+                             "x.cu") == "constexpr int STAGES = 2;\nint a = 0;\n"
