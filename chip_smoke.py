@@ -89,7 +89,10 @@ measured in that run. Phases:
      each with planted faults that must fail, device times, bounds and a
      yardstick (torch.matmul on the dequantized weight; two torch._int_mm
      and the epilogue; the split decode step; row 9 on the standard tree
-     and the split step on the packed tree); row 7 also at the edge cases
+     and the split step on the packed tree; each split step's time by CUDA
+     events, which the host paces, and its device-busy time under
+     torch.profiler); rows 9 and 10 bit-identical over two calls at 32
+     layers; row 7 also at the edge cases
      Q4_EDGES, bit-identical over two calls, and one kernel launch with no
      workspace per call (read from the profiler and the allocator); row 8
      also at the edge cases MLP_EDGES, bit-identical over two calls, its
@@ -342,6 +345,26 @@ def device_ms(fn, iters: int, warmup: int = 2) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def busy_ms(fn, calls: int = 3) -> float:
+    """The device's busy time for one call of fn: its kernels' summed time
+    under torch.profiler over `calls` calls after a warm-up, per call. Unlike
+    device_ms it leaves out the gaps in which the device waits for the
+    host."""
+    fn()
+    _, ms, _ = profiled(lambda: [fn() for _ in range(calls)])
+    return ms / calls
+
+
+def same_bits(label, first, second):
+    """Raise unless each tensor of `second` equals the one of `first` bit
+    for bit (two calls of a deterministic kernel on the same inputs)."""
+    import torch
+
+    if len(first) != len(second) or not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{label}: two calls differ")
+    say(f"{label}: two calls bit-identical")
 
 
 def cycled(items):
@@ -598,6 +621,19 @@ def make_engine(cfg, acfg, ecfg, device, dtype, seed=0, quantize="int8"):
     vision = revisionllm.init_vision_params(acfg, seed=seed + 1, d_in=acfg.d_model,
                                             dtype=dtype, device=device)
     return GroundingEngine(cfg, acfg, params, vision, fake_tokenizer(), ecfg, device=device)
+
+
+def packed_engine(engine, device):
+    """`engine` over its int8 layers packed into the serving chunks
+    (pack_serving_weights, block 1024): configuration C's engine. The
+    standard tree stays as it was."""
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+    from revisionllm_tpu_torch.ops import decode_serve as DSV
+
+    return GroundingEngine(
+        engine.llama_cfg, engine.adapter_cfg,
+        {**engine.params, "layers": DSV.pack_serving_weights(engine.params["layers"])},
+        engine.vision_params, engine.tokenizer, engine.eval_cfg, device=device)
 
 
 def run_slice(engine, movie, qf, qc, runs):
@@ -2371,6 +2407,12 @@ def check_decode_step(dev, iters, params):
         f"(tol 1e-1: the flips compound over the layers), finite {bool(got.isfinite().all())}")
     if not (rel <= 1e-1 and kv_rel <= 1e-1 and bool(got.isfinite().all())):
         raise AssertionError(f"decode_step_fused at 32 layers: relative L2 {rel}, {kv_rel}")
+    # slot `step` is written, never read, by the step: a second call sees the same inputs
+    first = (got, gk[:, :, :, :, step].clone())
+    again, _ = DS.decode_step_fused(params, pkv, gk, *args, eps=eps)
+    same_bits("decode_step_fused 32 layers (hidden, new k/v)", first,
+              (again, gk[:, :, :, :, step]))
+    del first, again
 
     plain_iters = max(2, iters // 10)
     ms = device_ms(lambda: DS.decode_step_fused(params, pkv, gk, *args, eps=cfg.rms_norm_eps),
@@ -2384,9 +2426,11 @@ def check_decode_step(dev, iters, params):
              "v_scale": kvsc[:, :, 1].permute(0, 1, 3, 2).contiguous()}
     gsplit = {"k": genkv[:, 0, :, :, :G].permute(0, 1, 3, 2, 4).contiguous(),
               "v": genkv[:, 1, :, :, :G].permute(0, 1, 3, 2, 4).contiguous()}
-    lib = device_ms(lambda: llama.decode_step_split(cfg, params, split, lens, gsplit, step,
-                                                    x[:, None]), plain_iters)
-    del split, gsplit
+    split_step = partial(llama.decode_step_split, cfg, params, split, lens, gsplit, step,
+                         x[:, None])
+    lib = device_ms(split_step, plain_iters)
+    lib_busy = busy_ms(split_step)
+    del split, gsplit, split_step
     mats = sum(w["q8"].numel() + w["scale"].numel() * 4 for n, w in params["layers"].items()
                if isinstance(w, dict))
     nlive = int(lens.sum())
@@ -2397,13 +2441,15 @@ def check_decode_step(dev, iters, params):
     b, by = bound(nbytes, ops)
     say(f"decode_step_fused B={B} S={T} step={step} (32 layers): kernel {ms:.4f} ms plain "
         f"{plain:.4f} ms decode_step_split (K1 + K3 + glue, lm_head included) {lib:.4f} ms "
+        f"by events (host-paced), {lib_busy:.4f} ms device-busy under the profiler; "
         f"bound {b:.4f} ms ({by})")
     del pkv, kv, kvsc, genkv, gk
     torch.cuda.empty_cache()
     return {"name": "decode_step_fused", "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b, "bound_by": by, "library_ms": lib,
+            "bound_ms": b, "bound_by": by, "library_ms": lib, "library_busy_ms": lib_busy,
             "unit": "one launch = one whole decode step of the chunk-64 stage-1 decode; "
-                    "library: the split step (decode_step_split) at the same inputs"}
+                    "library: the split step (decode_step_split) at the same inputs, by CUDA "
+                    "events (library_busy_ms: its device-busy time under the profiler)"}
 
 
 def serve_inputs(cfg, params, B, T, live, G, dev, seed=17):
@@ -2529,7 +2575,12 @@ def check_decode_serve(dev, iters, params, row9_ms):
         f"(tol 1e-1: the flips compound over the layers), finite {bool(got.isfinite().all())}")
     if not (rel <= 1e-1 and kv_rel <= 1e-1 and bool(got.isfinite().all())):
         raise AssertionError(f"decode_step_serve at 32 layers: relative L2 {rel}, {kv_rel}")
-    del got_kv, want_kv
+    # the step reads the slab at [0, plen) and [s0, s0 + step) and lands at s0 +
+    # step: a second call sees the same inputs
+    again, _ = DSV.decode_step_serve(packed, slab, *args, eps=eps)
+    same_bits("decode_step_serve 32 layers (hidden, landed k/v)", (got, got_kv),
+              (again, landed(slab, s0, step)))
+    del got_kv, want_kv, again
 
     plain_iters = max(2, iters // 10)
     ms = device_ms(lambda: DSV.decode_step_serve(packed, slab, *args, eps=eps), iters)
@@ -2542,9 +2593,11 @@ def check_decode_serve(dev, iters, params, row9_ms):
              "v_scale": slab["kvsc"][:, :, 1, :, :T].permute(0, 1, 3, 2).contiguous()}
     gsplit = llama.init_gen_cache(cfg, B, G, torch.bfloat16, dev)
     tree = {**params, "layers": packed}
-    split_ms = device_ms(lambda: llama.decode_step_split(cfg, tree, split, lens, gsplit, step,
-                                                         x[:, None]), plain_iters)
-    del split, gsplit
+    split_step = partial(llama.decode_step_split, cfg, tree, split, lens, gsplit, step,
+                         x[:, None])
+    split_ms = device_ms(split_step, plain_iters)
+    split_busy = busy_ms(split_step)
+    del split, gsplit, split_step
     mats, macs = serve_matrix_work(cfg, packed)
     keys = int(lens.sum()) + B * step
     nbytes = (mats + 2 * L * cfg.hidden_size * 2 + L * keys * H * (2 * hd + 8)
@@ -2556,16 +2609,80 @@ def check_decode_serve(dev, iters, params, row9_ms):
         f"{packed['gate_proj']['scale'].shape[1]}): kernel + landing {ms:.4f} ms plain "
         f"{plain:.4f} ms; yardsticks: row 9 on the standard tree {row9_ms:.4f} ms, "
         f"decode_step_split on the packed tree (K1 per chunk + K3 + glue, lm_head included) "
-        f"{split_ms:.4f} ms; bound {b:.4f} ms ({by})")
+        f"{split_ms:.4f} ms by events (host-paced), {split_busy:.4f} ms device-busy under the "
+        f"profiler; bound {b:.4f} ms ({by})")
     del packed, slab, kv
     torch.cuda.empty_cache()
     return {"name": "decode_step_serve", "max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b, "bound_by": by, "library_ms": None,
             "row9_standard_ms": row9_ms, "split_packed_ms": split_ms,
+            "split_packed_busy_ms": split_busy,
             "unit": "one launch and its landing = one whole decode step of the chunk-64 "
                     "stage-1 decode over the packed tree; no single PyTorch call computes it "
                     "(library_ms null): yardsticks row 9 on the standard tree and "
                     "decode_step_split on the packed tree"}
+
+
+def check_long_caches(dev, params):
+    """Rows 9 and 10 at the longest cache Vicuna-7B supports
+    (max_position_embeddings, 4096 positions: row 9's Sp + Gp, row 10's s0 +
+    step + 1), where the attention phase runs on fewer warps
+    (decode_step.attn_warps) so that their scores fit beside the weight
+    rings. 2 layers of the full width, B 8, prompts within 64 of their
+    longest, held by the rows 4-6 limits against the plain versions, with
+    the second half of every prompt masked as the planted fault. Returns
+    {row's name: its largest error}, and prints each 2-layer launch's time."""
+    import torch
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.ops import decode_serve as DSV
+    from revisionllm_tpu_torch.ops import decode_step as DS
+    from revisionllm_tpu_torch.ops.rope import rope_angles
+
+    cfg = LlamaConfig()
+    H, hd, n = cfg.num_heads, cfg.head_dim, cfg.max_position_embeddings
+    B, G, eps = 8, 16, cfg.rms_norm_eps
+    step = G - 1
+    p2 = first_layers(params, 2)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    Sp = n - G
+    lens = torch.randint(Sp - 64, Sp + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    lens[0] = Sp
+    kv = {"kv": torch.randint(-127, 128, (2, B, 2, H, Sp, hd), generator=gen, device=dev,
+                              dtype=torch.int8),
+          "kvsc": torch.rand((2, B, 2, H, Sp), generator=gen, device=dev) * 0.02 + 0.005}
+    genkv = (torch.randn((2, 2, B, H, G, hd), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    x = params["embed"][torch.randint(3, cfg.vocab_size, (B,), generator=gen, device=dev)]
+    cos, sin = (t[:, 0] for t in rope_angles((lens + step)[:, None], hd, cfg.rope_theta))
+    got, _ = DS.decode_step_fused(p2, kv, genkv.clone(), lens, step, x, cos, sin, eps=eps)
+    want, _ = DS.decode_step_fused_plain(p2, kv, genkv.clone(), lens, step, x, cos, sin, eps=eps)
+    half, _ = DS.decode_step_fused_plain(p2, kv, genkv.clone(), lens // 2, step, x, cos, sin,
+                                         eps=eps)
+    warps = DS.attn_warps(3 * hd + Sp + G)
+    err9 = hold_cols(f"decode_step_fused 2 layers B={B} Sp+Gp={n} ({warps} attention warps) "
+                    "hidden", got, want, {"the second half of every prompt masked": half})
+    gk = genkv.clone()
+    ms = device_ms(lambda: DS.decode_step_fused(p2, kv, gk, lens, step, x, cos, sin, eps=eps), 5)
+    say(f"decode_step_fused 2 layers B={B} Sp+Gp={n}: {ms:.4f} ms")
+    del kv, genkv, gk
+
+    packed = DSV.pack_serving_weights(p2["layers"])
+    s0 = n - G
+    slab = {"kv": torch.randint(-127, 128, (2, B, 2, H, n, hd), generator=gen, device=dev,
+                                dtype=torch.int8),
+            "kvsc": torch.rand((2, B, 2, H, n), generator=gen, device=dev) * 0.02 + 0.005}
+    args = (step, x, cos, sin, s0)
+    got, _ = DSV.decode_step_serve(packed, slab, lens, *args, eps=eps)
+    want, _ = DSV.decode_step_serve_plain(packed, slab, lens, *args, eps=eps)
+    half, _ = DSV.decode_step_serve_plain(packed, slab, lens // 2, *args, eps=eps)
+    warps = DS.attn_warps(3 * hd + s0 + step)
+    err10 = hold_cols(
+        f"decode_step_serve 2 layers B={B} s0+step={s0 + step} ({warps} attention warps) hidden",
+        got, want, {"the second half of every prompt masked": half})
+    ms = device_ms(lambda: DSV.decode_step_serve(packed, slab, lens, *args, eps=eps), 5)
+    say(f"decode_step_serve 2 layers B={B} s0+step={s0 + step}: {ms:.4f} ms")
+    del packed, slab
+    torch.cuda.empty_cache()
+    return {"decode_step_fused": err9, "decode_step_serve": err10}
 
 
 # ------------------------------------------------------------------ phase 13
@@ -2631,19 +2748,13 @@ def phase_configs(dev, setup, runs):
     resident for the phases after this one, so C's peak memory holds both).
     Returns {label: launches}."""
     import torch
-    from revisionllm_tpu_torch.eval.engine import GroundingEngine
-    from revisionllm_tpu_torch.ops import decode_serve as DSV
 
     slice_engine, movie, qf, qc = setup
     out = {}
     for label, conf in CONFIGS.items():
         if conf["pack"]:
             t0 = time.perf_counter()
-            se = slice_engine
-            eng = GroundingEngine(
-                se.llama_cfg, se.adapter_cfg,
-                {**se.params, "layers": DSV.pack_serving_weights(se.params["layers"])},
-                se.vision_params, se.tokenizer, se.eval_cfg, device=dev)
+            eng = packed_engine(slice_engine, dev)
             torch.cuda.synchronize()
             say(f"config {label}: the slice's int8 layers packed on the card (block 1024, F "
                 f"padded to {eng.params['layers']['gate_proj']['scale'].shape[1]}) in "
@@ -2731,6 +2842,8 @@ def main() -> int:
     records["decode_step_fused"] = check_decode_step(dev, ITERS, setup[0].params)
     records["decode_step_serve"] = check_decode_serve(dev, ITERS, setup[0].params,
                                                       records["decode_step_fused"]["ms"])
+    for name, err in check_long_caches(dev, setup[0].params).items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
     for name, rec in records.items():
         rec.update(route="cuda", source=f"revisionllm_tpu_torch/csrc/{SOURCES[name]}.cu",
                    replaces=REPLACES[name])

@@ -19,16 +19,57 @@
 // and after the last layer one more row phase writes the hidden state out.
 // That is 8 barriers a layer.
 //
-// The matmul phases (2, 4, 6, 8) are where the bytes go. Each splits K into
-// slices of at most 1024 (4 for K = 4096, 11 for F = 11008 or 11264) and gives
-// each slice an equal share of the blocks; a block loads its slice of the
-// [64, K] bf16 activation into shared memory ONCE, then streams 128-column
-// int8 weight tiles of that slice (a 4-stage cp.async ring of 64 x 128 tiles),
-// widens them to bf16 (exact) and runs WMMA with f32 accumulation, writing f32
-// partial sums [slice, 64, N]. The consumer phase adds the slices in a fixed
-// order, so results are deterministic. A matrix is stored as column chunks of
-// `cw` columns, chunk c a contiguous [K, cw] block: cw = N is the standard
-// [K, N] row-major layout, cw = block_n the serving pack's [nc, K, block_n].
+// The matmul phases (2, 4, 6, 8) are where the bytes go: 202 MB of int8
+// weights a layer at Vicuna-7B, 60 us at 3.35 TB/s. Their design is K1's
+// (csrc/int8_matmul.cu) carried into the persistent kernel:
+//   1. K is cut into slices of at most KSLICE rows, whole BK-row boxes (4 for
+//      K = 4096, 11 for F = 11008 or 11264), and each slice gets an equal
+//      share of the blocks (bps = grid / S). Block (s, r) has its slice of
+//      the bf16 activation [64, K] copied into shared memory ONCE a phase
+//      (TMA, one mbarrier a [64, 128] box, 128-byte swizzled: wgmma's K-major
+//      B operand, zeros past the launch's rows and past K), then walks the
+//      column tiles r, r + bps, ... of 128 output columns, each the slice's
+//      boxes of 128 K rows in K order, and writes f32 partial sums part[s,
+//      64, Ntot]. The next phase adds the slices in a fixed order, so two
+//      calls give the same bits.
+//   2. A tile is computed transposed, part^T = W^T act^T, on
+//      wgmma.m64n64k16: two wgmmas of 64 columns, A (columns x k) from
+//      registers, the activation slice the B operand through a descriptor.
+//      The int8 weights are widened in registers straight into the A
+//      registers (wonly::widen: a prmt and one exact bf16x2 add), which puts
+//      lane (g, t) of warp w on the tile's columns 32 w + 4 g .. + 3 of
+//      rows 8 n + 2 t (+ 1): each lane stores a row's 4 columns as one 16
+//      bytes, and a warp's store writes four whole 128-byte lines of part,
+//      with no staging.
+//   3. A producer warp: one lane issues the activation slice's copies at the
+//      start of a phase (a consumer waits for a box's barrier before its first
+//      product with it, so the slice lands under the first tiles), then TMA
+//      copies of 128 x 128 int8 weight boxes (128-byte swizzle, evict-first in
+//      L2; 3-D tensor maps (cw, K, L * N / cw) over each matrix, built on the
+//      host once a call and passed in the __grid_constant__ Args, with the
+//      activation's 2-D maps) into the rings of the CWG consumer
+//      warpgroups, STAGES stages each with a full and an empty mbarrier. A
+//      warpgroup waits for a stage's full barrier, widens, issues wgmma and
+//      releases it: no block barrier in its loop. One ring a warpgroup keeps
+//      each slot's boxes in one consumer's order, which the waits by parity
+//      need. The rings run through the whole step: the q-th box of a ring
+//      (counted over every matmul phase of every layer) sits in slot q %
+//      STAGES with parity (q / STAGES) & 1, so no barrier is re-initialised,
+//      and after the last box of a matmul phase the producer fills the free
+//      stages with the first boxes of the next one (of this layer or the
+//      next) before it joins the grid barrier: the weights do not depend on
+//      the activations, so those copies overlap the barrier and the row,
+//      attention and SwiGLU phases.
+//   4. Each warpgroup takes its own column tiles of the block (tile j to
+//      warpgroup j % CWG; the producer issues the boxes of CWG tiles in
+//      turn). Splitting each tile's boxes over the warpgroups instead, with
+//      their sums added in shared memory in warpgroup order, was slower
+//      (PERF.md §6). The row, attention and SwiGLU phases run on the
+//      consumer warps; the producer warp only meets the barriers.
+// A matrix is stored as column chunks of `cw` columns, chunk c a contiguous
+// [K, cw] block: cw = N is the standard [K, N] row-major layout, cw =
+// block_n the serving pack's [nc, K, block_n]; a tile never straddles two
+// chunks (cw % 128 == 0 or cw = N).
 //
 // The roundings are the TPU kernels': h rounds to bf16 before each weight dot;
 // int8 weights are exact in bf16, accumulated in f32, then times the scale;
@@ -38,28 +79,54 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+#include "wonly_matmul_common.cuh"
+
 namespace cg = cooperative_groups;
-using namespace nvcuda;
 
 namespace {
 
 constexpr int HD = 128;        // head dim
-constexpr int MP = 64;         // rows per launch (the batch, zero-padded)
-constexpr int THREADS = 256;   // 8 warps
-constexpr int WARPS = THREADS / 32;
-constexpr int BN = 128;        // weight columns per tile
-constexpr int BK = 64;         // K rows per pipeline stage
-constexpr int STAGES = 4;
+constexpr int MP = 64;         // rows per launch (the batch, zero-padded): wgmma's n
+constexpr int CWG = 3;         // consumer warpgroups
+constexpr int CONSUMERS = 128 * CWG;
+constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
+constexpr int WARPS = CONSUMERS / 32;    // the warps of the row and SwiGLU phases
+constexpr int BN = 128;        // weight columns of a tile: two wgmmas of 64
+constexpr int BK = 128;        // K rows of a weight box (a ring stage)
+constexpr int KG = 2;          // k16 steps widened between two wgmma commits
+constexpr int STAGES = 2;      // ring stages a consumer warpgroup
 constexpr int KSLICE = 1024;   // at most this many K rows per slice
-constexpr int WBS = BN + 8;    // smem row stride (bf16) of the widened W tile
 constexpr int UNROLL = 8;      // keys a lane loads before it uses them
+constexpr int AWARPS = 8;      // the most warps of the attention phase (of the WARPS)
+constexpr size_t BOX = (size_t)BK * BN;          // one swizzled int8 weight box, 16 KB
+constexpr size_t ACT_BOX = (size_t)MP * BK * 2;  // one [64, 128] bf16 activation box, 16 KB
+constexpr size_t RING = (size_t)CWG * STAGES * BOX;
+constexpr int ACT_BOXES = KSLICE / BK;  // the activation boxes of a slice, a barrier each
+constexpr size_t BARS = 1024;  // the mbarriers, the producer's counts, the row phase's sums
+// the shared memory besides the activation region (the 1024-byte alignment
+// slack, the rings, the barriers); the activation region, last, holds a
+// phase's activation slice or the attention phase's scratch, never the
+// rings, which are live across the grid barriers
+constexpr size_t SMEM_FIXED = 1024 + RING + BARS;
+constexpr size_t SMEM_MAX = 232448;  // the dynamic shared memory a block may opt in to
+
+static_assert(attn::TILE == MP && attn::D == BK,
+              "activation boxes are attention_common's swizzled [64, 128] tiles");
+static_assert(BK / 16 % KG == 0, "whole wgmma groups a box");
+static_assert(KSLICE % BK == 0, "slices of whole boxes");
+static_assert((2 * CWG * STAGES + ACT_BOXES) * 8 + (CWG + 1) * 4 + WARPS * 4 <= BARS,
+              "barriers, the producer's counts and the sums fit their region");
+static_assert(AWARPS <= WARPS, "the attention phase runs on consumer warps");
+static_assert(SMEM_FIXED + (size_t)MP * KSLICE * 2 <= SMEM_MAX, "a full slice fits shared memory");
 
 struct Args {
+  CUtensorMap tm[9];           // the weights', then act [B, D] and [B, F] (launch_step builds them)
   const int8_t* w[7];          // q, k, v, o, gate, up, down: [L, K, N] in chunks of cw columns
   int cw[7];                   // their column-chunk widths
   const float* s[7];           // their scales [L, N]
@@ -78,21 +145,9 @@ struct Args {
   __nv_bfloat16* act;          // [MP, max(D, F)] scratch: the matmul input
   float* part;                 // [slices, MP, N] scratch: partial sums
   int L, B, Bk, b0, D, F, H, Sp, Gp, S0, step;
+  int awarps;                  // the attention phase's warps (launch_step sets them)
   float eps;
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ float bf16r(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -100,9 +155,31 @@ __device__ __forceinline__ float bf16r(float v) {
 
 __device__ __forceinline__ float ldf(const float* p) { return __ldcg(p); }
 
+// sum over s < S of p[s * stride] in slice order (the fixed order of the
+// partial sums), the loads issued four at a time ahead of their adds (the
+// attention phase's q/k/v: 12 such sums a lane)
+__device__ __forceinline__ float slice_sum(const float* p, size_t stride, int S) {
+  float acc = 0.0f;
+  for (int s = 0; s < S; s += 4) {
+    float v[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = s + i < S ? ldf(p + (s + i) * stride) : 0.0f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (s + i < S) acc += v[i];
+  }
+  return acc;
+}
+
 __device__ __forceinline__ float ldbf(const __nv_bfloat16* p) {
   const unsigned short u = __ldcg(reinterpret_cast<const unsigned short*>(p));
   return __bfloat162float(__ushort_as_bfloat16(u));
+}
+
+// the barrier of the consumer warps alone (the producer warp may be issuing
+// copies or waiting at the grid barrier)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
 }
 
 // byte i of w as a sign-extended int8, and the low / high bf16 of w, as f32
@@ -134,7 +211,7 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 // K rows per slice and the number of slices of a K-deep product (mirrored
-// by ops/decode_step.py to size the `part` scratch)
+// by ops/decode_step.py to size the `part` scratch and the shared memory)
 __host__ __device__ __forceinline__ int slice_rows(int K) {
   const int n = (K + KSLICE - 1) / KSLICE;
   const int r = (K + n - 1) / n;
@@ -146,10 +223,21 @@ __host__ __device__ __forceinline__ int num_slices(int K) {
   return (K + r - 1) / r;
 }
 
-// shared memory of a matmul phase: the activation slice, the W ring, the
-// widened W tile
-__host__ __device__ __forceinline__ size_t mm_smem(int kper) {
-  return (size_t)MP * (kper + 8) * 2 + (size_t)STAGES * BK * BN + (size_t)BK * WBS * 2;
+// the attention phase's warps for `per_warp` bytes of scratch a warp: AWARPS
+// when their scratch fits beside the rings, fewer for a longer cache (7 at
+// Vicuna-7B's 4096 positions), 0 when not one warp's does
+inline int attn_warps(size_t per_warp) {
+  const size_t fit = (SMEM_MAX - SMEM_FIXED) / per_warp;
+  return fit < (size_t)AWARPS ? (int)fit : AWARPS;
+}
+
+// the dynamic shared memory of a launch: the fixed regions and the larger of
+// the activation slices and the attention phase's scratch
+inline size_t step_smem(int D, int F, size_t smem_attn) {
+  size_t act = (size_t)MP * slice_rows(D) * 2;
+  const size_t act_f = (size_t)MP * slice_rows(F) * 2;
+  act = act > act_f ? act : act_f;
+  return SMEM_FIXED + (act > smem_attn ? act : smem_attn);
 }
 
 // q, k and v of (row b, head h) for the attention phase, f32: the sums of
@@ -169,8 +257,7 @@ __device__ __forceinline__ void qkv_rope(const Args& a, int l, int b, int h, flo
     for (int e = 0; e < 4; ++e) {
       const int d = lane + 32 * e;
       const int col = w3 * D + h * HD + d;
-      float acc = 0.0f;
-      for (int s = 0; s < S_qkv; ++s) acc += ldf(a.part + ((size_t)s * MP + b) * Ntot + col);
+      const float acc = slice_sum(a.part + (size_t)b * Ntot + col, (size_t)MP * Ntot, S_qkv);
       raw[w3][e] = acc * a.s[w3][(size_t)l * D + h * HD + d];
     }
   }
@@ -198,7 +285,7 @@ __device__ __forceinline__ void qkv_rope(const Args& a, int l, int b, int h, flo
 
 // x = bf16(x + (sum of the down/o partial slices) * scale) for the rows of
 // this launch (pre != nullptr), then (gamma != nullptr) act = bf16(RMSNorm(x)
-// * gamma). First layer: x = x_in. Final: x_out = x.
+// * gamma). First layer: x = x_in. Final: x_out = x. The consumer warps.
 __device__ void row_phase(const Args& a, const float* pre_scale, int pre_slices,
                           const __nv_bfloat16* gamma, bool first, bool final_out,
                           float* red) {
@@ -206,7 +293,7 @@ __device__ void row_phase(const Args& a, const float* pre_scale, int pre_slices,
   for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
     __nv_bfloat16* xr = a.xres + (size_t)b * D;
     float ss = 0.0f;
-    for (int c = threadIdx.x; c < D; c += THREADS) {
+    for (int c = threadIdx.x; c < D; c += CONSUMERS) {
       float xv;
       if (first) {
         xv = __bfloat162float(a.x_in[(size_t)b * D + c]);
@@ -225,123 +312,275 @@ __device__ void row_phase(const Args& a, const float* pre_scale, int pre_slices,
     if (gamma) {
       ss = warp_sum(ss);
       if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = ss;
-      __syncthreads();
+      consumer_sync();
       float tot = 0.0f;
 #pragma unroll
       for (int w = 0; w < WARPS; ++w) tot += red[w];
       const float inv = rsqrtf(tot / (float)D + a.eps);
-      for (int c = threadIdx.x; c < D; c += THREADS)
+      for (int c = threadIdx.x; c < D; c += CONSUMERS)
         a.act[(size_t)b * D + c] =
             __float2bfloat16_rn((ldbf(xr + c) * inv) * __bfloat162float(gamma[c]));
     }
-    __syncthreads();
+    consumer_sync();
   }
 }
 
 // ---------------------------------------------------------- matmul phases
 
+// matmul phase p of a layer: matrices first .. first + nmat - 1, each [K, N]
+struct Phase {
+  int first, nmat, K, N;
+};
+
+__device__ __forceinline__ Phase phase_of(const Args& a, int p) {
+  return p == 0 ? Phase{0, 3, a.D, a.D}     // q, k, v
+       : p == 1 ? Phase{3, 1, a.D, a.D}     // o
+       : p == 2 ? Phase{4, 2, a.D, a.F}     // gate, up
+                : Phase{6, 1, a.F, a.D};    // down
+}
+
+// this block's share of a phase: K slice s (rows k_begin .. + kn, nkb boxes)
+// and the column tiles r, r + bps, ... (nt of them, nchunks a matrix)
+struct Share {
+  int s, k_begin, kn, nkb, r, bps, nchunks, nt, boxes;
+};
+
+__device__ __forceinline__ Share share_of(const Phase& p) {
+  Share h;
+  const int S = num_slices(p.K), kper = slice_rows(p.K);
+  h.bps = gridDim.x / S;
+  h.s = blockIdx.x / h.bps;
+  h.r = blockIdx.x % h.bps;
+  h.nchunks = (p.N + BN - 1) / BN;
+  const int ntiles = p.nmat * h.nchunks;
+  const bool live = h.s < S && h.r < ntiles;
+  h.k_begin = h.s * kper;
+  h.kn = live ? min(p.K, h.k_begin + kper) - h.k_begin : 0;
+  h.nkb = (h.kn + BK - 1) / BK;
+  h.nt = live ? (ntiles - 1 - h.r) / h.bps + 1 : 0;
+  h.boxes = h.nt * h.nkb;
+  return h;
+}
+
+// box i of the block's walk of a phase -> its tile j (of the block's nt)
+// and its k box kb: rounds of CWG tiles (the last may hold fewer, m), box kb
+// of each tile of a round in turn
+__device__ __forceinline__ void box_of(const Share& h, int i, int& j, int& kb) {
+  const int round = i / (CWG * h.nkb), q = i % (CWG * h.nkb);
+  const int m = min(CWG, h.nt - round * CWG);
+  kb = q / m;
+  j = round * CWG + q % m;
+}
+
+// what the producer's lane keeps across the phases, in shared memory (so
+// that it takes no registers of the consumers): the boxes it has issued to
+// each ring, and how many of the coming phase's boxes it has issued ahead
+struct Producer {
+  int issued[CWG];
+  int ahead;
+};
+
+// the rings: CWG x STAGES weight boxes with a full and an empty barrier
+// each, and the activation boxes' barriers; a consumer thread counts the
+// boxes its warpgroup's ring has taken, and keeps the parity that each
+// activation box's barrier completes next in bit kb of actpar
+struct Ring {
+  unsigned char* box;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* act;
+  Producer* prod;
+  int taken;
+  unsigned actpar;
+};
+
+// the attention phase's first (row, head) item of warp `warp` (< a.awarps),
+// and the step to its next: the items go to the blocks in turn, so that each
+// SM takes at most ceil(B * H / grid) of them
+__device__ __forceinline__ int attn_item(int warp) { return blockIdx.x + gridDim.x * warp; }
+__device__ __forceinline__ int attn_stride(const Args& a) { return gridDim.x * a.awarps; }
+
+// the producer: box i of phase p of layer l into its ring's next slot, once
+// that slot's previous box has been released
+__device__ __forceinline__ void issue_box(const Args& a, int l, const Phase& p, const Share& h,
+                                          int i, const Ring& rg) {
+  int j, kb;
+  box_of(h, i, j, kb);
+  const int c = h.r + j * h.bps;
+  const int mat = p.first + c / h.nchunks, n0 = (c % h.nchunks) * BN;
+  const int cw = a.cw[mat];
+  const int w = j % CWG;  // the ring of tile j's warpgroup
+  const int q = rg.prod->issued[w]++;
+  const int slot = w * STAGES + q % STAGES;
+  if (q >= STAGES) wonly::mbar_wait(rg.empty + slot, (q / STAGES - 1) & 1);
+  wonly::mbar_arrive_expect(rg.full + slot, (uint32_t)BOX);
+  // the weights are read once a step: first out of L2 (the activations,
+  // the partial sums and the caches stay)
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  // the column chunk that holds columns n0 .. n0 + BN - 1, at column n0 % cw
+  wonly::tma_load_3d_hint(rg.box + slot * BOX, &a.tm[mat], n0 % cw, h.k_begin + kb * BK,
+                          l * (p.N / cw) + n0 / cw, rg.full + slot, policy);
+}
+
+// the producer, ahead of matmul phase p of layer l: its first boxes in walk
+// order until one would wait for a slot that a box of that phase holds (so
+// up to STAGES a ring; those waits are for the boxes of the phase before,
+// which its consumers release). Returns how many it issued.
+__device__ __forceinline__ int issue_ahead(const Args& a, int l, int p, const Ring& rg) {
+  if (l >= a.L) return 0;
+  const Phase ph = phase_of(a, p);
+  const Share h = share_of(ph);
+  int n[CWG] = {};
+  int i = 0;
+  for (; i < h.boxes; ++i) {
+    int j, kb;
+    box_of(h, i, j, kb);
+    if (n[j % CWG]++ == STAGES) break;
+    issue_box(a, l, ph, h, i, rg);
+  }
+  return i;
+}
+
+// the producer, at the start of matmul phase pi: the block's activation
+// slice act[0:B, k_begin .. k_begin + kn) (row stride K) into the activation
+// region as nkb [64, 128] boxes, each two swizzled 64 x 64 halves and one
+// barrier; the act map's B rows and K columns zero-fill the rest. The
+// activation was written by other blocks before the grid barrier: the proxy
+// fence orders those generic writes before the copies' reads.
+__device__ __forceinline__ void issue_slice(const Args& a, int pi, const Share& h,
+                                            unsigned char* act, const Ring& rg) {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+  const CUtensorMap* map = &a.tm[pi == 3 ? 8 : 7];
+  for (int kb = 0; kb < h.nkb; ++kb) {
+    const int k0 = h.k_begin + kb * BK;
+    wonly::mbar_arrive_expect(rg.act + kb, (uint32_t)ACT_BOX);
+    wonly::tma_load_2d(act + kb * ACT_BOX, map, k0, 0, rg.act + kb);
+    wonly::tma_load_2d(act + kb * ACT_BOX + ACT_BOX / 2, map, k0 + BK / 2, 0, rg.act + kb);
+  }
+}
+
+// acc += the weight box at `w` (BK rows of the tile's 128 columns) times the
+// activation box at `x`: 8 k16 steps, KG a group, the A registers of group q
+// widened while group q - 1 runs. All groups are done on return (ptxas
+// serialises wgmma when a group is in flight across a loop's back edge).
+__device__ __forceinline__ void consume(float (&acc)[2][8][4], const unsigned char* w,
+                                        const unsigned char* x, int off_e, int off_o) {
+  uint32_t r[2][KG][2][4];
+  const unsigned char* we = w + off_e;
+  const unsigned char* wo = w + off_o;
+#pragma unroll
+  for (int q = 0; q < BK / 16 / KG; ++q) {
+    const int b = q & 1;
+#pragma unroll
+    for (int e = 0; e < KG; ++e) {
+      const int kk = q * KG + e;
+      const uint32_t r0 = *reinterpret_cast<const uint32_t*>(we + kk * 16 * BN);
+      const uint32_t r1 = *reinterpret_cast<const uint32_t*>(wo + kk * 16 * BN);
+      const uint32_t r8 = *reinterpret_cast<const uint32_t*>(we + (kk * 16 + 8) * BN);
+      const uint32_t r9 = *reinterpret_cast<const uint32_t*>(wo + (kk * 16 + 8) * BN);
+      wonly::widen<0>(r[b][e], r0, r1);  // k 2t, 2t + 1
+      wonly::widen<2>(r[b][e], r8, r9);  // k 2t + 8, 2t + 9
+    }
+    attn::wgmma_fence();
+#pragma unroll
+    for (int e = 0; e < KG; ++e)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        attn::wgmma_m64n64k16(acc[j], r[b][e][j], attn::k_major(x, q * KG + e), 1);
+    attn::wgmma_commit();
+    wonly::wgmma_wait<1>();  // group q - 1 is done: its A registers may be rewritten
+#pragma unroll
+    for (int e = 0; e < KG; ++e) attn::pin(r[b ^ 1][e]);
+  }
+  attn::wgmma_wait0();
+#pragma unroll
+  for (int e = 0; e < KG; ++e) {
+    attn::pin(r[0][e]);
+    attn::pin(r[1][e]);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) attn::pin(acc[j]);
+}
+
+// the consumer warpgroup wg: wait for its ring's next box and for activation
+// box kb, add their product to acc, release the weight box
+__device__ __forceinline__ void take_box(float (&acc)[2][8][4], int wg, int kb,
+                                         const unsigned char* act, Ring& rg, int off_e,
+                                         int off_o) {
+  const int q = rg.taken++;
+  const int slot = wg * STAGES + q % STAGES;
+  wonly::mbar_wait(rg.act + kb, (rg.actpar >> kb) & 1);
+  wonly::mbar_wait(rg.full + slot, (q / STAGES) & 1);
+  consume(acc, rg.box + slot * BOX, act + kb * ACT_BOX, off_e, off_o);
+  if ((threadIdx.x & 31) == 0) wonly::mbar_arrive(rg.empty + slot);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[2][8][4]) {
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][n][e] = 0.0f;
+}
+
+// wgmma jj's row 16 w + g + 8 h is the tile's column c0 + 2 h + jj (c0 = 32 w
+// + 4 g), its column 8 n + 2 t + b the launch's row: lane (g, t) holds
+// columns c0 .. c0 + 3 of rows 8 n + 2 t + b as the float4 v4(acc, n, b)
+__device__ __forceinline__ float4 v4(const float (&acc)[2][8][4], int n, int b) {
+  return make_float4(acc[0][n][b], acc[1][n][b], acc[0][n][2 + b], acc[1][n][2 + b]);
+}
+
+// tile j's partial sums into part[s, row, mat * N + n0 + c0 ..], rows < B:
+// plain 16-byte stores (the next phase reads them after the grid barrier),
+// the rows' addresses stepped from one pointer
+__device__ __forceinline__ void store_tile(const Args& a, const Phase& p, const Share& h, int j,
+                                           const float (&acc)[2][8][4], int c0, int t) {
+  const int c = h.r + j * h.bps;
+  const int n0 = (c % h.nchunks) * BN;
+  if (n0 + c0 >= p.N) return;
+  const int Ntot = p.nmat * p.N;
+  float* dst = a.part + ((size_t)h.s * MP + 2 * t) * Ntot + (c / h.nchunks) * p.N + n0 + c0;
+  const int rows = a.B - 2 * t;  // this lane's rows 8 n + b that are live: 8 n + b < rows
+#pragma unroll
+  for (int n = 0; n < 8; ++n, dst += (size_t)8 * Ntot)
+#pragma unroll
+    for (int b = 0; b < 2; ++b)
+      if (8 * n + b < rows) *reinterpret_cast<float4*>(dst + b * Ntot) = v4(acc, n, b);
+}
+
 // part[s, 0:MP, mi * N + n] = act[0:MP, slice s] @ W_mi[l][slice s, n] for
-// the nmat matrices W_mi (each [K, N]), mi * N + n < Ntot = nmat * N.
-__device__ void mm_phase(const Args& a, int l, int first_mat, int nmat, int K, int N,
-                         unsigned char* smem) {
-  const int kper = slice_rows(K);
-  const int S = num_slices(K);
-  const int bps = gridDim.x / S;
-  const int s = blockIdx.x / bps, r = blockIdx.x % bps;
-  if (s >= S) return;
-  const int k_begin = s * kper;
-  const int k_end = min(K, k_begin + kper);
-  const int kn = k_end - k_begin;
-  const int AS = kper + 8;
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  int8_t* w8 = reinterpret_cast<int8_t*>(smem + (size_t)MP * AS * 2);
-  __nv_bfloat16* wb = reinterpret_cast<__nv_bfloat16*>(w8 + STAGES * BK * BN);
-  const int tid = threadIdx.x, warp = tid >> 5;
-
-  // the activation slice, rows past B zero-filled (cp.async.cg reads L2)
-  for (int c = tid; c < MP * (kn / 8); c += THREADS) {
-    const int row = c / (kn / 8), kc = (c % (kn / 8)) * 8;
-    const bool ok = row < a.B;
-    cp_async16(As + row * AS + kc, ok ? a.act + (size_t)row * K + k_begin + kc : a.act,
-               ok ? 16 : 0);
+// the phase's matrices. Every thread of the block calls it: the producer
+// warp issues the phase's boxes and the next phase's first ones, the
+// consumer warpgroups load the slice and take the boxes.
+__device__ void mm_phase(const Args& a, int l, int pi, unsigned char* act, Ring& rg) {
+  const Phase p = phase_of(a, pi);
+  const Share h = share_of(p);
+  const int tid = threadIdx.x;
+  if (tid >= CONSUMERS) {
+    if (tid == CONSUMERS) {
+      if (h.boxes) issue_slice(a, pi, h, act, rg);
+      for (int i = rg.prod->ahead; i < h.boxes; ++i) issue_box(a, l, p, h, i, rg);
+      rg.prod->ahead = issue_ahead(a, l + (pi == 3), (pi + 1) & 3, rg);
+    }
+    __syncwarp();
+  } else if (h.boxes) {
+    const int wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    // this lane's words in a swizzled weight box: columns c0 .. c0 + 3 of
+    // rows 2t (and 2t + 8; off_e) and 2t + 1 (and 2t + 9; off_o) of k16 step 0
+    const int c0 = 32 * warp + 4 * g;
+    const int off_e = 2 * t * BN + (((c0 >> 4) ^ (2 * t)) << 4) + (c0 & 15);
+    const int off_o = (2 * t + 1) * BN + (((c0 >> 4) ^ (2 * t + 1)) << 4) + (c0 & 15);
+    float acc[2][8][4];
+    for (int j = wg; j < h.nt; j += CWG) {
+      zero(acc);
+      for (int kb = 0; kb < h.nkb; ++kb) take_box(acc, wg, kb, act, rg, off_e, off_o);
+      store_tile(a, p, h, j, acc, c0, t);
+    }
+    rg.actpar ^= (1u << h.nkb) - 1;  // each activation box's barrier completed once
   }
-  cp_async_commit();
-
-  const int nchunks = (N + BN - 1) / BN;
-  const int nk = (kn + BK - 1) / BK;
-  const int Ntot = nmat * N;
-  for (int c = r; c < nmat * nchunks; c += bps) {
-    const int mi = c / nchunks, n0 = (c % nchunks) * BN;
-    const int cw = a.cw[first_mat + mi];
-    // the column chunk that holds columns n0 .. n0 + BN - 1, at column n0 % cw
-    const int8_t* W = a.w[first_mat + mi] + (size_t)l * K * N + (size_t)(n0 / cw) * K * cw +
-                      n0 % cw;
-    auto issue = [&](int slot, int k0) {
-#pragma unroll
-      for (int j = 0; j < (BK * BN / 16) / THREADS; ++j) {
-        const int cc = tid + j * THREADS;
-        const int rr = cc >> 3, col = (cc & 7) * 16;
-        const int k = k0 + rr;
-        const bool ok = k < k_end && n0 + col < N;
-        cp_async16(w8 + slot * BK * BN + rr * BN + col, ok ? W + (size_t)k * cw + col : W,
-                   ok ? 16 : 0);
-      }
-    };
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) wmma::fill_fragment(acc[i], 0.0f);
-#pragma unroll
-    for (int st = 0; st < STAGES - 1; ++st) {
-      if (st < nk) issue(st, k_begin + st * BK);
-      cp_async_commit();
-    }
-    for (int t = 0; t < nk; ++t) {
-      cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      {
-        const int tn = t + STAGES - 1;
-        if (tn < nk) issue(tn % STAGES, k_begin + tn * BK);
-        cp_async_commit();
-      }
-      {
-        const int rr = tid >> 2, col = (tid & 3) * 32;
-        const int8_t* src = w8 + (t % STAGES) * BK * BN + rr * BN + col;
-        __align__(16) int8_t raw[32];
-        *reinterpret_cast<uint4*>(raw) = *reinterpret_cast<const uint4*>(src);
-        *reinterpret_cast<uint4*>(raw + 16) = *reinterpret_cast<const uint4*>(src + 16);
-        __align__(16) __nv_bfloat162 hv[16];
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          hv[e] = __floats2bfloat162_rn((float)raw[2 * e], (float)raw[2 * e + 1]);
-        uint4* dst = reinterpret_cast<uint4*>(wb + rr * WBS + col);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dst[e] = reinterpret_cast<const uint4*>(hv)[e];
-      }
-      __syncthreads();
-      const int kb = t * BK;  // offset of this stage inside the slice
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        if (kb + kk * 16 >= kn) break;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> bfrag;
-        wmma::load_matrix_sync(bfrag, wb + kk * 16 * WBS + warp * 16, WBS);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> afrag;
-          wmma::load_matrix_sync(afrag, As + i * 16 * AS + kb + kk * 16, AS);
-          wmma::mma_sync(acc[i], afrag, bfrag, acc[i]);
-        }
-      }
-    }
-    cp_async_wait<0>();
-    __syncthreads();  // the ring and wb are free for the next chunk
-    if (n0 + warp * 16 < N) {
-      float* dst = a.part + (size_t)s * MP * Ntot + mi * N + n0 + warp * 16;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::store_matrix_sync(dst + (size_t)i * 16 * Ntot, acc[i], Ntot, wmma::mem_row_major);
-    }
-  }
-  cp_async_wait<0>();
 }
 
 // ----------------------------------------------------- SwiGLU elementwise
@@ -352,7 +591,8 @@ __device__ void silu_phase(const Args& a, int l) {
   const int Ntot = 2 * F;
   const float* sg = a.s[4] + (size_t)l * F;
   const float* su = a.s[5] + (size_t)l * F;
-  for (int idx = blockIdx.x * THREADS + threadIdx.x; idx < a.B * F; idx += gridDim.x * THREADS) {
+  for (int idx = blockIdx.x * CONSUMERS + threadIdx.x; idx < a.B * F;
+       idx += gridDim.x * CONSUMERS) {
     const int b = idx / F, c = idx - b * F;
     float g = 0.0f, u = 0.0f;
     for (int s = 0; s < S; ++s) {
@@ -368,43 +608,88 @@ __device__ void silu_phase(const Args& a, int l) {
 }
 
 template <class Attn>
-__global__ void __launch_bounds__(THREADS, 1) step_kernel(Args a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float red[WARPS];
+__global__ void __launch_bounds__(THREADS, 1) step_kernel(const __grid_constant__ Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = attn::align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + RING);
+  Producer* prod = reinterpret_cast<Producer*>(full + 2 * CWG * STAGES + ACT_BOXES);
+  float* red = reinterpret_cast<float*>(prod + 1);
+  unsigned char* act = smem + RING + BARS;  // the slice, or the attention's scratch
   cg::grid_group grid = cg::this_grid();
+  const bool consumer = threadIdx.x < CONSUMERS;
+  Ring rg{smem, full, full + CWG * STAGES, full + 2 * CWG * STAGES, prod, 0, 0};
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = 0; i < CWG * STAGES; ++i) {
+      wonly::mbar_init(rg.full + i, 1);
+      wonly::mbar_init(rg.empty + i, 4);  // the warps of the ring's warpgroup
+    }
+#pragma unroll
+    for (int i = 0; i < ACT_BOXES; ++i) wonly::mbar_init(rg.act + i, 1);
+    wonly::mbar_init_fence();
+  }
+  __syncthreads();
+  if (threadIdx.x == CONSUMERS) {
+    *prod = Producer{};
+    prod->ahead = issue_ahead(a, 0, 0, rg);
+  }
   const int D = a.D, F = a.F;
   const int S_D = num_slices(D), S_F = num_slices(F);
   for (int l = 0; l < a.L; ++l) {
-    row_phase(a, l ? a.s[6] + (size_t)(l - 1) * D : nullptr, S_F, a.attn_norm + (size_t)l * D,
-              l == 0, false, red);
+    if (consumer)
+      row_phase(a, l ? a.s[6] + (size_t)(l - 1) * D : nullptr, S_F, a.attn_norm + (size_t)l * D,
+                l == 0, false, red);
     grid.sync();
-    mm_phase(a, l, 0, 3, D, D, smem);           // q, k, v
+    mm_phase(a, l, 0, act, rg);        // q, k, v
     grid.sync();
-    Attn::run(a, l, smem);
+    if (consumer) {
+      Attn::run(a, l, act);
+      attn::fence_proxy_async();  // its scratch, before the next slice's copies into it
+    }
     grid.sync();
-    mm_phase(a, l, 3, 1, D, D, smem);           // o
+    mm_phase(a, l, 1, act, rg);        // o
     grid.sync();
-    row_phase(a, a.s[3] + (size_t)l * D, S_D, a.mlp_norm + (size_t)l * D, false, false, red);
+    if (consumer)
+      row_phase(a, a.s[3] + (size_t)l * D, S_D, a.mlp_norm + (size_t)l * D, false, false, red);
     grid.sync();
-    mm_phase(a, l, 4, 2, D, F, smem);           // gate, up
+    mm_phase(a, l, 2, act, rg);        // gate, up
     grid.sync();
-    silu_phase(a, l);
+    if (consumer) silu_phase(a, l);
     grid.sync();
-    mm_phase(a, l, 6, 1, F, D, smem);           // down
+    mm_phase(a, l, 3, act, rg);        // down
     grid.sync();
   }
-  row_phase(a, a.s[6] + (size_t)(a.L - 1) * D, S_F, nullptr, false, true, red);
+  if (consumer) row_phase(a, a.s[6] + (size_t)(a.L - 1) * D, S_F, nullptr, false, true, red);
 }
 
-// One cooperative launch of step_kernel<Attn>, one block per SM, with the
-// larger of the matmul phases' and the attention phase's shared memory.
+// One cooperative launch of step_kernel<Attn>, one block per SM, with
+// step_smem's shared memory for attn_warps(attn_per_warp) attention warps of
+// attn_per_warp bytes of scratch each. It builds the tensor maps first:
+// weight matrix i, [L, K, N] as L * N / cw chunks [K, cw], is the 3-D tensor
+// (cw, K, L * N / cw) in boxes of BN x BK; the activation, [B, D] or [B, F]
+// (row stride D or F), is copied in 64 x 64 boxes.
 template <class Attn>
-int launch_step(const Args& a, size_t smem_attn, void* stream) {
+int launch_step(Args& a, size_t attn_per_warp, void* stream) {
   void (*kernel)(Args) = step_kernel<Attn>;
-  size_t smem = mm_smem(slice_rows(a.D));
-  const size_t smem_f = mm_smem(slice_rows(a.F));
-  smem = smem > smem_f ? smem : smem_f;
-  smem = smem > smem_attn ? smem : smem_attn;
+  const int Ks[7] = {a.D, a.D, a.D, a.D, a.D, a.D, a.F};
+  const int Ns[7] = {a.D, a.D, a.D, a.D, a.F, a.F, a.D};
+  for (int i = 0; i < 7; ++i) {
+    const cuuint64_t cw = (cuuint64_t)a.cw[i], K = (cuuint64_t)Ks[i];
+    const cuuint64_t dims[3] = {cw, K, (cuuint64_t)a.L * (Ns[i] / a.cw[i])};
+    const cuuint64_t strides[2] = {cw, K * cw};
+    const cuuint32_t box[3] = {BN, BK, 1};
+    if (!wonly::encode(&a.tm[i], CU_TENSOR_MAP_DATA_TYPE_UINT8, a.w[i], 3, dims, strides, box))
+      return (int)cudaErrorInvalidValue;
+  }
+  for (int i = 0; i < 2; ++i) {
+    const int K = i ? a.F : a.D;
+    if (!wonly::encode(&a.tm[7 + i], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, a.act, K, a.B,
+                       (uint64_t)K * 2, BK / 2, MP))
+      return (int)cudaErrorInvalidValue;
+  }
+  a.awarps = attn_warps(attn_per_warp);
+  if (a.awarps < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = step_smem(a.D, a.F, (size_t)a.awarps * attn_per_warp);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -419,8 +704,7 @@ int launch_step(const Args& a, size_t smem_attn, void* stream) {
   // at least one block
   const int grid = sms;
   if (grid < num_slices(a.F) || grid < num_slices(a.D)) return (int)cudaErrorInvalidConfiguration;
-  Args args = a;
-  void* params[] = {&args};
+  void* params[] = {&a};
   err = cudaLaunchCooperativeKernel(reinterpret_cast<void*>(kernel), dim3(grid), dim3(THREADS),
                                     params, smem, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;

@@ -23,10 +23,11 @@
 // launch, one block per SM, grid barriers between the phases of a layer,
 // K-sliced matmul phases that load the activation slice into shared memory
 // once per phase, slice sums in a fixed order. What the layout changes:
-//   - column chunk c of a matrix is a contiguous [D, block_n] block, so a
-//     K-slice tile of 128 columns reads rows of 128 bytes at a stride of
-//     block_n (the matmul phase's chunk width cw = block_n); down's row chunks
-//     are the row-major [Fp, D] matrix that row 9 reads (cw = D);
+//   - column chunk c of a matrix is a contiguous [D, block_n] block, so the
+//     matmul phase's tensor map walks chunks of cw = block_n columns (3-D:
+//     (block_n, D, L * nc)) and a 128-column tile is one box of one chunk;
+//     down's row chunks are the row-major [Fp, D] matrix that row 9 reads
+//     (cw = D);
 //   - the padded gate/up columns have zero weights and zero scale and down's
 //     padded rows are zero, so they add exact zeros; the kernel runs over Fp
 //     and does not skip them;
@@ -62,7 +63,8 @@ struct SlabAttn {
     float* ks = qs + HD;
     float* vs = ks + HD;
     float* sc = vs + HD;
-    for (int item = blockIdx.x * WARPS + warp; item < a.B * H; item += gridDim.x * WARPS) {
+    for (int item = attn_item(warp); warp < a.awarps && item < a.B * H;
+         item += attn_stride(a)) {
       const int b = item / H, h = item % H;
       const int bg = a.b0 + b;
       float qr[4], kr[4];
@@ -209,5 +211,5 @@ extern "C" int decode_step_serve(void* const* w, void* const* s, const void* att
   a.part = static_cast<float*>(part);
   a.L = L; a.B = B; a.Bk = Bk; a.b0 = b0; a.D = D; a.F = Fp; a.H = H; a.Sp = Sp; a.S0 = S0;
   a.step = step; a.eps = eps;
-  return launch_step<SlabAttn>(a, (size_t)WARPS * (3 * HD + S0 + step) * 4, stream);
+  return launch_step<SlabAttn>(a, (3 * HD + S0 + step) * 4, stream);
 }

@@ -17,8 +17,10 @@
 // residual stream in VMEM. Hopper has no sequential grid, so this is a
 // persistent cooperative kernel with a grid-wide barrier between the phases of
 // a layer; decode_common.cuh holds it and its row, matmul and SwiGLU phases
-// (shared with row 10, decode_serve.cu), which read the standard [L, K, N]
-// weights here. This file gives the attention phase: one warp per (row, head)
+// (shared with row 10, decode_serve.cu; the matmul phases are wgmma products
+// of int8 weights widened in registers, fed by a TMA producer warp), which
+// read the standard [L, K, N] weights here. This file gives the attention
+// phase: one warp per (row, head)
 // computes q/k/v = partials * scale and rope, writes the new k/v into gen slot
 // `step` (the mask is slot < step, so that slot is never read in the same
 // step), then scores, one shared max, values.
@@ -59,7 +61,8 @@ struct GenCacheAttn {
     float* vs = ks + HD;
     float* sc = vs + HD;
     float* p2s = sc + Sp;
-    for (int item = blockIdx.x * WARPS + warp; item < a.B * H; item += gridDim.x * WARPS) {
+    for (int item = attn_item(warp); warp < a.awarps && item < a.B * H;
+         item += attn_stride(a)) {
       const int b = item / H, h = item % H;
       const int bg = a.b0 + b;
       float qr[4], kr[4];
@@ -244,5 +247,5 @@ extern "C" int decode_step_fused(void* const* w, void* const* s, const void* att
   a.part = static_cast<float*>(part);
   a.L = L; a.B = B; a.Bk = Bk; a.b0 = b0; a.D = D; a.F = F; a.H = H; a.Sp = Sp; a.Gp = Gp;
   a.step = step; a.eps = eps;
-  return launch_step<GenCacheAttn>(a, (size_t)WARPS * (3 * HD + Sp + Gp) * 4, stream);
+  return launch_step<GenCacheAttn>(a, (3 * HD + Sp + Gp) * 4, stream);
 }

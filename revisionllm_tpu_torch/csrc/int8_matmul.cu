@@ -38,8 +38,9 @@
 //      at bits 0-7 and 16-23; for a byte b, bf16 0x4300 | (b & 127) is 128 +
 //      (b & 127) and 0xC300 | (b & 128) is -128 or -256 by its sign, so one
 //      bf16x2 add of the two makes b exactly (4 instructions a register, no
-//      conversion). The scale is applied once, after the whole K sum, as the
-//      Pallas body does at ik == num_k_blocks - 1.
+//      conversion; wonly::s8x2 and wonly::widen, which rows 9 and 10 share).
+//      The scale is applied once, after the whole K sum, as the Pallas body
+//      does at ik == num_k_blocks - 1.
 //   4. A producer warp runs the ring ahead: one lane issues TMA tile copies
 //      (CUtensorMaps built on the host: x [M, K] bf16 in two 64 x 64 boxes,
 //      W [K, N] int8 in one 128 x 128 box marked evict-first in L2, both
@@ -105,28 +106,6 @@ static_assert(STAGE % 1024 == 0, "swizzled tiles sit on 1024-byte boundaries");
 
 __device__ __forceinline__ void griddep_wait() {
   if (PDL) asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-
-// byte J of `lo` and of `hi` (signed int8) as the bf16x2 (lo, hi), exactly
-template <int J>
-__device__ __forceinline__ uint32_t s8x2(uint32_t lo, uint32_t hi) {
-  const uint32_t p = __byte_perm(lo, hi, J | (J << 4) | ((J + 4) << 8) | ((J + 4) << 12));
-  const uint32_t v = (p & 0x007F007Fu) | 0x43004300u;  // 128 + (b & 127)
-  const uint32_t s = (p & 0x00800080u) | 0xC300C300u;  // -128, or -256 for b < 0
-  uint32_t d;
-  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(v), "r"(s));
-  return d;
-}
-
-// the words of rows k (lo) and k + 1 (hi), byte j column c0 + j, into
-// register R (0: k 2t, 2: k 2t + 8) and R + 1 (the row 8 below) of the A
-// fragments of wgmma 0 and 1
-template <int R>
-__device__ __forceinline__ void widen(uint32_t (&a)[2][4], uint32_t lo, uint32_t hi) {
-  a[0][R] = s8x2<0>(lo, hi);
-  a[1][R] = s8x2<1>(lo, hi);
-  a[0][R + 1] = s8x2<2>(lo, hi);
-  a[1][R + 1] = s8x2<3>(lo, hi);
 }
 
 // The split-K sum over the block's cluster of S ranks along K (its rank r =
@@ -239,8 +218,8 @@ __global__ void __launch_bounds__(THREADS, MINB)
         const uint32_t r1 = *reinterpret_cast<const uint32_t*>(wo + kk * 16 * BN);
         const uint32_t r8 = *reinterpret_cast<const uint32_t*>(we + (kk * 16 + 8) * BN);
         const uint32_t r9 = *reinterpret_cast<const uint32_t*>(wo + (kk * 16 + 8) * BN);
-        widen<0>(a[b][e], r0, r1);  // k 2t, 2t + 1
-        widen<2>(a[b][e], r8, r9);  // k 2t + 8, 2t + 9
+        wonly::widen<0>(a[b][e], r0, r1);  // k 2t, 2t + 1
+        wonly::widen<2>(a[b][e], r8, r9);  // k 2t + 8, 2t + 9
       }
       attn::wgmma_fence();
 #pragma unroll

@@ -6,9 +6,12 @@
 // Here:
 //   - the cp.async ring helpers (16-byte .cg copies, zero-filled past the
 //     live rows and columns);
-//   - the mbarriers and the TMA tile copy of a ring filled by a producer
-//     warp (K1, row 8): a full and an empty barrier a stage, waits by phase
-//     parity, and the host's encoding of a tensor map;
+//   - the mbarriers and the TMA tile copies of a ring filled by a producer
+//     warp (K1, row 8, the matmul phases of rows 9 and 10 in
+//     csrc/decode_common.cuh): a full and an empty barrier a stage, waits by
+//     phase parity, and the host's encoding of a 2-D or 3-D tensor map;
+//   - the exact widening of int8 weight pairs into wgmma's bf16x2 A
+//     registers (K1 and rows 9 and 10);
 //   - the bf16x2 packing and a wait for all but N wgmma groups;
 //   - the split-K reduction across a thread-block cluster (row 7; K1 has its
 //     own, which scales the columns): every rank leaves its f32 partial tile
@@ -116,6 +119,46 @@ __device__ __forceinline__ void tma_load_2d_hint(void* dst, const void* map, int
       : "memory");
 }
 
+// tma_load_2d_hint for a 3-D tensor map: the box at (c0 inner, c1, c2 outer)
+__device__ __forceinline__ void tma_load_3d_hint(void* dst, const void* map, int c0, int c1, int c2,
+                                                 uint64_t* bar, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%2, %3, %4}], [%5], %6;\n"
+      :: "r"(smem_addr(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+         "r"(smem_addr(bar)), "l"(policy)
+      : "memory");
+}
+
+// ------------------------------------------------ int8 into wgmma's A operand
+
+// byte J of `lo` and of `hi` (signed int8) as the bf16x2 (lo, hi), exactly:
+// a prmt puts the two bytes at bits 0-7 and 16-23; for a byte b, bf16 0x4300
+// | (b & 127) is 128 + (b & 127) and 0xC300 | (b & 128) is -128 or -256 by
+// its sign, so one bf16x2 add of the two makes b (no conversion instruction)
+template <int J>
+__device__ __forceinline__ uint32_t s8x2(uint32_t lo, uint32_t hi) {
+  const uint32_t p = __byte_perm(lo, hi, J | (J << 4) | ((J + 4) << 8) | ((J + 4) << 12));
+  const uint32_t v = (p & 0x007F007Fu) | 0x43004300u;  // 128 + (b & 127)
+  const uint32_t s = (p & 0x00800080u) | 0xC300C300u;  // -128, or -256 for b < 0
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(v), "r"(s));
+  return d;
+}
+
+// the words of rows k (lo) and k + 1 (hi), byte j column c0 + j, into
+// register R (0: k 2t, 2: k 2t + 8) and R + 1 (the row 8 below) of the A
+// fragments of wgmma 0 and 1: A row 16 w + g + 8 h of wgmma jj is then
+// column c0 + 2 h + jj of the tile (lane (g, t) of warp w reading columns
+// c0 = 32 w + 4 g .. c0 + 3)
+template <int R>
+__device__ __forceinline__ void widen(uint32_t (&a)[2][4], uint32_t lo, uint32_t hi) {
+  a[0][R] = s8x2<0>(lo, hi);
+  a[1][R] = s8x2<1>(lo, hi);
+  a[0][R + 1] = s8x2<2>(lo, hi);
+  a[1][R + 1] = s8x2<3>(lo, hi);
+}
+
 // ------------------------------------------------------- tensor maps (host)
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -143,20 +186,28 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a 2-D row-major tensor [outer, inner] of `type` at `base` (row stride
-// row_bytes), copied in boxes of [box_outer, box_inner] with the 128-byte
+// a tensor of `rank` <= 3 dimensions of `type` at `base`, innermost first:
+// dims[i] elements along dimension i, strides[i] bytes between steps of
+// dimension i + 1; copied in boxes of box[0..rank) with the 128-byte
 // swizzle; elements outside the tensor read as zeros
-inline bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
-                   uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
+inline bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                   const cuuint64_t* dims, const cuuint64_t* strides, const cuuint32_t* box) {
   const EncodeTiled fn = encode_tiled();
   if (!fn) return false;
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// a 2-D row-major tensor [outer, inner] of `type` at `base` (row stride
+// row_bytes), copied in boxes of [box_outer, box_inner]
+inline bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* base, uint64_t inner,
+                   uint64_t outer, uint64_t row_bytes, uint32_t box_inner, uint32_t box_outer) {
   const cuuint64_t dims[2] = {inner, outer};
   const cuuint64_t strides[1] = {row_bytes};
   const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode(map, type, base, 2, dims, strides, box);
 }
 
 // wait until at most N of this thread's committed wgmma groups are in flight

@@ -35,9 +35,12 @@ import torch
 from revisionllm_tpu_torch.ops.decode_step import (
     NEG_INF,
     ROWS_PER_LAUNCH,
+    SMEM_MAX,
     _rms_norm_bf16,
     _round_up,
     _slices,
+    attn_warps,
+    step_smem_bytes,
 )
 from revisionllm_tpu_torch.utils import kernels
 
@@ -265,7 +268,8 @@ def decode_step_serve(
     if not (
         hd == 128 and D == H * hd and ncD * BN == D and BN % 128 == 0 and ncf * BF == Fp
         and Fp % 16 == 0 and Lk == L and Bk == B and two == 2 and 0 <= step and s0 + step < Sp
-        and 8 * (3 * hd + s0 + step) * 4 <= 227 * 1024
+        and attn_warps(3 * hd + s0 + step) >= 1
+        and step_smem_bytes(D, Fp, 3 * hd + s0 + step) <= SMEM_MAX
         and kvsc.shape == (L, B, 2, H, Sp) and tuple(prompt_lens.shape) == (B,)
         and cos.shape == (B, hd // 2) and sin.shape == (B, hd // 2)
         and all(tuple(w.shape) == s and w.dtype == torch.int8 for w, s in zip(ws, shapes))
@@ -279,7 +283,7 @@ def decode_step_serve(
         raise ValueError(
             "decode_step_serve kernel takes the packed int8 Vicuna tree (MHA, head dim 128, "
             "block_n a multiple of 128 dividing D, Fp % 16 == 0), a unified slab [L, B, 2, H, "
-            "Sp, 128] with s0 + step < Sp whose 8 warps' scores fit shared memory, bf16 x "
+            "Sp, 128] with s0 + step < Sp whose attention scratch fits shared memory, bf16 x "
             "[B, D] and f32 cos/sin [B, 64], contiguous and 16-byte aligned on one device; "
             f"got x {x.dtype} {tuple(x.shape)}, q8c {tuple(ws[0].shape)}, kv {kv.dtype} "
             f"{tuple(kv.shape)}, s0 {s0}, step {step}"

@@ -31,8 +31,15 @@ from revisionllm_tpu_torch.utils import kernels
 
 NEG_INF = -2.0e30
 MATRICES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
-ROWS_PER_LAUNCH = 64   # csrc/decode_step.cu's MP: a larger batch takes one launch per 64 rows
-KSLICE, BK = 1024, 64  # csrc/decode_step.cu's K slicing, mirrored to size the scratch
+# csrc/decode_common.cuh's geometry, mirrored to size the scratch and to
+# check the shared memory before a launch:
+ROWS_PER_LAUNCH = 64    # MP: a larger batch takes one launch per 64 rows
+KSLICE, BK = 1024, 128  # the K slicing, in whole weight boxes of BK rows
+CONSUMER_WARPGROUPS, STAGES = 3, 2  # CWG, and the ring stages of each
+ATTN_WARPS = 8          # AWARPS: the most warps of the attention phase
+# SMEM_FIXED: the alignment slack, the rings of 128 x 128 int8 boxes, the barriers
+SMEM_FIXED = 1024 + CONSUMER_WARPGROUPS * STAGES * BK * 128 + 1024
+SMEM_MAX = 227 * 1024   # the H100's shared memory a block
 
 
 def _round_up(x: int, m: int) -> int:
@@ -155,10 +162,28 @@ def decode_step_fused_plain(
     return xres, genkv
 
 
-def _slices(K: int) -> int:
+def _slice_rows(K: int) -> int:
     n = -(-K // KSLICE)
-    rows = _round_up(-(-K // n), BK)
-    return -(-K // rows)
+    return _round_up(-(-K // n), BK)
+
+
+def _slices(K: int) -> int:
+    return -(-K // _slice_rows(K))
+
+
+def attn_warps(attn_floats: int) -> int:
+    """The attention phase's warps (attn_warps) for `attn_floats` f32 of
+    scratch a warp: ATTN_WARPS when their scratch fits beside the rings,
+    fewer for a longer cache, 0 when not one warp's does."""
+    return min(ATTN_WARPS, (SMEM_MAX - SMEM_FIXED) // (attn_floats * 4))
+
+
+def step_smem_bytes(D: int, F: int, attn_floats: int) -> int:
+    """The kernel's dynamic shared memory (step_smem): the fixed regions and
+    the larger of the activation slices [64, slice rows] bf16 and the
+    scratch of attn_warps(attn_floats) attention warps."""
+    act = max(ROWS_PER_LAUNCH * _slice_rows(K) * 2 for K in (D, F))
+    return SMEM_FIXED + max(act, attn_warps(attn_floats) * attn_floats * 4)
 
 
 def decode_step_fused(
@@ -199,7 +224,8 @@ def decode_step_fused(
     bf16 = (x, genkv, *norms)
     if not (
         hd == 128 and D == H * hd and F % 16 == 0 and Lk == L and Bk == B and two == 2
-        and 0 <= step < Gp and 8 * (3 * hd + Sp + Gp) * 4 <= 227 * 1024
+        and 0 <= step < Gp and attn_warps(3 * hd + Sp + Gp) >= 1
+        and step_smem_bytes(D, F, 3 * hd + Sp + Gp) <= SMEM_MAX
         and genkv.shape == (L, 2, B, H, Gp, hd) and kvsc.shape == (L, B, 2, H, Sp)
         and tuple(prompt_lens.shape) == (B,) and cos.shape == (B, hd // 2)
         and sin.shape == (B, hd // 2)
@@ -213,9 +239,10 @@ def decode_step_fused(
     ):
         raise ValueError(
             "decode_step_fused kernel takes the int8 Vicuna tree (MHA, head dim 128, "
-            "F % 16 == 0), a packed int8 prompt cache whose 8 warps' scores fit shared "
-            "memory, a bf16 gen cache [L, 2, B, H, Gp, 128] with 0 <= step < Gp, bf16 x "
-            "[B, D] and f32 cos/sin [B, 64], contiguous and 16-byte aligned on one device; "
+            "F % 16 == 0), a packed int8 prompt cache whose scores fit one warp's shared "
+            "memory beside the weight rings, a bf16 gen cache [L, 2, B, H, Gp, 128] with "
+            "0 <= step < Gp, bf16 x [B, D] and f32 cos/sin [B, 64], contiguous and 16-byte "
+            "aligned on one device; "
             f"got x {x.dtype} {tuple(x.shape)}, kv {kv.dtype} {tuple(kv.shape)}, genkv "
             f"{genkv.dtype} {tuple(genkv.shape)}, step {step}"
         )

@@ -1,26 +1,37 @@
 #!/usr/bin/env python3
-"""Where kernel row 9's time goes: csrc/decode_step.cu per phase.
+"""Where the whole-step decode kernels' time goes, phase by phase: row 9
+(csrc/decode_step.cu) or row 10 (csrc/decode_serve.cu).
 
-    python3 scripts/torch_decode_step_phases.py [CONST=VALUE ...] [--cut l2,nomma,nowiden]
+    python3 scripts/torch_decode_step_phases.py [--row 9|10] [--root ROOT] [--spec SPEC ...]
 
-Needs one CUDA GPU and nvcc. Builds decode_step.cu into build/ against an
-instrumented copy of revisionllm_tpu_torch/csrc/decode_common.cuh (the
-layer loop and phases that rows 9 and 10 share) in which block 0 reads
-%globaltimer after every grid barrier, runs one decode step of
-Vicuna-7B (32 layers, int8 weights from seed 0, B 64, a random int8 prompt
-cache of 300 positions, step 11) three times, and prints the mean time of
-each of the eight phases of a layer. CONST=VALUE overrides a constexpr of
-the header (e.g. STAGES=6); --cut takes experiments that break the results
-on purpose, to see what a part costs: `l2` loads every weight chunk from the
-same 128 columns (L2 hits instead of device memory), `nomma` drops the
-tensor-core products, `nowiden` drops the int8 -> bf16 tile stores.
+Needs one CUDA GPU and nvcc. For each SPEC (none: the header as it is),
+builds the row's source into build/decode_phases/ against an instrumented
+copy of revisionllm_tpu_torch/csrc/decode_common.cuh (the layer loop and
+phases that rows 9 and 10 share) in which block 0 reads %globaltimer after
+every grid barrier, runs one decode step of Vicuna-7B at chip_smoke.py's
+kernels-phase shape (32 layers, int8 weights from seed 0, B 64, the stage-1
+prompt, a random int8 prompt cache or unified slab, step 11) three times,
+and prints the mean time of each of the eight phases of a layer. The
+variants build in parallel, one nvcc each. --root ROOT instruments another
+checkout's sources instead (a parent unpacked with `git archive`, so that
+one call splits both), with this checkout's Python wrappers.
+
+SPEC is a comma-separated list of CONST=VALUE overrides of the header's
+constexprs (e.g. CWG=2,STAGES=3 or AWARPS=12) and cuts, which break the
+results on purpose to see what a part costs (CUTS below): `nomma` replaces
+each wgmma product by one add of its A register, `nowiden` feeds the raw
+weight words to the products, `nostore` drops the epilogue's stores of the
+partial sums, `nocopy` lets the producer arrive on each stage without
+copying a box (no weight reads), `l2` reads every box from the first column
+tile of layer 0 (L2 hits instead of device memory), `noslice` skips the
+activation slice's copies, `noahead` stops the producer's copies ahead of a
+matmul phase (the rings refill from cold after every barrier).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
-import os
 import re
 import subprocess
 import sys
@@ -28,108 +39,171 @@ from pathlib import Path
 
 import numpy as np
 
+import kernel_variants as kv
+
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+CSRC = ROOT / "revisionllm_tpu_torch" / "csrc"
+HEADER = CSRC / "decode_common.cuh"
+ROWS = {"9": ("decode_step", "decode_step_fused"), "10": ("decode_serve", "decode_step_serve")}
 
 PHASES = ("rows: residual + norm", "q/k/v products", "attention", "o product",
           "rows: residual + norm", "gate/up products", "silu * up", "down product")
 CUTS = {
-    "l2": [("ok ? W + (size_t)k * cw + col : W",
-            "ok ? a.w[first_mat + mi] + (size_t)l * K * N + (size_t)k * cw + col : W")],
-    "nomma": [("wmma::mma_sync(acc[i], afrag, bfrag, acc[i]);", "")],
-    # the tile store happens only for one unlikely byte pair, so the compiler
-    # keeps the conversion but the stores are gone
-    "nowiden": [("        for (int e = 0; e < 4; ++e) dst[e] = "
-                 "reinterpret_cast<const uint4*>(hv)[e];",
-                 "        if (raw[0] == 127 && raw[1] == -127) dst[0] = "
-                 "reinterpret_cast<const uint4*>(hv)[0];")],
+    "nomma": [("        attn::wgmma_m64n64k16(acc[j], r[b][e][j], attn::k_major(x, q * KG + e), 1);",
+               "        acc[j][0][0] += __uint_as_float(r[b][e][j][0]);")],
+    "nowiden": [("      wonly::widen<0>(r[b][e], r0, r1);  // k 2t, 2t + 1\n"
+                 "      wonly::widen<2>(r[b][e], r8, r9);  // k 2t + 8, 2t + 9\n",
+                 "      r[b][e][0][0] = r0;\n      r[b][e][1][0] = r1;\n"
+                 "      r[b][e][0][1] = r0 ^ r1;\n      r[b][e][1][1] = r0 + r1;\n"
+                 "      r[b][e][0][2] = r8;\n      r[b][e][1][2] = r9;\n"
+                 "      r[b][e][0][3] = r8 ^ r9;\n      r[b][e][1][3] = r8 + r9;\n")],
+    "nostore": [("      if (8 * n + b < rows) *reinterpret_cast", "      if (rows < 0) *reinterpret_cast")],
+    "nocopy": [("  wonly::mbar_arrive_expect(rg.full + slot, (uint32_t)BOX);\n",
+                "  wonly::mbar_arrive(rg.full + slot);\n  return;\n")],
+    "l2": [("n0 % cw, h.k_begin + kb * BK,\n                          l * (p.N / cw) + n0 / cw,",
+            "0, h.k_begin + kb * BK,\n                          0,")],
+    "noslice": [("    wonly::mbar_arrive_expect(rg.act + kb, (uint32_t)ACT_BOX);\n",
+                 "    wonly::mbar_arrive(rg.act + kb);\n    continue;\n")],
+    "noahead": [("      rg.prod->ahead = issue_ahead(a, l + (pi == 3), (pi + 1) & 3, rg);",
+                 "      rg.prod->ahead = 0;")],
 }
 STAMP = ("{ if (blockIdx.x == 0 && threadIdx.x == 0) { unsigned long long t; "
-         "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); g_stamps[ns++] = t; } }")
+         "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); g_clocks[ns] = clock64(); "
+         "g_stamps[ns++] = t; } }")
 
 
-def instrumented(consts, cuts):
-    """(the instrumented decode_common.cuh, decode_step.cu with read_stamps)."""
-    csrc = ROOT / "revisionllm_tpu_torch" / "csrc"
-    src = (csrc / "decode_common.cuh").read_text()
-    for name, value in consts.items():
-        src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};", src)
-        if n != 1:
-            raise SystemExit(f"no constexpr int {name} in decode_common.cuh")
-    for cut in cuts:
-        for a, b in CUTS[cut]:
-            if a not in src:
-                raise SystemExit(f"--cut {cut}: its line is not in decode_common.cuh any more")
-            src = src.replace(a, b)
-    src = src.replace("namespace {\n",
-                      "__device__ unsigned long long g_stamps[2048];\nnamespace {\n", 1)
-    head, body = src.split("step_kernel(Args a) {", 1)
+def instrumented(row: str, spec: str, csrc: Path = CSRC):
+    """(the instrumented decode_common.cuh of `csrc` with SPEC applied, the
+    row's source with read_stamps)."""
+    src = kv.variant_source((csrc / HEADER.name).read_text(), spec, CUTS, HEADER.name)
+    src = src.replace("namespace {\n", "__device__ unsigned long long g_stamps[2048];\n"
+                      "__device__ long long g_clocks[2048];\nnamespace {\n", 1)
+    head, sig, body = re.split(r"(step_kernel\([^)]*\) \{)", src, 1)
     body = body.replace("cg::grid_group grid = cg::this_grid();",
                         "cg::grid_group grid = cg::this_grid();\n  int ns = 0;\n  " + STAMP, 1)
     body = body.replace("grid.sync();", "grid.sync(); " + STAMP)
-    return (head + "step_kernel(Args a) {" + body,
-            (csrc / "decode_step.cu").read_text()
-            + '\nextern "C" int read_stamps(void* dst) {\n'
-              "  return (int)cudaMemcpyFromSymbol(dst, g_stamps, sizeof(g_stamps));\n}\n")
+    return (head + sig + body,
+            (csrc / f"{ROWS[row][0]}.cu").read_text()
+            + '\nextern "C" int read_stamps(void* dst, void* clocks) {\n'
+              "  cudaError_t err = cudaMemcpyFromSymbol(dst, g_stamps, sizeof(g_stamps));\n"
+              "  if (err != cudaSuccess) return (int)err;\n"
+              "  return (int)cudaMemcpyFromSymbol(clocks, g_clocks, sizeof(g_clocks));\n}\n")
+
+
+def build(row: str, specs, csrc: Path = CSRC):
+    """{spec: ctypes.CDLL} of the instrumented row, one directory and one
+    nvcc a spec, all started together; prints each one's ptxas registers,
+    spills and wgmma warnings."""
+    from revisionllm_tpu_torch.utils import kernels
+
+    procs = {}
+    for i, spec in enumerate(specs):
+        work = kernels.BUILD_DIR.parent / "decode_phases" / f"row{row}_{i}"
+        work.mkdir(parents=True, exist_ok=True)
+        header, src_text = instrumented(row, spec, csrc)
+        for extra in csrc.glob("*.cuh"):
+            (work / extra.name).write_text(extra.read_text())
+        (work / "decode_common.cuh").write_text(header)
+        cu = work / f"{ROWS[row][0]}.cu"
+        cu.write_text(src_text)
+        procs[spec] = (subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), cu)
+    libs = {}
+    for spec, (proc, cu) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f"row {row} {spec or 'as is'}: nvcc failed\n{log}")
+        print(f"# row {row} {spec or 'as is'}: registers {re.findall(r'Used (\d+) registers', log)}"
+              f", spill stores {re.findall(r'(\d+) bytes spill stores', log)}", flush=True)
+        for line in log.splitlines():
+            if "wgmma" in line or "Performance" in line:
+                print(f"#   {line.strip()}", flush=True)
+        libs[spec] = ctypes.CDLL(str(cu.with_suffix(".so")))
+    return libs
+
+
+def step_inputs(row: str, dev):
+    """(the row's wrapper, its arguments, its keyword arguments, L) at
+    chip_smoke.py's kernels-phase shape."""
+    import torch
+
+    import chip_smoke as cs
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.models import llama
+    from revisionllm_tpu_torch.ops import decode_serve as DSV
+    from revisionllm_tpu_torch.ops import decode_step as DS
+    from revisionllm_tpu_torch.ops.rope import rope_angles
+
+    cfg = LlamaConfig()
+    L, H, hd = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    _, T, live = cs.prompt_geometry("mad_grounding", 250, 12)
+    B, G = 64, 12
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev, quantize=True)
+    kw = {"eps": cfg.rms_norm_eps}
+    if row == "10":
+        packed, slab, args = cs.serve_inputs(cfg, params, B, T, live, G, dev)
+        return DSV.decode_step_serve, (packed, slab, *args), kw, L
+    step = G - 1
+    gen = torch.Generator(device=dev).manual_seed(16)
+    lens = torch.randint(live - 20, live + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    x = params["embed"][torch.randint(3, cfg.vocab_size, (B,), generator=gen, device=dev)]
+    pkv = {"kv": torch.randint(-127, 128, (L, B, 2, H, T, hd), generator=gen, device=dev,
+                               dtype=torch.int8),
+           "kvsc": torch.rand((L, B, 2, H, T), generator=gen, device=dev) * 0.02 + 0.005}
+    genkv = (torch.randn((L, 2, B, H, 16, hd), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
+    cos, sin = (t[:, 0] for t in rope_angles((lens + step)[:, None], hd, cfg.rope_theta))
+    return DS.decode_step_fused, (params, pkv, genkv, lens, step, x, cos, sin), kw, L
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("consts", nargs="*", help="CONST=VALUE overrides")
-    ap.add_argument("--cut", default="", help="comma-separated: " + ", ".join(CUTS))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--row", choices=tuple(ROWS), default="9")
+    ap.add_argument("--root", type=Path, default=ROOT,
+                    help="the checkout whose sources to instrument")
+    ap.add_argument("--spec", action="append", default=[],
+                    help="CONST=VALUE overrides and cuts: " + ", ".join(CUTS))
     args = ap.parse_args()
-    consts = dict(c.split("=", 1) for c in args.consts)
-    cuts = [c for c in args.cut.split(",") if c]
-
     import torch
-    from revisionllm_tpu_torch.config import LlamaConfig
-    from revisionllm_tpu_torch.models import llama
-    from revisionllm_tpu_torch.ops import decode_step as DS
-    from revisionllm_tpu_torch.ops.rope import rope_angles
+
     from revisionllm_tpu_torch.utils import kernels
 
     if not torch.cuda.is_available():
-        print("needs a CUDA GPU", file=sys.stderr)
-        return 2
-    work = kernels.BUILD_DIR / f"decode_step_phases_{os.getpid()}"
-    work.mkdir(parents=True, exist_ok=True)
-    src = work / "decode_step.cu"
-    lib_path = src.with_suffix(".so")
-    header, src_text = instrumented(consts, cuts)
-    (work / "decode_common.cuh").write_text(header)
-    src.write_text(src_text)
-    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(lib_path), str(src)],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(lib_path))
-    kernels._LIBS["decode_step"] = lib
-
-    dev = torch.device("cuda")
-    cfg = LlamaConfig()
-    L, H, hd, B, S, step = cfg.num_layers, cfg.num_heads, cfg.head_dim, 64, 300, 11
-    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=dev, quantize=True)
-    gen = torch.Generator(device=dev).manual_seed(16)
-    lens = torch.randint(268, 289, (B,), generator=gen, device=dev, dtype=torch.int32)
-    x = params["embed"][torch.randint(3, cfg.vocab_size, (B,), generator=gen, device=dev)]
-    pkv = {"kv": torch.randint(-127, 128, (L, B, 2, H, S, hd), generator=gen, device=dev,
-                               dtype=torch.int8),
-           "kvsc": torch.rand((L, B, 2, H, S), generator=gen, device=dev) * 0.02 + 0.005}
-    genkv = (torch.randn((L, 2, B, H, 16, hd), generator=gen, device=dev) * 0.5).to(torch.bfloat16)
-    cos, sin = (t[:, 0] for t in rope_angles((lens + step)[:, None], hd, cfg.rope_theta))
-    stamps = np.zeros(2048, np.uint64)
-    lib.read_stamps.argtypes = [ctypes.c_void_p]
-    per = []
-    for _ in range(3):
-        DS.decode_step_fused(params, pkv, genkv, lens, step, x, cos, sin, eps=cfg.rms_norm_eps)
-        torch.cuda.synchronize()
-        lib.read_stamps(stamps.ctypes.data)
-        per.append(np.diff(stamps[: 1 + 8 * L].astype(np.int64)).reshape(L, 8) / 1e3)
-    per = np.mean(per[1:], axis=0)
+        print("torch_decode_step_phases: CUDA is not available", file=sys.stderr)
+        return 3
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
-    print(f"{smi}; overrides {consts or 'none'}; cuts {cuts or 'none'}")
-    print(f"one decode step: {per.sum():.1f} us (mean of 2 runs after a warm-up)")
-    for i, name in enumerate(PHASES):
-        print(f"  {name:24s} {per[:, i].mean():8.1f} us a layer, {per[:, i].sum():9.1f} us a step")
+                         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    print(smi, flush=True)
+    specs = list(dict.fromkeys(args.spec or [""]))
+    csrc = args.root.resolve() / CSRC.relative_to(ROOT)
+    libs = build(args.row, specs, csrc)
+    fn, fargs, fkw, L = step_inputs(args.row, torch.device("cuda"))
+    lib_name = ROWS[args.row][0]
+    for spec, lib in libs.items():
+        kernels._LIBS[lib_name] = lib
+        kernels._FNS.pop((lib_name, ROWS[args.row][1]), None)
+        lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+        stamps, clocks = np.zeros(2048, np.uint64), np.zeros(2048, np.int64)
+        per, cyc = [], []
+        for _ in range(3):
+            fn(*fargs, **fkw)
+            torch.cuda.synchronize()
+            lib.read_stamps(stamps.ctypes.data, clocks.ctypes.data)
+            per.append(np.diff(stamps[: 1 + 8 * L].astype(np.int64)).reshape(L, 8) / 1e3)
+            cyc.append(np.diff(clocks[: 1 + 8 * L]).reshape(L, 8))
+        per, cyc = np.mean(per[1:], axis=0), np.mean(cyc[1:], axis=0)
+        mhz = cyc.sum(axis=0) / per.sum(axis=0)  # block 0's SM clock in each phase
+        print(f"row {args.row} of {args.root}, {spec or 'as is'}: one decode step {per.sum():.1f} us "
+              f"(mean of 2 runs after a warm-up)", flush=True)
+        for i, name in enumerate(PHASES):
+            print(f"  {name:24s} {per[:, i].mean():8.1f} us a layer, {per[:, i].sum():9.1f} us "
+                  f"a step, SM clock {mhz[i]:6.0f} MHz", flush=True)
+        mm = per[:, [1, 3, 5, 7]].sum(axis=1).mean()
+        print(f"  matmul phases summed   {mm:8.1f} us a layer", flush=True)
+    kernels._LIBS.pop(lib_name, None)
+    kernels._FNS.pop((lib_name, ROWS[args.row][1]), None)
+    print(smi, flush=True)
     return 0
 
 

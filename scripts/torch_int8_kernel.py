@@ -18,7 +18,9 @@ release every stage without copying (no device-memory reads), `nosum` drops
 the split-K sum and its stores, `sumsync` keeps only its two cluster
 barriers, `localsum` reads the rank's own tile S times (no remote reads),
 `nostore` drops the sum's stores to device memory. The variant `base` (the
-source as it is) always runs.
+source as it is) always runs. --parent ROOT adds the variant `parent`, ROOT's
+own int8_matmul.cu built with ROOT's headers, and requires its outputs to be
+bit-identical to `base`'s at every shape and split.
 
 Every variant is timed at the decode step's four shapes (M 64) with each K
 split of --splits, by CUDA events over 20 launches that cycle through 128 MB
@@ -61,9 +63,12 @@ CUTS = {
     "nomma": [("          attn::wgmma_m64n64k16(acc[j], a[b][e][j], attn::k_major(st, q * KG + e), "
                "1);", "          acc[j][0][0] += __uint_as_float(a[b][e][j][0]);")],
     # the widening: the raw words fed to the products
-    "nowiden": [("  a[0][R] = s8x2<0>(lo, hi);\n  a[1][R] = s8x2<1>(lo, hi);\n"
-                 "  a[0][R + 1] = s8x2<2>(lo, hi);\n  a[1][R + 1] = s8x2<3>(lo, hi);\n",
-                 "  a[0][R] = lo;\n  a[1][R] = hi;\n  a[0][R + 1] = lo ^ hi;\n  a[1][R + 1] = lo + hi;\n")],
+    "nowiden": [("        wonly::widen<0>(a[b][e], r0, r1);  // k 2t, 2t + 1\n"
+                 "        wonly::widen<2>(a[b][e], r8, r9);  // k 2t + 8, 2t + 9\n",
+                 "        a[b][e][0][0] = r0;\n        a[b][e][1][0] = r1;\n"
+                 "        a[b][e][0][1] = r0 ^ r1;\n        a[b][e][1][1] = r0 + r1;\n"
+                 "        a[b][e][0][2] = r8;\n        a[b][e][1][2] = r9;\n"
+                 "        a[b][e][0][3] = r8 ^ r9;\n        a[b][e][1][3] = r8 + r9;\n")],
     # the copies: the producer arrives without issuing any (stale stages)
     "nocopy": [("(uint32_t)STAGE", "0u"), ("        issue_w(i, i);\n", ""),
                ("      for (int i = 0; i < pre; ++i) issue_x(i, i);\n", ""),
@@ -87,14 +92,18 @@ CUTS = {
 SRC = ROOT / "revisionllm_tpu_torch" / "csrc" / "int8_matmul.cu"
 
 
-def build(variants):
+def build(variants, parent=None):
     """{name: (C function, resident clusters of 1, 2, 4, 8)} of each
-    variant, variants mapping a name to its SPEC."""
+    variant, variants mapping a name to its SPEC, and `parent` (another
+    checkout's root) built as it is under the name "parent"."""
     from revisionllm_tpu_torch.utils import kernels
 
     src = SRC.read_text()
     sources = {name: (kv.variant_source(src, spec, CUTS, SRC.name), spec, kernels.CSRC)
                for name, spec in variants.items()}
+    if parent is not None:
+        csrc = Path(parent).resolve() / SRC.relative_to(ROOT).parent
+        sources["parent"] = ((csrc / SRC.name).read_text(), "", csrc)
     libs = {}
     for name, lib in kv.build(sources, ROOT / "build" / "int8_probe").items():
         fn = lib.q8_matmul_bf16
@@ -129,6 +138,7 @@ def main() -> int:
     ap.add_argument("--splits", default="1,2,4,8")
     ap.add_argument("--check", action="store_true",
                     help="also run chip_smoke.check_int8_matmul on this checkout")
+    ap.add_argument("--parent", help="another checkout's root: its K1 must give the same bits")
     args = ap.parse_args()
     import torch
 
@@ -147,7 +157,8 @@ def main() -> int:
     for v in args.variant:
         name, spec = v.split("=", 1)
         variants[name] = spec
-    libs = build(variants)
+    libs = build(variants, args.parent)
+    variants.setdefault("parent", "")
     splits = [int(s) for s in args.splits.split(",")]
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -168,6 +179,7 @@ def main() -> int:
         lib = cs.device_ms(lambda: torch.matmul(x, pick()[2]), cs.ITERS)
         library += per_step * lib
         print(f"torch.matmul(bf16 W) K={K} N={N}: {lib * 1e3:.2f} us", flush=True)
+        bits = {}  # (variant, split) -> its output, for the parent's bit-identity
         for name, (fn, resident) in libs.items():
             times = {}
             for s in splits:
@@ -189,6 +201,7 @@ def main() -> int:
                     rel = ((out.float() - want).norm() / want.norm()).item()
                     if not rel <= 1e-2:
                         raise SystemExit(f"{name} K={K} N={N} S {s}: relative L2 {rel}")
+                    bits[name, s] = out.clone()
                 times[s] = cs.device_ms(call, cs.ITERS)
             plan = Q.q8_plan(64, K, N, sms, resident).splitk
             line = ", ".join(f"S {s} {ms * 1e3:.2f} us" for s, ms in times.items())
@@ -196,6 +209,12 @@ def main() -> int:
             best[name] += per_step * min(times.values())
             # nan when --splits leaves out the split the plan picks
             planned[name] += per_step * times.get(plan, math.nan)
+        if args.parent:
+            same = [s for s in splits if ("base", s) in bits
+                    and torch.equal(bits["base", s], bits["parent", s])]
+            if len(same) != sum(("base", s) in bits for s in splits):
+                raise SystemExit(f"K1 differs from the parent's at K={K} N={N}")
+            print(f"K1 bit-identical to the parent's at K={K} N={N}, splits {same}", flush=True)
         del ws, pick
     print(f"torch.matmul(bf16 W): {library:.4f} ms a decode step", flush=True)
     for name in libs:

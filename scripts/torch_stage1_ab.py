@@ -1,4 +1,4 @@
-"""Same-card A/B of the stage-1 serving cell, or of configuration A,
+"""Same-card A/B of the stage-1 serving cell, or of configuration A or C,
 between checkouts of the repository.
 
 For each root given, in the order given, one process in that checkout
@@ -9,12 +9,16 @@ chunks, then `step_breakdown` (prefill and decode step: wall, host enqueue,
 device busy). With `--config A` the slice runs under configuration A's
 switches (`chip_smoke.CONFIGS`: REVISIONLLM_FUSED_MLP=1 and
 REVISIONLLM_MEGAKERNEL=1, row 8 in every prefill layer, row 9 for every
-decode step) and its breakdown times row 9's step. Each process prints one
+decode step) and its breakdown times row 9's step; with `--config C` the
+slice's int8 layers are packed on the card into the serving chunks by
+`chip_smoke.packed_engine`, as phase_configs packs them (so every checkout
+given must have that helper), and run under REVISIONLLM_SERVE=1, row 10 for
+every decode step, which the breakdown times. Each process prints one
 JSON line with its launches; this script prints them and a summary. Run the
 two checkouts as A, B, B, A so that drift on the host falls on both. Needs
 one CUDA card:
 
-    python3 scripts/torch_stage1_ab.py PARENT CHANGE CHANGE PARENT [--runs 5] [--config A]
+    python3 scripts/torch_stage1_ab.py PARENT CHANGE CHANGE PARENT [--runs 5] [--config A|C]
 """
 
 from __future__ import annotations
@@ -41,6 +45,8 @@ conf = next((c for label, c in cs.CONFIGS.items() if label.split()[0] == __CONFI
             {"env": {}, "step": "split"})
 with cs.switched(conf["env"]):
     eng, movie, qf, qc = cs.slice_setup(dev)
+    if conf.get("pack"):
+        eng = cs.packed_engine(eng, dev)
     eng.ground_windows(movie, cs.SENTENCE, qf, qc, movie_key="movie0")
     torch.cuda.synchronize()
     res, launches, lat = cs.run_slice(eng, movie, qf, qc, RUNS)
@@ -57,8 +63,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("roots", nargs="+", help="checkouts of the repository, in run order")
     ap.add_argument("--runs", type=int, default=5, help="timed chunks per process")
-    ap.add_argument("--config", choices=("stage1", "A"), default="stage1",
-                    help="the stage-1 cell, or configuration A (row 8 and row 9)")
+    ap.add_argument("--config", choices=("stage1", "A", "C"), default="stage1",
+                    help="the stage-1 cell, configuration A (rows 8 and 9) or C (row 10)")
     args = ap.parse_args()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()

@@ -349,3 +349,19 @@ def test_row8_measure_rejects_a_moved_code_or_scale():
     for bad in ((moved, hs), (two, hs), (hq, hs * (1 + 1e-5))):
         with pytest.raises(AssertionError, match="differs from its plain version"):
             chip_smoke.hold_mlp("row 8", bad, (hq, hs))
+
+
+def test_two_call_check_rejects_one_flipped_bit():
+    """same_bits, the check that two calls of rows 9 and 10 give the same
+    hidden state and new k/v: equal tensors pass; one element one bf16 ulp
+    off, or a missing tensor, fails."""
+    gen = torch.Generator().manual_seed(5)
+    hidden = torch.randn((64, 256), generator=gen).to(torch.bfloat16)
+    kv = torch.randn((2, 64, 256), generator=gen)
+    chip_smoke.same_bits("row", (hidden, kv), (hidden.clone(), kv.clone()))
+    off = hidden.clone()
+    off.view(torch.int16)[3, 7] += 1
+    with pytest.raises(AssertionError, match="two calls differ"):
+        chip_smoke.same_bits("row", (hidden, kv), (off, kv))
+    with pytest.raises(AssertionError, match="two calls differ"):
+        chip_smoke.same_bits("row", (hidden, kv), (hidden,))

@@ -1,8 +1,9 @@
 """The kernel probes' source edits (scripts/kernel_variants.py and the
-CUTS of scripts/torch_int4_probe.py, torch_int8_kernel.py and
-torch_fused_mlp_kernel.py) against the CUDA sources as they are: every cut
-still finds its lines, overrides replace exactly one constexpr, and a stale
-edit or an unknown constant stops the probe. No GPU or nvcc is needed."""
+CUTS of scripts/torch_int4_probe.py, torch_int8_kernel.py,
+torch_fused_mlp_kernel.py and torch_decode_step_phases.py) against the CUDA
+sources as they are: every cut still finds its lines, overrides replace
+exactly one constexpr, and a stale edit or an unknown constant stops the
+probe. No GPU or nvcc is needed."""
 
 import sys
 from pathlib import Path
@@ -13,6 +14,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import kernel_variants as kv  # noqa: E402
+import torch_decode_step_phases as phases  # noqa: E402
 import torch_fused_mlp_kernel as mlp_probe  # noqa: E402
 import torch_int4_probe as int4_probe  # noqa: E402
 import torch_int8_kernel as int8_probe  # noqa: E402
@@ -57,3 +59,22 @@ def test_unknown_constant_stale_edit_and_unknown_edit_stop():
         kv.variant_source(src, "nope", {"cut": []}, "x.cu")
     assert kv.variant_source(src, "STAGES=2,cut", {"cut": [("int a = 1;", "int a = 0;")]},
                              "x.cu") == "constexpr int STAGES = 2;\nint a = 0;\n"
+
+
+@pytest.mark.parametrize("row", sorted(phases.ROWS))
+@pytest.mark.parametrize("spec", ["", "CWG=2,STAGES=3", "AWARPS=12"] + sorted(phases.CUTS))
+def test_phase_script_instruments_both_rows(row, spec):
+    """Every cut of the phase script still finds its lines in
+    decode_common.cuh, overrides replace one constexpr, and the
+    instrumented header stamps the kernel's start and each of its 8 grid
+    barriers a layer; the row's source gains read_stamps."""
+    header, src = phases.instrumented(row, spec)
+    plain, _ = phases.instrumented(row, "")
+    assert (header != plain) == bool(spec)
+    body = header.split("step_kernel(const __grid_constant__ Args a) {", 1)[1]
+    assert body.count("grid.sync();") == 8
+    assert header.count(phases.STAMP) == 9
+    assert 'extern "C" int read_stamps' in src
+    assert '#include "decode_common.cuh"' in src
+    for item in filter(lambda i: "=" in i, spec.split(",")):
+        assert f"constexpr int {item.replace('=', ' = ')};" in header
