@@ -20,7 +20,10 @@ measured in that run. Phases:
      (int8_matmul) at the decode step's four shapes by the limits of phase 7
      per (64-row, 128-column) block, with two planted faults that must fail,
      bit-identical over two calls, one kernel launch with no workspace per
-     call, and at the edge cases K1_EDGES;
+     call, and at the edge cases K1_EDGES; K3 (decode_attention) at steps 0
+     and 11 by the same limits per (row, head) vector, with two planted
+     faults that must fail them (k3_faults), bit-identical over two calls,
+     and so again with a bf16 prompt cache, with GQA and at 4096 positions;
   4. the slice: GroundingEngine.ground_windows on a 1-hour movie (18 000
      frames of 768-d features, 57 windows of 250 frames in one chunk of 64,
      12 greedy tokens) with Vicuna-7B int8 weights made from a seed at full
@@ -541,19 +544,69 @@ def check_flash_attention(dev, iters):
             "unit": "one launch = one layer of the chunk-64 prefill"}
 
 
+def k3_view(t):
+    """K3's output [B, KH, group, hd] as `hold`'s [B', N, H, d] with one
+    block a (row, kv head, query) vector."""
+    return t.float().reshape(-1, 1, 1, t.shape[-1])
+
+
+def hold_k3(label, got, want, faults=None):
+    """`hold` for K3's output, by (row, head, query) blocks."""
+    return hold(label, k3_view(got), k3_view(want),
+                {k: k3_view(v) for k, v in (faults or {}).items()})
+
+
+def k3_faults(args, plain):
+    """K3's planted faults on `args` (q, prompt k, v and their scales, gen
+    k, v, mask_lens, step), by its plain version: the second half of every
+    prompt masked, and one V tile (prompt positions 64..127) dropped."""
+    q, pk, pv, ks, vs, gk, gv, lens, step = args
+    pv_cut = pv.clone()
+    pv_cut[:, 64:128] = 0
+    return {"the second half of every prompt masked": plain(q, pk, pv, ks, vs, gk, gv, lens // 2, step),
+            "one V tile dropped": plain(q, pk, pv_cut, ks, vs, gk, gv, lens, step)}
+
+
+def k3_inputs(gen, B, KH, S, G, group, low, dev, quant=True):
+    """Random K3 inputs: bf16 q [B, KH, group, 128], an int8 prompt cache
+    with scales in [0.005, 0.025) (or a bf16 one), a bf16 gen cache, prompt
+    lengths in [low, S]."""
+    import torch
+
+    hd = 128
+    q = torch.randn((B, KH, group, hd), generator=gen, device=dev).to(torch.bfloat16)
+    if quant:
+        pk, pv = (torch.randint(-127, 128, (B, S, KH, hd), generator=gen, device=dev,
+                                dtype=torch.int8) for _ in range(2))
+        ks, vs = (torch.rand((B, S, KH), generator=gen, device=dev) * 0.02 + 0.005 for _ in range(2))
+    else:
+        pk, pv = (torch.randn((B, S, KH, hd), generator=gen, device=dev).to(torch.bfloat16)
+                  for _ in range(2))
+        ks = vs = None
+    gk, gv = (torch.randn((B, G, KH, hd), generator=gen, device=dev).to(torch.bfloat16)
+              for _ in range(2))
+    lens = torch.randint(low, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    return q, pk, pv, ks, vs, gk, gv, lens
+
+
 def check_decode_attention(dev, iters):
+    """K3 at the stage-1 decode step's shape (B 64, KH 32, S 318, G 12,
+    prompt lengths 280-318, group 1, int8 prompt cache) at steps 0 and 11:
+    held by the rows 4-6 limits per (row, head) vector against its plain
+    version, with two planted faults that must fail them (k3_faults), by a
+    max abs error of 1e-2, and two calls bit-identical; timed beside its
+    plain version and SDPA over the dequantized cache (approximate). Then
+    the bf16 prompt cache (KV8 off), GQA (32 query heads over 8 kv heads) and
+    4096 positions (B 8, S 4084), held the same way (the faults at 4096)."""
     import torch
     import torch.nn.functional as F
     from revisionllm_tpu_torch.ops import decode_attention as DA
 
     B, KH, S, G, hd = 64, 32, 318, 12, 128
     gen = torch.Generator(device=dev).manual_seed(5)
-    q = torch.randn((B, KH, 1, hd), generator=gen, device=dev).to(torch.bfloat16)
-    pk, pv = (torch.randint(-127, 128, (B, S, KH, hd), generator=gen, device=dev, dtype=torch.int8) for _ in range(2))
-    ks, vs = (torch.rand((B, S, KH), generator=gen, device=dev) * 0.02 + 0.005 for _ in range(2))
-    gk, gv = (torch.randn((B, G, KH, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
-    lens = torch.randint(280, S + 1, (B,), generator=gen, device=dev, dtype=torch.int32)
+    q, pk, pv, ks, vs, gk, gv, lens = k3_inputs(gen, B, KH, S, G, 1, 280, dev)
     out = None
+    worst = 0.0
     for step in (0, G - 1):
         args = (q, pk, pv, ks, vs, gk, gv, lens, step)
         got = DA.decode_attention(*args)
@@ -565,6 +618,10 @@ def check_decode_attention(dev, iters):
         tol = 1e-2
         if not err <= tol:
             raise AssertionError(f"decode_attention step {step}: max_abs_err {err} > {tol}")
+        hold_k3(f"decode_attention B={B} KH={KH} S={S} G={G} int8 step={step}", got, want,
+                k3_faults(args, DA.decode_attention_plain))
+        same_bits(f"decode_attention step {step}", (got,), (DA.decode_attention(*args),))
+        worst = max(worst, err)
         ms = device_ms(lambda: DA.decode_attention(*args), iters)
         plain = device_ms(lambda: DA.decode_attention_plain(*args), max(3, iters // 4))
         # yardstick: SDPA over the cache dequantized and concatenated
@@ -575,6 +632,7 @@ def check_decode_attention(dev, iters):
         cols = torch.arange(S + step + 1, device=dev)
         mask = ((cols[None, :] < lens[:, None]) | (cols[None, :] >= S))[:, None, None, :]
         lib = device_ms(lambda: F.scaled_dot_product_attention(q, kt, vt, attn_mask=mask), iters)
+        del kf, vf, kt, vt
         plen = int(lens.sum().item())
         nbytes = (B * KH * hd * 2 * 2 + plen * KH * (hd * 2 + 8)
                   + B * (step + 1) * KH * hd * 2 * 2 + B * 4)
@@ -586,25 +644,30 @@ def check_decode_attention(dev, iters):
         out = {"name": "decode_attention", "max_abs_err": err, "ms": ms, "plain_ms": plain,
                "bound_ms": b, "bound_by": by, "library_ms": lib,
                "unit": f"one launch = one layer at step {step} (library: approximate)"}
-    # the other variants, correctness only: a bf16 prompt cache (KV8 off)
-    # and GQA (32 query heads over 8 kv heads)
-    for label, quant, KH2, group in (("bf16 prompt", False, 32, 1), ("GQA int8", True, 8, 4)):
-        q2 = torch.randn((B, KH2, group, hd), generator=gen, device=dev).to(torch.bfloat16)
-        if quant:
-            pk2, pv2 = (torch.randint(-127, 128, (B, S, KH2, hd), generator=gen, device=dev,
-                                      dtype=torch.int8) for _ in range(2))
-            ks2, vs2 = (torch.rand((B, S, KH2), generator=gen, device=dev) * 0.02 + 0.005 for _ in range(2))
-        else:
-            pk2, pv2 = (torch.randn((B, S, KH2, hd), generator=gen, device=dev).to(torch.bfloat16)
-                        for _ in range(2))
-            ks2 = vs2 = None
-        gk2, gv2 = (torch.randn((B, G, KH2, hd), generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
-        args = (q2, pk2, pv2, ks2, vs2, gk2, gv2, lens, 5)
-        err = (DA.decode_attention(*args).float() - DA.decode_attention_plain(*args).float()).abs().max().item()
-        say(f"decode_attention {label} KH={KH2} group={group} step=5: max_abs_err {err:.3e} (tol 1.0e-02)")
+    # the other variants: a bf16 prompt cache (KV8 off), GQA (32 query heads
+    # over 8 kv heads), and the longest cache Vicuna-7B supports
+    for label, quant, B2, KH2, S2, group, low in (
+            ("bf16 prompt", False, B, 32, S, 1, 280), ("GQA int8", True, B, 8, S, 4, 280),
+            ("4096 positions", True, 8, 32, 4096 - G, 1, 4096 - G - 64)):
+        args = (*k3_inputs(gen, B2, KH2, S2, G, group, low, dev, quant), G - 1 if S2 > S else 5)
+        got = DA.decode_attention(*args)
+        want = DA.decode_attention_plain(*args)
+        err = (got.float() - want.float()).abs().max().item()
+        say(f"decode_attention {label} B={B2} KH={KH2} S={S2} group={group} step={args[-1]}: "
+            f"max_abs_err {err:.3e} (tol 1.0e-02)")
         if not err <= 1e-2:
             raise AssertionError(f"decode_attention {label}: max_abs_err {err} > 1e-2")
-        out["max_abs_err"] = max(out["max_abs_err"], err)
+        hold_k3(f"decode_attention {label}", got, want,
+                k3_faults(args, DA.decode_attention_plain) if S2 > S else None)
+        same_bits(f"decode_attention {label}", (got,), (DA.decode_attention(*args),))
+        if S2 > S:
+            ms = device_ms(lambda: DA.decode_attention(*args), iters)
+            say(f"decode_attention {label}: kernel {ms:.4f} ms")
+            out["long_ms"] = ms
+        worst = max(worst, err)
+        del args, got, want
+    out["max_abs_err"] = max(out["max_abs_err"], worst)
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2626,9 +2689,9 @@ def check_decode_serve(dev, iters, params, row9_ms):
 def check_long_caches(dev, params):
     """Rows 9 and 10 at the longest cache Vicuna-7B supports
     (max_position_embeddings, 4096 positions: row 9's Sp + Gp, row 10's s0 +
-    step + 1), where the attention phase runs on fewer warps
-    (decode_step.attn_warps) so that their scores fit beside the weight
-    rings. 2 layers of the full width, B 8, prompts within 64 of their
+    step + 1), where the attention phase's scores take 16 KB a team of the
+    activation region, so it runs fewer, larger teams of the consumer warps
+    (decode_step.attn_layout). 2 layers of the full width, B 8, prompts within 64 of their
     longest, held by the rows 4-6 limits against the plain versions, with
     the second half of every prompt masked as the planted fault. Returns
     {row's name: its largest error}, and prints each 2-layer launch's time."""
@@ -2657,9 +2720,10 @@ def check_long_caches(dev, params):
     want, _ = DS.decode_step_fused_plain(p2, kv, genkv.clone(), lens, step, x, cos, sin, eps=eps)
     half, _ = DS.decode_step_fused_plain(p2, kv, genkv.clone(), lens // 2, step, x, cos, sin,
                                          eps=eps)
-    warps = DS.attn_warps(3 * hd + Sp + G)
-    err9 = hold_cols(f"decode_step_fused 2 layers B={B} Sp+Gp={n} ({warps} attention warps) "
-                    "hidden", got, want, {"the second half of every prompt masked": half})
+    teams, stages = DS.attn_layout(Sp + G, DS._slices(cfg.hidden_size))
+    err9 = hold_cols(f"decode_step_fused 2 layers B={B} Sp+Gp={n} ({teams} attention teams, "
+                     f"{stages} ring slots each) hidden", got, want,
+                     {"the second half of every prompt masked": half})
     gk = genkv.clone()
     ms = device_ms(lambda: DS.decode_step_fused(p2, kv, gk, lens, step, x, cos, sin, eps=eps), 5)
     say(f"decode_step_fused 2 layers B={B} Sp+Gp={n}: {ms:.4f} ms")
@@ -2674,10 +2738,11 @@ def check_long_caches(dev, params):
     got, _ = DSV.decode_step_serve(packed, slab, lens, *args, eps=eps)
     want, _ = DSV.decode_step_serve_plain(packed, slab, lens, *args, eps=eps)
     half, _ = DSV.decode_step_serve_plain(packed, slab, lens // 2, *args, eps=eps)
-    warps = DS.attn_warps(3 * hd + s0 + step)
+    teams, stages = DS.attn_layout(s0 + step, DS._slices(cfg.hidden_size))
     err10 = hold_cols(
-        f"decode_step_serve 2 layers B={B} s0+step={s0 + step} ({warps} attention warps) hidden",
-        got, want, {"the second half of every prompt masked": half})
+        f"decode_step_serve 2 layers B={B} s0+step={s0 + step} ({teams} attention teams, "
+        f"{stages} ring slots each) hidden", got, want,
+        {"the second half of every prompt masked": half})
     ms = device_ms(lambda: DSV.decode_step_serve(packed, slab, lens, *args, eps=eps), 5)
     say(f"decode_step_serve 2 layers B={B} s0+step={s0 + step}: {ms:.4f} ms")
     del packed, slab

@@ -1,16 +1,18 @@
 // The parts of the whole-step decode kernels that rows 9 (decode_step.cu) and
 // 10 (decode_serve.cu) share: the persistent cooperative kernel that walks the
 // layers, its row, matmul and SwiGLU phases, and its launch. Each source gives
-// its own attention phase (row 9 reads an int8 prompt cache and a bf16 gen
-// cache; row 10 one unified int8 slab) as a struct with a static device
-// function `run(a, l, smem)`.
+// its own attention source (row 9 reads an int8 prompt cache and a bf16 gen
+// cache; row 10 one unified int8 slab): a caller of
+// csrc/decode_attn_common.cuh's core (plan, issue, score) that also stores
+// the new k/v, which attn_phase below runs.
 //
 // The kernel runs one block per SM (cudaLaunchCooperativeKernel), with the
 // residual and the activations in small device buffers (L2-resident), and a
 // grid-wide barrier between the phases of a layer:
 //   1. rows: x += (down partials of the previous layer) * sd; h = RMSNorm(x);
 //   2. q/k/v partial products;
-//   3. attention per (row, head), one warp each (the source's own);
+//   3. attention per (row, head), all consumer warps on one at a time, its
+//      cache tiles copied by the producer warps (attn_phase);
 //   4. o partial products;
 //   5. rows: x += o * so; h = RMSNorm(x);
 //   6. gate and up partial products;
@@ -64,8 +66,21 @@
 //      warpgroup j % CWG; the producer issues the boxes of CWG tiles in
 //      turn). Splitting each tile's boxes over the warpgroups instead, with
 //      their sums added in shared memory in warpgroup order, was slower
-//      (PERF.md §6). The row, attention and SwiGLU phases run on the
-//      consumer warps; the producer warp only meets the barriers.
+//      (PERF.md §6). The row and SwiGLU phases run on the consumer warps;
+//      the producer warp meets their barriers.
+// The attention phase (attn_phase) runs the decode-attention core of
+// csrc/decode_attn_common.cuh on the consumer warps in `teams` teams (one a
+// consumer warpgroup; fewer, larger teams when a long cache's scores do not
+// fit), each on its own (row, head) items, dealt team after team and block
+// after block: a team's threads make the item's q, k and v (the sum of the
+// q/k/v partial slices and rope, three values a thread), then the scores,
+// one shared max with the self term, and the values; the inputs of its next
+// item's q, k and v (the partial slices, scales, cos and sin) are copied
+// into shared memory (16-byte cp.async) while one item computes. Lane t of
+// producer warp t copies team t's cache tiles into the team's ring of up
+// to ASTAGES slots in the activation region, ahead across the passes and
+// the items. The rings' mbarriers and counts live through the step, like the
+// weight rings'.
 // A matrix is stored as column chunks of `cw` columns, chunk c a contiguous
 // [K, cw] block: cw = N is the standard [K, N] row-major layout, cw =
 // block_n the serving pack's [nc, K, block_n]; a tile never straddles two
@@ -85,6 +100,7 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "decode_attn_common.cuh"
 #include "wonly_matmul_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -95,24 +111,28 @@ constexpr int HD = 128;        // head dim
 constexpr int MP = 64;         // rows per launch (the batch, zero-padded): wgmma's n
 constexpr int CWG = 3;         // consumer warpgroups
 constexpr int CONSUMERS = 128 * CWG;
-constexpr int THREADS = CONSUMERS + 32;  // and the producer warp
+constexpr int PRODUCERS = CWG;          // producer warps: the weights' (0), one an attention team
+constexpr int THREADS = CONSUMERS + 32 * PRODUCERS;
 constexpr int WARPS = CONSUMERS / 32;    // the warps of the row and SwiGLU phases
 constexpr int BN = 128;        // weight columns of a tile: two wgmmas of 64
 constexpr int BK = 128;        // K rows of a weight box (a ring stage)
 constexpr int KG = 2;          // k16 steps widened between two wgmma commits
 constexpr int STAGES = 2;      // ring stages a consumer warpgroup
 constexpr int KSLICE = 1024;   // at most this many K rows per slice
-constexpr int UNROLL = 8;      // keys a lane loads before it uses them
-constexpr int AWARPS = 8;      // the most warps of the attention phase (of the WARPS)
+constexpr int AWARPS = WARPS;  // the attention phase's warps (of the WARPS), in teams
+constexpr int ASTAGES = 4;     // the most slots of an attention team's ring
+constexpr int ATILE = 12288;   // bytes of an attention ring tile (96 int8 positions)
+constexpr int AGU = 2;         // position groups an attention warp takes at a time
 constexpr size_t BOX = (size_t)BK * BN;          // one swizzled int8 weight box, 16 KB
 constexpr size_t ACT_BOX = (size_t)MP * BK * 2;  // one [64, 128] bf16 activation box, 16 KB
 constexpr size_t RING = (size_t)CWG * STAGES * BOX;
 constexpr int ACT_BOXES = KSLICE / BK;  // the activation boxes of a slice, a barrier each
 constexpr size_t BARS = 1024;  // the mbarriers, the producer's counts, the row phase's sums
+constexpr size_t ABARS = 512;  // the attention ring's barriers, at this offset of BARS
 // the shared memory besides the activation region (the 1024-byte alignment
-// slack, the rings, the barriers); the activation region, last, holds a
-// phase's activation slice or the attention phase's scratch, never the
-// rings, which are live across the grid barriers
+// slack, the weight rings, the barriers); the activation region, last, holds
+// a phase's activation slice or the attention phase's ring and scratch, never
+// the weight rings, which are live across the grid barriers
 constexpr size_t SMEM_FIXED = 1024 + RING + BARS;
 constexpr size_t SMEM_MAX = 232448;  // the dynamic shared memory a block may opt in to
 
@@ -120,7 +140,8 @@ static_assert(attn::TILE == MP && attn::D == BK,
               "activation boxes are attention_common's swizzled [64, 128] tiles");
 static_assert(BK / 16 % KG == 0, "whole wgmma groups a box");
 static_assert(KSLICE % BK == 0, "slices of whole boxes");
-static_assert((2 * CWG * STAGES + ACT_BOXES) * 8 + (CWG + 1) * 4 + WARPS * 4 <= BARS,
+static_assert((2 * CWG * STAGES + ACT_BOXES) * 8 + (CWG + 1) * 4 + WARPS * 4 <= ABARS &&
+                  ABARS + CWG * 2 * ASTAGES * 8 <= BARS,
               "barriers, the producer's counts and the sums fit their region");
 static_assert(AWARPS <= WARPS, "the attention phase runs on consumer warps");
 static_assert(SMEM_FIXED + (size_t)MP * KSLICE * 2 <= SMEM_MAX, "a full slice fits shared memory");
@@ -145,7 +166,8 @@ struct Args {
   __nv_bfloat16* act;          // [MP, max(D, F)] scratch: the matmul input
   float* part;                 // [slices, MP, N] scratch: partial sums
   int L, B, Bk, b0, D, F, H, Sp, Gp, S0, step;
-  int awarps;                  // the attention phase's warps (launch_step sets them)
+  int nsc;                     // the attention phase's most positions an item (its scores)
+  int teams, astages;          // its teams and each team's ring slots (launch_step sets them)
   float eps;
 };
 
@@ -154,22 +176,6 @@ __device__ __forceinline__ float bf16r(float v) {
 }
 
 __device__ __forceinline__ float ldf(const float* p) { return __ldcg(p); }
-
-// sum over s < S of p[s * stride] in slice order (the fixed order of the
-// partial sums), the loads issued four at a time ahead of their adds (the
-// attention phase's q/k/v: 12 such sums a lane)
-__device__ __forceinline__ float slice_sum(const float* p, size_t stride, int S) {
-  float acc = 0.0f;
-  for (int s = 0; s < S; s += 4) {
-    float v[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) v[i] = s + i < S ? ldf(p + (s + i) * stride) : 0.0f;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (s + i < S) acc += v[i];
-  }
-  return acc;
-}
 
 __device__ __forceinline__ float ldbf(const __nv_bfloat16* p) {
   const unsigned short u = __ldcg(reinterpret_cast<const unsigned short*>(p));
@@ -182,31 +188,9 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(CONSUMERS) : "memory");
 }
 
-// byte i of w as a sign-extended int8, and the low / high bf16 of w, as f32
-__device__ __forceinline__ float i8_at(unsigned w, int i) {
-  return (float)((int)(w << (24 - 8 * i)) >> 24);
-}
-__device__ __forceinline__ float bf_lo(unsigned w) { return __uint_as_float(w << 16); }
-__device__ __forceinline__ float bf_hi(unsigned w) { return __uint_as_float(w & 0xffff0000u); }
-
-// sum over e of q[e] * (16 int8 values of v)
-__device__ __forceinline__ float dot_i8x16(const float* q, const uint4& v) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-  float d = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 16; ++i) d += q[i] * i8_at(w[i >> 2], i & 3);
-  return d;
-}
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
@@ -223,62 +207,60 @@ __host__ __device__ __forceinline__ int num_slices(int K) {
   return (K + r - 1) / r;
 }
 
-// the attention phase's warps for `per_warp` bytes of scratch a warp: AWARPS
-// when their scratch fits beside the rings, fewer for a longer cache (7 at
-// Vicuna-7B's 4096 positions), 0 when not one warp's does
-inline int attn_warps(size_t per_warp) {
-  const size_t fit = (SMEM_MAX - SMEM_FIXED) / per_warp;
-  return fit < (size_t)AWARPS ? (int)fit : AWARPS;
+// the attention phase's shared memory in the activation region, a block of
+// attn_team_bytes for each team: its ring (stages slots of ATILE bytes and
+// their scales), then its scratch: the staged q/k/v inputs [3 S + 4][HD] (S
+// K slices), q rounded to bf16, q, k and v in f32 [2 item parities][4][HD],
+// the self score [2], the scores [nsc], the warps' partial outputs
+// [wpt][HD], maxima and denominators [wpt] (mirrored by ops/decode_step.py)
+// a slot's scale floats: a tile's positions and the 3 before them in the
+// 16-byte-aligned cover of their run
+constexpr int ASCL = dattn::tile_positions<ATILE>(1) + 4;
+
+// the bytes of the 16-byte-aligned cover of scales [run, run + nv) of kvsc
+// (its base is 16-byte aligned and its size a multiple of 16 bytes, so the
+// cover stays inside it)
+__device__ __forceinline__ uint32_t scale_cover(size_t run, int nv) {
+  return (uint32_t)((((run + nv + 3) & ~(size_t)3) - (run & ~(size_t)3)) * 4);
+}
+__host__ __device__ inline size_t attn_ring_bytes(int stages) {
+  return (size_t)stages * (ATILE + ASCL * 4);
+}
+__host__ __device__ inline size_t attn_stage_floats(int slices) {
+  return (size_t)(3 * slices + 4) * HD;
+}
+__host__ __device__ inline size_t attn_scratch_bytes(int nsc, int slices, int wpt) {
+  return 4 * (attn_stage_floats(slices) + (size_t)2 * 4 * HD + 2 + nsc + (size_t)wpt * (HD + 2));
+}
+__host__ __device__ inline size_t attn_team_bytes(int stages, int nsc, int slices, int wpt) {
+  return (attn_ring_bytes(stages) + attn_scratch_bytes(nsc, slices, wpt) + 127) / 128 * 128;
+}
+
+// the attention phase's teams and each team's ring slots for items of up
+// to nsc positions: the most teams (a divisor of AWARPS, at most CWG) whose
+// rings get at least 2 slots beside their scratch, each up to ASTAGES;
+// teams = 0 when not one team fits
+inline void attn_layout(int nsc, int slices, int& teams, int& stages) {
+  const size_t room = SMEM_MAX - SMEM_FIXED;
+  for (teams = CWG; teams >= 1; --teams) {
+    if (AWARPS % teams) continue;
+    for (stages = ASTAGES; stages >= 2; --stages)
+      if (teams * attn_team_bytes(stages, nsc, slices, AWARPS / teams) <= room) return;
+  }
+  teams = stages = 0;
 }
 
 // the dynamic shared memory of a launch: the fixed regions and the larger of
-// the activation slices and the attention phase's scratch
-inline size_t step_smem(int D, int F, size_t smem_attn) {
+// the activation slices and the attention phase's ring and scratch
+inline size_t step_smem(int D, int F, int nsc) {
   size_t act = (size_t)MP * slice_rows(D) * 2;
   const size_t act_f = (size_t)MP * slice_rows(F) * 2;
   act = act > act_f ? act : act_f;
-  return SMEM_FIXED + (act > smem_attn ? act : smem_attn);
-}
-
-// q, k and v of (row b, head h) for the attention phase, f32: the sums of
-// the q/k/v partial slices times the column scales, then rope on q and k
-// (x * (cos | cos) + (-x2 | x1) * (sin | sin)). Lane d % 32 returns dims
-// lane + 32 e in qr/kr/vr[e] and leaves all 128 dims of each in qs/ks/vs.
-__device__ __forceinline__ void qkv_rope(const Args& a, int l, int b, int h, float* qs,
-                                         float* ks, float* vs, float qr[4], float kr[4]) {
-  const int lane = threadIdx.x & 31;
-  const int D = a.D;
-  const int S_qkv = num_slices(D);
-  const int Ntot = 3 * D;
-  float raw[3][4];
-#pragma unroll
-  for (int w3 = 0; w3 < 3; ++w3) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = lane + 32 * e;
-      const int col = w3 * D + h * HD + d;
-      const float acc = slice_sum(a.part + (size_t)b * Ntot + col, (size_t)MP * Ntot, S_qkv);
-      raw[w3][e] = acc * a.s[w3][(size_t)l * D + h * HD + d];
-    }
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    qs[lane + 32 * e] = raw[0][e];
-    ks[lane + 32 * e] = raw[1][e];
-    vs[lane + 32 * e] = raw[2][e];
-  }
-  __syncwarp();
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int d = lane + 32 * e;
-    const int i = d & (HD / 2 - 1);
-    const float c = a.cosb[b * (HD / 2) + i], sn = a.sinb[b * (HD / 2) + i];
-    const float qrot = d < HD / 2 ? -qs[d + HD / 2] : qs[d - HD / 2];
-    const float krot = d < HD / 2 ? -ks[d + HD / 2] : ks[d - HD / 2];
-    qr[e] = __fadd_rn(__fmul_rn(qs[d], c), __fmul_rn(qrot, sn));
-    kr[e] = __fadd_rn(__fmul_rn(ks[d], c), __fmul_rn(krot, sn));
-  }
-  __syncwarp();
+  const int S = num_slices(D);
+  int teams, stages;
+  attn_layout(nsc, S, teams, stages);
+  const size_t at = teams * attn_team_bytes(stages, nsc, S, AWARPS / teams);
+  return SMEM_FIXED + (act > at ? act : at);
 }
 
 // ------------------------------------------------------------- row phases
@@ -393,12 +375,6 @@ struct Ring {
   int taken;
   unsigned actpar;
 };
-
-// the attention phase's first (row, head) item of warp `warp` (< a.awarps),
-// and the step to its next: the items go to the blocks in turn, so that each
-// SM takes at most ceil(B * H / grid) of them
-__device__ __forceinline__ int attn_item(int warp) { return blockIdx.x + gridDim.x * warp; }
-__device__ __forceinline__ int attn_stride(const Args& a) { return gridDim.x * a.awarps; }
 
 // the producer: box i of phase p of layer l into its ring's next slot, once
 // that slot's previous box has been released
@@ -607,6 +583,169 @@ __device__ void silu_phase(const Args& a, int l) {
   }
 }
 
+// ------------------------------------------------------- attention phase
+
+// A team's 16-byte copies (cp.async, L2 only; ttid its thread, TT its
+// threads) of the inputs of item `item`'s q, k and v into `stage`: the S K
+// slices' partial sums of the head's q, k and v columns [3][S][HD], their
+// column scales [3][HD], and rope's cos and sin [2][HD / 2].
+template <int TT>
+__device__ __forceinline__ void stage_qkv(const Args& a, int l, int item, float* stage, int ttid) {
+  constexpr int C4 = HD / 4;  // 16-byte chunks a row of HD floats
+  const int b = item / a.H, h = item % a.H;
+  const int S = num_slices(a.D), Ntot = 3 * a.D;
+  const int parts = 3 * S * C4, chunks = parts + 4 * C4;
+  for (int i = ttid; i < chunks; i += TT) {
+    const float* src;
+    if (i < parts) {
+      const int w3 = i / (S * C4), sl = i / C4 % S;
+      src = a.part + ((size_t)sl * MP + b) * Ntot + w3 * a.D + h * HD + 4 * (i % C4);
+    } else if (i < parts + 3 * C4) {
+      const int j = i - parts;
+      src = a.s[j / C4] + (size_t)l * a.D + h * HD + 4 * (j % C4);
+    } else {
+      const int j = i - parts - 3 * C4;  // cos, then sin: HD / 8 chunks each
+      src = (j < HD / 8 ? a.cosb : a.sinb) + b * (HD / 2) + 4 * (j % (HD / 8));
+    }
+    wonly::cp_async16(stage + 4 * i, src, true);
+  }
+}
+
+// the barrier of one attention team's NW warps (ids 2 .. 2 + CWG - 1)
+template <int NW>
+__device__ __forceinline__ void team_sync(int team) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(2 + team), "n"(32 * NW) : "memory");
+}
+
+// The attention phase of layer l for teams of NW warps, called by every
+// thread of the block with its team's ring r (attn_ring): lane 0 of
+// producer warp t < teams copies team t's cache tiles (Src::plan_of,
+// Src::issue) into the team's ring; team t's
+// threads take items blockIdx.x + gridDim.x * (t + teams k) and, per item,
+// make q, k and v in f32 from the staged inputs (thread i < 3 HD: matrix i /
+// HD at dim d = i % HD, the sum of the partial slices in slice order times
+// the scale; rope on q and k: x * (cos | cos) + (-x2 | x1) * (sin | sin)),
+// store the new k/v (Src::store_new), run the core's score pass (q rounded
+// to bf16) and value pass with one max shared by the tiles' scores and the
+// f32 self term q . k_new, and write act[b, h * HD + d] =
+// bf16((o + p_self * v) / (den + p_self)).
+template <class Src, int NW>
+__device__ void attn_team_phase(const Args& a, int l, dattn::Ring& r) {
+  constexpr int TT = 32 * NW;
+  const Src src{a, l, rsqrtf((float)HD)};
+  const int items = a.B * a.H, teams = AWARPS / NW;
+  const int first = blockIdx.x, stride = gridDim.x * teams;
+  if (threadIdx.x >= CONSUMERS) {
+    const int t = (threadIdx.x - CONSUMERS) >> 5;
+    if (t < teams && (threadIdx.x & 31) == 0)
+      dattn::produce(src, r, first + gridDim.x * t, stride, items);
+    return;
+  }
+  const int team = threadIdx.x / TT, ttid = threadIdx.x % TT, warp = ttid >> 5, lane = ttid & 31;
+  const int S = num_slices(a.D);
+  float* stage = reinterpret_cast<float*>(r.data + attn_ring_bytes(a.astages));
+  const float* scol = stage + 3 * S * HD;   // column scales [3][HD]
+  const float* rope = scol + 3 * HD;        // cos [HD / 2], sin [HD / 2]
+  float* qkv = stage + attn_stage_floats(S);
+  float* sself = qkv + 2 * 4 * HD;
+  float* sc = sself + 2;
+  float* part = sc + a.nsc;
+  float* red_max = part + NW * HD;
+  float* red_den = red_max + NW;
+  int item = first + gridDim.x * team;
+  int plen = 0;
+  if (item < items) {
+    stage_qkv<TT>(a, l, item, stage, ttid);
+    plen = src.plen_of(item);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  team_sync<NW>(team);
+  for (int par = 0; item < items; item += stride, par ^= 1) {
+    const int b = item / a.H, h = item % a.H;
+    float* qb = qkv + par * 4 * HD;  // q rounded to bf16, then q, k, v in f32
+#pragma unroll
+    for (int k = 0; k < (3 * HD + TT - 1) / TT; ++k) {
+      const int i = ttid + k * TT;
+      if (i >= 3 * HD) break;
+      const int w3 = i / HD, d = i % HD;
+      float x[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int dd = j ? d ^ (HD / 2) : d;
+        float acc = 0.0f;
+        for (int sl = 0; sl < S; ++sl) acc += stage[(w3 * S + sl) * HD + dd];
+        x[j] = acc * scol[w3 * HD + dd];
+      }
+      float v = x[0];
+      if (w3 < 2) {
+        const float rot = d < HD / 2 ? -x[1] : x[1];
+        v = __fadd_rn(__fmul_rn(v, rope[d & (HD / 2 - 1)]),
+                      __fmul_rn(rot, rope[HD / 2 + (d & (HD / 2 - 1))]));
+      }
+      if (w3 == 0) qb[d] = bf16r(v);
+      qb[(w3 + 1) * HD + d] = v;
+      if (w3) src.store_new(b, h, w3 - 1, d, v);
+    }
+    const dattn::Plan pl = src.plan_of(item, plen);
+    team_sync<NW>(team);  // q, k and v of this item; the staged inputs are read
+    const int next = item + stride;
+    if (next < items) {
+      stage_qkv<TT>(a, l, next, stage, ttid);
+      plen = src.plen_of(next);
+    }
+    if (warp == 0) {
+      float self = 0.0f;
+#pragma unroll
+      for (int e = 0; e < HD / 32; ++e) self += qb[HD + lane + 32 * e] * qb[2 * HD + lane + 32 * e];
+      self = warp_sum(self) * src.scale;
+      if (lane == 0) sself[par] = self;
+    }
+    dattn::score_pass<NW>(src, pl, qb, sc, a.nsc, red_max, r, warp);
+    team_sync<NW>(team);  // the scores, the warps' maxima and the self score
+    float m[1];
+    const float s_self = sself[par];
+    dattn::block_max<NW, Src>(red_max, s_self, m);
+    dattn::value_pass<NW>(src, pl, sc, a.nsc, m, part, red_den, r, warp);
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    team_sync<NW>(team);  // the warps' partial outputs and denominators; the next item's inputs
+    if (ttid < HD) {
+      const float ps = expf(s_self - m[0]);
+      const float den = dattn::den_sum<NW, Src>(red_den, 0) + ps;
+      const float o = dattn::out_sum<NW, Src>(part, 0, ttid) + ps * qb[3 * HD + ttid];
+      a.act[(size_t)b * a.D + h * HD + ttid] = __float2bfloat16_rn(o / den);
+    }
+  }
+}
+
+// the attention phase at the launch's team count
+template <class Src>
+__device__ __forceinline__ void attn_phase(const Args& a, int l, dattn::Ring& r) {
+  if (a.teams == CWG) attn_team_phase<Src, AWARPS / CWG>(a, l, r);
+  else if (a.teams == 2 && CWG > 2) attn_team_phase<Src, AWARPS / 2>(a, l, r);
+  else attn_team_phase<Src, AWARPS>(a, l, r);
+}
+
+// the ring of the calling thread's attention team (a consumer's, or a
+// producer warp's), its blocks of attn_team_bytes in the activation region
+// and its barriers in BARS; every thread of the block calls it once, and
+// thread 0 initialises the barriers of every team
+__device__ __forceinline__ dattn::Ring attn_ring(const Args& a, unsigned char* act, uint64_t* abar) {
+  const int teams = a.teams ? a.teams : 1, wpt = AWARPS / teams;
+  const int t = threadIdx.x < CONSUMERS ? threadIdx.x / (32 * wpt)
+                                        : min((int)(threadIdx.x - CONSUMERS) >> 5, CWG - 1);
+  unsigned char* base = act + t * attn_team_bytes(a.astages, a.nsc, num_slices(a.D), wpt);
+  const dattn::Ring r{base, reinterpret_cast<float*>(base + (size_t)a.astages * ATILE),
+                      abar + 2 * ASTAGES * t, abar + 2 * ASTAGES * t + ASTAGES, a.astages, 0, 0, 0};
+  if (threadIdx.x == 0)
+    for (int i = 0; i < teams; ++i) {
+      dattn::Ring ri = r;
+      ri.full = abar + 2 * ASTAGES * i;
+      ri.empty = ri.full + ASTAGES;
+      dattn::init_ring(ri, wpt);
+    }
+  return r;
+}
+
 template <class Attn>
 __global__ void __launch_bounds__(THREADS, 1) step_kernel(const __grid_constant__ Args a) {
   extern __shared__ unsigned char smem_raw[];
@@ -618,6 +757,8 @@ __global__ void __launch_bounds__(THREADS, 1) step_kernel(const __grid_constant_
   cg::grid_group grid = cg::this_grid();
   const bool consumer = threadIdx.x < CONSUMERS;
   Ring rg{smem, full, full + CWG * STAGES, full + 2 * CWG * STAGES, prod, 0, 0};
+  // this thread's attention team's ring, its barriers in BARS
+  dattn::Ring ar = attn_ring(a, act, reinterpret_cast<uint64_t*>(smem + RING + ABARS));
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int i = 0; i < CWG * STAGES; ++i) {
@@ -642,10 +783,9 @@ __global__ void __launch_bounds__(THREADS, 1) step_kernel(const __grid_constant_
     grid.sync();
     mm_phase(a, l, 0, act, rg);        // q, k, v
     grid.sync();
-    if (consumer) {
-      Attn::run(a, l, act);
-      attn::fence_proxy_async();  // its scratch, before the next slice's copies into it
-    }
+    attn_phase<Attn>(a, l, ar);
+    // its scratch (and the producer's scale copies), before the next slice's copies into it
+    if (consumer) attn::fence_proxy_async();
     grid.sync();
     mm_phase(a, l, 1, act, rg);        // o
     grid.sync();
@@ -663,13 +803,13 @@ __global__ void __launch_bounds__(THREADS, 1) step_kernel(const __grid_constant_
 }
 
 // One cooperative launch of step_kernel<Attn>, one block per SM, with
-// step_smem's shared memory for attn_warps(attn_per_warp) attention warps of
-// attn_per_warp bytes of scratch each. It builds the tensor maps first:
+// step_smem's shared memory for the attention phase's items of up to `nsc`
+// positions (attn_layout's teams and rings). It builds the tensor maps first:
 // weight matrix i, [L, K, N] as L * N / cw chunks [K, cw], is the 3-D tensor
 // (cw, K, L * N / cw) in boxes of BN x BK; the activation, [B, D] or [B, F]
 // (row stride D or F), is copied in 64 x 64 boxes.
 template <class Attn>
-int launch_step(Args& a, size_t attn_per_warp, void* stream) {
+int launch_step(Args& a, int nsc, void* stream) {
   void (*kernel)(Args) = step_kernel<Attn>;
   const int Ks[7] = {a.D, a.D, a.D, a.D, a.D, a.D, a.F};
   const int Ns[7] = {a.D, a.D, a.D, a.D, a.F, a.F, a.D};
@@ -687,9 +827,10 @@ int launch_step(Args& a, size_t attn_per_warp, void* stream) {
                        (uint64_t)K * 2, BK / 2, MP))
       return (int)cudaErrorInvalidValue;
   }
-  a.awarps = attn_warps(attn_per_warp);
-  if (a.awarps < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = step_smem(a.D, a.F, (size_t)a.awarps * attn_per_warp);
+  a.nsc = nsc;
+  attn_layout(nsc, num_slices(a.D), a.teams, a.astages);
+  if (a.teams < 1 || (size_t)a.L * a.Bk * 2 * a.H * a.Sp % 4) return (int)cudaErrorInvalidValue;
+  const size_t smem = step_smem(a.D, a.F, nsc);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;

@@ -32,10 +32,11 @@
 //     padded rows are zero, so they add exact zeros; the kernel runs over Fp
 //     and does not skip them;
 //   - attention reads the slab at [0, plen_b) and [S0, S0 + step) only, never
-//     the dead range [plen_b, S0) or a position past S0 + step; the
-//     generated keys are int8 with scales like the prompt's, so one loop walks
-//     both ranges, and the per-warp scores in shared memory hold S0 + step
-//     values, not Sp.
+//     the dead range [plen_b, S0) or a position past S0 + step: an item is
+//     two int8 segments for csrc/decode_attn_common.cuh's core, each a
+//     contiguous run of the slab that the producer warp copies with 1-D
+//     bulk copies, and the scores in shared memory hold S0 + step values,
+//     not Sp.
 //
 // The roundings are the TPU kernel's (decode_serve.py:285-465): q, k and v
 // stay f32; scores are bf16 q . int8 K times k_scale times hd^-0.5 over both
@@ -49,123 +50,46 @@
 
 namespace {
 
-// One warp per (row, head). Lanes are 4 key groups x 8 parts of 16 dims:
-// lane = 8 kq + p reads dims [16 p, 16 p + 16) of keys t = kq (mod 4). Key t
-// of a row is slab position t for t < plen, S0 + t - plen after.
+// Key t of a row is slab position t for t < plen, S0 + t - plen after.
 struct SlabAttn {
-  static __device__ void run(const Args& a, int l, unsigned char* smem) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int kq = lane >> 3, p = lane & 7;
-    const int H = a.H, Sp = a.Sp, S0 = a.S0, step = a.step;
-    const float scale = rsqrtf((float)HD);
-    float* wsm = reinterpret_cast<float*>(smem) + (size_t)warp * (3 * HD + S0 + step);
-    float* qs = wsm;
-    float* ks = qs + HD;
-    float* vs = ks + HD;
-    float* sc = vs + HD;
-    for (int item = attn_item(warp); warp < a.awarps && item < a.B * H;
-         item += attn_stride(a)) {
-      const int b = item / H, h = item % H;
-      const int bg = a.b0 + b;
-      float qr[4], kr[4];
-      qkv_rope(a, l, b, h, qs, ks, vs, qr, kr);
-      float* nk = a.newkv + ((((size_t)l * 2 + 0) * a.Bk + bg) * H + h) * HD;
-      float* nv = a.newkv + ((((size_t)l * 2 + 1) * a.Bk + bg) * H + h) * HD;
-      float self = 0.0f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = lane + 32 * e;
-        qs[d] = qr[e];
-        self += qr[e] * kr[e];
-        nk[d] = kr[e];
-        nv[d] = vs[d];
-      }
-      const float s_self = warp_sum(self) * scale;
-      __syncwarp();
-      float qb[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) qb[e] = bf16r(qs[16 * p + e]);
+  static constexpr int TB = ATILE, GRP = 1, P = 8, SST = 1, SCL = ASCL, GU = AGU;
+  const Args& a;
+  int l;
+  float scale;
 
-      const int plen = min(a.plen[b], S0);
-      const int n = plen + step;
-      const size_t kvrow = ((size_t)l * a.Bk + bg) * 2;
-      const int8_t* Kp = a.kv + ((kvrow + 0) * H + h) * (size_t)Sp * HD;
-      const int8_t* Vp = a.kv + ((kvrow + 1) * H + h) * (size_t)Sp * HD;
-      const float* ksc = a.kvsc + ((kvrow + 0) * H + h) * (size_t)Sp;
-      const float* vsc = a.kvsc + ((kvrow + 1) * H + h) * (size_t)Sp;
-      auto pos = [&](int t) { return t < plen ? t : S0 + (t - plen); };
+  __device__ int plen_of(int item) const { return max(0, min(a.plen[item / a.H], a.S0)); }
+  // the slab's two ranges (int8; their K and V scale runs' offsets in
+  // their aligned covers, run_of's first index % 4)
+  __device__ dattn::Plan plan_of(int item, int plen) const {
+    dattn::Plan p;
+    p.ns = 2;
+    p.s[0] = {plen, 0, 1, (int)(run_of(item, 0, 0, 0) & 3), (int)(run_of(item, 1, 0, 0) & 3)};
+    p.s[1] = {a.step, plen, 1, (int)(run_of(item, 0, 1, 0) & 3), (int)(run_of(item, 1, 1, 0) & 3)};
+    return p;
+  }
+  // the first index of slab positions p0 .. of range si (the second from S0)
+  // of K or V (side) of the item in kv (times HD) and kvsc
+  __device__ size_t run_of(int item, int side, int si, int p0) const {
+    const int bg = a.b0 + item / a.H, h = item % a.H;
+    return ((((size_t)l * a.Bk + bg) * 2 + side) * a.H + h) * a.Sp + (si == 0 ? 0 : a.S0) + p0;
+  }
+  __device__ float score(float d, float ks) const { return (d * ks) * scale; }
 
-      // scores: UNROLL batches of 4 keys in flight a lane
-      float m = s_self;
-      for (int t0 = 0; t0 < n; t0 += 4 * UNROLL) {
-        uint4 kraw[UNROLL];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int t = t0 + 4 * u + kq;
-          kraw[u] = t < n ? __ldg(reinterpret_cast<const uint4*>(Kp + (size_t)pos(t) * HD + 16 * p))
-                          : make_uint4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          float dot = dot_i8x16(qb, kraw[u]);
-          dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-          dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-          dot += __shfl_xor_sync(0xffffffffu, dot, 4);
-          const int t = t0 + 4 * u + kq;
-          if (t < n) {
-            const float st = (dot * __ldg(ksc + pos(t))) * scale;
-            if (p == 0) sc[t] = st;
-            m = fmaxf(m, st);
-          }
-        }
-      }
-      m = warp_max(m);
-      __syncwarp();
-      // probabilities: the denominator from the unrounded p, the value
-      // weights p * v_scale rounded to bf16
-      float sum = 0.0f;
-      for (int t = lane; t < n; t += 32) {
-        const float pt = expf(sc[t] - m);
-        sum += pt;
-        sc[t] = bf16r(pt * __ldg(vsc + pos(t)));
-      }
-      const float ps = expf(s_self - m);
-      const float denom = warp_sum(sum) + ps;
-      __syncwarp();
-      // values: lane accumulates dims [16 p, 16 p + 16) over keys t = kq (mod 4)
-      float o1[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) o1[e] = 0.0f;
-      for (int t0 = 0; t0 < n; t0 += 4 * UNROLL) {
-        uint4 vraw[UNROLL];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int t = t0 + 4 * u + kq;
-          vraw[u] = t < n ? __ldg(reinterpret_cast<const uint4*>(Vp + (size_t)pos(t) * HD + 16 * p))
-                          : make_uint4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int t = t0 + 4 * u + kq;
-          const float wt = t < n ? sc[t] : 0.0f;
-          const unsigned w[4] = {vraw[u].x, vraw[u].y, vraw[u].z, vraw[u].w};
-#pragma unroll
-          for (int e = 0; e < 16; ++e) o1[e] += wt * i8_at(w[e >> 2], e & 3);
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        o1[e] += __shfl_xor_sync(0xffffffffu, o1[e], 8);
-        o1[e] += __shfl_xor_sync(0xffffffffu, o1[e], 16);
-      }
-      if (kq == 0) {
-        __nv_bfloat16* out = a.act + (size_t)b * a.D + h * HD + 16 * p;
-#pragma unroll
-        for (int e = 0; e < 16; ++e)
-          out[e] = __float2bfloat16_rn((o1[e] + ps * vs[16 * p + e]) / denom);
-      }
-      __syncwarp();
-    }
+  // slab positions p0 .. p0 + nv - 1 of range si of K or V (side), and
+  // their scales (scale_cover)
+  __device__ void issue(int item, int side, int si, int p0, int nv, unsigned char* dst,
+                        float* sdst, uint64_t* bar) const {
+    const size_t run = run_of(item, side, si, p0);
+    const uint32_t sbytes = scale_cover(run, nv);
+    const uint64_t pol = dattn::evict_first();
+    wonly::mbar_arrive_expect(bar, (uint32_t)nv * HD + sbytes);
+    dattn::bulk_load(dst, a.kv + run * HD, (uint32_t)nv * HD, bar, pol);
+    dattn::bulk_load(sdst, a.kvsc + (run & ~(size_t)3), sbytes, bar, pol);
+  }
+
+  // this step's k (which 0, roped) or v (1) at dim d, f32, into newkv
+  __device__ void store_new(int b, int h, int which, int d, float v) const {
+    a.newkv[((((size_t)l * 2 + which) * a.Bk + a.b0 + b) * a.H + h) * HD + d] = v;
   }
 };
 
@@ -211,5 +135,5 @@ extern "C" int decode_step_serve(void* const* w, void* const* s, const void* att
   a.part = static_cast<float*>(part);
   a.L = L; a.B = B; a.Bk = Bk; a.b0 = b0; a.D = D; a.F = Fp; a.H = H; a.Sp = Sp; a.S0 = S0;
   a.step = step; a.eps = eps;
-  return launch_step<SlabAttn>(a, (3 * HD + S0 + step) * 4, stream);
+  return launch_step<SlabAttn>(a, S0 + step, stream);
 }

@@ -16,14 +16,16 @@
 // The TPU kernel walks the layers as a sequential grid on one core, with the
 // residual stream in VMEM. Hopper has no sequential grid, so this is a
 // persistent cooperative kernel with a grid-wide barrier between the phases of
-// a layer; decode_common.cuh holds it and its row, matmul and SwiGLU phases
-// (shared with row 10, decode_serve.cu; the matmul phases are wgmma products
-// of int8 weights widened in registers, fed by a TMA producer warp), which
-// read the standard [L, K, N] weights here. This file gives the attention
-// phase: one warp per (row, head)
-// computes q/k/v = partials * scale and rope, writes the new k/v into gen slot
-// `step` (the mask is slot < step, so that slot is never read in the same
-// step), then scores, one shared max, values.
+// a layer; decode_common.cuh holds it and its row, matmul, SwiGLU and
+// attention phases (shared with row 10, decode_serve.cu; the matmul phases
+// are wgmma products of int8 weights widened in registers, fed by a TMA
+// producer warp, the attention phase runs csrc/decode_attn_common.cuh's
+// core), which read the standard [L, K, N] weights here. This file gives the
+// attention phase's source: an item (row, head) is its prompt, plen int8
+// positions with scales, and the gen slots < step in bf16, each a contiguous
+// run of the packed caches that the producer warp copies with 1-D bulk
+// copies; the new k/v go into gen slot `step` (the mask is slot < step, so
+// that slot is never read in the same step).
 //
 // The roundings are the TPU kernel's (decode_step.py:198-480), which are not
 // decode_step_split's: q, k and v stay f32; prompt scores are bf16 q . int8 K
@@ -38,174 +40,54 @@
 
 namespace {
 
-// sum over e of q[e] * (8 bf16 values of v)
-__device__ __forceinline__ float dot_bf16x8(const float* q, const uint4& v) {
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
-  float d = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d += q[2 * i] * bf_lo(w[i]) + q[2 * i + 1] * bf_hi(w[i]);
-  return d;
-}
-
-// One warp per (row, head). Lanes are 4 key groups x 8 parts of 16 dims:
-// lane = 8 kq + p reads dims [16 p, 16 p + 16) of keys j = kq (mod 4).
 struct GenCacheAttn {
-  static __device__ void run(const Args& a, int l, unsigned char* smem) {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int kq = lane >> 3, p = lane & 7;
-    const int H = a.H, Sp = a.Sp, Gp = a.Gp, step = a.step;
-    const float scale = rsqrtf((float)HD);
-    float* wsm = reinterpret_cast<float*>(smem) + (size_t)warp * (3 * HD + Sp + Gp);
-    float* qs = wsm;
-    float* ks = qs + HD;
-    float* vs = ks + HD;
-    float* sc = vs + HD;
-    float* p2s = sc + Sp;
-    for (int item = attn_item(warp); warp < a.awarps && item < a.B * H;
-         item += attn_stride(a)) {
-      const int b = item / H, h = item % H;
-      const int bg = a.b0 + b;
-      float qr[4], kr[4];
-      qkv_rope(a, l, b, h, qs, ks, vs, qr, kr);
-      __nv_bfloat16* gk = a.genkv + ((((size_t)l * 2 + 0) * a.Bk + bg) * H + h) * Gp * HD;
-      __nv_bfloat16* gv = a.genkv + ((((size_t)l * 2 + 1) * a.Bk + bg) * H + h) * Gp * HD;
-      float self = 0.0f;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = lane + 32 * e;
-        qs[d] = qr[e];
-        ks[d] = kr[e];
-        self += qr[e] * kr[e];
-        gk[(size_t)step * HD + d] = __float2bfloat16_rn(kr[e]);
-        gv[(size_t)step * HD + d] = __float2bfloat16_rn(vs[d]);
-      }
-      const float s_self = warp_sum(self) * scale;
-      __syncwarp();
-      float qb[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) qb[e] = bf16r(qs[16 * p + e]);
+  static constexpr int TB = ATILE, GRP = 1, P = 8, SST = 1, SCL = ASCL, GU = AGU;
+  const Args& a;
+  int l;
+  float scale;
 
-      const int plen = a.plen[b];
-      const size_t kvrow = ((size_t)l * a.Bk + bg) * 2;
-      const int8_t* Kp = a.kv + ((kvrow + 0) * H + h) * (size_t)Sp * HD;
-      const int8_t* Vp = a.kv + ((kvrow + 1) * H + h) * (size_t)Sp * HD;
-      const float* ksc = a.kvsc + ((kvrow + 0) * H + h) * (size_t)Sp;
-      const float* vsc = a.kvsc + ((kvrow + 1) * H + h) * (size_t)Sp;
+  __device__ int plen_of(int item) const { return max(0, min(a.plen[item / a.H], a.Sp)); }
+  // the prompt (int8; its K and V scale runs' offsets in their aligned
+  // covers, run_of's first index % 4), then the gen slots < step (bf16)
+  __device__ dattn::Plan plan_of(int item, int plen) const {
+    dattn::Plan p;
+    p.ns = 2;
+    p.s[0] = {plen, 0, 1, (int)(run_of(item, 0, 0, 0) & 3), (int)(run_of(item, 1, 0, 0) & 3)};
+    p.s[1] = {a.step, plen, 0, 0, 0};
+    return p;
+  }
+  // the first index of positions p0 .. of K or V (side) of the item's
+  // prompt in kv [L, Bk, 2, H, Sp, HD] (times HD) and kvsc, or of its gen
+  // slots in genkv [L, 2, Bk, H, Gp, HD] (times HD)
+  __device__ size_t run_of(int item, int side, int si, int p0) const {
+    const int bg = a.b0 + item / a.H, h = item % a.H;
+    return si == 0 ? ((((size_t)l * a.Bk + bg) * 2 + side) * a.H + h) * a.Sp + p0
+                   : ((((size_t)l * 2 + side) * a.Bk + bg) * a.H + h) * a.Gp + p0;
+  }
+  __device__ float score(float d, float ks) const { return (d * ks) * scale; }
 
-      // prompt scores: UNROLL batches of 4 keys in flight a lane
-      float m = s_self;
-      for (int j0 = 0; j0 < plen; j0 += 4 * UNROLL) {
-        uint4 kraw[UNROLL];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int j = j0 + 4 * u + kq;
-          kraw[u] = j < plen ? __ldg(reinterpret_cast<const uint4*>(Kp + (size_t)j * HD + 16 * p))
-                             : make_uint4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          float dot = dot_i8x16(qb, kraw[u]);
-          dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-          dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-          dot += __shfl_xor_sync(0xffffffffu, dot, 4);
-          const int j = j0 + 4 * u + kq;
-          if (j < plen) {
-            const float sj = (dot * __ldg(ksc + j)) * scale;
-            if (p == 0) sc[j] = sj;
-            m = fmaxf(m, sj);
-          }
-        }
-      }
-      // gen scores over slots < step: bf16 q . bf16 cache
-      for (int j0 = 0; j0 < step; j0 += 4) {
-        const int j = j0 + kq;
-        float dot = 0.0f;
-        if (j < step) {
-          const uint4* src = reinterpret_cast<const uint4*>(gk + (size_t)j * HD + 16 * p);
-          dot = dot_bf16x8(qb, src[0]) + dot_bf16x8(qb + 8, src[1]);
-        }
-        dot += __shfl_xor_sync(0xffffffffu, dot, 1);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 2);
-        dot += __shfl_xor_sync(0xffffffffu, dot, 4);
-        if (j < step) {
-          const float sj = dot * scale;
-          if (p == 0) p2s[j] = sj;
-          m = fmaxf(m, sj);
-        }
-      }
-      m = warp_max(m);
-      __syncwarp();
-      // probabilities: the denominator from the unrounded p, the value
-      // weights rounded to bf16 (p1 after the v_scale product)
-      float sum1 = 0.0f, sum2 = 0.0f;
-      for (int j = lane; j < plen; j += 32) {
-        const float pj = expf(sc[j] - m);
-        sum1 += pj;
-        sc[j] = bf16r(pj * __ldg(vsc + j));
-      }
-      for (int j = lane; j < step; j += 32) {
-        const float pj = expf(p2s[j] - m);
-        sum2 += pj;
-        p2s[j] = bf16r(pj);
-      }
-      const float ps = expf(s_self - m);
-      const float denom = (warp_sum(sum1) + warp_sum(sum2)) + ps;
-      __syncwarp();
-      // values: lane accumulates dims [16 p, 16 p + 16) over keys j = kq (mod 4)
-      float o1[16], o2[16];
-#pragma unroll
-      for (int e = 0; e < 16; ++e) o1[e] = o2[e] = 0.0f;
-      for (int j0 = 0; j0 < plen; j0 += 4 * UNROLL) {
-        uint4 vraw[UNROLL];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int j = j0 + 4 * u + kq;
-          vraw[u] = j < plen ? __ldg(reinterpret_cast<const uint4*>(Vp + (size_t)j * HD + 16 * p))
-                             : make_uint4(0, 0, 0, 0);
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int j = j0 + 4 * u + kq;
-          const float wj = j < plen ? sc[j] : 0.0f;
-          const unsigned w[4] = {vraw[u].x, vraw[u].y, vraw[u].z, vraw[u].w};
-#pragma unroll
-          for (int e = 0; e < 16; ++e) o1[e] += wj * i8_at(w[e >> 2], e & 3);
-        }
-      }
-      for (int j0 = 0; j0 < step; j0 += 4) {
-        const int j = j0 + kq;
-        if (j < step) {
-          const float wj = p2s[j];
-          const uint4* src = reinterpret_cast<const uint4*>(gv + (size_t)j * HD + 16 * p);
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const uint4 u4 = src[half];
-            const unsigned w[4] = {u4.x, u4.y, u4.z, u4.w};
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              o2[8 * half + 2 * i] += wj * bf_lo(w[i]);
-              o2[8 * half + 2 * i + 1] += wj * bf_hi(w[i]);
-            }
-          }
-        }
-      }
-#pragma unroll
-      for (int e = 0; e < 16; ++e) {
-        o1[e] += __shfl_xor_sync(0xffffffffu, o1[e], 8);
-        o1[e] += __shfl_xor_sync(0xffffffffu, o1[e], 16);
-        o2[e] += __shfl_xor_sync(0xffffffffu, o2[e], 8);
-        o2[e] += __shfl_xor_sync(0xffffffffu, o2[e], 16);
-      }
-      if (kq == 0) {
-        __nv_bfloat16* out = a.act + (size_t)b * a.D + h * HD + 16 * p;
-#pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const float o3 = ps * vs[16 * p + e];
-          out[e] = __float2bfloat16_rn(((o1[e] + o2[e]) + o3) / denom);
-        }
-      }
-      __syncwarp();
+  // the run of K or V (side) of (row, head) of layer l: prompt positions p0
+  // .. p0 + nv - 1 and their scales (scale_cover), or gen slots
+  __device__ void issue(int item, int side, int si, int p0, int nv, unsigned char* dst,
+                        float* sdst, uint64_t* bar) const {
+    const size_t run = run_of(item, side, si, p0);
+    const uint64_t pol = dattn::evict_first();
+    const uint32_t bytes = (uint32_t)nv * HD * (si == 0 ? 1 : 2);
+    if (si == 0) {
+      const uint32_t sbytes = scale_cover(run, nv);
+      wonly::mbar_arrive_expect(bar, bytes + sbytes);
+      dattn::bulk_load(dst, a.kv + run * HD, bytes, bar, pol);
+      dattn::bulk_load(sdst, a.kvsc + (run & ~(size_t)3), sbytes, bar, pol);
+    } else {
+      wonly::mbar_arrive_expect(bar, bytes);
+      dattn::bulk_load(dst, a.genkv + run * HD, bytes, bar, pol);
     }
+  }
+
+  // this step's k (which 0, roped) or v (1) at dim d into gen slot `step`
+  __device__ void store_new(int b, int h, int which, int d, float v) const {
+    const size_t slot = ((((size_t)l * 2 + which) * a.Bk + a.b0 + b) * a.H + h) * a.Gp + a.step;
+    a.genkv[slot * HD + d] = __float2bfloat16_rn(v);
   }
 };
 
@@ -247,5 +129,5 @@ extern "C" int decode_step_fused(void* const* w, void* const* s, const void* att
   a.part = static_cast<float*>(part);
   a.L = L; a.B = B; a.Bk = Bk; a.b0 = b0; a.D = D; a.F = F; a.H = H; a.Sp = Sp; a.Gp = Gp;
   a.step = step; a.eps = eps;
-  return launch_step<GenCacheAttn>(a, (3 * HD + Sp + Gp) * 4, stream);
+  return launch_step<GenCacheAttn>(a, Sp + Gp, stream);
 }

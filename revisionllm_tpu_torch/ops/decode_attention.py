@@ -20,6 +20,19 @@ import torch
 from revisionllm_tpu_torch.utils import kernels
 
 NEG_INF = -2.0e30
+# csrc/decode_attention.cu's geometry, mirrored to check a launch's shared
+# memory: attention warps a block, ring slots, tile bytes; the heads of a
+# scale box (floats a position of a slot's scales)
+KWARPS, KSTAGES, KTILE, SST = 4, 3, 8192, 4
+SMEM_MAX = 227 * 1024
+
+
+def smem_bytes(S: int, G: int, group: int, hd: int = 128) -> int:
+    """K3's dynamic shared memory (k3_smem): the ring's tiles, scales and
+    barriers, q for two items, the scores [group, S + G], the warps' partial
+    outputs, maxima and denominators, and the alignment slack."""
+    return (128 + KSTAGES * (KTILE + KTILE // hd * SST * 4 + 16) + 4 * 2 * group * hd
+            + 4 * group * (S + G) + 4 * KWARPS * group * (hd + 2))
 
 
 def decode_attention_plain(
@@ -106,8 +119,8 @@ def decode_attention(
             "prompt k/v [B, S, KH, hd] int8 with f32 scales [B, S, KH] (or bf16 without), "
             "bf16 gen k/v [B, G, KH, hd] on one device"
         )
-    smem = 4 * (group * (S + G) + 4 * group + 4 * group * hd)
-    if smem > 227 * 1024:
+    smem = smem_bytes(S, G, group, hd)
+    if smem > SMEM_MAX:
         raise ValueError(f"decode_attention kernel: S={S} needs {smem} B of shared memory")
     lens = mask_lens.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)

@@ -39,7 +39,7 @@ from revisionllm_tpu_torch.ops.decode_step import (
     _rms_norm_bf16,
     _round_up,
     _slices,
-    attn_warps,
+    attn_layout,
     step_smem_bytes,
 )
 from revisionllm_tpu_torch.utils import kernels
@@ -268,8 +268,8 @@ def decode_step_serve(
     if not (
         hd == 128 and D == H * hd and ncD * BN == D and BN % 128 == 0 and ncf * BF == Fp
         and Fp % 16 == 0 and Lk == L and Bk == B and two == 2 and 0 <= step and s0 + step < Sp
-        and attn_warps(3 * hd + s0 + step) >= 1
-        and step_smem_bytes(D, Fp, 3 * hd + s0 + step) <= SMEM_MAX
+        and attn_layout(s0 + step, _slices(D))[0] >= 1
+        and step_smem_bytes(D, Fp, s0 + step) <= SMEM_MAX
         and kvsc.shape == (L, B, 2, H, Sp) and tuple(prompt_lens.shape) == (B,)
         and cos.shape == (B, hd // 2) and sin.shape == (B, hd // 2)
         and all(tuple(w.shape) == s and w.dtype == torch.int8 for w, s in zip(ws, shapes))
@@ -278,7 +278,7 @@ def decode_step_serve(
         and all(t.dtype == torch.bfloat16 for t in bf16) and kv.dtype == torch.int8
         and kvsc.dtype == torch.float32
         and all(t.device == dev and t.is_contiguous() and t.data_ptr() % 16 == 0
-                for t in (*ws, *scales, *bf16, kv, kvsc))
+                for t in (*ws, *scales, *bf16, kv, kvsc)) and kvsc.numel() % 4 == 0
     ):
         raise ValueError(
             "decode_step_serve kernel takes the packed int8 Vicuna tree (MHA, head dim 128, "

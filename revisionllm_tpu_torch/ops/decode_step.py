@@ -36,7 +36,10 @@ MATRICES = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "dow
 ROWS_PER_LAUNCH = 64    # MP: a larger batch takes one launch per 64 rows
 KSLICE, BK = 1024, 128  # the K slicing, in whole weight boxes of BK rows
 CONSUMER_WARPGROUPS, STAGES = 3, 2  # CWG, and the ring stages of each
-ATTN_WARPS = 8          # AWARPS: the most warps of the attention phase
+ATTN_WARPS = 4 * CONSUMER_WARPGROUPS  # AWARPS: the attention phase's warps, in teams
+ATTN_STAGES, ATTN_TILE = 4, 12288     # ASTAGES, ATILE: a team ring's most slots, a slot's bytes
+HD = 128                # the head dim
+ATTN_SCALES = ATTN_TILE // HD + 4     # ASCL: a slot's scale floats (a tile's, aligned to 16 bytes)
 # SMEM_FIXED: the alignment slack, the rings of 128 x 128 int8 boxes, the barriers
 SMEM_FIXED = 1024 + CONSUMER_WARPGROUPS * STAGES * BK * 128 + 1024
 SMEM_MAX = 227 * 1024   # the H100's shared memory a block
@@ -171,19 +174,44 @@ def _slices(K: int) -> int:
     return -(-K // _slice_rows(K))
 
 
-def attn_warps(attn_floats: int) -> int:
-    """The attention phase's warps (attn_warps) for `attn_floats` f32 of
-    scratch a warp: ATTN_WARPS when their scratch fits beside the rings,
-    fewer for a longer cache, 0 when not one warp's does."""
-    return min(ATTN_WARPS, (SMEM_MAX - SMEM_FIXED) // (attn_floats * 4))
+def attn_scratch_bytes(nsc: int, slices: int, wpt: int) -> int:
+    """An attention team's scratch (attn_scratch_bytes) for items of up to
+    nsc positions, q/k/v sums over `slices` K slices and wpt warps: the
+    staged q/k/v inputs, q rounded to bf16 and q, k, v in f32 for two items,
+    two self scores, the scores, the warps' partial outputs, maxima and
+    denominators."""
+    return 4 * ((3 * slices + 4) * HD + 2 * 4 * HD + 2 + nsc + wpt * (HD + 2))
 
 
-def step_smem_bytes(D: int, F: int, attn_floats: int) -> int:
+def attn_team_bytes(stages: int, nsc: int, slices: int, wpt: int) -> int:
+    """A team's ring and scratch, rounded up to 128 bytes (attn_team_bytes)."""
+    ring = stages * (ATTN_TILE + ATTN_SCALES * 4)
+    return -(-(ring + attn_scratch_bytes(nsc, slices, wpt)) // 128) * 128
+
+
+def attn_layout(nsc: int, slices: int) -> Tuple[int, int]:
+    """(teams, ring slots a team) of the attention phase (attn_layout) for
+    items of up to nsc positions: the most teams (a divisor of ATTN_WARPS,
+    at most CONSUMER_WARPGROUPS) whose rings get at least 2 slots, each up
+    to ATTN_STAGES; (0, 0) when not one team fits."""
+    room = SMEM_MAX - SMEM_FIXED
+    for teams in range(CONSUMER_WARPGROUPS, 0, -1):
+        if ATTN_WARPS % teams:
+            continue
+        for stages in range(ATTN_STAGES, 1, -1):
+            if teams * attn_team_bytes(stages, nsc, slices, ATTN_WARPS // teams) <= room:
+                return teams, stages
+    return 0, 0
+
+
+def step_smem_bytes(D: int, F: int, nsc: int) -> int:
     """The kernel's dynamic shared memory (step_smem): the fixed regions and
     the larger of the activation slices [64, slice rows] bf16 and the
-    scratch of attn_warps(attn_floats) attention warps."""
+    attention teams' rings and scratch for items of up to nsc positions."""
     act = max(ROWS_PER_LAUNCH * _slice_rows(K) * 2 for K in (D, F))
-    return SMEM_FIXED + max(act, attn_warps(attn_floats) * attn_floats * 4)
+    teams, stages = attn_layout(nsc, _slices(D))
+    return SMEM_FIXED + max(act, teams * attn_team_bytes(stages, nsc, _slices(D),
+                                                         ATTN_WARPS // max(teams, 1)))
 
 
 def decode_step_fused(
@@ -224,8 +252,8 @@ def decode_step_fused(
     bf16 = (x, genkv, *norms)
     if not (
         hd == 128 and D == H * hd and F % 16 == 0 and Lk == L and Bk == B and two == 2
-        and 0 <= step < Gp and attn_warps(3 * hd + Sp + Gp) >= 1
-        and step_smem_bytes(D, F, 3 * hd + Sp + Gp) <= SMEM_MAX
+        and 0 <= step < Gp and attn_layout(Sp + Gp, _slices(D))[0] >= 1
+        and step_smem_bytes(D, F, Sp + Gp) <= SMEM_MAX
         and genkv.shape == (L, 2, B, H, Gp, hd) and kvsc.shape == (L, B, 2, H, Sp)
         and tuple(prompt_lens.shape) == (B,) and cos.shape == (B, hd // 2)
         and sin.shape == (B, hd // 2)
@@ -235,12 +263,12 @@ def decode_step_fused(
         and all(t.dtype == torch.bfloat16 for t in bf16) and kv.dtype == torch.int8
         and kvsc.dtype == torch.float32
         and all(t.device == dev and t.is_contiguous() and t.data_ptr() % 16 == 0
-                for t in (*ws, *scales, *bf16, kv, kvsc))
+                for t in (*ws, *scales, *bf16, kv, kvsc)) and kvsc.numel() % 4 == 0
     ):
         raise ValueError(
             "decode_step_fused kernel takes the int8 Vicuna tree (MHA, head dim 128, "
-            "F % 16 == 0), a packed int8 prompt cache whose scores fit one warp's shared "
-            "memory beside the weight rings, a bf16 gen cache [L, 2, B, H, Gp, 128] with "
+            "F % 16 == 0), a packed int8 prompt cache whose attention ring and "
+            "scores fit shared memory beside the weight rings, a bf16 gen cache [L, 2, B, H, Gp, 128] with "
             "0 <= step < Gp, bf16 x [B, D] and f32 cos/sin [B, 64], contiguous and 16-byte "
             "aligned on one device; "
             f"got x {x.dtype} {tuple(x.shape)}, kv {kv.dtype} {tuple(kv.shape)}, genkv "

@@ -7,7 +7,8 @@
 Needs one CUDA GPU and nvcc. For each SPEC (none: the header as it is),
 builds the row's source into build/decode_phases/ against an instrumented
 copy of revisionllm_tpu_torch/csrc/decode_common.cuh (the layer loop and
-phases that rows 9 and 10 share) in which block 0 reads %globaltimer after
+phases that rows 9 and 10 share; its attention phase runs the core of
+csrc/decode_attn_common.cuh, copied beside it) in which block 0 reads %globaltimer after
 every grid barrier, runs one decode step of Vicuna-7B at chip_smoke.py's
 kernels-phase shape (32 layers, int8 weights from seed 0, B 64, the stage-1
 prompt, a random int8 prompt cache or unified slab, step 11) three times,
@@ -17,7 +18,7 @@ checkout's sources instead (a parent unpacked with `git archive`, so that
 one call splits both), with this checkout's Python wrappers.
 
 SPEC is a comma-separated list of CONST=VALUE overrides of the header's
-constexprs (e.g. CWG=2,STAGES=3 or AWARPS=12) and cuts, which break the
+constexprs (e.g. CWG=2,STAGES=3, ASTAGES=2 or ATILE=16384) and cuts, which break the
 results on purpose to see what a part costs (CUTS below): `nomma` replaces
 each wgmma product by one add of its A register, `nowiden` feeds the raw
 weight words to the products, `nostore` drops the epilogue's stores of the
@@ -25,7 +26,15 @@ partial sums, `nocopy` lets the producer arrive on each stage without
 copying a box (no weight reads), `l2` reads every box from the first column
 tile of layer 0 (L2 hits instead of device memory), `noslice` skips the
 activation slice's copies, `noahead` stops the producer's copies ahead of a
-matmul phase (the rings refill from cold after every barrier).
+matmul phase (the rings refill from cold after every barrier). The attention
+core's cuts (ATTN_CUTS, edits of decode_attn_common.cuh, which K3's probe
+scripts/torch_decode_attention_kernel.py uses too): `anocopy` lets the
+producer arrive on each ring slot without copying a tile or its scales (no
+cache reads), `anowiden` feeds the raw int8 words to the dots in place of
+the widened values, `anovalue` skips the value pass's arithmetic (its tiles
+still arrive and are released), `anoscore` the score pass's. The instrument
+`atime` adds SM clocks of block 0's first attention thread: its waits for
+tiles, its score passes and its value passes, a layer.
 """
 
 from __future__ import annotations
@@ -68,15 +77,87 @@ CUTS = {
     "noahead": [("      rg.prod->ahead = issue_ahead(a, l + (pi == 3), (pi + 1) & 3, rg);",
                  "      rg.prod->ahead = 0;")],
 }
+ATTN_HEADER = CSRC / "decode_attn_common.cuh"
+ATTN_CUTS = {
+    "anocopy": [("          c.issue(item, side, si, p0, min(tp, pl.s[si].n - p0), r.data + (size_t)r.slot * C::TB,\n"
+                 "                  r.scl + r.slot * C::SCL, r.full + r.slot);\n",
+                 "          wonly::mbar_arrive(r.full + r.slot);\n")],
+    "anowiden": [("      v[4 * i + j] = __uint_as_float(__byte_perm(x, 0x4B00u, 0x5440u | j)) - MAGIC;",
+                  "      v[4 * i + j] = __uint_as_float(w[i]);")],
+    "anoscore": [("      const float* ks = r.scl + r.slot * C::SCL;\n"
+                  "      for (int gi = first_group<NW>(warp, dealt); gi < ng; gi += GU * NW) {\n",
+                  "      const float* ks = r.scl + r.slot * C::SCL;\n"
+                  "      for (int gi = first_group<NW>(warp, dealt); gi < ng; gi += GU * NW) {\n"
+                  "        if (ng >= 0) continue;\n")],
+    "anovalue": [("      const float* vs = r.scl + r.slot * C::SCL;\n"
+                  "      for (int gi = first_group<NW>(warp, dealt); gi < ng; gi += GU * NW) {\n",
+                  "      const float* vs = r.scl + r.slot * C::SCL;\n"
+                  "      for (int gi = first_group<NW>(warp, dealt); gi < ng; gi += GU * NW) {\n"
+                  "        if (ng >= 0) continue;\n")],
+}
+# an instrument, not a cut: SM clocks of block 0's first attention thread summed
+# into g_attn_t (0 the waits for tiles, 1 the score passes, 2 the value passes),
+# read back by read_attn_t (ATTN_READ, appended to the source)
+ATTN_TIME = {
+    "atime": [("namespace dattn {\n",
+               "namespace dattn {\n__device__ long long g_attn_t[8];\n"
+               "#define ATIME(i, t0) if (blockIdx.x == 0 && threadIdx.x == 0) dattn::g_attn_t[i] += clock64() - (t0)\n"),
+              ("      wonly::mbar_wait(r.full + r.slot, r.phase);\n",
+               "      const long long tw = clock64();\n      wonly::mbar_wait(r.full + r.slot, r.phase);\n"
+               "      ATIME(0, tw);\n"),
+              ("  float q[GRP][E], mx[GRP];\n", "  const long long ts = clock64();\n  float q[GRP][E], mx[GRP];\n"),
+              ("    if (lane == 0) red_max[warp * GRP + g] = v;\n  }\n",
+               "    if (lane == 0) red_max[warp * GRP + g] = v;\n  }\n  ATIME(1, ts);\n"),
+              ("  float o[GRP][E], den[GRP];\n", "  const long long ts = clock64();\n  float o[GRP][E], den[GRP];\n"),
+              ("    if (lane == 0) red_den[warp * GRP + g] = d;\n  }\n",
+               "    if (lane == 0) red_den[warp * GRP + g] = d;\n  }\n  ATIME(2, ts);\n")],
+}
+# the same instrument in decode_common.cuh's attention phase: 3 the q/k/v
+# of an item and the barrier after them, 4 the barrier after the score
+# pass, 5 the value pass's end to the barrier after it, 6 the output
+COMMON_TIME = {
+    "atime": [("    const dattn::Plan pl = src.plan_of(item, plen);\n    team_sync<NW>(team);  // q, k and v of this item; the staged inputs are read\n",
+               "    const dattn::Plan pl = src.plan_of(item, plen);\n    team_sync<NW>(team);  // q, k and v of this item; the staged inputs are read\n    ATIME(3, t_item);\n"),
+              ("    const int b = item / a.H, h = item % a.H;\n    float* qb = qkv + par * 4 * HD;",
+               "    const long long t_item = clock64();\n    const int b = item / a.H, h = item % a.H;\n    float* qb = qkv + par * 4 * HD;"),
+              ("    dattn::score_pass<NW>(src, pl, qb, sc, a.nsc, red_max, r, warp);\n    team_sync<NW>(team);",
+               "    dattn::score_pass<NW>(src, pl, qb, sc, a.nsc, red_max, r, warp);\n    const long long t_s2 = clock64();\n    team_sync<NW>(team);\n    ATIME(4, t_s2);"),
+              ("    asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n    team_sync<NW>(team);  // the warps' partial outputs",
+               "    const long long t_s3 = clock64();\n    asm volatile(\"cp.async.wait_all;\\n\" ::: \"memory\");\n    team_sync<NW>(team);\n    ATIME(5, t_s3);  // the warps' partial outputs"),
+              ("      a.act[(size_t)b * a.D + h * HD + ttid] = __float2bfloat16_rn(o / den);\n    }\n",
+               "      a.act[(size_t)b * a.D + h * HD + ttid] = __float2bfloat16_rn(o / den);\n    }\n    ATIME(6, t_s3);\n")],
+}
+ATTN_READ = ('\nextern "C" int read_attn_t(void* dst) {\n'
+             "  const cudaError_t err = cudaMemcpyFromSymbol(dst, dattn::g_attn_t, sizeof(dattn::g_attn_t));\n"
+             "  if (err != cudaSuccess) return (int)err;\n"
+             "  const long long zero[8] = {};\n"
+             "  return (int)cudaMemcpyToSymbol(dattn::g_attn_t, zero, sizeof(zero));\n}\n")
 STAMP = ("{ if (blockIdx.x == 0 && threadIdx.x == 0) { unsigned long long t; "
          "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); g_clocks[ns] = clock64(); "
          "g_stamps[ns++] = t; } }")
 
 
+def split_spec(spec: str):
+    """(SPEC's items for decode_common.cuh, its attention-core edits); the
+    instrument `atime` edits both."""
+    items = [i for i in spec.split(",") if i]
+    core = {**ATTN_CUTS, **ATTN_TIME}
+    return (",".join(i for i in items if i not in ATTN_CUTS),
+            ",".join(i for i in items if i in core))
+
+
+def attn_core(spec: str, csrc: Path = CSRC) -> str:
+    """`csrc`'s decode_attn_common.cuh with SPEC's attention cuts and
+    instrument applied."""
+    return kv.variant_source((csrc / ATTN_HEADER.name).read_text(), split_spec(spec)[1],
+                             {**ATTN_CUTS, **ATTN_TIME}, ATTN_HEADER.name)
+
+
 def instrumented(row: str, spec: str, csrc: Path = CSRC):
     """(the instrumented decode_common.cuh of `csrc` with SPEC applied, the
-    row's source with read_stamps)."""
-    src = kv.variant_source((csrc / HEADER.name).read_text(), spec, CUTS, HEADER.name)
+    row's source with read_stamps); attn_core applies SPEC's attention cuts."""
+    src = kv.variant_source((csrc / HEADER.name).read_text(), split_spec(spec)[0],
+                            {**CUTS, **COMMON_TIME}, HEADER.name)
     src = src.replace("namespace {\n", "__device__ unsigned long long g_stamps[2048];\n"
                       "__device__ long long g_clocks[2048];\nnamespace {\n", 1)
     head, sig, body = re.split(r"(step_kernel\([^)]*\) \{)", src, 1)
@@ -85,6 +166,7 @@ def instrumented(row: str, spec: str, csrc: Path = CSRC):
     body = body.replace("grid.sync();", "grid.sync(); " + STAMP)
     return (head + sig + body,
             (csrc / f"{ROWS[row][0]}.cu").read_text()
+            + (ATTN_READ if "atime" in spec.split(",") else "")
             + '\nextern "C" int read_stamps(void* dst, void* clocks) {\n'
               "  cudaError_t err = cudaMemcpyFromSymbol(dst, g_stamps, sizeof(g_stamps));\n"
               "  if (err != cudaSuccess) return (int)err;\n"
@@ -105,6 +187,8 @@ def build(row: str, specs, csrc: Path = CSRC):
         for extra in csrc.glob("*.cuh"):
             (work / extra.name).write_text(extra.read_text())
         (work / "decode_common.cuh").write_text(header)
+        if (csrc / ATTN_HEADER.name).exists():
+            (work / ATTN_HEADER.name).write_text(attn_core(spec, csrc))
         cu = work / f"{ROWS[row][0]}.cu"
         cu.write_text(src_text)
         procs[spec] = (subprocess.Popen(
@@ -163,7 +247,7 @@ def main() -> int:
     ap.add_argument("--root", type=Path, default=ROOT,
                     help="the checkout whose sources to instrument")
     ap.add_argument("--spec", action="append", default=[],
-                    help="CONST=VALUE overrides and cuts: " + ", ".join(CUTS))
+                    help="CONST=VALUE overrides and cuts: " + ", ".join([*CUTS, *ATTN_CUTS]))
     args = ap.parse_args()
     import torch
 
@@ -201,6 +285,18 @@ def main() -> int:
                   f"a step, SM clock {mhz[i]:6.0f} MHz", flush=True)
         mm = per[:, [1, 3, 5, 7]].sum(axis=1).mean()
         print(f"  matmul phases summed   {mm:8.1f} us a layer", flush=True)
+        if "atime" in spec.split(","):
+            t = np.zeros(8, np.int64)
+            lib.read_attn_t.argtypes = [ctypes.c_void_p]
+            lib.read_attn_t(t.ctypes.data)
+            fn(*fargs, **fkw)
+            torch.cuda.synchronize()
+            lib.read_attn_t(t.ctypes.data)
+            print(f"  attention, block 0's first thread a layer: waits for tiles {t[0] / L:.0f}, "
+                  f"score passes {t[1] / L:.0f}, value passes {t[2] / L:.0f}, q/k/v and its "
+                  f"barrier {t[3] / L:.0f}, the barrier after the scores {t[4] / L:.0f}, the "
+                  f"barrier after the values {t[5] / L:.0f}, it and the output {t[6] / L:.0f} "
+                  "clocks", flush=True)
     kernels._LIBS.pop(lib_name, None)
     kernels._FNS.pop((lib_name, ROWS[args.row][1]), None)
     print(smi, flush=True)

@@ -365,3 +365,24 @@ def test_two_call_check_rejects_one_flipped_bit():
         chip_smoke.same_bits("row", (hidden, kv), (off, kv))
     with pytest.raises(AssertionError, match="two calls differ"):
         chip_smoke.same_bits("row", (hidden, kv), (hidden,))
+
+
+@pytest.mark.parametrize("S,low", [(318, 280), (4084, 4020)])
+def test_k3_planted_faults_fail_the_limits(S, low):
+    """K3's check (k3_inputs, k3_faults, hold_k3) on its plain version at
+    the card's shapes cut to 2 rows and 4 kv heads: the second half of
+    every prompt masked and one V tile (prompt positions 64..127) dropped
+    each move the worst (row, head) vector by five times the block limit
+    and more, at the stage-1 prompt and at 4096 positions; the plain
+    version holds against itself."""
+    from revisionllm_tpu_torch.ops import decode_attention as DA
+
+    gen = torch.Generator().manual_seed(5)
+    args = (*chip_smoke.k3_inputs(gen, 2, 4, S, 12, 1, low, torch.device("cpu")), 11)
+    want = DA.decode_attention_plain(*args)
+    faults = chip_smoke.k3_faults(args, DA.decode_attention_plain)
+    assert set(faults) == {"the second half of every prompt masked", "one V tile dropped"}
+    for bad in faults.values():
+        rel, worst = chip_smoke.rel_errs(chip_smoke.k3_view(bad), chip_smoke.k3_view(want))
+        assert worst >= 5 * chip_smoke.VJP_TILE_TOL and rel > chip_smoke.VJP_TOL, (rel, worst)
+    assert chip_smoke.hold_k3("K3", want, want, faults) == 0.0

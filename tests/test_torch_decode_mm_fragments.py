@@ -47,8 +47,9 @@ def const(name):
     return int(re.search(rf"constexpr int {name} = (\d+);", HEADER).group(1))
 
 
-MP, CWG, BN, BK, STAGES, KSLICE, AWARPS = (
-    const(n) for n in ("MP", "CWG", "BN", "BK", "STAGES", "KSLICE", "AWARPS"))
+MP, CWG, BN, BK, STAGES, KSLICE, ASTAGES, ATILE = (
+    const(n) for n in ("MP", "CWG", "BN", "BK", "STAGES", "KSLICE", "ASTAGES", "ATILE"))
+AWARPS = 4 * CWG  # the attention phase runs on every consumer warp (AWARPS = WARPS)
 SMS = 132  # the H100's SMs: one block each
 # (first matrix, matrices, K, N) of the four matmul phases, K and N as "D" or "F"
 PHASES = ((0, 3, "D", "D"), (3, 1, "D", "D"), (4, 2, "D", "F"), (6, 1, "F", "D"))
@@ -119,7 +120,8 @@ def test_mirrors_follow_the_header():
     checks the shared memory) and the slice plan agree with the header."""
     assert (TDS.ROWS_PER_LAUNCH, TDS.KSLICE, TDS.BK) == (MP, KSLICE, BK)
     assert (TDS.CONSUMER_WARPGROUPS, TDS.STAGES, TDS.ATTN_WARPS) == (CWG, STAGES, AWARPS)
-    assert AWARPS <= 4 * CWG
+    assert "constexpr int AWARPS = WARPS;" in HEADER
+    assert (TDS.ATTN_STAGES, TDS.ATTN_TILE) == (ASTAGES, ATILE)
     assert TDS.SMEM_FIXED == 1024 + CWG * STAGES * BK * BN + 1024
     for K in (256, 688, 768, 1000, 4096, 4104, 11008, 11264):
         assert TDS._slice_rows(K) == slice_rows(K) and TDS._slices(K) == num_slices(K)
@@ -128,33 +130,42 @@ def test_mirrors_follow_the_header():
     assert [(num_slices(K), slice_rows(K)) for K in (4096, 11008, 11264)] == [
         (4, 1024), (11, 1024), (11, 1024)]
     # the kernels-phase shape fits (row 9: Sp 318 and Gp 16; row 10: s0 + step)
-    for F, floats in ((11008, 3 * 128 + 318 + 16), (11264, 3 * 128 + 318 + 11)):
-        smem = TDS.step_smem_bytes(4096, F, floats)
+    # with a team a consumer warpgroup, under the activation slice
+    for F, nsc in ((11008, 318 + 16), (11264, 318 + 11)):
+        smem = TDS.step_smem_bytes(4096, F, nsc)
         assert smem == TDS.SMEM_FIXED + MP * 1024 * 2 <= TDS.SMEM_MAX
-        assert TDS.attn_warps(floats) == AWARPS
+        assert TDS.attn_layout(nsc, 4) == (CWG, 2)
     assert TDS.SMEM_MAX == int(re.search(r"constexpr size_t SMEM_MAX = (\d+);", HEADER).group(1))
 
 
-@pytest.mark.parametrize("positions,warps", [("context", 7), (3744, 8), (3745, 7), (6880, 4)],
+@pytest.mark.parametrize("positions,layout", [("context", (2, 2)), (3744, (2, 2)), (3745, (2, 2)),
+                                              (6880, (1, 4))],
                          ids=["model-context", "last-at-8-warps", "first-at-7-warps",
                               "longest-before-the-rings"])
 @pytest.mark.parametrize("row", [9, 10])
-def test_long_caches_launch(row, positions, warps):
-    """A cache of every length Vicuna-7B supports launches: the attention
-    phase takes fewer warps when eight warps' scratch (3 hd + positions f32
-    each) does not fit beside the rings, 7 at the model's 4096 positions.
-    Row 9's positions are Sp + Gp; row 10's are s0 + step < Sp, so its
-    longest is the context less one. 6880 was the longest before the rings
-    held shared memory through the step."""
+def test_long_caches_launch(row, positions, layout):
+    """A cache of every length Vicuna-7B supports launches on every consumer
+    warp: the attention phase runs as many teams (of the consumer warps) as
+    have a ring of at least 2 slots beside their scratch (the staged q/k/v
+    inputs, one f32 score a position) in the activation region, each ring
+    up to ASTAGES slots: 3 teams at the stage-1 prompt, 2 at the model's 4096,
+    1 past it. Row 9's positions are Sp +
+    Gp; row 10's are s0 + step < Sp, so its longest is the context less one.
+    The ids are the lengths that mattered before: 3744 and 3745 were the
+    last at eight attention warps and the first at seven, 6880 the longest
+    before the weight rings held shared memory through the step."""
     cfg = TCfg()
     n = positions
     if positions == "context":
         n = cfg.max_position_embeddings - (row == 10)
-    floats = 3 * cfg.head_dim + n
     F = cfg.intermediate_size if row == 9 else -(-cfg.intermediate_size // 1024) * 1024
-    assert TDS.attn_warps(floats) == warps
-    assert warps * floats * 4 <= TDS.SMEM_MAX - TDS.SMEM_FIXED < (warps + 1) * floats * 4
-    assert TDS.step_smem_bytes(cfg.hidden_size, F, floats) <= TDS.SMEM_MAX
+    room = TDS.SMEM_MAX - TDS.SMEM_FIXED
+    teams, stages = layout
+    assert TDS.attn_layout(n, 4) == layout  # D 4096: 4 K slices
+    assert teams * TDS.attn_team_bytes(stages, n, 4, 4 * CWG // teams) <= room
+    assert stages == ASTAGES or teams * TDS.attn_team_bytes(stages + 1, n, 4, 4 * CWG // teams) > room
+    assert (teams + 1) * TDS.attn_team_bytes(2, n, 4, 4 * CWG // (teams + 1)) > room
+    assert TDS.step_smem_bytes(cfg.hidden_size, F, n) <= TDS.SMEM_MAX
 
 
 # ---------------------------------------------------------- the walk, TMA

@@ -1,6 +1,7 @@
 """The kernel probes' source edits (scripts/kernel_variants.py and the
 CUTS of scripts/torch_int4_probe.py, torch_int8_kernel.py,
-torch_fused_mlp_kernel.py and torch_decode_step_phases.py) against the CUDA
+torch_fused_mlp_kernel.py, torch_decode_step_phases.py and
+torch_decode_attention_kernel.py) against the CUDA
 sources as they are: every cut still finds its lines, overrides replace
 exactly one constexpr, and a stale edit or an unknown constant stops the
 probe. No GPU or nvcc is needed."""
@@ -14,6 +15,7 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "scripts"))
 
 import kernel_variants as kv  # noqa: E402
+import torch_decode_attention_kernel as k3_probe  # noqa: E402
 import torch_decode_step_phases as phases  # noqa: E402
 import torch_fused_mlp_kernel as mlp_probe  # noqa: E402
 import torch_int4_probe as int4_probe  # noqa: E402
@@ -78,3 +80,41 @@ def test_phase_script_instruments_both_rows(row, spec):
     assert '#include "decode_common.cuh"' in src
     for item in filter(lambda i: "=" in i, spec.split(",")):
         assert f"constexpr int {item.replace('=', ' = ')};" in header
+
+
+@pytest.mark.parametrize("spec", sorted(phases.ATTN_CUTS) + ["atime", "anocopy,anoscore,anovalue"])
+def test_attention_core_cuts_apply(spec):
+    """Every attention cut, and the `atime` instrument, still finds its
+    lines in csrc/decode_attn_common.cuh; a cut leaves decode_common.cuh as
+    it is, the instrument adds its clocks to both headers and read_attn_t to
+    the row's source."""
+    core, plain = phases.attn_core(spec), phases.attn_core("")
+    assert core != plain
+    for row in sorted(phases.ROWS):
+        header, src = phases.instrumented(row, spec)
+        assert (header != phases.instrumented(row, "")[0]) == ("atime" in spec)
+        assert ('extern "C" int read_attn_t' in src) == ("atime" in spec)
+    if "atime" in spec:
+        assert core.count("ATIME(") == 5 and phases.instrumented("9", spec)[0].count("ATIME(") == 4
+
+
+@pytest.mark.parametrize("spec", ["", "KBLOCKS=3,KSTAGES=4", "KTILE=16384,KWARPS=8", "noscale",
+                                  "anocopy,atime", "anowiden", "noscale,anovalue"])
+def test_k3_probe_variants(spec, tmp_path, monkeypatch):
+    """The K3 probe's variants: overrides replace one constexpr of
+    decode_attention.cu, its own cut `noscale` finds its lines, the core's
+    cuts and instrument land in the variant's copy of the header, and
+    `atime` appends read_attn_t."""
+    monkeypatch.setattr(k3_probe, "OUT", tmp_path)
+    (src, got_spec, inc), = k3_probe.sources({"v": spec}).values()
+    assert got_spec == spec
+    base = k3_probe.SRC.read_text()
+    assert (src != base) == any(i in spec for i in ("=", "noscale", "atime"))
+    for item in filter(lambda i: "=" in i, spec.split(",")):
+        assert f"constexpr int {item.replace('=', ' = ')};" in src
+    if "noscale" in spec:
+        assert "dattn::tma_load_3d" not in src
+    header = (inc / "decode_attn_common.cuh").read_text()
+    assert (header != phases.attn_core("")) == any(c in spec for c in ("anocopy", "anowiden",
+                                                                      "anovalue", "atime"))
+    assert ('extern "C" int read_attn_t' in src) == ("atime" in spec)
