@@ -113,9 +113,26 @@ measured in that run. Phases:
      on both sides through the serve path, the CPU's through row 10's plain
      version).
 
+ 14. the HF checkpoint loader through its entry point: a random Llama at
+     Vicuna-7B width and 4 layers (the rest of the configuration uncut)
+     written as an HF directory of two fp16 .safetensors shards and a
+     config.json, and a stage directory from the port's exporter (LoRA r 64
+     on q/k/v/o, the ClipEncoder T2V adapter); eval.loader.
+     build_engine_from_args on stage1.parse_args' flags, then stage1.run over
+     the 1-hour movie (3 queries, 57 windows each), with REVISIONLLM_QUANT
+     unset (the CUDA default, int8) and then REVISIONLLM_SERVE=1: each
+     loader step's seconds, the checkpoint's GB/s, peak memory and launches
+     (fails unless K1, K2, K3 and torch._int_mm ran in the first, row 10,
+     K1 and K2 in the second); every loaded leaf torch.equal to the tree
+     built in memory without the files (the same LoRA merge, bf16 rounding
+     and host quantization), the JSONL records equal to that tree's
+     engine's, the first-step logits within relative L2 1e-2; a checkpoint
+     with layer 0's q_proj written untransposed must fail the tree check
+     and read above the logits limit.
+
 The kernel checks of phases 3, 7, 10 and 12 run first, after the build
 (rows 9 and 10 after phase 4, on the slice's weights); phase 13 runs after
-phase 6; the pipeline runs after it, before training.
+phase 6; the pipeline runs after it, then phase 14, before training.
 Prints phase lines, then one JSON line of per-kernel numbers, the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Exits non-zero,
 with no result line, when CUDA is missing, when run outside a checkout of
@@ -2860,6 +2877,399 @@ def phase_configs(dev, setup, runs):
     return out
 
 
+# ------------------------------------------------------------------ phase 14
+
+CKPT_LAYERS = 4             # Vicuna-7B width, depth cut to 4 layers (2.1 GB of fp16)
+CKPT_STD = 0.02             # HF Llama's initializer_range
+CKPT_LOGITS_TOL = 1e-2      # relative L2 of first-step logits, loaded vs in-memory tree
+CKPT_LORA = ("q_proj", "k_proj", "v_proj", "o_proj")
+HF_NAMES = {"q_proj": "self_attn.q_proj", "k_proj": "self_attn.k_proj",
+            "v_proj": "self_attn.v_proj", "o_proj": "self_attn.o_proj",
+            "gate_proj": "mlp.gate_proj", "up_proj": "mlp.up_proj", "down_proj": "mlp.down_proj",
+            "attn_norm": "input_layernorm", "mlp_norm": "post_attention_layernorm"}
+ST_DTYPES = {"float16": "F16", "float32": "F32", "int8": "I8"}
+
+
+def write_safetensors(path, tensors):
+    """{name: array} -> a .safetensors file: the header's byte length (8
+    bytes, little-endian), the JSON header (dtype, shape and data_offsets of
+    each tensor, padded with spaces to 8 bytes), then the tensors' bytes in
+    order. Returns the bytes written."""
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for name, a in tensors.items():
+        header[name] = {"dtype": ST_DTYPES[a.dtype.name], "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for a in tensors.values():
+            f.write(np.ascontiguousarray(a, a.dtype.newbyteorder("<")).data)
+    return 8 + len(raw) + offset
+
+
+def ckpt_tree(cfg, device, seed=0, std=CKPT_STD):
+    """The port-layout tree ([in, out] matrices stacked on L) of a random
+    Llama as fp16 NumPy arrays, drawn on `device` from `seed`: N(0, std)
+    matrices and embeddings, norms 1 + N(0, std). At 7B width the default
+    std gives attention scores of std about 1.6, as HF's initializer does."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    L, D, F, V = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+
+    def draw(*shape, mean=0.0):
+        t = torch.randn(shape, generator=gen, device=device) * std + mean
+        return t.to(torch.float16).cpu().numpy()
+
+    shapes = {"q_proj": (L, D, q), "k_proj": (L, D, kv), "v_proj": (L, D, kv),
+              "o_proj": (L, q, D), "gate_proj": (L, D, F), "up_proj": (L, D, F),
+              "down_proj": (L, F, D)}
+    layers = {n: draw(*s) for n, s in shapes.items()}
+    layers.update(attn_norm=draw(L, D, mean=1.0), mlp_norm=draw(L, D, mean=1.0))
+    return {"embed": draw(V, D), "layers": layers, "final_norm": draw(D, mean=1.0),
+            "lm_head": draw(D, V)}
+
+
+def hf_config(cfg):
+    """config.json of LlamaForCausalLM for `cfg`, as Vicuna-7B v1.5's (fp16)."""
+    return {"architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "vocab_size": cfg.vocab_size, "hidden_size": cfg.hidden_size,
+            "intermediate_size": cfg.intermediate_size, "num_hidden_layers": cfg.num_layers,
+            "num_attention_heads": cfg.num_heads, "num_key_value_heads": cfg.num_kv_heads,
+            "hidden_act": "silu", "rms_norm_eps": cfg.rms_norm_eps, "rope_theta": cfg.rope_theta,
+            "max_position_embeddings": cfg.max_position_embeddings, "initializer_range": CKPT_STD,
+            "tie_word_embeddings": False, "attention_bias": False, "bos_token_id": 1,
+            "eos_token_id": 2, "pad_token_id": 0, "torch_dtype": "float16"}
+
+
+def hf_shards(tree, fault=False):
+    """The tree in HF layout ([out, in], HF names) as two shards, the first
+    with the embedding and the first half of the layers. fault=True writes
+    layer 0's q_proj untransposed (square, so it still loads)."""
+    import torch
+
+    def hf(w):  # [in, out] -> [out, in], the transposing copy in torch
+        return torch.from_numpy(w).T.contiguous().numpy()
+
+    L = tree["layers"]["q_proj"].shape[0]
+    shards = ({"model.embed_tokens.weight": tree["embed"]},
+              {"model.norm.weight": tree["final_norm"], "lm_head.weight": hf(tree["lm_head"])})
+    for i in range(L):
+        for name, hf_name in HF_NAMES.items():
+            w = tree["layers"][name][i]
+            if not name.endswith("_norm") and not (fault and i == 0 and name == "q_proj"):
+                w = hf(w)
+            shards[i >= L // 2][f"model.layers.{i}.{hf_name}.weight"] = w
+    return shards
+
+
+def write_checkpoint(path, cfg, tree, fault=False, shard2=None):
+    """An HF checkpoint directory: config.json and two fp16 .safetensors
+    shards (the second linked from `shard2` when given). Returns the bytes
+    written."""
+    os.makedirs(path)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf_config(cfg), f)
+    nbytes = 0
+    for i, shard in enumerate(hf_shards(tree, fault)):
+        name = os.path.join(path, f"model-0000{i + 1}-of-00002.safetensors")
+        if i == 1 and shard2 is not None:
+            os.symlink(shard2, name)
+        else:
+            nbytes += write_safetensors(name, shard)
+    return nbytes
+
+
+def write_stage_dir(path, cfg, acfg, seed=1):
+    """A stage directory through the port's exporter: LoRA r 64 on CKPT_LORA
+    (A ~ N(0, 1/64^2), B ~ N(0, CKPT_STD^2)) and the ClipEncoder adapter of
+    `acfg` from `seed`. Returns (lora, lora_cfg, vision) as the exporter got
+    them (f32 CPU tensors)."""
+    import torch
+    from revisionllm_tpu_torch.config import LoraConfig
+    from revisionllm_tpu_torch.models import revisionllm
+    from revisionllm_tpu_torch.models.llama import LAYER_MATRICES, _dims
+    from revisionllm_tpu_torch.train.checkpoint import export_reference_artifacts
+
+    lora_cfg = LoraConfig(r=64, alpha=128, target_patterns=CKPT_LORA)
+    gen = torch.Generator().manual_seed(seed)
+    dims = _dims(cfg)
+    lora = {"layers": {}}
+    for name in CKPT_LORA:
+        din, dout = (dims[d] for d in LAYER_MATRICES[name])
+        lora["layers"][name] = {
+            "a": torch.randn((cfg.num_layers, din, 64), generator=gen) / 64,
+            "b": torch.randn((cfg.num_layers, 64, dout), generator=gen) * CKPT_STD}
+    vision = revisionllm.init_vision_params(acfg, seed=seed + 1, d_in=acfg.d_model,
+                                            device="cpu")
+    export_reference_artifacts(path, lora, lora_cfg, vision)
+    return lora, lora_cfg, vision
+
+
+def ckpt_reference(tree, lora, lora_cfg):
+    """What the loader must give for the checkpoint of `tree` and a stage
+    directory of `lora`, built in memory without the files and without
+    models/convert.py: every value rounded to bf16, the LoRA merged
+    (models.lora.merge on the bf16 base, A and B rounded to bf16, the result
+    rounded again), then quantize_llama_params_host. NumPy arrays."""
+    import torch
+    from revisionllm_tpu_torch.models import lora as lora_mod
+    from revisionllm_tpu_torch.ops import quant
+
+    def bf(a):
+        return torch.as_tensor(np.asarray(a, np.float32)).to(torch.bfloat16)
+
+    adapter = {n: {k: bf(v).float() for k, v in m.items()} for n, m in lora["layers"].items()}
+    merged = lora_mod.merge({"layers": {n: bf(w) for n, w in tree["layers"].items()}},
+                            {"layers": adapter}, lora_cfg)["layers"]
+    ref = {k: bf(tree[k]).float().numpy() for k in ("embed", "final_norm", "lm_head")}
+    ref["layers"] = {n: w.float().numpy() for n, w in merged.items()}
+    return quant.quantize_llama_params_host(ref)
+
+
+def as_loaded(ref, vision, serve):
+    """The reference trees as the loader hands them to the device (the
+    serving pack with `serve`; bf16 floats, f32 scales), on the CPU."""
+    import torch
+    from revisionllm_tpu_torch.models.weights import params_from_numpy
+    from revisionllm_tpu_torch.ops import quant
+
+    if serve:
+        ref = {**ref, "layers": quant.pack_serving_weights_host(ref["layers"])}
+    cpu = torch.device("cpu")
+    return (params_from_numpy(ref, cpu, torch.bfloat16),
+            params_from_numpy(vision, cpu, torch.bfloat16))
+
+
+def tree_mismatches(got, want):
+    """Paths where the loaded tree `got` (any device) is not torch.equal to
+    `want` (the CPU), in structure, dtype or value."""
+    import torch
+
+    got, want = dict(_named_leaves(got)), dict(_named_leaves(want))
+    return sorted(set(got) ^ set(want)) + [
+        p for p, w in want.items()
+        if p in got and not (got[p].dtype == w.dtype and torch.equal(got[p].cpu(), w))]
+
+
+class LoadClock:
+    """Times the loader's steps while inside, by wrapping the functions it
+    calls (the outermost call of each): reading and converting the
+    checkpoint, the LoRA merge, the int8 quantization, the serving pack and
+    the host-to-device copy. `seconds` holds the sums."""
+
+    STEPS = (("load_pretrained", "revisionllm_tpu_torch.models.convert", "load_pretrained"),
+             ("read", "revisionllm_tpu_torch.models.convert", "load_hf_llama_state"),
+             ("merge", "revisionllm_tpu_torch.models.convert", "merge_lora"),
+             ("quantize", "revisionllm_tpu_torch.ops.quant", "quantize_llama_params_host"),
+             ("pack", "revisionllm_tpu_torch.ops.quant", "pack_serving_weights_host"),
+             ("to device", "revisionllm_tpu_torch.models.weights", "params_from_numpy"))
+
+    def __enter__(self):
+        import importlib
+
+        self.seconds = {step: 0.0 for step, _, _ in self.STEPS}
+        self.orig = []
+        for step, mod, name in self.STEPS:
+            module = importlib.import_module(mod)
+            fn = getattr(module, name)
+            self.orig.append((module, name, fn))
+            setattr(module, name, self._timed(step, fn))
+        return self
+
+    def _timed(self, step, fn):
+        depth = [0]
+
+        def wrapper(*a, **k):
+            depth[0] += 1
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                depth[0] -= 1
+                if depth[0] == 0:
+                    self.seconds[step] += time.perf_counter() - t0
+        return wrapper
+
+    def __exit__(self, *exc):
+        for module, name, fn in self.orig:
+            setattr(module, name, fn)
+
+
+def first_step_logits(eng, movie, qf_np):
+    """Prefill logits [1, V] (f32) of the movie's first window under the
+    engine's serving numerics (KV8, W8A8 where its weights are int8)."""
+    import torch
+    from revisionllm_tpu_torch.constants import QUESTIONS
+    from revisionllm_tpu_torch.models import llama, revisionllm
+    from revisionllm_tpu_torch.models.multimodal import build_splice_plan, stack_plans
+
+    T, G = eng.eval_cfg.num_frames, eng.eval_cfg.max_new_tokens
+    ids = eng._prompt_ids(SENTENCE, QUESTIONS["mad_grounding"])
+    plan = stack_plans([build_splice_plan(ids, T, len(ids) - 1 + T + G)])
+    plan = {k: torch.as_tensor(v, device=eng.device) for k, v in plan.items()}
+    images = torch.as_tensor(movie[None, :T], device=eng.device).to(eng.dtype)
+    qf, qv = eng._broadcast_query_feats(qf_np, 1)
+    with torch.no_grad():
+        video = revisionllm.encode_video(eng.adapter_cfg, eng.vision_params, images, qf, qv)
+        embeds, pos, lens = revisionllm.assemble_inputs(eng.params, plan, video, dtype=eng.dtype)
+        return llama.prefill_kv(eng.llama_cfg, eng.params, embeds, pos, kv_lens=lens,
+                                kv_quant=True)[0].float()
+
+
+def rel_l2(got, want):
+    return ((got - want).norm() / want.norm()).item()
+
+
+def same_records(got, want):
+    """Stage-1 JSONL records: every field equal but the scores, which agree
+    within rtol 1e-4."""
+    def fields(r):
+        return {k: v for k, v in r.items() if k != "info"}, r["info"]["iou"]
+
+    return len(got) == len(want) and all(
+        fields(g) == fields(w)
+        and np.allclose(g["info"]["scores"], w["info"]["scores"], rtol=1e-4, atol=1e-6)
+        for g, w in zip(got, want))
+
+
+CKPT_RUNS = {
+    # the CUDA default, REVISIONLLM_QUANT unset: int8 layers, W8A8 prefill
+    # (torch._int_mm), K2, then K3 and K1 at every decode step
+    "standard": {"env": {}, "kernels": SERVING},
+    # the host pack: row 10 for every decode step, K1 for the lm_head, K2
+    "serve": {"env": {"REVISIONLLM_SERVE": "1"},
+              "kernels": ("decode_step_serve", "int8_matmul", "flash_attention")},
+}
+
+
+def phase_checkpoint(dev, tmp, movie):
+    """The HF checkpoint loader through the entry point a user calls: a
+    random Llama at Vicuna-7B width and CKPT_LAYERS layers written as an HF
+    directory of two fp16 .safetensors shards and a stage directory from the
+    port's exporter, loaded by eval.loader.build_engine_from_args from
+    stage1.parse_args' flags and run through stage1.run over the 1-hour
+    movie, standard and with REVISIONLLM_SERVE=1. Fails unless each run
+    launched its kernels (CKPT_RUNS), every leaf of the loaded trees is
+    torch.equal to the reference built in memory (ckpt_reference), the JSONL
+    records equal the reference engine's and the first-step logits agree
+    within CKPT_LOGITS_TOL; and unless a checkpoint with layer 0's q_proj
+    written untransposed fails the tree check and the logits check."""
+    import torch
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.eval import loader, stage1
+    from revisionllm_tpu_torch.eval import metrics as M
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+    from revisionllm_tpu_torch.utils import kernels
+
+    cfg = LlamaConfig(num_layers=CKPT_LAYERS)
+    root = os.path.join(tmp, "checkpoint")
+    base, stage = os.path.join(root, "vicuna"), os.path.join(root, "stage")
+    common = pipeline_files(os.path.join(root, "inputs"), movie)
+    qf_np = np.load(os.path.join(root, "inputs", "queries", "q0.npz"))["token_features"]
+
+    def argv(model_base, log):
+        return stage1.parse_args(common + ["--model_base", model_base, "--stage2", stage,
+                                           "--log_path", os.path.join(root, log)] + S1_FLAGS)
+
+    t0 = time.perf_counter()
+    tree = ckpt_tree(cfg, dev)
+    t1 = time.perf_counter()
+    nbytes = write_checkpoint(base, cfg, tree)
+    t2 = time.perf_counter()
+    acfg = loader.adapter_cfg_from_args(argv(base, "unused")).with_hidden(cfg.hidden_size)
+    lora, lora_cfg, vision = write_stage_dir(stage, cfg, acfg)
+    say(f"checkpoint: Vicuna-7B width, {CKPT_LAYERS} layers: tree drawn on the card from seed 0 "
+        f"in {t1 - t0:.2f} s; written as 2 fp16 .safetensors shards and config.json, "
+        f"{nbytes / 1e9:.3f} GB in {t2 - t1:.2f} s ({nbytes / 1e9 / (t2 - t1):.2f} GB/s); "
+        f"stage directory (LoRA r 64 on q/k/v/o, ClipEncoder T2V 768/8/2/2048) through the "
+        f"port's exporter in {time.perf_counter() - t2:.2f} s")
+    t0 = time.perf_counter()
+    ref_np = ckpt_reference(tree, lora, lora_cfg)
+    say(f"checkpoint: the reference tree built in memory (merge, bf16, quantize) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    old_quant = os.environ.pop("REVISIONLLM_QUANT", None)
+    try:
+        for label, run in CKPT_RUNS.items():
+            with switched(run["env"]):
+                args = argv(base, f"log_{label}")
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                with LoadClock() as clock:
+                    t0 = time.perf_counter()
+                    eng = loader.build_engine_from_args(args, tokenizer=fake_tokenizer())
+                    torch.cuda.synchronize()
+                    total = time.perf_counter() - t0
+                sec = clock.seconds
+                kernels.reset_launches()
+                with _CountIntMM() as int_mm:
+                    stats = stage1.run(args, eng)
+                    torch.cuda.synchronize()
+                launches = dict(kernels.LAUNCHES)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+                convert = sec["load_pretrained"] - sec["read"] - sec["merge"]
+                say(f"checkpoint ({label}, switches {run['env'] or 'none'}): "
+                    f"build_engine_from_args {total:.2f} s: read {sec['read']:.2f} s "
+                    f"({nbytes / 1e9 / sec['read']:.2f} GB/s, from the page cache after the "
+                    f"write), convert and round to bf16 {convert:.2f} s, merge {sec['merge']:.2f} "
+                    f"s, quantize {sec['quantize']:.2f} s, pack {sec['pack']:.2f} s, "
+                    f"host-to-device {sec['to device']:.2f} s; stage1.run {stats}; peak device "
+                    f"memory {peak:.2f} GiB")
+                say(f"checkpoint ({label}): launches in stage1.run: "
+                    + str({k: n for k, n in launches.items() if n}) + f", torch._int_mm {int_mm.n}")
+                missing = [k for k in run["kernels"] if launches[k] == 0]
+                if label == "standard" and int_mm.n == 0:
+                    missing.append("torch._int_mm")
+                if missing or stats["done"] != PIPE_QUERIES or stats["errors"]:
+                    raise AssertionError(f"checkpoint ({label}): {stats}, never launched {missing}")
+
+                ref_params, ref_vision = as_loaded(ref_np, vision, label == "serve")
+                bad = tree_mismatches(eng.params, ref_params) + \
+                    tree_mismatches(eng.vision_params, ref_vision)
+                ref = GroundingEngine(cfg, eng.adapter_cfg, _to(ref_params, dev),
+                                      _to(ref_vision, dev), fake_tokenizer(), eng.eval_cfg,
+                                      device=dev)
+                ref_args = argv(base, f"log_{label}_reference")
+                stage1.run(ref_args, ref)
+                same = same_records(M.load_prediction_logs(args.log_path, 1),
+                                    M.load_prediction_logs(ref_args.log_path, 1))
+                err = rel_l2(first_step_logits(eng, movie, qf_np),
+                             first_step_logits(ref, movie, qf_np))
+                n = len(_named_leaves(ref_params)) + len(_named_leaves(ref_vision))
+                say(f"checkpoint ({label}): loaded tree against the one built in memory: "
+                    f"{n - len(bad)} of {n} leaves torch.equal; JSONL records "
+                    f"{'equal' if same else 'DIFFER'}; first-step logits relative L2 {err:.3e} "
+                    f"(tol {CKPT_LOGITS_TOL})")
+                if bad or not same or not err <= CKPT_LOGITS_TOL:
+                    raise AssertionError(f"checkpoint ({label}): leaves differ {bad[:8]}, "
+                                         f"records equal {same}, logits {err}")
+                if label == "standard":
+                    faulty = os.path.join(root, "vicuna_fault")
+                    write_checkpoint(faulty, cfg, tree, fault=True, shard2=os.path.join(
+                        base, "model-00002-of-00002.safetensors"))
+                    del eng
+                    torch.cuda.empty_cache()
+                    eng = loader.build_engine_from_args(argv(faulty, "log_fault"),
+                                                        tokenizer=fake_tokenizer())
+                    bad = tree_mismatches(eng.params, ref_params)
+                    err = rel_l2(first_step_logits(eng, movie, qf_np),
+                                 first_step_logits(ref, movie, qf_np))
+                    say(f"checkpoint (planted fault: layer 0's q_proj written untransposed): "
+                        f"leaves that differ {bad}; first-step logits relative L2 {err:.3e}")
+                    if not bad or err <= CKPT_LOGITS_TOL:
+                        raise AssertionError("checkpoint: the planted fault passed a check")
+                del eng, ref, ref_params, ref_vision
+                torch.cuda.empty_cache()
+    finally:
+        if old_quant is not None:
+            os.environ["REVISIONLLM_QUANT"] = old_quant
+
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2926,6 +3336,7 @@ def main() -> int:
         launches = phase_pipeline(dev, setup, tmp)
         for name in PIPELINE:
             records[name]["launches"] = launches[name]
+        phase_checkpoint(dev, tmp, setup[1])
         del setup
         torch.cuda.empty_cache()
         phase_pipeline_compare(dev)

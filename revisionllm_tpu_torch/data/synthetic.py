@@ -1,7 +1,7 @@
 """Synthetic grounding corpus: a tiny world where grounding is LEARNABLE.
 
-A host copy of `make_synthetic_corpus` from revisionllm_tpu/data/synthetic.py
-(the stream corpus and the tiny HF checkpoint builder wait).
+A host copy of `make_synthetic_corpus` and `build_tiny_hf_checkpoint` from
+revisionllm_tpu/data/synthetic.py (the stream corpus waits).
 
 Purpose: prove the full train -> export -> load -> eval chain actually
 *learns to ground events* (the system-level claim no real-checkpoint run can
@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -178,3 +178,63 @@ def make_synthetic_corpus(
         "val_json": val_json,
         "n_queries_val": str(len(val_ann)),
     }
+
+
+# ----------------------------------------------------------------- tokenizer
+
+SYNTH_WORDS: List[str] = (
+    ["<unk>", "<s>", "</s>", "<video>", "<memory>"]
+    + [f"{i:02d}" for i in range(100)]      # two-digit frame tokens
+    + [str(i) for i in range(10)]           # class digits in the question
+    + "pattern from to not present in video during which frames can we see "
+      "the happen does it when no yes A chat between a curious user and an "
+      "artificial intelligence assistant . The gives helpful , detailed and "
+      "polite answers questions USER ASSISTANT : ? ' s From To Not Present "
+      "In Video".split()
+)
+
+
+def build_tiny_hf_checkpoint(
+    out_dir: str,
+    *,
+    hidden_size: int = 128,
+    num_layers: int = 2,
+    num_heads: int = 4,
+    intermediate_size: int = 256,
+    extra_words: Optional[List[str]] = None,
+    seed: int = 0,
+) -> str:
+    """Word-level-tokenizer tiny Llama checkpoint in HF format, the
+    `--model_base` of synthetic runs (needs transformers and tokenizers,
+    imported here: the GPU's machine may lack them)."""
+    words = list(dict.fromkeys(SYNTH_WORDS + (extra_words or [])))
+    vocab = {w: i for i, w in enumerate(words)}
+
+    import torch
+    from tokenizers import Tokenizer, models, pre_tokenizers
+    from transformers import LlamaConfig as HFLlamaConfig
+    from transformers import LlamaForCausalLM, PreTrainedTokenizerFast
+
+    tok = Tokenizer(models.WordLevel(vocab, unk_token="<unk>"))
+    tok.pre_tokenizer = pre_tokenizers.Whitespace()
+    fast = PreTrainedTokenizerFast(
+        tokenizer_object=tok, unk_token="<unk>", bos_token="<s>",
+        eos_token="</s>",
+    )
+    fast.save_pretrained(out_dir)
+
+    cfg = HFLlamaConfig(
+        vocab_size=len(vocab), hidden_size=hidden_size,
+        intermediate_size=intermediate_size, num_hidden_layers=num_layers,
+        num_attention_heads=num_heads, num_key_value_heads=num_heads,
+        max_position_embeddings=512, rms_norm_eps=1e-5,
+    )
+    torch.manual_seed(seed)
+    model = LlamaForCausalLM(cfg)
+    # random-init tiny bases only: the final RMSNorm bounds |h| ~ sqrt(D), so
+    # with HF's 0.02-std lm_head the logit spread stays near 0.2 and a frozen
+    # head never predicts confidently; pretrained heads have large rows
+    with torch.no_grad():
+        model.lm_head.weight.mul_(25.0)
+    model.save_pretrained(out_dir)
+    return out_dir

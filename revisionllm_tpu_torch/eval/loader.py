@@ -1,11 +1,14 @@
-"""Engine configuration from the eval CLIs' arguments: the config half of
-revisionllm_tpu/eval/loader.py.
+"""Engine construction from the eval CLIs' arguments: checkpoint assembly,
+serving quantization and the tokenizer. Counterpart of
+revisionllm_tpu/eval/loader.py, the glue of the reference's
+load_pretrained_model call sites (eval_nlq_negative.py:143,
+eval_nlq_retrieval_e2e2.py:180).
 
-`build_engine_from_args` assembles an engine from an HF checkpoint and its
-tokenizer. It waits for the checkpoint loader (ROADMAP Queue A step 9b)
-and raises until then; `stage1.run` and `stage2.run` take an engine built
-by the caller. `serving_params_host` is the serving quantization that it
-will apply to the converted checkpoint before the transfer to the card.
+`build_engine_from_args` resolves the device first (CUDA unless --device
+says otherwise), then converts the HF checkpoint and the stage directories
+(models/convert.py), quantizes it in host RAM (`serving_params_host`) and
+moves it to the device. The tokenizer comes from `transformers` unless the
+caller passes one.
 """
 
 from __future__ import annotations
@@ -82,9 +85,45 @@ def serving_params_host(llama_cfg, params, device):
     return params
 
 
-def build_engine_from_args(args):
-    raise NotImplementedError(
-        "building an engine from --model_base needs the HF checkpoint loader, which is "
-        "not ported yet (ROADMAP Queue A step 9b); build a GroundingEngine and call "
-        "stage1.run / stage2.run with it"
+def build_engine_from_args(args, tokenizer=None):
+    """A GroundingEngine on `args.device` (default CUDA) from --model_base,
+    the projector flags and the --stage2 / --stage3 LoRA directories.
+    `tokenizer`, when given, replaces AutoTokenizer.from_pretrained."""
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+    from revisionllm_tpu_torch.models.convert import load_pretrained
+    from revisionllm_tpu_torch.models.llama import torch_dtype
+    from revisionllm_tpu_torch.models.weights import params_from_numpy
+    from revisionllm_tpu_torch.utils.device import resolve_device
+
+    device = resolve_device(getattr(args, "device", None))
+    if getattr(args, "mesh", None):
+        raise NotImplementedError("--mesh waits for the distributed layer "
+                                  "(ROADMAP Queue A step 7)")
+    adapter_cfg = adapter_cfg_from_args(args)
+    llama_cfg, params, vision = load_pretrained(
+        args.model_base,
+        adapter_cfg,
+        mm_projector_path=(
+            getattr(args, "pretrain_clip_adapter", None)
+            or getattr(args, "pretrain_mm_mlp_adapter", None)
+        ),
+        stage2_lora=getattr(args, "stage2", None),
+        stage3_lora=getattr(args, "stage3", None),
+        dtype=torch.bfloat16,
+    )
+    adapter_cfg = adapter_cfg.with_hidden(llama_cfg.hidden_size)
+    params = serving_params_host(llama_cfg, params, device)
+    # the values are bf16 already; the leaves take the model's type
+    dtype = torch_dtype(llama_cfg.dtype)
+    params = params_from_numpy(params, device, dtype)
+    if vision is not None:
+        vision = params_from_numpy(vision, device, dtype)
+
+    if tokenizer is None:
+        from transformers import AutoTokenizer
+
+        tokenizer = AutoTokenizer.from_pretrained(args.model_base, use_fast=True)
+    return GroundingEngine(
+        llama_cfg, adapter_cfg, params, vision, tokenizer, eval_cfg_from_args(args),
+        eos_id=tokenizer.eos_token_id or 2, device=device,
     )

@@ -1,7 +1,12 @@
 """Stage-1 dense grounding eval CLI, ported from revisionllm_tpu/eval/stage1.py.
 
-`run(args, engine)` takes an engine built by the caller; `main`, which
-builds one from an HF checkpoint, waits for the loader (eval/loader.py).
+`main` builds the engine from an HF checkpoint directory (--model_base,
+--stage2, ...; eval/loader.py) on --device, CUDA by default, and calls
+`run(args, engine)`, which also takes an engine built in Python:
+
+    python -m revisionllm_tpu_torch.eval.stage1 --model_base vicuna/ \
+        --stage2 stage1_out/ --data_path val.json --feat_folder feats/ \
+        --log_path logs/ [--device cpu]
 
 Flag + output parity with reference revisionllm/eval/eval_nlq_negative.py:
 iterates the query list (with --split/--total_split sharding and resume by
@@ -75,6 +80,8 @@ def parse_args(argv=None):
                         "chunks (throughput mode; the reference's version "
                         "is a 16-way job array, eval_nlq_negative.py:179)")
     p.add_argument("--debug", type=str2bool, default=False)
+    p.add_argument("--device", type=str, default=None,
+                   help="default cuda (raises without a GPU); cpu to run on the CPU")
     return p.parse_args(argv)
 
 

@@ -1,9 +1,9 @@
 """Stage-2 hierarchical retrieval eval CLI, ported from
 revisionllm_tpu/eval/stage2.py.
 
-`run(args, engine)` takes an engine built by the caller (a hierarchy `cls`
-adapter); `main`, which builds one from an HF checkpoint, waits for the
-loader (eval/loader.py).
+`main` builds the engine (a hierarchy `cls` adapter) from an HF checkpoint
+directory (eval/loader.py) on --device, CUDA by default, and calls
+`run(args, engine)`, which also takes an engine built in Python.
 
 Flag + output parity with reference revisionllm/eval/eval_nlq_retrieval_e2e2.py:
 GT seconds -> window-id conversion, strided window slicing, optional
@@ -80,6 +80,8 @@ def parse_args(argv=None):
                    help="row-stack N same-movie queries' zoom passes into "
                         "shared bucket-shaped programs (throughput mode)")
     p.add_argument("--debug", type=str2bool, default=False)
+    p.add_argument("--device", type=str, default=None,
+                   help="default cuda (raises without a GPU); cpu to run on the CPU")
     return p.parse_args(argv)
 
 

@@ -7,9 +7,9 @@ NumPy arrays -- the JAX package's llama tree (including int8 {"q8",
 leaves), its vision (ClipEncoder) tree
 or a LoRA tree, e.g. `jax.tree.map(np.asarray, params)` -- into the same
 tree of torch tensors on `device`; `requires_grad=True` marks the
-floating-point leaves of a tree to be trained (LoRA, vision). Loading HF
-checkpoints (convert.py, eval/loader.py) waits until real weights are in
-the repository.
+floating-point leaves of a tree to be trained (LoRA, vision). The HF
+checkpoint loader (models/convert.py, eval/loader.py) hands its trees over
+through it.
 """
 
 from __future__ import annotations

@@ -440,17 +440,19 @@ def pack_serving_weights_host(layers: dict, block_n: int = 1024, block_f: int = 
 
 
 def quantize_llama_params_host(params, quantize_lm_head: bool = True):
-    """NumPy (host-RAM) variant of quantize_llama_params, for a converted
-    checkpoint before any device transfer (revisionllm_tpu/ops/quant.py:489):
-    arrays in, {"q8": int8, "scale": f32} arrays out."""
+    """Host-RAM variant of quantize_llama_params, for a converted checkpoint
+    before any device transfer (revisionllm_tpu/ops/quant.py:489): NumPy
+    arrays in, {"q8": int8, "scale": f32} arrays out. The arithmetic is
+    JAX's NumPy arithmetic (f32 absmax / 127, division, round half to even,
+    clip) to the bit, run by torch on the CPU's cores."""
     import numpy as np
 
     def q(w):
-        wf = np.asarray(w, dtype=np.float32)
-        absmax = np.max(np.abs(wf), axis=-2)
-        scale = np.where(absmax > 0, absmax / 127.0, 1.0).astype(np.float32)
-        vals = np.clip(np.round(wf / scale[..., None, :]), -127, 127).astype(np.int8)
-        return {"q8": vals, "scale": scale}
+        wf = torch.from_numpy(np.array(w, dtype=np.float32))
+        absmax = wf.abs().amax(dim=-2)
+        scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+        vals = wf.div_(scale[..., None, :]).round_().clamp_(-127, 127).to(torch.int8)
+        return {"q8": vals.numpy(), "scale": scale.numpy()}
 
     out = dict(params)
     layers = {}

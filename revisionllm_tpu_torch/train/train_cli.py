@@ -10,11 +10,11 @@ auto-resume and the reference-format export.
         --feat_folder feats/ --output_dir out/ [--tiny_model] [--device cpu]
 
 Runs on CUDA unless --device says otherwise. The base is a random init from
---seed (--quant_base: int8 layers, dense lm_head); loading HF weights
+--seed (--quant_base: int8 layers, dense lm_head); starting from HF weights
 (--model_base), a stage-2 LoRA (--stage2_path) and pretrained adapters
-(--pretrain_*) wait until real weights are in the repository (ROADMAP 9b),
-and data/tensor parallelism (--dp/--fsdp/--tp) waits for the distributed
-layer.
+(--pretrain_*) waits for the trainer's loader branches (ROADMAP Queue A
+step 1b), and data/tensor parallelism (--dp/--fsdp/--tp) waits for the
+distributed layer.
 """
 
 from __future__ import annotations
@@ -125,7 +125,8 @@ def _check_args(args, data_cfg) -> None:
     for flag in ("model_base", "stage2_path", "pretrain_mm_mlp_adapter", "pretrain_clip_adapter"):
         if getattr(args, flag) is not None:
             raise NotImplementedError(
-                f"--{flag} needs the HF weight loader, not ported yet (ROADMAP 9b)")
+                f"--{flag} needs the trainer's loader branches, not ported yet "
+                f"(ROADMAP Queue A step 1b)")
     if data_cfg.stream:
         raise NotImplementedError("the streaming-memory loss is not ported yet")
 

@@ -386,3 +386,72 @@ def test_k3_planted_faults_fail_the_limits(S, low):
         rel, worst = chip_smoke.rel_errs(chip_smoke.k3_view(bad), chip_smoke.k3_view(want))
         assert worst >= 5 * chip_smoke.VJP_TILE_TOL and rel > chip_smoke.VJP_TOL, (rel, worst)
     assert chip_smoke.hold_k3("K3", want, want, faults) == 0.0
+
+
+def test_checkpoint_writer_round_trips(tmp_path):
+    """chip_smoke's .safetensors writer: the port's reader and
+    safetensors.safe_open read back what it wrote."""
+    import numpy as np
+
+    from revisionllm_tpu_torch.models.convert import read_safetensors
+
+    rng = np.random.default_rng(0)
+    arrays = {"w": rng.normal(size=(5, 3)).astype(np.float16),
+              "b": rng.normal(size=(7,)).astype(np.float32),
+              "q": rng.integers(-127, 128, size=(2, 4)).astype(np.int8)}
+    path = str(tmp_path / "x.safetensors")
+    n = chip_smoke.write_safetensors(path, arrays)
+    assert n == os.path.getsize(path)
+    got = read_safetensors(path)
+    safe_open = pytest.importorskip("safetensors").safe_open
+    with safe_open(path, framework="np") as f:
+        theirs = {k: f.get_tensor(k) for k in f.keys()}
+    for k, a in arrays.items():
+        for other in (got, theirs):
+            assert other[k].dtype == a.dtype and np.array_equal(other[k], a)
+
+
+def test_checkpoint_tree_check_catches_the_planted_fault(tmp_path, monkeypatch):
+    """The checkpoint phase's checks at a tiny width on the CPU: the loaded
+    int8 tree equals the reference built in memory leaf for leaf, and the
+    first-step logits agree; with layer 0's q_proj written untransposed
+    the tree check names it and the logits check reads above its limit."""
+    import numpy as np
+
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.eval import loader, stage1
+
+    monkeypatch.setenv("REVISIONLLM_QUANT", "int8")
+    monkeypatch.delenv("REVISIONLLM_SERVE", raising=False)
+    torch.set_num_threads(2)
+    cfg = LlamaConfig(vocab_size=512, hidden_size=128, intermediate_size=256, num_layers=2,
+                      num_heads=4, num_kv_heads=4, head_dim=32)
+    cpu = torch.device("cpu")
+    # std 0.1 at width 128 gives attention scores of about the spread the
+    # phase's std 0.02 gives at 4096, so the fault moves the logits as there
+    tree = chip_smoke.ckpt_tree(cfg, cpu, std=0.1)
+    movie = np.random.default_rng(1).normal(size=(300, 16)).astype(np.float32)
+    qf = np.random.default_rng(2).normal(size=(5, 16)).astype(np.float32)
+    flags = ["--data_path", "d.json", "--feat_folder", "f", "--log_path", "l",
+             "--stage2", str(tmp_path / "stage"), "--adapter_d_model", "16",
+             "--adapter_heads", "4", "--adapter_ffn", "32", "--device", "cpu"]
+    flags += chip_smoke.S1_FLAGS
+    acfg = loader.adapter_cfg_from_args(stage1.parse_args(flags)).with_hidden(128)
+    lora, lora_cfg, vision = chip_smoke.write_stage_dir(str(tmp_path / "stage"), cfg, acfg)
+    ref_params, ref_vision = chip_smoke.as_loaded(
+        chip_smoke.ckpt_reference(tree, lora, lora_cfg), vision, False)
+    engines = {}
+    for name, fault in (("good", False), ("fault", True)):
+        chip_smoke.write_checkpoint(
+            str(tmp_path / name), cfg, tree, fault=fault,
+            shard2=str(tmp_path / "good" / "model-00002-of-00002.safetensors") if fault else None)
+        args = stage1.parse_args(flags + ["--model_base", str(tmp_path / name)])
+        engines[name] = loader.build_engine_from_args(args, tokenizer=chip_smoke.fake_tokenizer())
+    assert chip_smoke.tree_mismatches(engines["good"].params, ref_params) == []
+    assert chip_smoke.tree_mismatches(engines["good"].vision_params, ref_vision) == []
+    assert "layers/q_proj/q8" in chip_smoke.tree_mismatches(engines["fault"].params, ref_params)
+    want = chip_smoke.first_step_logits(engines["good"], movie, qf)
+    assert want.shape == (1, 512) and want.isfinite().all()
+    assert chip_smoke.rel_l2(chip_smoke.first_step_logits(engines["good"], movie, qf), want) == 0
+    assert chip_smoke.rel_l2(chip_smoke.first_step_logits(engines["fault"], movie, qf), want) > \
+        chip_smoke.CKPT_LOGITS_TOL

@@ -1,5 +1,7 @@
 """The port stands alone: no module of revisionllm_tpu_torch (nor
-chip_smoke.py) imports JAX or the JAX package; entry points refuse to run
+chip_smoke.py) imports JAX or the JAX package, nor at import time a package
+the GPU's machine lacks (transformers, tokenizers, safetensors, ml_dtypes);
+entry points refuse to run
 without CUDA unless asked for the CPU; the host copies agree with the JAX
 package's originals; the kernel build needs nvcc and chip_smoke.py refuses
 to report without a GPU or outside a checkout."""
@@ -26,7 +28,9 @@ import chip_smoke
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "revisionllm_tpu" or m.startswith("revisionllm_tpu."))
-print(json.dumps({"imported": names, "bad": bad}))
+absent = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("transformers", "tokenizers", "safetensors", "ml_dtypes"))
+print(json.dumps({"imported": names, "bad": bad, "absent": absent}))
 """
 
 
@@ -41,12 +45,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                          capture_output=True, text=True, timeout=120, check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert res["bad"] == []
+    assert res["absent"] == []
     for mod in ("ops.quant", "ops.flash_attention", "ops.decode_attention", "models.llama",
                 "models.generation", "eval.engine", "models.weights", "utils.kernels",
                 "models.lora", "train.trainer", "train.train_cli", "data.dataset",
                 "ops.windows", "models.revisionllm", "models.adapter", "eval.metrics",
                 "eval.stage1", "eval.stage2", "eval.fusion", "eval.loader",
-                "data.prefetcher", "utils.cli", "ops.decode_step", "ops.decode_serve"):
+                "data.prefetcher", "utils.cli", "ops.decode_step", "ops.decode_serve",
+                "models.convert", "data.synthetic"):
         assert f"revisionllm_tpu_torch.{mod}" in res["imported"]
 
 

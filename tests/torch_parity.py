@@ -1,6 +1,9 @@
 """Shared helpers for the port's parity tests (tests/test_torch_*.py): one
 seed, numpy inputs, both packages, tensors on the CPU."""
 
+import json
+import os
+
 import jax
 import numpy as np
 import torch
@@ -89,3 +92,26 @@ def assert_stage1_equal(want, got):
     for k in ("scores", "scores_entropy", "score_cos"):
         np.testing.assert_allclose(np.asarray(got[k], np.float64), np.asarray(want[k], np.float64),
                                    rtol=1e-4, atol=1e-5, err_msg=k)
+
+
+def records(path):
+    """The JSONL records of split 0 of an eval CLI's log directory."""
+    with open(os.path.join(path, "predictions_streaming_0.txt")) as f:
+        return [json.loads(line) for line in f]
+
+
+def assert_records_equal(want, got, float_keys):
+    """The same records: every field equal, the `float_keys` of "info"
+    within rtol 1e-4."""
+    assert len(got) == len(want) > 0
+    for w, g in zip(want, got):
+        assert {k: v for k, v in g.items() if k != "info"} == \
+            {k: v for k, v in w.items() if k != "info"}
+        assert set(g["info"]) == set(w["info"])
+        for k in w["info"]:
+            if k in float_keys:
+                np.testing.assert_allclose(np.asarray(g["info"][k], np.float64),
+                                           np.asarray(w["info"][k], np.float64),
+                                           rtol=1e-4, atol=1e-5, err_msg=k)
+            else:
+                assert g["info"][k] == w["info"][k], k
