@@ -23,7 +23,8 @@ measured in that run. Phases:
      call, and at the edge cases K1_EDGES; K3 (decode_attention) at steps 0
      and 11 by the same limits per (row, head) vector, with two planted
      faults that must fail them (k3_faults), bit-identical over two calls,
-     and so again with a bf16 prompt cache, with GQA and at 4096 positions;
+     and so again with a bf16 prompt cache, with GQA, at 4096 positions and
+     at phase 15's streaming chat step (B 1, its 64-token gen cache);
   4. the slice: GroundingEngine.ground_windows on a 1-hour movie (18 000
      frames of 768-d features, 57 windows of 250 frames in one chunk of 64,
      12 greedy tokens) with Vicuna-7B int8 weights made from a seed at full
@@ -128,11 +129,43 @@ measured in that run. Phases:
      and host quantization), the JSONL records equal to that tree's
      engine's, the first-step logits within relative L2 1e-2; a checkpoint
      with layer 0's q_proj written untransposed must fail the tree check
-     and read above the logits limit.
+     and read above the logits limit;
+ 15. the serving surfaces and training from a checkpoint, through the entry
+     points a user calls, at Vicuna-7B width and depth on the slice's int8
+     weights: inference.inference on one 100-frame window (B 1, then B 8
+     with return_list; 64 greedy tokens): wall ms, launches and peak memory
+     (fails unless K1, K2 and K3 ran, and torch._int_mm where the prefill
+     has more rows than K1 takes); inference_stream on the same window: the
+     time to the first token, the wall ms a token, and over the stream's
+     first 16 decode steps (under torch.profiler, less its first token)
+     the device-busy ms and launches a token (fails
+     unless the streamed tokens equal generate's greedy tokens and the last
+     string inference's answer; on a difference it prints the first step's
+     top-2 logits of both); webdemo.DemoServer on 127.0.0.1 over a demo.ChatSession: a .npy
+     uploaded and two turns asked over HTTP must stream the answers
+     ChatSession.ask gives on a fresh session; caption_windows over the
+     1-hour movie (57 windows, 64 tokens); msrvtt.run over a corpus at
+     MSR-VTT 1k-A's geometry written from a seed (1000 clip tracks sampled
+     to 100 x 768, 3 queries, the hierarchy cls adapter, batch 100: 10
+     passes a query), per-query latency and launches, a full finite ranking
+     per query and result_t2v.json, then retrieve_videos' scoring with each
+     pass's answer planted as 'In video p' against the CPU's cosines (random
+     weights rarely answer with a number); inference and one
+     retrieve_videos query on the card against the CPU at 2 layers (every
+     step's logits within 5% of the largest, the greedy tokens equal at
+     every step but a bf16 tie, after which the steps are not held); then train_cli.main from phase 14's checkpoint directory
+     (--model_base, --quant_base, --pretrain_clip_adapter on its stage
+     directory, phase 8's corpus and flags), 1 + 3 steps: step ms, tokens/s,
+     peak memory, row 4's launches a step (fails unless the losses are
+     finite, row 4 ran, and the assembled base equals the loader's tree leaf
+     for leaf), and the run's export served by build_engine_from_args and
+     stage1.run on one query.
 
 The kernel checks of phases 3, 7, 10 and 12 run first, after the build
 (rows 9 and 10 after phase 4, on the slice's weights); phase 13 runs after
-phase 6; the pipeline runs after it, then phase 14, before training.
+phase 6; the pipeline runs after it, then phase 14 and phase 15's serving
+part, before training; phase 15's training part runs last, after phase 8
+(whose corpus it trains on) and phase 9.
 Prints phase lines, then one JSON line of per-kernel numbers, the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Exits non-zero,
 with no result line, when CUDA is missing, when run outside a checkout of
@@ -613,8 +646,9 @@ def check_decode_attention(dev, iters):
     version, with two planted faults that must fail them (k3_faults), by a
     max abs error of 1e-2, and two calls bit-identical; timed beside its
     plain version and SDPA over the dequantized cache (approximate). Then
-    the bf16 prompt cache (KV8 off), GQA (32 query heads over 8 kv heads) and
-    4096 positions (B 8, S 4084), held the same way (the faults at 4096)."""
+    the bf16 prompt cache (KV8 off), GQA (32 query heads over 8 kv heads),
+    4096 positions (B 8, S 4084) and the chat's step (B 1, chat_geometry),
+    held the same way (the faults at the last two, both timed)."""
     import torch
     import torch.nn.functional as F
     from revisionllm_tpu_torch.ops import decode_attention as DA
@@ -662,25 +696,33 @@ def check_decode_attention(dev, iters):
                "bound_ms": b, "bound_by": by, "library_ms": lib,
                "unit": f"one launch = one layer at step {step} (library: approximate)"}
     # the other variants: a bf16 prompt cache (KV8 off), GQA (32 query heads
-    # over 8 kv heads), and the longest cache Vicuna-7B supports
-    for label, quant, B2, KH2, S2, group, low in (
-            ("bf16 prompt", False, B, 32, S, 1, 280), ("GQA int8", True, B, 8, S, 4, 280),
-            ("4096 positions", True, 8, 32, 4096 - G, 1, 4096 - G - 64)):
-        args = (*k3_inputs(gen, B2, KH2, S2, G, group, low, dev, quant), G - 1 if S2 > S else 5)
+    # over 8 kv heads), the longest cache Vicuna-7B supports, and the chat's
+    # step (phase 15's inference_stream at B 1: its prompt cache, its live
+    # prompt length the least, its gen cache, its last step); the last two
+    # with the planted faults, and timed
+    rows, live = chat_geometry()
+    for label, quant, B2, KH2, S2, G2, group, low, step, faults in (
+            ("bf16 prompt", False, B, 32, S, G, 1, 280, 5, False),
+            ("GQA int8", True, B, 8, S, G, 4, 280, 5, False),
+            ("4096 positions", True, 8, 32, 4096 - G, G, 1, 4096 - G - 64, G - 1, True),
+            ("B=1 (the chat)", True, 1, 32, rows, SURF_TOKENS, 1, live, SURF_TOKENS - 2, True)):
+        args = (*k3_inputs(gen, B2, KH2, S2, G2, group, low, dev, quant), step)
         got = DA.decode_attention(*args)
         want = DA.decode_attention_plain(*args)
         err = (got.float() - want.float()).abs().max().item()
-        say(f"decode_attention {label} B={B2} KH={KH2} S={S2} group={group} step={args[-1]}: "
-            f"max_abs_err {err:.3e} (tol 1.0e-02)")
+        say(f"decode_attention {label} B={B2} KH={KH2} S={S2} G={G2} group={group} "
+            f"step={step}: max_abs_err {err:.3e} (tol 1.0e-02)")
         if not err <= 1e-2:
             raise AssertionError(f"decode_attention {label}: max_abs_err {err} > 1e-2")
         hold_k3(f"decode_attention {label}", got, want,
-                k3_faults(args, DA.decode_attention_plain) if S2 > S else None)
+                k3_faults(args, DA.decode_attention_plain) if faults else None)
         same_bits(f"decode_attention {label}", (got,), (DA.decode_attention(*args),))
-        if S2 > S:
+        if faults:
             ms = device_ms(lambda: DA.decode_attention(*args), iters)
-            say(f"decode_attention {label}: kernel {ms:.4f} ms")
-            out["long_ms"] = ms
+            plain = device_ms(lambda: DA.decode_attention_plain(*args), max(3, iters // 4))
+            say(f"decode_attention {label}: kernel {ms:.4f} ms plain {plain:.4f} ms")
+            if S2 > S:
+                out["long_ms"] = ms
         worst = max(worst, err)
         del args, got, want
     out["max_abs_err"] = max(out["max_abs_err"], worst)
@@ -3270,6 +3312,669 @@ def phase_checkpoint(dev, tmp, movie):
 
 
 
+# ------------------------------------------------------------------ phase 15
+
+SURF_FRAMES = 100           # a chat's window: 100 frames x 768, as demo.load_video_features
+SURF_TOKENS = 64            # max_new_tokens of inference, the stream, the chat and captions
+SURF_BATCH = 8              # inference's window batch with return_list
+SURF_CPU_TOKENS = 8         # greedy tokens of the card-against-CPU inference at 2 layers
+SURF_BUSY_STEPS = 16        # the stream's decode steps profiled for its busy time (a whole
+                            # stream's 63 take torch.profiler about 30 s to collect)
+SURF_QUESTIONS = ("what happens in the video?", "and what happens after that?")
+SURF_PROMPT = "<video>\n" + SURF_QUESTIONS[0]   # the chat's first turn, as ChatSession asks it
+T2V_VIDEOS = 1000           # MSR-VTT 1k-A: 1000 test clips, one query each
+T2V_QUERIES = 3             # the queries run: split 0 of T2V_VIDEOS // T2V_QUERIES splits
+T2V_FRAMES = (30, 90)       # a clip's feature track before linspace sampling to 100 frames
+T2V_CPU_VIDEOS = 100        # the card-against-CPU retrieve_videos: one pass
+T2V_FLAGS = ["--num_frames", "100", "--batch", "100", "--max_new_tokens", "8",
+             "--debug", "True"]
+SURF_TRAIN_STEPS = 3        # timed steps of training from the checkpoint, after one warm-up
+
+
+def chat_geometry():
+    """(positions, live) of the chat's prompt cache: SURF_PROMPT over a
+    SURF_FRAMES window as inference and inference_stream plan it for
+    SURF_TOKENS new tokens (the prompt's rows, padded by the tokens and 8),
+    and the live prompt length."""
+    from revisionllm_tpu_torch import inference
+
+    live = len(inference._prompt_ids(fake_tokenizer(), SURF_PROMPT, None)) - 1 + SURF_FRAMES
+    return live + SURF_TOKENS + 8, live
+
+
+def bf16_spacing(x):
+    """The gap between two neighbouring bf16 values at magnitude x."""
+    return math.ldexp(1.0, math.frexp(abs(x))[1] - 8) if x else 0.0
+
+
+def hold_steps(label, card, cpu, rel=5e-2):
+    """Hold a greedy decode's logits on the card (`card`, LogitTrace.steps:
+    the prefill's, then each decode step's) against the CPU's: the same
+    number of steps, each step's logits within `rel` of its largest
+    magnitude (at least `rel`), and the greedy tokens (each row's argmax)
+    equal, so that every step runs on the same inputs on both sides. A
+    greedy token may differ only at a tie: where on each side the two
+    tokens' logits lie within two bf16 steps of each other (the lm_head
+    rounds them to bf16). The steps after such a tie run on other tokens
+    and are not held. Raises at the first step that breaks a rule, with the
+    top-2 logits of both sides in the row that differs. Returns (the worst
+    held step's max abs difference, its tolerance, None or (the step of the
+    tie, the card's top-2, the CPU's top-2))."""
+    if len(card) != len(cpu):
+        raise AssertionError(f"{label}: {len(card)} decode steps on the card, {len(cpu)} on "
+                             f"the CPU")
+    worst = (0.0, 1.0)
+    for k, (a, b) in enumerate(zip(card, cpu)):
+        diff = (a - b).abs().max().item()
+        tol = rel * max(1.0, b.abs().max().item())
+        if not diff <= tol:
+            raise AssertionError(f"{label}: step {k}: logits max_abs_diff {diff:.4e} > tol "
+                                 f"{tol:.3e}")
+        if diff * worst[1] >= worst[0] * tol:
+            worst = (diff, tol)
+        rows = (a.argmax(-1) != b.argmax(-1)).nonzero().flatten().tolist()
+        for r in rows:
+            ta, tb = int(a[r].argmax()), int(b[r].argmax())
+            gaps = (a[r, ta] - a[r, tb]).item(), (b[r, tb] - b[r, ta]).item()
+            steps = [2 * bf16_spacing(max(abs(x[r, ta].item()), abs(x[r, tb].item())))
+                     for x in (a, b)]
+            if any(g > s for g, s in zip(gaps, steps)):
+                raise AssertionError(
+                    f"{label}: step {k}: greedy tokens differ beyond a tie in row {r} (logit "
+                    f"gaps {gaps}, two bf16 steps {steps}); top-2: card {top2(a[r])}, CPU "
+                    f"{top2(b[r])}")
+        if rows:
+            return worst + ((k, top2(a[rows[0]]), top2(b[rows[0]])),)
+    return worst + (None,)
+
+
+def top2(logits):
+    """((value, id), (value, id)) of the two largest entries of a 1-D row."""
+    v, i = logits.float().topk(2)
+    return tuple((round(float(a), 4), int(b)) for a, b in zip(v, i))
+
+
+def first_divergence(streamed, batch_tokens, eos_id):
+    """The first step where the streamed token ids differ from a batch row's
+    greedy tokens cut at its first eos (the stream yields no eos), or None
+    when they agree at every step."""
+    batch = list(batch_tokens)
+    if eos_id in batch:
+        batch = batch[: batch.index(eos_id)]
+    for i, (a, b) in enumerate(zip(streamed, batch)):
+        if a != b:
+            return i
+    return None if len(streamed) == len(batch) else min(len(streamed), len(batch))
+
+
+class LogitTrace:
+    """While inside, records the logits that every llama.prefill_kv and
+    llama.decode_step_split call returns (f32, on the CPU): `steps[k]` is
+    the [B, V] logits that choose decode step k's token."""
+
+    def __enter__(self):
+        from revisionllm_tpu_torch.models import llama
+
+        self.steps, self.orig = [], (llama.prefill_kv, llama.decode_step_split)
+
+        def wrap(fn):
+            def spy(*a, **k):
+                out = fn(*a, **k)
+                self.steps.append(out[0].float().cpu())
+                return out
+            return spy
+
+        llama.prefill_kv, llama.decode_step_split = (wrap(f) for f in self.orig)
+        return self
+
+    def __exit__(self, *exc):
+        from revisionllm_tpu_torch.models import llama
+
+        llama.prefill_kv, llama.decode_step_split = self.orig
+
+
+def write_t2v_corpus(root, n_videos=T2V_VIDEOS, n_queries=T2V_QUERIES, d=768, seed=0,
+                     frames=T2V_FRAMES):
+    """An eval set at MSR-VTT 1k-A's geometry under `root`, from `seed`: a
+    feature store of `n_videos` clip tracks (video{i}.npy, [n, d] f32 with n
+    drawn in `frames`), the queries in msrvtt.load_queries' JSON layout (one
+    per clip, the 1k-A protocol) and the query features (25 token features
+    and a CLS) of the first `n_queries`. Returns (msrvtt's input flags, the
+    track lengths)."""
+    rng = np.random.default_rng(seed)
+    feats, qdir = os.path.join(root, "feats"), os.path.join(root, "queries")
+    os.makedirs(feats)
+    os.makedirs(qdir)
+    lengths = rng.integers(frames[0], frames[1] + 1, size=n_videos)
+    queries = {}
+    for i, n in enumerate(lengths):
+        np.save(os.path.join(feats, f"video{i}.npy"), rng.normal(size=(n, d)).astype(np.float32))
+        queries[f"q{i}"] = {"video": f"video{i}", "sentence": f"{SENTENCE} in clip {i}."}
+    for i in range(n_queries):
+        np.savez(os.path.join(qdir, f"q{i}.npz"),
+                 token_features=rng.normal(size=(25, d)).astype(np.float32),
+                 cls_features=rng.normal(size=(d,)).astype(np.float32))
+    path = os.path.join(root, "queries.json")
+    with open(path, "w") as f:
+        json.dump(queries, f)
+    return ["--data_path", path, "--feat_folder", feats, "--q_feat_dir", qdir], lengths
+
+
+def t2v_engine(dev, cfg, params, args, seed=2):
+    """The pipeline's stage-2 engine for msrvtt's `args`: the hierarchy cls
+    T2V adapter from `seed` over `params`, the eval configuration of the
+    flags (batch 100, max_new_tokens 8)."""
+    import torch
+    from revisionllm_tpu_torch.eval import loader
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+    from revisionllm_tpu_torch.models import revisionllm
+
+    acfg = loader.adapter_cfg_from_args(args).with_hidden(cfg.hidden_size)
+    vision = revisionllm.init_vision_params(acfg, seed=seed, d_in=acfg.d_model,
+                                            dtype=torch.bfloat16, device=dev)
+    return GroundingEngine(cfg, acfg, params, vision, fake_tokenizer(),
+                           loader.eval_cfg_from_args(args), device=dev)
+
+
+def t2v_stack(args, n):
+    """The first `n` candidates of the store as msrvtt.run samples them:
+    [n, num_frames, d]."""
+    from revisionllm_tpu_torch.data.feature_store import open_feature_store
+
+    store = open_feature_store(args.feat_folder)
+    out = []
+    for i in range(n):
+        feats = store.get(f"video{i}")
+        out.append(feats[np.linspace(0, feats.shape[0] - 1, args.num_frames, dtype=np.int32)])
+    return np.stack(out)
+
+
+def stream_busy(parts, image, question, qf, qv, steps=SURF_BUSY_STEPS):
+    """The device's busy ms and the launches of one decode token of
+    inference_stream, from the stream itself: the stream closed after
+    1 + `steps` tokens under torch.profiler, less the stream closed after
+    its first token (the same prompt and prefill), over its `steps` decode
+    steps (fewer where it ends sooner). Returns (busy ms, launches by
+    kernel, decode steps)."""
+    import itertools
+
+    from revisionllm_tpu_torch import inference
+    from revisionllm_tpu_torch.utils import kernels
+
+    def stream(n):
+        it = inference.inference_stream(*parts, image, question, qf, qv,
+                                        max_new_tokens=SURF_TOKENS)
+        count = len(list(itertools.islice(it, n)))
+        it.close()
+        return count
+
+    runs = []
+    for n in (1, 1 + steps):
+        kernels.reset_launches()
+        count, ms, _ = profiled(lambda: stream(n))
+        runs.append((count, ms, dict(kernels.LAUNCHES)))
+    (_, first_ms, first), (count, ms, whole) = runs
+    steps = max(count - 1, 1)
+    launches = {k: (v - first.get(k, 0)) / steps for k, v in whole.items()
+                if v > first.get(k, 0)}
+    return (ms - first_ms) / steps, launches, steps
+
+
+def counted(fn):
+    """(fn(), launches by kernel, torch._int_mm calls, wall ms from an idle
+    device to the end of fn's device work)."""
+    from revisionllm_tpu_torch.utils import kernels
+
+    kernels.reset_launches()
+    with _CountIntMM() as int_mm:
+        out, ms = timed_ms(fn)
+    return out, {k: n for k, n in kernels.LAUNCHES.items() if n}, int_mm.n, ms
+
+
+def stream_once(parts, image, question, qf, qv):
+    """inference_stream once: (the yielded strings, the streamed token ids,
+    ms from the call to the first token, the wall ms between each two
+    tokens)."""
+    import torch
+    from revisionllm_tpu_torch import inference
+    from revisionllm_tpu_torch.models import generation
+
+    toks, marks = [], []
+    inner = generation.generate_stream
+
+    def spy(*a, **k):
+        for t in inner(*a, **k):
+            toks.append(t)
+            marks.append(time.perf_counter())
+            yield t
+
+    generation.generate_stream = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        texts = list(inference.inference_stream(*parts, image, question, qf, qv,
+                                                max_new_tokens=SURF_TOKENS))
+    finally:
+        generation.generate_stream = inner
+    return texts, toks, (marks[0] - t0) * 1e3, list(np.diff(marks) * 1e3)
+
+
+def phase_surfaces(dev, setup, tmp):
+    """The serving surfaces through the entry points a user calls, at
+    Vicuna-7B width and depth on the slice's int8 weights: inference (B 1,
+    then B 8 with return_list), inference_stream (its tokens against the
+    batch path's), the web demo over HTTP on the loopback against
+    ChatSession.ask, caption_windows over the 1-hour movie, msrvtt.run over
+    a 1k-A-shaped corpus (3 queries), then inference and retrieve_videos on
+    the card against the CPU at 2 layers."""
+    import dataclasses
+    import urllib.parse
+    import urllib.request
+
+    import torch
+    from revisionllm_tpu_torch import demo, inference, webdemo
+    from revisionllm_tpu_torch.eval import msrvtt
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+
+    eng, movie, qf_np, _ = setup
+    cfg = eng.llama_cfg
+    parts_s = {"start": time.perf_counter()}
+    root = os.path.join(tmp, "surfaces")
+    os.makedirs(root)
+    rng = np.random.default_rng(15)
+    window = rng.normal(size=(SURF_FRAMES, 768)).astype(np.float32)
+    window_path = os.path.join(root, "window.npy")
+    np.save(window_path, window)
+    qf1 = qf_np[None]
+    qv1 = np.ones(qf1.shape[:2], bool)
+
+    def parts():
+        return cfg, eng.adapter_cfg, eng.params, eng.vision_params, fake_tokenizer()
+
+    # 1. inference, B 1 and B 8
+    from revisionllm_tpu_torch.ops.quant import KERNEL_MAX_M
+
+    prompt_len = chat_geometry()[0]
+    outs = {}
+    for B in (1, SURF_BATCH):
+        image = window[None] if B == 1 else rng.normal(size=(B, SURF_FRAMES, 768)).astype(
+            np.float32)
+        qf, qv = np.repeat(qf1, B, 0), np.repeat(qv1, B, 0)
+
+        def call():
+            return inference.inference(*parts(), image, SURF_PROMPT, qf, qv,
+                                       max_new_tokens=SURF_TOKENS, return_list=B > 1)
+
+        call()
+        torch.cuda.reset_peak_memory_stats()
+        (answers, out), launches, int_mm, ms = counted(call)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        rows = B * prompt_len
+        ent = out["entropy"].float()
+        say(f"surfaces: inference B={B} ({SURF_FRAMES} frames x 768, {SURF_TOKENS} greedy "
+            f"tokens; the prefill's {rows} rows take "
+            f"{'K1' if rows <= KERNEL_MAX_M else 'W8A8'}): wall {ms:.1f} ms, "
+            f"{ms / SURF_TOKENS:.2f} ms a token; peak memory {peak:.2f} GiB; launches "
+            f"{launches}, torch._int_mm {int_mm}")
+        missing = [k for k in SERVING if k not in launches]
+        if B * prompt_len > KERNEL_MAX_M and not int_mm:
+            missing.append("torch._int_mm")
+        ok = (isinstance(answers, str) if B == 1 else len(answers) == B) and \
+            tuple(ent.shape) == (B, SURF_TOKENS) and bool(ent.isfinite().all())
+        if missing or not ok:
+            raise AssertionError(f"inference B={B}: never launched {missing}, output ok {ok}")
+        outs[B] = (answers, out)
+
+    parts_s["inference"] = time.perf_counter()
+
+    # 2. inference_stream against the batch path
+    answer1, out1 = outs[1]
+    texts, toks, ttft, gaps = stream_once(parts(), window[None], SURF_PROMPT, qf1, qv1)
+    per_tok = float(np.mean(gaps))
+    batch_toks = out1["tokens"][0].tolist()
+    at = first_divergence(toks, batch_toks, 2)
+    say(f"surfaces: inference_stream B=1: {len(toks)} tokens; time to the first token "
+        f"{ttft:.1f} ms, then {per_tok:.2f} ms a token (wall); final string equals inference's "
+        f"answer: {texts[-1] == answer1}; streamed tokens equal generate's greedy tokens: "
+        f"{at is None}")
+    if at is not None or texts[-1] != answer1:
+        with LogitTrace() as s_trace:
+            list(inference.inference_stream(*parts(), window[None], SURF_PROMPT, qf1, qv1,
+                                            max_new_tokens=SURF_TOKENS))
+        with LogitTrace() as b_trace:
+            inference.inference(*parts(), window[None], SURF_PROMPT, qf1, qv1,
+                                max_new_tokens=SURF_TOKENS)
+        k = at or 0
+        raise AssertionError(f"stream and batch differ at step {k}: top-2 streamed "
+                             f"{top2(s_trace.steps[k][0])}, batch {top2(b_trace.steps[k][0])}")
+    busy, launches, n = stream_busy(parts(), window[None], SURF_PROMPT, qf1, qv1)
+    wall = float(np.mean(gaps[:n]))
+    say(f"surfaces: inference_stream's decode token at B=1 (a split decode step, the argmax "
+        f"read back and the text decoded), its first {n} decode steps: wall {wall:.2f} ms (the "
+        f"stream above), device busy {busy:.3f} ms (the stream closed after {n + 1} tokens "
+        f"under the profiler, less the one closed after its first; idle share "
+        f"{max(0.0, 1 - busy / wall) * 100:.1f}%); launches a token {launches}")
+    if launches.get("int8_matmul", 0) != 7 * cfg.num_layers + 1 or \
+            launches.get("decode_attention", 0) != cfg.num_layers or \
+            n != min(SURF_BUSY_STEPS, len(toks) - 1):
+        raise AssertionError(f"the B=1 step left K1 or K3: {launches} over {n} steps")
+
+    parts_s["stream"] = time.perf_counter()
+
+    # 3. the web demo over HTTP on the loopback
+    def make_session(path):
+        return demo.ChatSession(parts(), demo.load_video_features(path),
+                                max_new_tokens=SURF_TOKENS)
+
+    srv = webdemo.DemoServer(make_session, host="127.0.0.1", port=0)
+    srv.start_background()
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        with open(window_path, "rb") as f:
+            req = urllib.request.Request(base + "/api/video?name=window.npy", data=f.read(),
+                                         method="POST")
+        status = json.loads(urllib.request.urlopen(req, timeout=120).read())["status"]
+        streamed, turn_ms = [], []
+        for q in SURF_QUESTIONS:
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"{base}/api/ask?q={urllib.parse.quote(q)}",
+                                        timeout=300) as resp:
+                events = [line.decode().strip()[6:] for line in resp
+                          if line.startswith(b"data: ")]
+            turn_ms.append((time.perf_counter() - t0) * 1e3)
+            if events[-1] != "[DONE]":
+                raise AssertionError(f"web demo: the stream did not end: {events[-3:]}")
+            streamed.append(json.loads(events[-2]))
+    finally:
+        srv.shutdown()
+    fresh = make_session(window_path)
+    asked = [fresh.ask(q) for q in SURF_QUESTIONS]
+    say(f"surfaces: web demo on 127.0.0.1:{srv.port}: upload '{status}'; two turns over HTTP "
+        f"(server-sent events) in {[round(x, 1) for x in turn_ms]} ms; streamed answers equal "
+        f"ChatSession.ask on a fresh session (the second turn with history): {streamed == asked}")
+    if streamed != asked or len(fresh.history) != 2:
+        raise AssertionError(f"web demo: {streamed!r} != {asked!r}")
+
+    parts_s["web demo"] = time.perf_counter()
+
+    # 4. caption_windows over the 1-hour movie
+    cap = GroundingEngine(cfg, eng.adapter_cfg, eng.params, eng.vision_params, fake_tokenizer(),
+                          dataclasses.replace(eng.eval_cfg, max_new_tokens=SURF_TOKENS),
+                          device=dev)
+    cap.caption_windows(movie, movie_key="movie0")
+    res, launches, int_mm, ms = counted(lambda: cap.caption_windows(movie, movie_key="movie0"))
+    n = len(res["answers"])
+    say(f"surfaces: caption_windows over the 1-hour movie: {n} windows in one chunk of "
+        f"{cap.eval_cfg.batch}, {SURF_TOKENS} tokens; chunk latency {ms:.1f} ms, q/s "
+        f"{1e3 / ms:.4f}; launches {launches}, torch._int_mm {int_mm}")
+    missing = [k for k in SERVING if k not in launches] + ([] if int_mm else ["torch._int_mm"])
+    if n != 57 or missing:
+        raise AssertionError(f"caption_windows: {n} answers, never launched {missing}")
+    del cap
+
+    parts_s["captions"] = time.perf_counter()
+
+    # 5. msrvtt.run at 1k-A's geometry
+    t0 = time.perf_counter()
+    flags, lengths = write_t2v_corpus(os.path.join(root, "t2v"), T2V_VIDEOS, T2V_QUERIES)
+    say(f"surfaces: t2v corpus of {T2V_VIDEOS} clip tracks ({int(lengths.min())}-"
+        f"{int(lengths.max())} frames x 768) and {T2V_QUERIES} queries written in "
+        f"{time.perf_counter() - t0:.2f} s")
+    log = os.path.join(root, "t2v_log")
+    args = msrvtt.parse_args(flags + T2V_FLAGS + [
+        "--log_path", log, "--total_split", str(T2V_VIDEOS // T2V_QUERIES), "--split", "0"])
+    t2v = t2v_engine(dev, cfg, eng.params, args)
+    n_pass = math.ceil(T2V_VIDEOS / t2v.eval_cfg.batch)
+    lat, passes = [], []
+    retrieve, run_chunk = t2v.retrieve_videos, t2v._run_chunk
+
+    def timed_retrieve(*a, **k):
+        passes.append(0)
+        out, ms = timed_ms(lambda: retrieve(*a, **k))
+        lat.append(ms)
+        return out
+
+    def counted_chunk(*a, **k):
+        passes[-1] += 1
+        return run_chunk(*a, **k)
+
+    t2v.retrieve_videos, t2v._run_chunk = timed_retrieve, counted_chunk
+    metrics, launches, int_mm, ms = counted(lambda: msrvtt.run(args, t2v))
+    with open(os.path.join(log, "predictions_streaming_0.txt")) as f:
+        lines = [json.loads(line) for line in f]
+    say(f"surfaces: msrvtt.run, {len(lines)} queries over {T2V_VIDEOS} candidates: per-query "
+        f"latency {[round(x, 1) for x in lat]} ms (p50 {float(np.median(lat)):.1f}), passes a "
+        f"query {passes}, whole run {ms:.1f} ms; launches {launches}, torch._int_mm {int_mm}; "
+        f"R@1/5/10 {metrics.get('R@1')}/{metrics.get('R@5')}/{metrics.get('R@10')}, MedR "
+        f"{metrics.get('MedR')} (random weights: not held); chosen candidates per query "
+        f"{[len(r['info']['ranked']) for r in lines]}; first answers {lines[0]['answer'][:2]}")
+    for r in lines:
+        ranked, scores = r["info"]["ranked"], r["info"]["scores"]
+        if not (len(set(ranked)) == len(ranked) == len(scores)
+                and all(0 <= c < T2V_VIDEOS for c in ranked)
+                and np.isfinite(scores).all() and scores == sorted(scores, reverse=True)
+                and len(r["answer"]) == n_pass):
+            raise AssertionError(f"msrvtt: malformed ranking for {r['query_id']}")
+    missing = [k for k in SERVING if k not in launches]
+    if len(lines) != T2V_QUERIES or missing or passes != [n_pass] * T2V_QUERIES or \
+            not os.path.isfile(os.path.join(log, "result_t2v.json")):
+        raise AssertionError(f"msrvtt: {len(lines)} queries, passes {passes}, never launched "
+                             f"{missing}, result_t2v.json written "
+                             f"{os.path.isfile(os.path.join(log, 'result_t2v.json'))}")
+    t2v.retrieve_videos, t2v._run_chunk = retrieve, run_chunk
+    planted_t2v_scores(t2v, t2v_stack(args, T2V_VIDEOS), args)
+    del t2v
+    torch.cuda.empty_cache()
+
+    parts_s["msrvtt"] = time.perf_counter()
+
+    # 6. the card against the CPU at 2 layers
+    surfaces_compare(dev, window, qf_np, args)
+    parts_s["compare"] = time.perf_counter()
+    marks = list(parts_s.items())
+    say(f"surfaces: the serving part in {marks[-1][1] - marks[0][1]:.1f} s: "
+        + ", ".join(f"{k} {t - marks[i][1]:.1f}" for i, (k, t) in enumerate(marks[1:])))
+
+
+def planted_t2v_scores(t2v, stack, args):
+    """retrieve_videos' scoring on the card with every pass answered: random
+    weights rarely answer 'In video N' with a number, so each pass's answer
+    is replaced by 'In video p' (p the pass) after its decode. Fails unless
+    every pass's candidate is ranked once and the scores equal, within rtol
+    1e-4, the inverse mean entropies times the CLS cosines (normalized by
+    their largest magnitude) that proposal_cosine_scores gives on the CPU."""
+    import torch
+    from revisionllm_tpu_torch.eval.similarity import proposal_cosine_scores
+
+    q = np.load(os.path.join(args.q_feat_dir, "q0.npz"))
+    read, inv = t2v._read_chunk, []
+
+    def answered(out):
+        _, stats = read(out)
+        inv.append(1.0 / max(float(stats[0, 2]), 1e-9))
+        return [f"In video {len(inv) - 1}"], stats
+
+    t2v._read_chunk = answered
+    try:
+        res = t2v.retrieve_videos(stack, f"{SENTENCE} in clip 0", q["token_features"],
+                                  q["cls_features"], corpus_key="planted")
+    finally:
+        t2v._read_chunk = read
+    batch = t2v.eval_cfg.batch
+    chosen = [min(p * batch, len(stack) - batch) + p for p in range(len(inv))]
+    frames = torch.from_numpy(stack[chosen])
+    cos = proposal_cosine_scores(torch.from_numpy(q["cls_features"]).float(), frames,
+                                 torch.ones(frames.shape[:2], dtype=torch.bool), k=3).tolist()
+    m = max(abs(c) for c in cos)
+    want = sorted(((s * c / m, i) for s, c, i in zip(inv, cos, chosen)), reverse=True)
+    ok = res["ranked"] == [i for _, i in want] and np.allclose(
+        res["scores"], [s for s, _ in want], rtol=1e-4, atol=0)
+    say(f"surfaces: retrieve_videos' scoring with every pass answered (planted 'In video p'): "
+        f"{len(res['ranked'])} candidates ranked, scores "
+        f"{[round(float(x), 4) for x in res['scores']]}; equal to the inverse entropies x CLS "
+        f"cosines on the CPU: {ok}")
+    if not ok:
+        raise AssertionError(f"planted t2v scores: {res['ranked']} {res['scores']} != {want}")
+
+
+def surfaces_compare(dev, window, qf_np, t2v_args):
+    """inference and one retrieve_videos query with the kernels on the card
+    against the plain path on the CPU, at Vicuna-7B width and 2 layers from
+    one seed, serving numerics on both (as compare_paths): hold_steps on
+    every step's logits (within 5% of the largest, the greedy tokens equal
+    but at a bf16 tie; the decode steps run K3 at B 1 on the card); the
+    answers printed."""
+    import torch
+    from revisionllm_tpu_torch import inference
+    from revisionllm_tpu_torch.config import AdapterConfig, LlamaConfig
+    from revisionllm_tpu_torch.eval import loader
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+    from revisionllm_tpu_torch.models import generation, llama, revisionllm
+    from revisionllm_tpu_torch.ops import flash_attention, quant
+
+    cpu = torch.device("cpu")
+    cfg = LlamaConfig(num_layers=2)
+    acfg = AdapterConfig(clip_adapter_text=True, hierarchy=False, feature_mode="temporal",
+                         hidden_size=cfg.hidden_size)
+    hcfg = loader.adapter_cfg_from_args(t2v_args).with_hidden(cfg.hidden_size)
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=cpu, quantize="int8")
+    vis_t = revisionllm.init_vision_params(acfg, seed=1, dtype=torch.bfloat16, device=cpu)
+    vis_h = revisionllm.init_vision_params(hcfg, seed=2, dtype=torch.bfloat16, device=cpu)
+    stack = t2v_stack(t2v_args, T2V_CPU_VIDEOS)
+    q = np.load(os.path.join(t2v_args.q_feat_dir, "q0.npz"))
+    qc = q["cls_features"] / np.linalg.norm(q["cls_features"])
+    qv = np.ones((1, len(qf_np)), bool)
+    quant.set_w8a8(True)
+    generation.set_kv8(True)
+    flash_attention.set_attn_bf16(False)
+    outs = {}
+    try:
+        for device in (dev, cpu):
+            t0 = time.perf_counter()
+            p = _to(params, device)
+            with LogitTrace() as tr:
+                _, out = inference.inference(cfg, acfg, p, _to(vis_t, device), fake_tokenizer(),
+                                             window[None], SURF_PROMPT, qf_np[None], qv,
+                                             max_new_tokens=SURF_CPU_TOKENS)
+            inf = tr.steps
+            eng = GroundingEngine(cfg, hcfg, p, _to(vis_h, device), fake_tokenizer(),
+                                  loader.eval_cfg_from_args(t2v_args), device=device)
+            with LogitTrace() as tr:
+                res = eng.retrieve_videos(stack, f"{SENTENCE} in clip 0", q["token_features"], qc)
+            outs[device.type] = (inf, (tr.steps, res), time.perf_counter() - t0)
+    finally:
+        quant.set_w8a8(None)
+        generation.set_kv8(None)
+        flash_attention.set_attn_bf16(None)
+    (ik, (rk, xk), tk), (ip, (rp, xp), tp) = outs[dev.type], outs["cpu"]
+    same = sum(a == b for a, b in zip(xk["answers"], xp["answers"]))
+    for label, sk, sp, extra in (
+            ("inference", ik, ip, ""),
+            ("retrieve_videos", rk, rp, f"; answers {same} of {len(xp['answers'])} equal, "
+             f"rankings {'equal' if xk['ranked'] == xp['ranked'] else 'differ'}")):
+        first = (sk[0] - sp[0]).abs().max().item()
+        diff, tol, tie = hold_steps(f"surfaces compare ({label})", sk, sp)
+        held = len(sk) if tie is None else tie[0] + 1
+        tokens = "greedy tokens equal at every step" if tie is None else (
+            f"greedy tokens equal up to step {tie[0]}, a tie there (top-2 card {tie[1]}, CPU "
+            f"{tie[2]}): the steps after it run on other tokens and are not held")
+        say(f"surfaces compare: {label}, Vicuna-7B width, 2 layers, kernels on the card vs plain "
+            f"on the CPU: first-step logits max_abs_diff {first:.4e} (max |logit| "
+            f"{sp[0].abs().max().item():.3f}); {held} of {len(sk)} steps' logits held, the worst "
+            f"max_abs_diff {diff:.4e} (its tol {tol:.3e}); {tokens}{extra} (both calls: card "
+            f"{tk:.1f} s, CPU {tp:.1f} s)")
+
+
+def phase_surfaces_train(dev, tmp, paths):
+    """Training from a checkpoint through train_cli.main: phase 8's flags
+    plus --model_base on phase 14's 4-layer Vicuna-width directory and
+    --pretrain_clip_adapter on its stage directory's projector, the
+    FakeTokenizer, 1 warm-up and SURF_TRAIN_STEPS timed steps. Fails unless
+    the losses are finite, row 4's kernels launched, and the assembled base
+    equals, leaf for leaf, the loader's tree (load_pretrained without
+    rounding, quantize_llama_params_host without the int8 lm_head). Then the
+    run's export served: build_engine_from_args and stage1.run on one query."""
+    import torch
+    from revisionllm_tpu_torch.eval import loader, stage1
+    from revisionllm_tpu_torch.eval import metrics as M
+    from revisionllm_tpu_torch.models.convert import load_pretrained
+    from revisionllm_tpu_torch.models.weights import params_from_numpy
+    from revisionllm_tpu_torch.ops.quant import quantize_llama_params_host
+    from revisionllm_tpu_torch.train import train_cli
+    from revisionllm_tpu_torch.utils import kernels
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(tmp, "checkpoint")
+    base_dir, stage = os.path.join(ckpt, "vicuna"), os.path.join(ckpt, "stage")
+    out = os.path.join(tmp, "surfaces_train")
+    marks, losses = [], []
+
+    def on_step(step, batch, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses.append(float(metrics["loss"]))
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+
+    argv = train_argv(paths, out, SURF_TRAIN_STEPS + 1) + [
+        "--model_base", base_dir,
+        "--pretrain_clip_adapter", os.path.join(stage, "non_lora_trainables.bin")]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    run, _ = train_cli.main(argv, on_step=on_step, tokenizer=fake_tokenizer())
+    t_end = time.perf_counter()
+    launches = {k: kernels.LAUNCHES[k] / (SURF_TRAIN_STEPS + 1) for k in TRAINING}
+    steps = np.diff(marks)
+    med = float(np.median(steps))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"surfaces train: train_cli.main from the checkpoint ({run.llama_cfg.num_layers} layers, "
+        f"Vicuna-7B width, --quant_base, the stage directory's T2V projector, seq "
+        f"{run.train_cfg.model_max_length}, batch 1): load and warm-up step {marks[0] - t0:.2f} "
+        f"s; {SURF_TRAIN_STEPS} timed steps ms {[round(float(x) * 1e3, 1) for x in steps]}, "
+        f"median {med * 1e3:.1f} ms, {run.train_cfg.model_max_length / med:.1f} padded tokens/s; "
+        f"peak memory {peak:.2f} GiB; losses {[round(x, 4) for x in losses]}; row-4 launches a "
+        f"step {launches}; save and export {t_end - marks[-1]:.2f} s")
+    if not np.isfinite(losses).all() or not all(launches.values()):
+        raise AssertionError(f"surfaces train: losses {losses}, row-4 launches {launches}")
+
+    _, ref, _ = load_pretrained(base_dir, run.adapter_cfg)
+    ref = params_from_numpy(quantize_llama_params_host(ref, quantize_lm_head=False),
+                            torch.device("cpu"), torch.bfloat16)
+    bad = tree_mismatches(run.base, ref)
+    n = len(_named_leaves(ref))
+    say(f"surfaces train: the assembled base against load_pretrained + host quantization: "
+        f"{n - len(bad)} of {n} leaves torch.equal")
+    if bad:
+        raise AssertionError(f"surfaces train: base leaves differ {bad[:8]}")
+    del run, ref
+    torch.cuda.empty_cache()
+
+    # train -> export -> serve: the run's export through the eval loader, on
+    # phase 14's inputs (the 1-hour movie), split 0 of PIPE_QUERIES: 1 query
+    inputs = os.path.join(ckpt, "inputs")
+    args = stage1.parse_args([
+        "--data_path", os.path.join(inputs, "val.json"), "--feat_folder",
+        os.path.join(inputs, "feats"), "--q_feat_dir", os.path.join(inputs, "queries"),
+        "--debug", "True", "--model_base", base_dir, "--stage2", out, "--log_path",
+        os.path.join(tmp, "surfaces_serve"), "--total_split", str(PIPE_QUERIES)] + S1_FLAGS)
+    t0 = time.perf_counter()
+    eng = loader.build_engine_from_args(args, tokenizer=fake_tokenizer())
+    t1 = time.perf_counter()
+    kernels.reset_launches()
+    stats = stage1.run(args, eng)
+    torch.cuda.synchronize()
+    served = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    logs = M.load_prediction_logs(args.log_path, args.total_split)
+    say(f"surfaces train: the export served: build_engine_from_args {t1 - t0:.2f} s, stage1.run "
+        f"on 1 query {stats}; launches {served}; the training part in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    if stats["done"] != 1 or stats["errors"] or len(logs) != 1 or \
+            len(logs[0]["answer"]) != 57 or [k for k in SERVING if k not in served]:
+        raise AssertionError(f"surfaces train: the export did not serve: {stats}, {served}")
+    del eng
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -3337,6 +4042,7 @@ def main() -> int:
         for name in PIPELINE:
             records[name]["launches"] = launches[name]
         phase_checkpoint(dev, tmp, setup[1])
+        phase_surfaces(dev, setup, tmp)
         del setup
         torch.cuda.empty_cache()
         phase_pipeline_compare(dev)
@@ -3346,6 +4052,7 @@ def main() -> int:
             records[name]["launches"] = launches[name]
         torch.cuda.empty_cache()
         phase_train_compare(dev, paths)
+        phase_surfaces_train(dev, tmp, paths)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

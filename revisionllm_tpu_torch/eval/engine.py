@@ -16,9 +16,12 @@ to a row bucket (REVISIONLLM_S2_ROW_BUCKETS). Under
 REVISIONLLM_SHARED_PREFIX=1 a chunk whose rows share their prompt up to the
 video block prefills that prefix once (llama.prefill_shared_prefix).
 
+Dense captioning (`caption_windows`) answers the JSON-event prompt for every
+dense window; MSR-VTT-style text-to-video retrieval (`retrieve_videos`)
+ranks a candidate corpus by passes of eval_cfg.batch video-CLS tokens.
+
 There is no mesh and no compiled-program cache (PyTorch runs eagerly), so
-the movie is not padded to a length bucket. Captioning and MSR-VTT video
-retrieval (`caption_windows`, `retrieve_videos`) wait for a later slice.
+the movie is not padded to a length bucket.
 """
 
 from __future__ import annotations
@@ -39,6 +42,43 @@ from revisionllm_tpu_torch.models.multimodal import KIND_VIDEO, build_splice_pla
 from revisionllm_tpu_torch.ops import windows as W
 from revisionllm_tpu_torch.tokenization import tokenizer_image_token
 from revisionllm_tpu_torch.utils.device import resolve_device
+
+
+CAPTION_PROMPT = (
+    "Could you please describe the events in the video in detail? "
+    "Be specific about the activities of individuals, their "
+    "surroundings, and interactions with others. The output should "
+    'be in JSON format, structured as follows: {"event": "xx", '
+    '"timestamps": "from xx to xx"}.'
+)
+
+
+def _map_retrieval_answers(
+    answers: Sequence[str],
+    inv_entropy: Sequence[float],
+    starts: Sequence[int],
+    batch: int,
+    num_candidates: int,
+) -> Tuple[List[int], List[float]]:
+    """Map per-pass 'In video N' answers to corpus candidate ids and scores.
+
+    The tail pass overlaps earlier passes (start = V - batch) and pads rows
+    by repeating the last candidate when V < batch, so an answer pointing at
+    a padded slot maps to the candidate it duplicates, and a candidate
+    chosen by several passes keeps only its best score (repeats would push
+    the ground truth's rank later and distort R@K and MedR)."""
+    best: Dict[int, float] = {}
+    for p, a in enumerate(answers):
+        n = M.parse_single(a)
+        if n is None:
+            continue
+        n_rows = min(batch, num_candidates - starts[p])  # real rows this pass
+        cand = starts[p] + min(max(n, 0), n_rows - 1)
+        s = inv_entropy[p]
+        if s > best.get(cand, float("-inf")):
+            best[cand] = s
+    chosen = list(best.keys())
+    return chosen, [best[c] for c in chosen]
 
 
 class GroundingEngine:
@@ -370,6 +410,41 @@ class GroundingEngine:
             for qi, q in enumerate(queries)
         ]
 
+    def caption_windows(self, features: np.ndarray, prompt: Optional[str] = None,
+                        movie_key=None) -> Dict[str, Any]:
+        """Dense captioning: every dense window of the movie answers
+        `prompt` (default the JSON-event prompt of the reference's
+        'captioning' task, eval_nlq_negative.py:265-268) in chunks of
+        eval_cfg.batch windows gathered from the resident movie, the last
+        padded by repeating its last row. A caption is at most
+        eval_cfg.max_new_tokens long."""
+        ecfg = self.eval_cfg
+        clip_length = int(ecfg.debug_window * ecfg.feature_fps)
+        bounds = W.dense_window_bounds(len(features), clip_length)
+        if not bounds:
+            return {"answers": []}
+        plan_idx = np.asarray(W.window_frame_indices(bounds, ecfg.num_frames), np.int32)
+        feats_dev = self._features_to_device(features, movie_key)
+        full = CONV_VICUNA_V1.user_turn_prompt("<video>\n " + (CAPTION_PROMPT if prompt is None
+                                                                  else prompt))
+        ids = tokenizer_image_token(full, self.tokenizer)
+        chunk = max(ecfg.batch, 1)
+        plan = build_splice_plan(
+            ids, ecfg.num_frames, len(ids) - 1 + ecfg.num_frames + ecfg.max_new_tokens
+        )
+        plan_np = stack_plans([plan] * chunk)
+        pending = []
+        for start in range(0, len(bounds), chunk):
+            end = min(start + chunk, len(bounds))
+            rows = plan_idx[start:end]
+            if len(rows) < chunk:
+                rows = np.concatenate([rows, np.repeat(rows[-1:], chunk - len(rows), axis=0)])
+            pending.append((end - start, self._run_chunk(plan_np, rows, feats_dev, None, None)))
+        answers: List[str] = []
+        for n_valid, out in pending:
+            answers.extend(self._read_chunk(out)[0][:n_valid])
+        return {"answers": answers}
+
     # ---------------------------------------------------------------- stage 2
 
     @staticmethod
@@ -605,3 +680,71 @@ class GroundingEngine:
             ))
             off += k
         return results
+
+    # ------------------------------------------------------------- t2v eval
+
+    def retrieve_videos(
+        self,
+        video_feats: np.ndarray,
+        sentence: str,
+        query_feats: Optional[np.ndarray] = None,
+        query_cls: Optional[np.ndarray] = None,
+        question_key: str = "retrieval",
+        corpus_key=None,
+    ) -> Dict[str, Any]:
+        """Text-to-video retrieval over a candidate corpus (MSR-VTT style):
+        candidates play the part stage-2 windows play. Each pass shows
+        eval_cfg.batch candidate tracks as one CLS token each (the tail pass
+        starts at V - batch); its 'In video N' answer maps back to a
+        candidate (_map_retrieval_answers), scored by inverse mean entropy,
+        times the query-CLS cosine (normalized by its largest magnitude)
+        when `query_cls` is given.
+
+        video_feats [V, T, d], each candidate already linspace-sampled to
+        num_frames (reference dataset.py:661-666). The corpus stays on the
+        device under `corpus_key` across a query loop. Returns answers per
+        pass, the chosen candidates ranked by score, their scores and V."""
+        ecfg = self.eval_cfg
+        V, T, d = video_feats.shape
+        batch = max(ecfg.batch, 1)
+        feats_dev = self._features_to_device(video_feats.reshape(V * T, d), corpus_key)
+        base_idx = np.arange(V * T, dtype=np.int32).reshape(V, T)
+        ids = self._prompt_ids(sentence, QUESTIONS[question_key])
+        plan_np = stack_plans([build_splice_plan(ids, batch, len(ids) - 1 + batch
+                                                 + ecfg.max_new_tokens)])
+        qf = qv = None
+        if query_feats is not None:
+            qf, qv = self._broadcast_query_feats(query_feats, 1)
+        starts: List[int] = []
+        pending = []
+        for p in range(int(np.ceil(V / batch))):
+            start = min(p * batch, max(V - batch, 0))
+            starts.append(start)
+            rows = base_idx[start : start + batch]
+            if len(rows) < batch:
+                rows = np.concatenate([rows, np.repeat(rows[-1:], batch - len(rows), axis=0)])
+            pending.append(self._run_chunk(plan_np, rows[None], feats_dev, qf, qv))
+        answers: List[str] = []
+        inv_entropy: List[float] = []
+        for out in pending:
+            chunk_answers, stats = self._read_chunk(out)
+            answers.append(chunk_answers[0])
+            inv_entropy.append(1.0 / max(stats[0, 2], 1e-9))
+
+        chosen, scores = _map_retrieval_answers(answers, inv_entropy, starts, batch, V)
+        if query_cls is not None and chosen:
+            cand = torch.as_tensor(chosen, dtype=torch.long, device=self.device)
+            frames = feats_dev.reshape(V, T, d)[cand]
+            valid = torch.ones(frames.shape[:2], dtype=torch.bool, device=self.device)
+            qc = torch.as_tensor(np.asarray(query_cls), dtype=torch.float32, device=self.device)
+            cos = proposal_cosine_scores(qc, frames, valid, k=3).tolist()
+            m = max(abs(c) for c in cos) or 1.0
+            scores = [s * (c / m) for s, c in zip(scores, cos)]
+
+        order = np.argsort(np.asarray(scores))[::-1] if scores else []
+        return {
+            "answers": answers,
+            "ranked": [chosen[i] for i in order],
+            "scores": [scores[i] for i in order],
+            "num_candidates": V,
+        }

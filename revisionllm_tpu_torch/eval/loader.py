@@ -4,11 +4,12 @@ revisionllm_tpu/eval/loader.py, the glue of the reference's
 load_pretrained_model call sites (eval_nlq_negative.py:143,
 eval_nlq_retrieval_e2e2.py:180).
 
-`build_engine_from_args` resolves the device first (CUDA unless --device
-says otherwise), then converts the HF checkpoint and the stage directories
+`load_model` resolves the device first (CUDA unless --device says
+otherwise), then converts the HF checkpoint and the stage directories
 (models/convert.py), quantizes it in host RAM (`serving_params_host`) and
 moves it to the device. The tokenizer comes from `transformers` unless the
-caller passes one.
+caller passes one. `build_engine_from_args` wraps the model in a
+GroundingEngine for the eval CLIs; the demo chats over it directly.
 """
 
 from __future__ import annotations
@@ -85,11 +86,12 @@ def serving_params_host(llama_cfg, params, device):
     return params
 
 
-def build_engine_from_args(args, tokenizer=None):
-    """A GroundingEngine on `args.device` (default CUDA) from --model_base,
-    the projector flags and the --stage2 / --stage3 LoRA directories.
-    `tokenizer`, when given, replaces AutoTokenizer.from_pretrained."""
-    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+def load_model(args, tokenizer=None):
+    """(llama_cfg, adapter_cfg, params, vision, tokenizer, device): the
+    checkpoint of --model_base with the projector flags and the --stage2 /
+    --stage3 LoRA directories, quantized in host RAM for serving and moved
+    to `args.device` (default CUDA). `tokenizer`, when given, replaces
+    AutoTokenizer.from_pretrained."""
     from revisionllm_tpu_torch.models.convert import load_pretrained
     from revisionllm_tpu_torch.models.llama import torch_dtype
     from revisionllm_tpu_torch.models.weights import params_from_numpy
@@ -123,6 +125,16 @@ def build_engine_from_args(args, tokenizer=None):
         from transformers import AutoTokenizer
 
         tokenizer = AutoTokenizer.from_pretrained(args.model_base, use_fast=True)
+    return llama_cfg, adapter_cfg, params, vision, tokenizer, device
+
+
+def build_engine_from_args(args, tokenizer=None):
+    """A GroundingEngine on `args.device` (default CUDA) over `load_model`'s
+    checkpoint; `tokenizer`, when given, replaces
+    AutoTokenizer.from_pretrained."""
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+
+    llama_cfg, adapter_cfg, params, vision, tokenizer, device = load_model(args, tokenizer)
     return GroundingEngine(
         llama_cfg, adapter_cfg, params, vision, tokenizer, eval_cfg_from_args(args),
         eos_id=tokenizer.eos_token_id or 2, device=device,

@@ -2,7 +2,8 @@
 
 `proposal_cosine_scores` takes any leading proposal dims (JAX vmaps the
 single-proposal function instead), so one call scores every proposal of a
-query on the device.
+query on the device. `topk_pooling`, `attention_pooling` and
+`span_cxw_to_xx` are the reference scorer's helpers (similarity.py:5-113).
 """
 
 from __future__ import annotations
@@ -14,6 +15,34 @@ import torch
 
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 0.0) -> torch.Tensor:
     return x / (torch.linalg.vector_norm(x, dim=dim, keepdim=True) + eps)
+
+
+def topk_pooling(text_embeds: torch.Tensor, video_embeds: torch.Tensor, k: int) -> torch.Tensor:
+    """The sum of the k frames most similar to each text: text_embeds
+    [num_texts, d], video_embeds [num_vids, num_frames, d] ->
+    [num_vids, num_texts, d]."""
+    sims = torch.einsum("vfd,td->vtf", video_embeds, text_embeds)
+    idx = torch.topk(sims, k, dim=-1).indices  # [v, t, k]
+    v, t = idx.shape[:2]
+    d = video_embeds.shape[-1]
+    frames = video_embeds[:, None].expand(v, t, -1, d)
+    return torch.gather(frames, 2, idx[..., None].expand(v, t, k, d)).sum(dim=2)
+
+
+def attention_pooling(text_embeds: torch.Tensor, video_embeds: torch.Tensor,
+                      temperature: float) -> torch.Tensor:
+    """Frames pooled by softmax(similarity / temperature) over the frames:
+    [num_vids, num_texts, d]."""
+    sims = torch.einsum("vfd,td->vft", video_embeds, text_embeds)
+    weights = torch.softmax(sims / temperature, dim=1)
+    return torch.einsum("vfd,vft->vtd", video_embeds, weights)
+
+
+def span_cxw_to_xx(cxw_spans: torch.Tensor) -> torch.Tensor:
+    """(center, width) spans -> (start, end)."""
+    x1 = cxw_spans[..., 0] - 0.5 * cxw_spans[..., 1]
+    x2 = cxw_spans[..., 0] + 0.5 * cxw_spans[..., 1]
+    return torch.stack([x1, x2], dim=-1)
 
 
 def proposal_cosine_scores(

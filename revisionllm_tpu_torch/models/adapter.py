@@ -14,9 +14,10 @@ probabilities, each residual branch and the FFN's hidden layer. Its keep
 masks come from an explicit torch.Generator; they cannot replay JAX's PRNG
 bits, so the two agree in distribution (keep rate 1 - dropout, kept values
 scaled by 1 / (1 - dropout)), not bit for bit, and parity tests run with
-dropout 0. The 'alternate' and 'all' modes, the mlp projector, the
-CrossLayer self-attention variants (ca_self_attn: performer, linformer) and
-the chapters text projection (cross_attn) are not ported yet.
+dropout 0. The mlp projector is models/revisionllm.py's. The 'alternate'
+and 'all' modes, the CrossLayer self-attention variants (ca_self_attn:
+performer, linformer) and the chapters text projection (cross_attn) are not
+ported yet.
 """
 
 from __future__ import annotations

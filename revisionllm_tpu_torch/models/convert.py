@@ -227,6 +227,15 @@ def convert_mlp_projector(raw_state: Dict[str, np.ndarray], dtype=np.float32) ->
     return {"w": _mat(sd["weight"], dtype), "b": sd["bias"].astype(dtype)}
 
 
+def convert_projector(raw_state: Dict[str, np.ndarray], adapter_cfg: AdapterConfig,
+                      dtype=np.float32) -> Dict[str, Any]:
+    """A projector state dict -> the mm_projector tree of `adapter_cfg`'s
+    kind: the plain Linear (mlp) or the ClipEncoder."""
+    if adapter_cfg.kind == "mlp":
+        return convert_mlp_projector(raw_state, dtype)
+    return convert_clip_adapter(raw_state, adapter_cfg, dtype)
+
+
 # ---------------------------------------------------------------------------
 # PEFT LoRA adapters
 # ---------------------------------------------------------------------------
@@ -326,11 +335,7 @@ def load_pretrained(
     params = _round_in_place(convert_llama(load_hf_llama_state(model_base), cfg), dtype)
 
     def adapter(raw):
-        if adapter_cfg.kind == "mlp":
-            tree = convert_mlp_projector(raw)
-        else:
-            tree = convert_clip_adapter(raw, adapter_cfg)
-        return {"mm_projector": _round_in_place(tree, dtype)}
+        return {"mm_projector": _round_in_place(convert_projector(raw, adapter_cfg), dtype)}
 
     vision = None
     if mm_projector_path is not None:

@@ -13,13 +13,14 @@ unified int8 KV slab (a shared-prefix prefill's split cache is repacked into
 it), and each step is one ops.decode_serve launch (row 10 on the card), then
 the final norm and the lm_head; REVISIONLLM_SERVE=0 (or set_serve(False))
 sends the packed tree through decode_step_split instead. Every other step is
-llama.decode_step_split.
+llama.decode_step_split. `generate_stream` yields one greedy token a step
+for interactive use (the streaming chat).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterator, Optional
 
 import torch
 
@@ -235,3 +236,41 @@ def entropy_stats_from_steps(entropy: torch.Tensor, valid: torch.Tensor) -> torc
     var = (m * (entropy - e_mean[:, None]) ** 2).sum(dim=1) / (n - 1.0).clamp(min=1.0)
     e_std = torch.where(n > 1, torch.sqrt(var), torch.zeros_like(var))
     return torch.stack([e_max, e_min, e_mean, e_std], dim=1)
+
+
+def generate_stream(
+    cfg: LlamaConfig,
+    params: Dict[str, Any],
+    embeds: torch.Tensor,
+    positions: torch.Tensor,
+    prompt_lens: torch.Tensor,
+    *,
+    eos_id: int,
+    max_new_tokens: int,
+) -> Iterator[int]:
+    """Greedy decoding as a generator of row 0's token ids, one host
+    round-trip a token (JAX's generation.py:280-322; the role of the
+    reference demo's TextStreamer). The prefill runs once (prefill_kv, int8
+    prompt KV under the same switch as `generate`); every step is one
+    llama.decode_step_split over a [L, B, G, KH, hd] generated-token cache.
+    It stops at eos without running the step after it, and skips the step
+    after the last token, whose logits JAX computes and drops."""
+    B = embeds.shape[0]
+    G = max_new_tokens
+    prompt_lens = prompt_lens.to(torch.int32)
+    logits, prompt_kv = llama.prefill_kv(
+        cfg, params, embeds, positions, kv_lens=prompt_lens,
+        kv_quant=_kv8_enabled(embeds.device),
+    )
+    gen_cache = llama.init_gen_cache(cfg, B, G, embeds.dtype, embeds.device)
+    for g in range(G):
+        token = int(torch.argmax(logits[0]))
+        if token == eos_id:
+            return
+        yield token
+        if g + 1 == G:
+            return
+        ids = torch.full((B, 1), token, dtype=torch.long, device=embeds.device)
+        tok_embed = llama.embed_tokens(params, ids).to(embeds.dtype)
+        logits = llama.decode_step_split(cfg, params, prompt_kv, prompt_lens, gen_cache, g,
+                                         tok_embed)[0]

@@ -24,15 +24,27 @@ Params = Dict[str, Any]
 HIERARCHY_CHUNK = 256  # windows per adapter call for the hierarchy input
 
 
+def init_mlp_projector(gen: torch.Generator, d_in: int, hidden: int, dtype=torch.float32,
+                       device=None) -> Params:
+    """The plain Linear projector (vtimellm_arch.py:125): w ~ N(0, 1/d_in)
+    [d_in, hidden], b zero."""
+    w = torch.randn((d_in, hidden), generator=gen, device=device) * d_in ** -0.5
+    return {"w": w.to(dtype), "b": torch.zeros((hidden,), dtype=dtype, device=device)}
+
+
 def init_vision_params(
     adapter_cfg: AdapterConfig, seed: int = 1, d_in: int = 768,
     dtype=torch.float32, device=None,
 ) -> Params:
-    """ClipEncoder adapter init from `seed` on `device` (default CUDA).
-    `d_in` is kept for JAX's signature: the adapter's width is d_model."""
+    """Vision module init from `seed` on `device` (default CUDA): the mlp
+    projector from `d_in` features, or the ClipEncoder adapter (whose width
+    is d_model)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    if adapter_cfg.kind == "mlp":
+        return {"mm_projector": init_mlp_projector(gen, d_in, adapter_cfg.hidden_size, dtype,
+                                                   device)}
     return {"mm_projector": init_adapter_params(adapter_cfg, gen, dtype, device)}
 
 
@@ -54,8 +66,10 @@ def encode_video(
     V times in place for each row (jnp.repeat on axis 0; Tensor.repeat would
     tile the batch instead), in slices of HIERARCHY_CHUNK windows: the
     adapter's f32 attention scores for a stage-2 batch of 1400 windows would
-    take several GB at once."""
+    take several GB at once. The mlp projector maps every frame to a token."""
     proj = vision_params["mm_projector"]
+    if adapter_cfg.kind == "mlp":
+        return images.to(proj["w"].dtype) @ proj["w"] + proj["b"]
     if images.dim() == 4:
         B, V, T, d = images.shape
         flat = images.reshape(B * V, T, d)

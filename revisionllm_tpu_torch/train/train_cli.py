@@ -9,12 +9,15 @@ auto-resume and the reference-format export.
     python -m revisionllm_tpu_torch.train.train_cli --data_path train.json \\
         --feat_folder feats/ --output_dir out/ [--tiny_model] [--device cpu]
 
-Runs on CUDA unless --device says otherwise. The base is a random init from
---seed (--quant_base: int8 layers, dense lm_head); starting from HF weights
-(--model_base), a stage-2 LoRA (--stage2_path) and pretrained adapters
-(--pretrain_*) waits for the trainer's loader branches (ROADMAP Queue A
-step 1b), and data/tensor parallelism (--dp/--fsdp/--tp) waits for the
-distributed layer.
+Runs on CUDA unless --device says otherwise. The base is an HF checkpoint
+(--model_base: its config.json gives the geometry, the preset the compute
+dtype) or a random init from --seed; --quant_base quantizes its layers to
+int8 in host RAM before the move to the device (the lm_head stays dense).
+--pretrain_clip_adapter / --pretrain_mm_mlp_adapter load a projector,
+--stage2_path a PEFT LoRA, merged into the base at training_stage 3 and
+frozen beside it otherwise (JAX's train_cli.py:121-198). Data/tensor
+parallelism (--dp/--fsdp/--tp) waits for the distributed layer, the
+streaming-memory loss for the rest of training (ROADMAP Queue A step 4).
 """
 
 from __future__ import annotations
@@ -39,7 +42,10 @@ from revisionllm_tpu_torch.config import (
 )
 from revisionllm_tpu_torch.data.collator import Collator
 from revisionllm_tpu_torch.data.dataset import GroundingDataset
-from revisionllm_tpu_torch.models import llama, revisionllm
+from revisionllm_tpu_torch.models import convert, llama, revisionllm
+from revisionllm_tpu_torch.models import lora as lora_mod
+from revisionllm_tpu_torch.models.weights import params_from_numpy
+from revisionllm_tpu_torch.ops.quant import quantize_llama_params_host
 from revisionllm_tpu_torch.train import checkpoint as ckpt_lib
 from revisionllm_tpu_torch.train import optimizer as opt_lib
 from revisionllm_tpu_torch.train import trainer as trainer_lib
@@ -54,7 +60,7 @@ def parse_args(argv=None):
     p.add_argument("--quant_base", action="store_true",
                    help="freeze the backbone as int8 (QLoRA-style), lm_head dense")
     p.add_argument("--model_base", type=str, default=None,
-                   help="HF Vicuna dir (not ported yet); random init if omitted")
+                   help="HF Vicuna dir; random init if omitted")
     p.add_argument("--stage2_path", type=str, default=None)
     p.add_argument("--pretrain_mm_mlp_adapter", type=str, default=None)
     p.add_argument("--pretrain_clip_adapter", type=str, default=None)
@@ -122,13 +128,9 @@ def build_configs(args):
 def _check_args(args, data_cfg) -> None:
     if (args.dp, args.fsdp, args.tp) != (1, 1, 1):
         raise NotImplementedError("--dp/--fsdp/--tp other than 1 wait for the distributed layer")
-    for flag in ("model_base", "stage2_path", "pretrain_mm_mlp_adapter", "pretrain_clip_adapter"):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag} needs the trainer's loader branches, not ported yet "
-                f"(ROADMAP Queue A step 1b)")
     if data_cfg.stream:
-        raise NotImplementedError("the streaming-memory loss is not ported yet")
+        raise NotImplementedError("the streaming-memory loss is not ported yet "
+                                  "(ROADMAP Queue A step 4)")
 
 
 @dataclass
@@ -156,23 +158,65 @@ class Run:
         return {k: torch.as_tensor(v, device=self.device) for k, v in b.items()}
 
 
+def base_from_checkpoint(model_base: str, llama_cfg: LlamaConfig, quant_base: bool, device):
+    """(llama_cfg, base) from an HF checkpoint directory: the geometry from
+    its config.json with `llama_cfg`'s compute dtype, the weights converted
+    to f32 host arrays, quantized there when `quant_base` (int8 layers, f32
+    scales, the lm_head dense), then moved to `device` in that dtype."""
+    llama_cfg = LlamaConfig(**{**convert.llama_config_from_hf(model_base).__dict__,
+                               "dtype": llama_cfg.dtype})
+    base = convert.convert_llama(convert.load_hf_llama_state(model_base), llama_cfg)
+    if quant_base:
+        base = quantize_llama_params_host(base, quantize_lm_head=False)
+    return llama_cfg, params_from_numpy(base, device, llama.torch_dtype(llama_cfg.dtype))
+
+
 def assemble(llama_cfg, adapter_cfg, data_cfg, train_cfg, device, seed: int,
-             quant_base: bool) -> Run:
-    """Model assembly (reference train.py:251-318,348-364) and data: a base
-    made from `seed` (int8 layers with a dense lm_head when `quant_base`),
-    the vision adapter from seed + 1, the stage machine's trainable and
-    frozen trees (LoRA from seed + 2), the dataset and the collator."""
+             quant_base: bool, model_base: Optional[str] = None,
+             projector: Optional[str] = None, stage2_path: Optional[str] = None,
+             tokenizer=None) -> Run:
+    """Model assembly (reference train.py:251-318,348-364) and data: the
+    base from `model_base` (base_from_checkpoint; the adapter's output
+    width follows it) or made from `seed` (int8 layers with a dense lm_head
+    when `quant_base`); the vision adapter from the `projector` file
+    (mm_projector.bin or a stage's non_lora_trainables.bin) or from seed + 1;
+    the LoRA of `stage2_path`, merged into the base at training_stage 3, else
+    frozen beside it; the stage machine's trainable and frozen trees (a fresh
+    LoRA from seed + 2); the dataset and the collator. The dataset tokenizes
+    with `tokenizer`, else the checkpoint's (transformers' AutoTokenizer), or
+    the FakeTokenizer without a checkpoint."""
     dtype = llama.torch_dtype(llama_cfg.dtype)
-    base = llama.init_params(llama_cfg, seed=seed, dtype=dtype, device=device,
-                             quantize=quant_base, quantize_lm_head=False)
-    vision = revisionllm.init_vision_params(
-        adapter_cfg, seed=seed + 1, d_in=adapter_cfg.d_model, dtype=dtype, device=device
-    )
+    if model_base is not None:
+        llama_cfg, base = base_from_checkpoint(model_base, llama_cfg, quant_base, device)
+        adapter_cfg = adapter_cfg.with_hidden(llama_cfg.hidden_size)
+        if tokenizer is None:
+            from transformers import AutoTokenizer
+
+            tokenizer = AutoTokenizer.from_pretrained(model_base, use_fast=True)
+    else:
+        base = llama.init_params(llama_cfg, seed=seed, dtype=dtype, device=device,
+                                 quantize=quant_base, quantize_lm_head=False)
+        tokenizer = tokenizer if tokenizer is not None else FakeTokenizer()
+    if projector is not None:
+        tree = convert.convert_projector(convert._load_torch_state(projector), adapter_cfg)
+        vision = params_from_numpy({"mm_projector": tree}, device, dtype)
+    else:
+        vision = revisionllm.init_vision_params(
+            adapter_cfg, seed=seed + 1, d_in=adapter_cfg.d_model, dtype=dtype, device=device
+        )
+    prior_lora = None
+    if stage2_path is not None:
+        tree, prior_cfg = convert.convert_peft_lora(stage2_path, llama_cfg)
+        prior_lora = params_from_numpy(tree, device)
+        if train_cfg.training_stage == 3:
+            base = lora_mod.merge(base, prior_lora, prior_cfg)
+            prior_lora = None
     lora_gen = torch.Generator(device=device).manual_seed(seed + 2)
-    trainable, frozen = trainer_lib.build_trainable(llama_cfg, train_cfg, vision, lora_gen)
+    trainable, frozen = trainer_lib.build_trainable(llama_cfg, train_cfg, vision, lora_gen,
+                                                    prior_lora)
     rng = np.random.default_rng(seed)
     dataset = GroundingDataset(
-        data_cfg.data_path, FakeTokenizer(), data_cfg, rng=rng,
+        data_cfg.data_path, tokenizer, data_cfg, rng=rng,
         model_max_length=train_cfg.model_max_length,
     )
     collator = Collator(
@@ -182,15 +226,19 @@ def assemble(llama_cfg, adapter_cfg, data_cfg, train_cfg, device, seed: int,
                dataset, collator, rng)
 
 
-def main(argv=None, on_step: Optional[Callable[[int, Dict, Dict], None]] = None):
+def main(argv=None, on_step: Optional[Callable[[int, Dict, Dict], None]] = None,
+         tokenizer=None):
     """Train, save and export as the flags say. `on_step(step, batch,
-    metrics)`, if given, runs after each step (steps count from 1). Returns
-    the run and its optimizer."""
+    metrics)`, if given, runs after each step (steps count from 1).
+    `tokenizer`, when given, replaces AutoTokenizer.from_pretrained of
+    --model_base. Returns the run and its optimizer."""
     args = parse_args(argv)
     llama_cfg, adapter_cfg, data_cfg, train_cfg = build_configs(args)
     _check_args(args, data_cfg)
     run = assemble(llama_cfg, adapter_cfg, data_cfg, train_cfg, resolve_device(args.device),
-                   args.seed, args.quant_base)
+                   args.seed, args.quant_base, model_base=args.model_base,
+                   projector=args.pretrain_clip_adapter or args.pretrain_mm_mlp_adapter,
+                   stage2_path=args.stage2_path, tokenizer=tokenizer)
     logger = MetricLogger(os.path.join(args.output_dir, "train_log.jsonl"))
     global_batch = train_cfg.per_device_batch_size
     steps_per_epoch = max(len(run.dataset) // global_batch, 1)
@@ -211,7 +259,7 @@ def main(argv=None, on_step: Optional[Callable[[int, Dict, Dict], None]] = None)
     optimizer = opt_lib.AdamW(trainer_lib.tree_leaves(run.trainable), train_cfg, total_steps)
     if opt_state is not None:
         optimizer.load_state_dict(opt_state)
-    step_fn = trainer_lib.make_train_step(llama_cfg, adapter_cfg, train_cfg, optimizer)
+    step_fn = trainer_lib.make_train_step(run.llama_cfg, run.adapter_cfg, train_cfg, optimizer)
 
     # --- loop ---
     gen = torch.Generator(device=run.device).manual_seed(args.seed + 3)

@@ -8,6 +8,7 @@ import os
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -367,14 +368,14 @@ def test_two_call_check_rejects_one_flipped_bit():
         chip_smoke.same_bits("row", (hidden, kv), (hidden,))
 
 
-@pytest.mark.parametrize("S,low", [(318, 280), (4084, 4020)])
+@pytest.mark.parametrize("S,low", [(318, 280), (4084, 4020), (chip_smoke.chat_geometry())])
 def test_k3_planted_faults_fail_the_limits(S, low):
     """K3's check (k3_inputs, k3_faults, hold_k3) on its plain version at
     the card's shapes cut to 2 rows and 4 kv heads: the second half of
     every prompt masked and one V tile (prompt positions 64..127) dropped
     each move the worst (row, head) vector by five times the block limit
-    and more, at the stage-1 prompt and at 4096 positions; the plain
-    version holds against itself."""
+    and more, at the stage-1 prompt, at 4096 positions and at the chat's
+    prompt cache; the plain version holds against itself."""
     from revisionllm_tpu_torch.ops import decode_attention as DA
 
     gen = torch.Generator().manual_seed(5)
@@ -455,3 +456,142 @@ def test_checkpoint_tree_check_catches_the_planted_fault(tmp_path, monkeypatch):
     assert chip_smoke.rel_l2(chip_smoke.first_step_logits(engines["good"], movie, qf), want) == 0
     assert chip_smoke.rel_l2(chip_smoke.first_step_logits(engines["fault"], movie, qf), want) > \
         chip_smoke.CKPT_LOGITS_TOL
+
+
+@pytest.mark.parametrize("streamed,batch,want", [
+    ([5, 6, 7], [5, 6, 7, 2, 2], None),        # equal up to the batch row's eos
+    ([5, 6, 7], [5, 6, 7], None),              # no eos within the budget
+    ([5, 9, 7], [5, 6, 7, 2], 1),              # a different token
+    ([5, 6], [5, 6, 7, 2], 2),                 # the stream stopped early
+    ([5, 6, 7, 8], [5, 6, 2, 2], 2),           # the stream ran past the batch's eos
+    ([], [2, 2], None),                        # eos first: nothing streamed
+])
+def test_first_divergence(streamed, batch, want):
+    assert chip_smoke.first_divergence(streamed, batch, 2) == want
+
+
+def test_top2_and_logit_trace():
+    """top2 reports the two largest logits with their ids; LogitTrace
+    records each step's logits of a greedy generate (the prefill's, then
+    every decode step's but the last, which generate skips) and restores
+    the functions it wraps."""
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.models import generation, llama
+
+    assert chip_smoke.top2(torch.tensor([0.5, 3.0, -1.0, 2.0])) == ((3.0, 1), (2.0, 3))
+    cfg = LlamaConfig(vocab_size=64, hidden_size=128, intermediate_size=256, num_layers=1,
+                      num_heads=1, num_kv_heads=1, head_dim=128, dtype="float32")
+    params = llama.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    embeds = torch.randn(1, 6, 128, generator=torch.Generator().manual_seed(1))
+    pos = torch.arange(6)[None]
+    orig = (llama.prefill_kv, llama.decode_step_split)
+    with chip_smoke.LogitTrace() as tr:
+        out = generation.generate(cfg, params, embeds, pos, torch.tensor([6]), eos_id=-1,
+                                  max_new_tokens=4)
+    assert (llama.prefill_kv, llama.decode_step_split) == orig
+    assert len(tr.steps) == 4
+    assert [int(s[0].argmax()) for s in tr.steps] == out["tokens"][0].tolist()
+
+
+def test_t2v_corpus_reads_through_msrvtt(tmp_path):
+    """The 1k-A-shaped corpus the surfaces phase writes, at 12 clips and 3
+    queries: msrvtt.load_queries gives one query per clip, split 0 of 4
+    holds the first 3 and their features load, and t2v_stack samples every
+    track to num_frames rows as msrvtt.run does."""
+    from revisionllm_tpu_torch.data.feature_store import QueryFeatureStore, open_feature_store
+    from revisionllm_tpu_torch.eval import msrvtt
+
+    flags, lengths = chip_smoke.write_t2v_corpus(str(tmp_path), 12, 3, d=16, frames=(30, 90))
+    args = msrvtt.parse_args(flags + chip_smoke.T2V_FLAGS + ["--log_path", str(tmp_path / "log"),
+                                                            "--total_split", "4"])
+    queries = msrvtt.load_queries(args.data_path)
+    assert [q["video"] for q in queries] == [f"video{i}" for i in range(12)]
+    assert len(set(q["sentence"] for q in queries)) == 12
+    assert all(30 <= n <= 90 for n in lengths) and len(set(lengths.tolist())) > 1
+    store = open_feature_store(args.feat_folder)
+    assert [store.get(f"video{i}").shape for i in range(12)] == [(n, 16) for n in lengths]
+    qs = QueryFeatureStore(args.q_feat_dir)
+    for i in range(3):
+        tokens, cls = qs.get(f"q{i}")
+        assert tokens.shape == (25, 16) and cls.shape == (16,)
+    stack = chip_smoke.t2v_stack(args, 12)
+    assert stack.shape == (12, 100, 16)
+    assert np.array_equal(stack[0, -1], store.get("video0")[-1])
+
+
+def test_chat_geometry_is_the_streams_plan(monkeypatch):
+    """chat_geometry gives the prompt cache positions and the live length
+    that inference_stream plans for SURF_PROMPT over a SURF_FRAMES window
+    (the shapes check_decode_attention holds K3 at for the chat)."""
+    from revisionllm_tpu_torch import inference
+    from revisionllm_tpu_torch.config import AdapterConfig, LlamaConfig
+    from revisionllm_tpu_torch.models import generation, llama, revisionllm
+
+    seen = {}
+
+    def spy(cfg, params, embeds, positions, prompt_lens, **kw):
+        seen.update(rows=embeds.shape[1], live=prompt_lens.tolist(), G=kw["max_new_tokens"])
+        yield from ()
+
+    monkeypatch.setattr(generation, "generate_stream", spy)
+    cfg = LlamaConfig(vocab_size=512, hidden_size=32, intermediate_size=64, num_layers=1,
+                      num_heads=2, num_kv_heads=2, head_dim=16, dtype="float32")
+    acfg = AdapterConfig(kind="mlp", hidden_size=32)
+    params = llama.init_params(cfg, seed=0, dtype=torch.float32, device="cpu")
+    vision = revisionllm.init_vision_params(acfg, seed=1, d_in=16, device="cpu")
+    window = np.zeros((1, chip_smoke.SURF_FRAMES, 16), np.float32)
+    assert list(inference.inference_stream(cfg, acfg, params, vision, chip_smoke.fake_tokenizer(),
+                                           window, chip_smoke.SURF_PROMPT,
+                                           max_new_tokens=chip_smoke.SURF_TOKENS)) == []
+    rows, live = chip_smoke.chat_geometry()
+    assert seen == dict(rows=rows, live=[live], G=chip_smoke.SURF_TOKENS)
+
+
+def test_hold_steps_holds_every_step_and_token():
+    """hold_steps passes two decodes whose every step's logits agree within
+    5% of the largest and whose greedy tokens are equal; it fails a decode
+    step (not only the first) moved past the limit, a greedy token that
+    differs beyond a bf16 tie while the logits hold, and a missing step;
+    a token flipped at a tie (one bf16 step apart) stops it there."""
+    gen = torch.Generator().manual_seed(3)
+    cpu = [torch.randn((2, 50), generator=gen) * 4 for _ in range(4)]
+    for s in cpu:
+        s[:, 7] = s.max() + 1.0   # a clear greedy token in every row
+    near = [s + 0.01 for s in cpu]
+    diff, tol, tie = chip_smoke.hold_steps("decode", near, cpu)
+    # equal differences: the worst step is the one with the smallest logits
+    assert diff == pytest.approx(0.01, abs=1e-6) and tie is None
+    assert tol == pytest.approx(5e-2 * min(s.abs().max().item() for s in cpu))
+    moved = [s.clone() for s in cpu]
+    moved[2][1, 3] += 0.3 * moved[2].abs().max()
+    with pytest.raises(AssertionError, match="step 2: logits"):
+        chip_smoke.hold_steps("decode", moved, cpu)
+    # token 9 above token 7 on the card by 0.2, below it on the CPU by 0.2:
+    # within the logits' limit, beyond two bf16 steps (0.125 at 8-16)
+    far_cpu, far_card = [s.clone() for s in cpu], [s.clone() for s in cpu]
+    far_cpu[2][0, 9] = far_cpu[2][0, 7] - 0.2
+    far_card[2][0, 9] = far_cpu[2][0, 7] + 0.2
+    with pytest.raises(AssertionError, match=r"step 2: greedy tokens differ beyond a tie in "
+                                             r"row 0.*card \(\(.*, 9\), \(.*, 7\)\)"):
+        chip_smoke.hold_steps("decode", far_card, far_cpu)
+    # token 9 one bf16 step below token 7 on the CPU, one above on the card
+    tie_cpu, tie_card = [s.clone() for s in cpu], [s.clone() for s in cpu]
+    step = chip_smoke.bf16_spacing(cpu[1][0, 7].item())
+    tie_cpu[1][0, 9] = cpu[1][0, 7] - step
+    tie_card[1][0, 9] = cpu[1][0, 7] + step
+    tie_card[2] += 100.0    # after the tie: not held
+    diff, tol, tie = chip_smoke.hold_steps("decode", tie_card, tie_cpu)
+    assert tie[0] == 1 and tie[1][0][1] == 9 and tie[2][0][1] == 7
+    with pytest.raises(AssertionError, match="3 decode steps on the card, 4"):
+        chip_smoke.hold_steps("decode", cpu[:3], cpu)
+
+
+@pytest.mark.parametrize("x,want", [(3.67, 2 ** -6), (4.0, 2 ** -5), (12.0, 2 ** -4),
+                                    (-0.6, 2 ** -8), (0.0, 0.0)])
+def test_bf16_spacing(x, want):
+    """bf16_spacing is the gap from a bf16 value to the next one up."""
+    assert chip_smoke.bf16_spacing(x) == want
+    if x:
+        b = torch.tensor([abs(x)], dtype=torch.bfloat16)
+        up = (b.view(torch.int16) + 1).view(torch.bfloat16)
+        assert (up.float() - b.float()).item() == want

@@ -1,10 +1,10 @@
 """The port stands alone: no module of revisionllm_tpu_torch (nor
 chip_smoke.py) imports JAX or the JAX package, nor at import time a package
-the GPU's machine lacks (transformers, tokenizers, safetensors, ml_dtypes);
-entry points refuse to run
-without CUDA unless asked for the CPU; the host copies agree with the JAX
-package's originals; the kernel build needs nvcc and chip_smoke.py refuses
-to report without a GPU or outside a checkout."""
+the GPU's machine lacks (transformers, tokenizers, safetensors, ml_dtypes,
+gradio); entry points refuse to run without CUDA unless asked for the CPU;
+the host copies agree with the JAX package's originals; the kernel build
+needs nvcc and chip_smoke.py refuses to report without a GPU or outside a
+checkout."""
 
 import json
 import os
@@ -29,7 +29,8 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.")
              or m == "revisionllm_tpu" or m.startswith("revisionllm_tpu."))
 absent = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("transformers", "tokenizers", "safetensors", "ml_dtypes"))
+                if m.split(".")[0] in ("transformers", "tokenizers", "safetensors", "ml_dtypes",
+                                       "gradio"))
 print(json.dumps({"imported": names, "bad": bad, "absent": absent}))
 """
 
@@ -52,7 +53,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "ops.windows", "models.revisionllm", "models.adapter", "eval.metrics",
                 "eval.stage1", "eval.stage2", "eval.fusion", "eval.loader",
                 "data.prefetcher", "utils.cli", "ops.decode_step", "ops.decode_serve",
-                "models.convert", "data.synthetic"):
+                "models.convert", "data.synthetic", "tokenization", "inference", "demo",
+                "webdemo", "eval.uncertainty", "eval.captioning", "eval.msrvtt",
+                "eval.window_recall", "eval.merge_results"):
         assert f"revisionllm_tpu_torch.{mod}" in res["imported"]
 
 

@@ -135,8 +135,8 @@ def test_checkpoint_round_trip_and_async_errors(tmp_path):
 
 def test_cli_refuses_what_is_not_ported(train_data, tmp_path, monkeypatch):
     base = _args(train_data, str(tmp_path / "x"), 1, 1)
-    for extra, match in ((["--model_base", "vicuna"], "Queue A step 1b"),
-                         (["--dp", "2"], "distributed layer")):
+    for extra, match in ((["--dp", "2"], "distributed layer"),
+                         (["--preset", "synthetic_tiny_stream"], "Queue A step 4")):
         with pytest.raises(NotImplementedError, match=match):
             train_cli.main(base + extra)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
