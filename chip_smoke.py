@@ -160,12 +160,41 @@ measured in that run. Phases:
      finite, row 4 ran, and the assembled base equals the loader's tree leaf
      for leaf), and the run's export served by build_engine_from_args and
      stage1.run on one query.
+ 16. the rest of training and raw video, at Vicuna-7B width and depth
+     (weights from a seed): train_cli.main with the stage2_long_100 preset
+     (stage-2 hierarchy training at TRAIN_STAGE2.json's geometry: 100
+     windows x 250 frames of phase 8's corpus a step, --quant_base, batch
+     1, sequence 256) and with the stage1_stream preset (the
+     streaming-memory loss: the mlp projector, 250 frames, mean_pool, over
+     a stream corpus at 768-d and 5 fps), 1 warm-up and 3 timed steps each:
+     step ms, windows/s, frames/s, peak memory, each row-4 kernel's
+     launches a step (fails unless the losses are finite, all three row-4
+     kernels ran and K1, K2, K3 and torch._int_mm did not); one stage-2
+     step on a prebuilt batch under torch.profiler (busy against wall);
+     DevicePrefetcher over the stage-2 batches (equal, on the card, in
+     order; the host's wait, each step's wall and the loop's whole time
+     with and without it); one step of stage2_long_33 (33 windows, the
+     stage-2 compare's cut) and one stream step ('double', --memory_type
+     gt_multi, padded to 512) on the card against the CPU at 2 layers by
+     phase 9's limits, on one base (fails unless clip 2's plan holds
+     24 + 5 memory rows); a CLIP checkpoint at ViT-L/14's geometry written
+     from a seed in HF's layout and a 60 s .y4m (25 fps, 320 x 240):
+     extract_video_features at 5 fps and extract_text_features for 3
+     queries into RVFS stores (decode s, encode ms a frame, frames/s, peak
+     memory), both read back through the native reader (which
+     open_store_native must choose) equal to the Python reader, 4 frames
+     and the 3 texts on the card against the CPU (relative L2 1e-4); and
+     demo.main from the .y4m with --clip_path on phase 14's checkpoint,
+     one question on stdin (the 100 features it encoded must equal, within
+     1e-4, those of its own decode at 1 fps, linspace sampling and the
+     card's encoder, and K1, K2 and K3 must have run), then demo.main on a
+     .npy of those features: the two must generate the same token ids.
 
 The kernel checks of phases 3, 7, 10 and 12 run first, after the build
 (rows 9 and 10 after phase 4, on the slice's weights); phase 13 runs after
 phase 6; the pipeline runs after it, then phase 14 and phase 15's serving
-part, before training; phase 15's training part runs last, after phase 8
-(whose corpus it trains on) and phase 9.
+part, before training; phase 15's training part runs after phase 8 (whose
+corpus it trains on) and phase 9, and phase 16 runs last.
 Prints phase lines, then one JSON line of per-kernel numbers, the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Exits non-zero,
 with no result line, when CUDA is missing, when run outside a checkout of
@@ -174,6 +203,7 @@ the repository, or when any phase fails. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -1545,6 +1575,16 @@ def phase_train_compare(dev, paths):
     path on the CPU, from train_cli's assembly at full width, 2 layers and
     the main path's sequence of 2048, adapter dropout 0 (the two devices'
     generators draw different masks)."""
+    hold_train_step(dev, train_argv(paths, "unused", 1), "train compare")
+
+
+def hold_train_step(dev, argv, tag, **train_overrides):
+    """One train step of train_cli's assembly of `argv` (its preset at full
+    width, cut to 2 layers, adapter dropout 0, the TrainConfig fields of
+    `train_overrides` replaced; the stream loss for a stream preset) on its
+    first batch: the loss and the gradient of every trainable leaf with the
+    kernels on the card against the plain path on the CPU, by phase 9's
+    limits. Prints under `tag`; returns the batch (on the CPU)."""
     import dataclasses
 
     import torch
@@ -1552,15 +1592,20 @@ def phase_train_compare(dev, paths):
 
     cpu = torch.device("cpu")
     t0 = time.perf_counter()
-    cfgs = train_cli.build_configs(train_cli.parse_args(train_argv(paths, "unused", 1)))
-    llama_cfg, adapter_cfg, data_cfg, train_cfg = cfgs
+    secs = {}
+    args = train_cli.parse_args(argv)
+    llama_cfg, adapter_cfg, data_cfg, train_cfg = train_cli.build_configs(args)
     run = train_cli.assemble(dataclasses.replace(llama_cfg, num_layers=2),
-                             dataclasses.replace(adapter_cfg, dropout=0.0), data_cfg, train_cfg,
-                             cpu, seed=0, quant_base=True)
+                             dataclasses.replace(adapter_cfg, dropout=0.0), data_cfg,
+                             dataclasses.replace(train_cfg, **train_overrides), cpu, seed=0,
+                             quant_base=args.quant_base)
     batch = run.batch([0])
-    loss_fn = trainer.make_loss_fn(run.llama_cfg, run.adapter_cfg, run.train_cfg)
+    make = trainer.make_stream_loss_fn if data_cfg.stream else trainer.make_loss_fn
+    loss_fn = make(run.llama_cfg, run.adapter_cfg, run.train_cfg)
     out = {}
+    secs["assembly"] = time.perf_counter() - t0
     for device in (dev, cpu):
+        t1 = time.perf_counter()
         b, bs = _to(run.base, device), _to(batch, device)
         tr = _to(run.trainable, device, grad=True)
         named = _named_leaves(tr)
@@ -1569,6 +1614,7 @@ def phase_train_compare(dev, paths):
             loss = loss_fn(tr, {}, b, bs, gen)
             grads = torch.autograd.grad(loss, [t for _, t in named])
         out[device.type] = (loss.item(), {n: g.float().cpu() for (n, _), g in zip(named, grads)})
+        secs[device.type] = time.perf_counter() - t1
     (lk, gk), (lp, gp) = out[dev.type], out["cpu"]
     # The key projection's bias has no gradient in exact arithmetic (it adds
     # the same q.b to every score of a row, which the softmax ignores), so
@@ -1590,22 +1636,24 @@ def phase_train_compare(dev, paths):
     # (4.5x the 4.4e-4 gap read on the H100), each gradient within 5e-2
     # relative L2 (2.3x the worst leaf read there, 2.2e-2)
     loss_tol, grad_tol = 2e-3, 5e-2
-    say(f"train compare: Vicuna-7B width, 2 layers, seq {run.train_cfg.model_max_length}, "
+    say(f"{tag}: Vicuna-7B width, 2 layers, seq {run.train_cfg.model_max_length}, "
         f"kernels on the card vs plain on the CPU: loss {lk:.5f} vs {lp:.5f} (rel diff "
         f"{abs(lk - lp) / abs(lp):.2e}, tol {loss_tol:.0e}); gradient relative L2, worst leaf "
         f"of each group: " + "; ".join(f"{g} ({len(groups[g])} leaves) {rel[n]:.2e} at {n}"
                                       for g, n in worst.items())
-        + f" (tol {grad_tol:.0e}) ({time.perf_counter() - t0:.1f} s)")
+        + f" (tol {grad_tol:.0e}) ({time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + ")")
     top = sorted(groups["vision"], key=rel.get, reverse=True)[:5]
-    say("train compare: the 5 worst vision leaves "
+    say(f"{tag}: the 5 worst vision leaves "
         + str({n: float(f"{rel[n]:.2e}") for n in top}) + "; key-bias gradient norms "
         + str({n: (float(f"{gk[n].norm().item():.2e}"), float(f"{gp[n].norm().item():.2e}"))
                for n in groups["vision"] if n.endswith("/wk/b")}) + " (card, CPU)")
     if not abs(lk - lp) <= loss_tol * abs(lp):
-        raise AssertionError(f"train loss differs: {lk} vs {lp}")
+        raise AssertionError(f"{tag}: train loss differs: {lk} vs {lp}")
     bad = {n: r for n, r in rel.items() if not r <= grad_tol}
     if bad:
-        raise AssertionError(f"gradients differ: {bad}")
+        raise AssertionError(f"{tag}: gradients differ: {bad}")
+    return batch
 
 
 # ------------------------------------------------------------------ phase 10
@@ -3975,6 +4023,610 @@ def phase_surfaces_train(dev, tmp, paths):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------------ phase 16
+
+P16_STEPS = 3               # timed steps of each training configuration, after one warm-up
+# stage-2 hierarchy training at TRAIN_STAGE2.json's geometry
+# (scripts/train_stage2_sustained.py:76-103): 100 windows x 250 frames a step
+STAGE2_FLAGS = ["--preset", "stage2_long_100", "--quant_base", "--per_device_batch_size", "1",
+                "--model_max_length", "256"]
+# the stage-2 compare's cut: 33 windows of 250 frames (a preset of its own),
+# since the CPU side of the adapter over 100 windows does not fit the phase
+STAGE2_COMPARE_FLAGS = ["--preset", "stage2_long_33"] + STAGE2_FLAGS[2:]
+STREAM_FLAGS = ["--preset", "stage1_stream", "--quant_base", "--per_device_batch_size", "1"]
+# the stream compare: gt_multi's memory (the prefix's 24 tokens and 5 memory
+# frames: 29 rows), padded to 512, where a clip's 250 frames, the 29 rows and
+# its text fit; the CPU side of both losses at the preset's 2048 took 122.6 s
+# on the H100's host
+STREAM_COMPARE_FLAGS = STREAM_FLAGS + ["--memory_type", "gt_multi", "--model_max_length", "512"]
+STREAM_MEMORY_ROWS = 24 + 5
+# openai/clip-vit-large-patch14's config.json
+VIT_L14 = {"vision": {"layers": 24, "width": 1024, "heads": 16, "mlp": 4096, "patch": 14,
+                      "image": 224},
+           "text": {"layers": 12, "width": 768, "heads": 12, "mlp": 3072, "vocab": 49408,
+                    "positions": 77},
+           "projection": 768}
+CLIP_STD = 0.02             # the initializer_range of HF's CLIPConfig
+VIDEO = {"seconds": 60, "fps": 25, "width": 320, "height": 240}
+VIDEO_FPS = 5.0             # feature extraction rate: 300 frames of the 60 s video
+CLIP_QUERIES = {"q0": "a man opens the old door", "q1": "two dogs run across a field",
+                "q2": "the train leaves the station at night"}
+CLIP_CPU_FRAMES = 4         # frames of the card-against-CPU CLIP compare
+CLIP_TOL = 1e-4             # relative L2 of each feature, card against CPU, f32 (TF32 off)
+DEMO_QUESTION = "what happens in the video?"
+DEMO_FRAMES = 100           # demo.load_video_features' linspace frames
+
+
+@contextlib.contextmanager
+def shared_base():
+    """Inside, llama.init_params draws each base once: train_cli.assemble's
+    later calls with the same arguments get the first one's tree (the
+    compares of phase 16 share one 2-layer base on the host)."""
+    from revisionllm_tpu_torch.models import llama
+
+    init, memo = llama.init_params, {}
+
+    def once(*args, **kwargs):
+        key = repr((args, sorted(kwargs.items())))
+        if key not in memo:
+            memo[key] = init(*args, **kwargs)
+        return memo[key]
+
+    llama.init_params = once
+    try:
+        yield
+    finally:
+        llama.init_params = init
+
+
+def stream_corpus(tmp):
+    """The stream corpus at the stage-1 features' geometry: 768-d, 5 fps,
+    540 s movies (4 for training, 1 held out)."""
+    from revisionllm_tpu_torch.data.synthetic import make_stream_corpus
+
+    return make_stream_corpus(os.path.join(tmp, "stream_corpus"), n_train_movies=4,
+                              n_val_movies=1, d=768, fps=5.0, seed=12)
+
+
+def train16_argv(flags, data, out, steps):
+    """train_cli flags: `flags` (the configuration), `data` (the corpus),
+    `steps` steps, one save and the export at the end."""
+    return flags + data + ["--seed", "0", "--output_dir", out, "--max_steps", str(steps),
+                           "--save_steps", str(steps), "--log_steps", "1"]
+
+
+def batch_windows(batch):
+    """(windows, frames) a batch feeds the adapter: a hierarchy batch's B x V
+    windows of T frames, a stream batch's two clips, else B windows."""
+    frames = sum(int(np.prod(batch[k].shape[:-1])) for k in ("images", "c2_images")
+                 if k in batch)
+    windows = sum(int(np.prod(batch[k].shape[:-2])) for k in ("images", "c2_images")
+                  if k in batch)
+    return windows, frames
+
+
+def timed_train(tag, argv):
+    """train_cli.main over `argv` (its last step the export): the first step
+    a warm-up, the others timed. Prints the step ms (median), windows/s,
+    frames/s, peak memory and each row-4 kernel's launches a step; fails
+    unless every loss is finite, all three row-4 kernels ran and no kernel
+    without a backward (K1, K2, K3, torch._int_mm) did. Returns (run,
+    optimizer, the last batch, the median loop step in s)."""
+    import torch
+    from revisionllm_tpu_torch.train import train_cli
+    from revisionllm_tpu_torch.utils import kernels
+
+    marks, losses, last = [], [], {}
+
+    def on_step(step, batch, metrics):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        losses.append(float(metrics["loss"]))
+        last["batch"] = batch
+        if step == 1:
+            torch.cuda.reset_peak_memory_stats()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    with _CountIntMM() as int_mm:
+        run, opt = train_cli.main(argv, on_step=on_step)
+    t_end = time.perf_counter()
+    n = len(marks)
+    launches = {k: v / n for k, v in kernels.LAUNCHES.items() if v}
+    steps = np.diff(marks)
+    med = float(np.median(steps)) if len(steps) else float("nan")
+    windows, frames = batch_windows(last["batch"])
+    say(f"{tag}: train_cli.main {argv[1]}, "
+        f"{run.llama_cfg.num_layers} layers, int8 base, {run.adapter_cfg.kind} adapter, seq "
+        f"{run.train_cfg.model_max_length}, batch {run.train_cfg.per_device_batch_size}, "
+        f"{windows} windows / {frames} frames a step; set-up and warm-up step "
+        f"{marks[0] - t0:.2f} s; {len(steps)} timed steps ms "
+        f"{[round(float(x) * 1e3, 1) for x in steps]}, median {med * 1e3:.1f} ms, "
+        f"{windows / med:.1f} windows/s, {frames / med:.1f} frames/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; losses "
+        f"{[round(x, 4) for x in losses]}; launches a step {launches}, torch._int_mm "
+        f"{int_mm.n}; save and export {t_end - marks[-1]:.2f} s")
+    missing = [k for k in TRAINING if not launches.get(k)]
+    stray = {k: launches[k] for k in SERVING if launches.get(k)}
+    if not np.isfinite(losses).all() or missing or stray or int_mm.n:
+        raise AssertionError(f"{tag}: losses {losses}, row-4 kernels not launched {missing}, "
+                             f"kernels without a backward {stray}, torch._int_mm x{int_mm.n}")
+    return run, opt, last["batch"], med
+
+
+def profile_step(tag, dev, run, opt, loop_s):
+    """One more train step of `run` on a batch built beforehand, under
+    torch.profiler: its wall time, the device's busy time (summed kernel
+    time) against it and against the loop step of `loop_s` seconds (which
+    builds its batch on the host), and the kernel time by group."""
+    import torch
+    from revisionllm_tpu_torch.train import trainer
+
+    step_fn = trainer.make_train_step(run.llama_cfg, run.adapter_cfg, run.train_cfg, opt,
+                                      stream=run.data_cfg.stream)
+    batch = run.batch([0])
+    gen = torch.Generator(device=dev).manual_seed(5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, busy, events = profiled(lambda: step_fn(run.trainable, run.frozen, run.base, batch, gen))
+    wall = (time.perf_counter() - t0) * 1e3
+    groups, _ = group_kernels(events)
+    say(f"{tag} profile: one step on a prebuilt batch under the profiler: wall {wall:.1f} ms, "
+        f"device busy {busy:.1f} ms (idle share {max(0.0, 1 - busy / wall) * 100:.1f}%); against "
+        f"the loop step's {loop_s * 1e3:.1f} ms (its batch built on the host): idle share "
+        f"{max(0.0, 1 - busy / (loop_s * 1e3)) * 100:.1f}%; kernel ms by group "
+        + str({k: round(ms, 2) for k, (ms, n) in groups.items() if n}))
+
+
+def prefetch_check(dev, run, opt, steps=P16_STEPS):
+    """data/prefetcher.DevicePrefetcher over the run's host batches: the
+    batches come out on the device, equal and in order; then `steps` train
+    steps fed by run.batch (built and copied in the loop) and `steps` fed by
+    the prefetcher (built and copied by its thread during the step before):
+    the consumer's wait for each batch, each step's own wall (from its
+    batch in hand to its end, which grows if the fill thread holds the
+    interpreter while the step enqueues its kernels) and the loop's whole
+    time."""
+    import torch
+    from revisionllm_tpu_torch.data.prefetcher import DevicePrefetcher
+    from revisionllm_tpu_torch.train import trainer
+
+    def host(i):
+        return {k: torch.from_numpy(np.asarray(v)) for k, v in run.host_batch([i]).items()}
+
+    want = [host(i) for i in range(steps)]
+    got = list(DevicePrefetcher(iter(want), device=dev))
+    torch.cuda.synchronize()
+    if len(got) != steps or any(
+            set(g) != set(w) or any(g[k].device.type != dev.type or not torch.equal(g[k].cpu(), w[k])
+                                    for k in w) for g, w in zip(got, want)):
+        raise AssertionError("prefetcher: the batches differ from their host copies")
+    del got
+    step_fn = trainer.make_train_step(run.llama_cfg, run.adapter_cfg, run.train_cfg, opt,
+                                      stream=run.data_cfg.stream)
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def loop(batches):
+        waits, walls = [], []
+        start = t0 = time.perf_counter()
+        for b in batches:
+            t_in = time.perf_counter()
+            waits.append((t_in - t0) * 1e3)
+            step_fn(run.trainable, run.frozen, run.base, b, gen)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            walls.append((t0 - t_in) * 1e3)
+        return waits, walls, (time.perf_counter() - start) * 1e3
+
+    plain = loop(run.batch([i]) for i in range(steps))
+    fed = loop(DevicePrefetcher((host(i) for i in range(steps)), device=dev))
+    say(f"prefetcher: {steps} batches through DevicePrefetcher equal to their host copies, on "
+        f"the card, in order; run.batch in the loop, then the prefetcher (its first batch has "
+        f"nothing to overlap): host wait a step {[round(x, 1) for x in plain[0]]} / "
+        f"{[round(x, 1) for x in fed[0]]} ms, the step's own wall "
+        f"{[round(x, 1) for x in plain[1]]} / {[round(x, 1) for x in fed[1]]} ms, the loop "
+        f"{plain[2]:.1f} / {fed[2]:.1f} ms, a step after the first "
+        f"{(plain[2] - plain[0][0] - plain[1][0]) / (steps - 1):.1f} / "
+        f"{(fed[2] - fed[0][0] - fed[1][0]) / (steps - 1):.1f} ms")
+
+
+def clip_shapes(geom):
+    """(name, shape, init) of every tensor of a CLIPModel state dict in HF's
+    key layout at `geom` (VIT_L14's shape); init is "normal", "zeros",
+    "ones" or "logit_scale"."""
+    out = []
+
+    def lin(name, dout, din, bias=True):
+        out.append((f"{name}.weight", (dout, din), "normal"))
+        if bias:
+            out.append((f"{name}.bias", (dout,), "zeros"))
+
+    def norm(name, d):
+        out.extend([(f"{name}.weight", (d,), "ones"), (f"{name}.bias", (d,), "zeros")])
+
+    def tower(prefix, g):
+        d = g["width"]
+        for i in range(g["layers"]):
+            lp = f"{prefix}.encoder.layers.{i}"
+            for m in ("k_proj", "v_proj", "q_proj", "out_proj"):
+                lin(f"{lp}.self_attn.{m}", d, d)
+            norm(f"{lp}.layer_norm1", d)
+            lin(f"{lp}.mlp.fc1", g["mlp"], d)
+            lin(f"{lp}.mlp.fc2", d, g["mlp"])
+            norm(f"{lp}.layer_norm2", d)
+
+    v, t = geom["vision"], geom["text"]
+    out.append(("text_model.embeddings.token_embedding.weight", (t["vocab"], t["width"]),
+                "normal"))
+    out.append(("text_model.embeddings.position_embedding.weight", (t["positions"], t["width"]),
+                "normal"))
+    tower("text_model", t)
+    norm("text_model.final_layer_norm", t["width"])
+    out.append(("vision_model.embeddings.class_embedding", (v["width"],), "normal"))
+    out.append(("vision_model.embeddings.patch_embedding.weight",
+                (v["width"], 3, v["patch"], v["patch"]), "normal"))
+    out.append(("vision_model.embeddings.position_embedding.weight",
+                ((v["image"] // v["patch"]) ** 2 + 1, v["width"]), "normal"))
+    norm("vision_model.pre_layrnorm", v["width"])
+    tower("vision_model", v)
+    norm("vision_model.post_layernorm", v["width"])
+    lin("visual_projection", geom["projection"], v["width"], bias=False)
+    lin("text_projection", geom["projection"], t["width"], bias=False)
+    out.append(("logit_scale", (), "logit_scale"))
+    return out
+
+
+def clip_state(geom, dev, seed=0, std=CLIP_STD):
+    """A CLIPModel state dict at `geom` (clip_shapes) drawn on `dev` from
+    `seed`: weights and embeddings ~ N(0, std^2), zero biases, unit
+    LayerNorms, CLIP's logit scale log(1 / 0.07). {name: f32 numpy array}."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, shape, init in clip_shapes(geom):
+        if init == "normal":
+            out[name] = (torch.randn(shape, generator=gen, device=dev) * std).cpu().numpy()
+        elif init == "logit_scale":
+            out[name] = np.array(np.log(1 / 0.07), np.float32)
+        else:
+            out[name] = (np.ones if init == "ones" else np.zeros)(shape, np.float32)
+    return out
+
+
+def clip_config(geom):
+    """The HF config.json of a CLIPModel at `geom`."""
+    v, t = geom["vision"], geom["text"]
+    return {
+        "architectures": ["CLIPModel"], "model_type": "clip", "projection_dim": geom["projection"],
+        "logit_scale_init_value": 2.6592, "initializer_factor": 1.0, "torch_dtype": "float32",
+        "text_config": {"model_type": "clip_text_model", "vocab_size": t["vocab"],
+                        "hidden_size": t["width"], "intermediate_size": t["mlp"],
+                        "num_hidden_layers": t["layers"], "num_attention_heads": t["heads"],
+                        "max_position_embeddings": t["positions"], "hidden_act": "quick_gelu",
+                        "projection_dim": geom["projection"], "bos_token_id": t["vocab"] - 2,
+                        "eos_token_id": t["vocab"] - 1, "pad_token_id": 1},
+        "vision_config": {"model_type": "clip_vision_model", "hidden_size": v["width"],
+                          "intermediate_size": v["mlp"], "num_hidden_layers": v["layers"],
+                          "num_attention_heads": v["heads"], "image_size": v["image"],
+                          "patch_size": v["patch"], "hidden_act": "quick_gelu",
+                          "projection_dim": geom["projection"]},
+    }
+
+
+def write_clip(path, geom, dev, seed=0):
+    """An HF CLIP directory at `geom`: model.safetensors (f32) and
+    config.json. Returns the bytes written."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(clip_config(geom), f, indent=2)
+    return write_safetensors(os.path.join(path, "model.safetensors"), clip_state(geom, dev, seed))
+
+
+def clip_tokenize(texts, length=77, vocab=VIT_L14["text"]["vocab"]):
+    """A stand-in for CLIP's BPE tokenizer (not in the repository): the
+    start token (vocab - 2), one id a word from its CRC-32, the end token
+    (vocab - 1, the largest id: encode_text pools at argmax), zeros after."""
+    import zlib
+
+    out = np.zeros((len(texts), length), np.int64)
+    for i, text in enumerate(texts):
+        ids = [vocab - 2] + [1 + zlib.crc32(w.encode()) % (vocab - 3)
+                             for w in text.lower().split()][: length - 2] + [vocab - 1]
+        out[i, : len(ids)] = ids
+    return out
+
+
+def video_frames(seconds, fps, width, height, seed=0, block=8):
+    """uint8 RGB frames [T, H, W, 3] from `seed`: 8 x 8-pixel blocks of
+    random colour that drift one block a second."""
+    rng = np.random.default_rng(seed)
+    T = int(seconds * fps)
+    tiles = rng.integers(0, 256, size=(int(seconds) + 1, height // block, width // block + T, 3),
+                         dtype=np.uint8)
+    out = np.empty((T, height, width, 3), np.uint8)
+    for t in range(T):
+        sec = int(t // fps)
+        src = tiles[sec, :, sec : sec + width // block]
+        out[t] = np.repeat(np.repeat(src, block, axis=0), block, axis=1)
+    return out
+
+
+class TimedEncoder:
+    """Wraps a ClipFeatureExtractor: times encode_images (its result is
+    back on the host, so the device is done) and keeps the first frames'
+    pixels for the CPU compare."""
+
+    def __init__(self, inner, keep):
+        self.inner, self.keep = inner, keep
+        self.seconds, self.frames, self.kept = 0.0, 0, None
+
+    def encode_images(self, pixels):
+        t0 = time.perf_counter()
+        out = self.inner.encode_images(pixels)
+        self.seconds += time.perf_counter() - t0
+        self.frames += len(pixels)
+        if self.kept is None:
+            self.kept = (pixels[: self.keep].copy(), out[: self.keep].copy())
+        return out
+
+
+def phase_clip(dev, tmp):
+    """CLIP at ViT-L/14's geometry and the feature tools: a checkpoint
+    written from a seed in HF's layout, read by the port's own reader; a
+    60 s .y4m at 25 fps, 320 x 240; extract_video_features at 5 fps (300
+    frames) and extract_text_features for 3 queries into RVFS stores on the
+    card; both stores read back through the native reader and the Python
+    one (equal, and open_store_native must take the native route); 4 frames
+    and the 3 texts on the card against the CPU at full depth. Returns
+    (the CLIP directory, the video, the extractor)."""
+    import torch
+    from revisionllm_tpu_torch.data import feature_extraction as FE
+    from revisionllm_tpu_torch.data.feature_store import RvfsStore
+    from revisionllm_tpu_torch.data.native_store import NativeRvfsStore, open_store_native
+    from revisionllm_tpu_torch.data.video_reader import write_y4m
+    from revisionllm_tpu_torch.models.clip import convert_hf_clip
+    from revisionllm_tpu_torch.models.convert import load_hf_llama_state
+
+    root = os.path.join(tmp, "clip")
+    clip_dir, video = os.path.join(root, "clip-vit-large-patch14"), os.path.join(root, "movie.y4m")
+    t0 = time.perf_counter()
+    nbytes = write_clip(clip_dir, VIT_L14, dev)
+    t1 = time.perf_counter()
+    write_y4m(video, video_frames(**VIDEO), fps=VIDEO["fps"])
+    t2 = time.perf_counter()
+    state = load_hf_llama_state(clip_dir)
+    tree = convert_hf_clip(state)
+    del state
+    ex = FE.ClipFeatureExtractor(tree, device=dev)
+    t3 = time.perf_counter()
+    n_params = sum(t.numel() for _, t in _named_leaves(ex.params) if isinstance(t, torch.Tensor))
+    say(f"clip: ViT-L/14 geometry ({n_params / 1e6:.1f} M params) written from seed 0 as HF "
+        f"model.safetensors + config.json, {nbytes / 1e9:.3f} GB in {t1 - t0:.2f} s; the "
+        f".y4m ({VIDEO['seconds']} s, {VIDEO['fps']} fps, {VIDEO['width']} x {VIDEO['height']}, "
+        f"{os.path.getsize(video) / 1e6:.1f} MB) in {t2 - t1:.2f} s; read, converted and moved "
+        f"to the card in {t3 - t2:.2f} s")
+
+    timed = TimedEncoder(ex, CLIP_CPU_FRAMES)
+    store = os.path.join(root, "video.rvfs")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    FE.extract_video_features(timed, {"movie": video}, store, target_fps=VIDEO_FPS)
+    t_video = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    text_store = os.path.join(root, "text.rvfs")
+    t0 = time.perf_counter()
+    FE.extract_text_features(ex, CLIP_QUERIES, clip_tokenize, text_store)
+    t_text = time.perf_counter() - t0
+    feats = RvfsStore(store).get("movie")
+    want_frames = int(round(VIDEO["seconds"] * VIDEO_FPS))
+    say(f"clip: extract_video_features at {VIDEO_FPS:g} fps: {timed.frames} frames in "
+        f"{t_video:.2f} s, of which decode, sampling, crop and the store "
+        f"{t_video - timed.seconds:.2f} s and the encoder {timed.seconds:.2f} s "
+        f"({timed.seconds / timed.frames * 1e3:.2f} ms a frame, "
+        f"{timed.frames / timed.seconds:.1f} frames/s, batches of {ex.batch_size}); peak memory "
+        f"{peak:.2f} GiB; extract_text_features for {len(CLIP_QUERIES)} queries {t_text:.2f} s")
+    if feats.shape != (want_frames, VIT_L14["projection"]) or not np.isfinite(feats).all():
+        raise AssertionError(f"clip: video features {feats.shape}, finite "
+                             f"{np.isfinite(feats).all()}")
+
+    # the stores through the native reader and the Python one
+    for path in (store, text_store):
+        nat, py = open_store_native(path), RvfsStore(path)
+        if not isinstance(nat, NativeRvfsStore):
+            raise AssertionError(f"clip: open_store_native took {type(nat).__name__}, not the "
+                                 f"native reader")
+        for key in py.keys():
+            got, want = nat.get_record(key), py.get_record(key)
+            if set(got) != set(want) or not all(np.array_equal(got[k], want[k]) for k in want):
+                raise AssertionError(f"clip: the native reader differs at {key}")
+        nat.close()
+    say(f"clip: both stores read back through NativeRvfsStore (build/native/) equal to the "
+        f"Python reader, record for record")
+
+    # the card against the CPU at full depth
+    t0 = time.perf_counter()
+    cpu = FE.ClipFeatureExtractor(tree, device="cpu")
+    pixels, card_img = timed.kept
+    ids = clip_tokenize(list(CLIP_QUERIES.values()))
+    card_txt = ex.encode_texts(ids)
+    cpu_img, cpu_txt = cpu.encode_images(pixels), cpu.encode_texts(ids)
+    errs = {"image": [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                      for a, b in zip(card_img, cpu_img)]}
+    for k in ("cls_features", "token_features"):
+        errs[k] = [float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                   for a, b in zip(card_txt[k], cpu_txt[k])]
+    worst = max(max(v) for v in errs.values())
+    say(f"clip compare: ViT-L/14 at full depth, f32, card vs CPU: relative L2 of each feature "
+        f"{ {k: [float(f'{e:.2e}') for e in v] for k, v in errs.items()} }, worst {worst:.2e} "
+        f"(tol {CLIP_TOL:.0e}) ({time.perf_counter() - t0:.1f} s)")
+    if not worst <= CLIP_TOL:
+        raise AssertionError(f"clip: the card differs from the CPU by {worst}")
+    del cpu, tree
+    return clip_dir, video, ex
+
+
+def demo_answer(argv, tokenizer):
+    """demo.main(argv) with one question on stdin: its one answer."""
+    import contextlib
+    import io
+
+    from revisionllm_tpu_torch import demo
+
+    buf = io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(DEMO_QUESTION + "\n\n")
+    try:
+        with contextlib.redirect_stdout(buf):
+            demo.main(argv, tokenizer=tokenizer)
+    finally:
+        sys.stdin = stdin
+    answers = [line.split("assistant> ", 1)[1] for line in buf.getvalue().splitlines()
+               if "assistant> " in line]
+    if len(answers) != 1:
+        raise AssertionError(f"demo: expected one answer, got {buf.getvalue()[-500:]!r}")
+    return answers[0]
+
+
+def recording_tokenizer():
+    """fake_tokenizer() that also keeps, in order, each id list it decodes
+    (in `.decoded`): the FakeTokenizer decodes most ids to '?', so two
+    answers are compared by their ids."""
+    tok = fake_tokenizer()
+    tok.decoded, decode = [], tok.decode
+
+    def recording(ids, **kwargs):
+        tok.decoded.append([int(i) for i in ids])
+        return decode(ids, **kwargs)
+
+    tok.decode = recording
+    return tok
+
+
+def phase_raw_video_demo(tmp, clip_dir, video, ex):
+    """demo.main from the raw video: --video the .y4m, --clip_path the CLIP
+    directory, phase 14's 4-layer checkpoint and stage projector, one
+    question on stdin; the DEMO_FRAMES features it encoded against those of
+    this function's own decode at 1 fps, linspace sampling and `ex` (the
+    card's extractor, held against the CPU in phase_clip), within CLIP_TOL;
+    then demo.main on a .npy of the latter. Fails unless the features
+    agree, the two runs decode the same token ids, and K1, K2 and K3 ran in
+    the first."""
+    import torch
+    from revisionllm_tpu_torch import demo
+    from revisionllm_tpu_torch.data.feature_extraction import (
+        decode_frames,
+        linspace_sample,
+        preprocess_frames,
+    )
+    from revisionllm_tpu_torch.utils import kernels
+
+    ckpt = os.path.join(tmp, "checkpoint")
+    common = ["--model_base", os.path.join(ckpt, "vicuna"), "--pretrain_clip_adapter",
+              os.path.join(ckpt, "stage", "non_lora_trainables.bin")]
+    seen = []
+    load = demo.load_video_features
+
+    def recording(*a, **k):
+        seen.append(load(*a, **k))
+        return seen[-1]
+
+    demo.load_video_features = recording
+    kernels.reset_launches()
+    tok_raw, tok_npy = recording_tokenizer(), recording_tokenizer()
+    t0 = time.perf_counter()
+    try:
+        raw = demo_answer(common + ["--video", video, "--clip_path", clip_dir], tok_raw)
+    finally:
+        demo.load_video_features = load
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    want = ex.encode_images(preprocess_frames(linspace_sample(decode_frames(video, 1.0),
+                                                              DEMO_FRAMES)))
+    t2 = time.perf_counter()
+    got = seen[0]
+    if got.shape != want.shape or want.shape != (DEMO_FRAMES, VIT_L14["projection"]):
+        raise AssertionError(f"demo: features {got.shape}, its own decode's {want.shape}")
+    err = max(float(np.linalg.norm(a - b) / np.linalg.norm(b)) for a, b in zip(got, want))
+    npy = os.path.join(tmp, "clip", "movie_features.npy")
+    np.save(npy, want)
+    from_npy = demo_answer(common + ["--video", npy], tok_npy)
+    t3 = time.perf_counter()
+    ids_raw, ids_npy = tok_raw.decoded, tok_npy.decoded
+    say(f"demo: demo.main --video the .y4m --clip_path (4-layer Vicuna-width checkpoint, its "
+        f"stage projector): {got.shape[0]} frames x {got.shape[1]} features, answer "
+        f"{raw[:60]!r} ({len(raw)} chars) in {t1 - t0:.2f} s, launches {launches}; its "
+        f"features against this phase's decode at 1 fps, linspace sampling and the card's "
+        f"encoder: worst relative L2 {err:.2e} (tol {CLIP_TOL:.0e}, {t2 - t1:.2f} s); "
+        f"demo.main on the .npy of those: {sum(map(len, ids_npy))} decoded ids in "
+        f"{len(ids_npy)} calls, equal to the raw run's {ids_raw == ids_npy}, answer equal "
+        f"{from_npy == raw} ({t3 - t2:.2f} s)")
+    missing = [k for k in SERVING if k not in launches]
+    if not err <= CLIP_TOL or not ids_raw or ids_raw != ids_npy or from_npy != raw or missing:
+        raise AssertionError(f"demo: features {err}, ids {ids_raw} vs {ids_npy}, kernels not "
+                             f"launched {missing}")
+
+
+def phase_rest(dev, tmp, paths, smi):
+    """Phase 16, the rest of training and raw video: stage-2 hierarchy
+    training (stage2_long_100) and the streaming-memory loss (stage1_stream)
+    through train_cli.main at Vicuna-7B width and depth, DevicePrefetcher
+    over the stage-2 batches, a train step of each configuration on the
+    card against the CPU at 2 layers (stage2_long_33; the stream's double
+    loss over gt_multi's 29 memory rows), CLIP at ViT-L/14's geometry with
+    the feature tools, and the demo from a raw video. `smi` is the card's
+    nvidia-smi name and power limit."""
+    import torch
+
+    say(f"phase 16 on {smi}")
+    t_phase = time.perf_counter()
+    marks = {}
+    data2 = ["--data_path", paths["train_json"], "--feat_folder", paths["features"],
+             "--q_feat_dir", paths["queries"]]
+    run, opt, _, loop_s = timed_train("stage-2 train", train16_argv(
+        STAGE2_FLAGS, data2, os.path.join(tmp, "stage2_train"), P16_STEPS + 1))
+    profile_step("stage-2 train", dev, run, opt, loop_s)
+    prefetch_check(dev, run, opt)
+    del run, opt
+    torch.cuda.empty_cache()
+    marks["stage-2 training"] = time.perf_counter()
+
+    corpus = stream_corpus(tmp)
+    data_s = ["--data_path", corpus["train_json"], "--feat_folder", corpus["features"]]
+    run, opt, _, _ = timed_train("stream train", train16_argv(
+        STREAM_FLAGS, data_s, os.path.join(tmp, "stream_train"), P16_STEPS + 1))
+    del run, opt
+    torch.cuda.empty_cache()
+    marks["stream training"] = time.perf_counter()
+
+    from revisionllm_tpu_torch.models.multimodal import KIND_MEMORY
+
+    with shared_base():
+        hold_train_step(dev, train16_argv(STAGE2_COMPARE_FLAGS, data2, "unused", 1),
+                        "stage-2 compare")
+        batch = hold_train_step(dev, train16_argv(STREAM_COMPARE_FLAGS, data_s, "unused", 1),
+                                "stream compare", stream_loss="double")
+    rows = (batch["c2_kind"] == KIND_MEMORY).sum(1).tolist()
+    say(f"stream compare: gt_multi's visual_memory {tuple(batch['visual_memory'].shape)}, "
+        f"memory positions in clip 2's plan {rows}")
+    if batch["visual_memory"].shape[1] != 5 or rows != [STREAM_MEMORY_ROWS]:
+        raise AssertionError(f"gt_multi: memory rows {rows}")
+    marks["compares"] = time.perf_counter()
+
+    clip_dir, video, ex = phase_clip(dev, tmp)
+    marks["clip"] = time.perf_counter()
+    phase_raw_video_demo(tmp, clip_dir, video, ex)
+    del ex
+    torch.cuda.empty_cache()
+    marks["demo"] = time.perf_counter()
+    last, parts = t_phase, {}
+    for k, t in marks.items():
+        parts[k] = round(t - last, 1)
+        last = t
+    say(f"phase 16: {time.perf_counter() - t_phase:.1f} s ({parts})")
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -4053,6 +4705,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_train_compare(dev, paths)
         phase_surfaces_train(dev, tmp, paths)
+        phase_rest(dev, tmp, paths, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

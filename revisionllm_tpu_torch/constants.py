@@ -12,6 +12,14 @@ MEMORY_TOKEN_INDEX = -300
 DEFAULT_IMAGE_TOKEN = "<video>"
 DEFAULT_MEMORY_TOKEN = "<memory>"
 
+# Natural-language prefixes put ahead of the visual memory tokens in the
+# streaming-memory training mode (reference: revisionllm/constants.py:14-15).
+# Index 0 = negative memory (event did not occur), index 1 = positive.
+PREFIX = [
+    "Here is an example of a past memory where the event did not occur: ",
+    "Here is an example of a past memory where the event did take place: ",
+]
+
 # Question templates of the eval drivers.
 QUESTIONS = {
     "mad_grounding": "During which frames can we see {}?",

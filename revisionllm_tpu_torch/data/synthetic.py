@@ -1,7 +1,7 @@
 """Synthetic grounding corpus: a tiny world where grounding is LEARNABLE.
 
-A host copy of `make_synthetic_corpus` and `build_tiny_hf_checkpoint` from
-revisionllm_tpu/data/synthetic.py (the stream corpus waits).
+A host copy of `make_synthetic_corpus`, `make_stream_corpus` and
+`build_tiny_hf_checkpoint` from revisionllm_tpu/data/synthetic.py.
 
 Purpose: prove the full train -> export -> load -> eval chain actually
 *learns to ground events* (the system-level claim no real-checkpoint run can
@@ -178,6 +178,112 @@ def make_synthetic_corpus(
         "val_json": val_json,
         "n_queries_val": str(len(val_ann)),
     }
+
+
+def make_stream_corpus(
+    out_dir: str,
+    *,
+    n_train_movies: int = 48,
+    n_val_movies: int = 16,
+    n_classes: int = 4,
+    duration: float = 540.0,
+    fps: float = 1.0,
+    d: int = 16,
+    ev_len: float = 28.0,
+    gap: float = 5.0,
+    amplitude: float = 2.0,
+    noise: float = 0.3,
+    background: float = 0.5,
+    seed: int = 0,
+) -> Dict[str, str]:
+    """Corpus where grounding is resolvable ONLY through clip-1 memory.
+
+    Each movie has a TARGET event (class cT) flanked on BOTH sides by decoy
+    events of a different class cD — the query sentence is the same generic
+    "the pattern" for every record, so clip-2 alone shows 2-3 equally
+    plausible events and nothing says which is asked about. The class
+    identity lives ONLY in the visual memory pooled from clip 1 (whose crop
+    contains the target; gt_mean_pool/mean_pool both carry cT's direction,
+    reference vtimellm_trainer.py:78-121). A no-memory model's ceiling is
+    ~1/2 (pick an event at random); a model that READS the memory matches
+    its direction to the right span.
+
+    Flanking decoys on both sides guarantee >=1 decoy inside (almost) any
+    GT-containing debug_window crop, so the ambiguity survives the dataset's
+    random cropping (dataset.py random crop, offset in [0, window-gt_len)).
+
+    Writes the same on-disk formats as make_synthetic_corpus plus
+    stream_eval.json (per-query target/decoy spans for the bespoke memory
+    eval of the JAX package's scripts/stream_memory_demo.py).
+    """
+    rng = np.random.default_rng(seed)
+    dirs = pattern_directions(n_classes, d, rng)
+
+    feat_dir = os.path.join(out_dir, "features")
+    os.makedirs(feat_dir, exist_ok=True)
+    T = int(round(duration * fps))
+
+    def build_movie(vid: str, rng: np.random.Generator):
+        feats = background * rng.normal(size=(T, d)).astype(np.float32)
+        cT = int(rng.integers(n_classes))
+        cD = int((cT + 1 + rng.integers(n_classes - 1)) % n_classes)
+        L = ev_len
+        # target placed so both flanking decoys fit with margins
+        lo = 8.0 + L + gap
+        hi = duration - 8.0 - 2 * L - gap
+        t0 = float(round(rng.uniform(lo, hi)))
+        t1 = t0 + L
+        spans = {
+            "target": (t0, t1),
+            "decoy_before": (t0 - gap - L, t0 - gap),
+            "decoy_after": (t1 + gap, t1 + gap + L),
+        }
+
+        def paint(span, c):
+            fs, fe = int(round(span[0] * fps)), int(round(span[1] * fps))
+            n = max(fe - fs, 1)
+            feats[fs : fs + n] = (
+                amplitude * dirs[c][None, :]
+                + noise * rng.normal(size=(n, d)).astype(np.float32)
+            )
+
+        paint(spans["target"], cT)
+        paint(spans["decoy_before"], cD)
+        paint(spans["decoy_after"], cD)
+        np.save(os.path.join(feat_dir, vid + ".npy"), feats)
+        return {"spans": {k: list(v) for k, v in spans.items()},
+                "target_class": cT, "decoy_class": cD}
+
+    def annotations(movies, info):
+        ann = {}
+        for vid in movies:
+            s, e = info[vid]["spans"]["target"]
+            ann[f"{vid}_q"] = {
+                "movie": vid,
+                "movie_duration": duration,
+                "timestamps": [round(s, 2), round(e, 2)],
+                "sentence": "the pattern.",  # generic: class is NOT named
+            }
+        return ann
+
+    train_movies = [f"stream_train_{i:03d}" for i in range(n_train_movies)]
+    val_movies = [f"stream_val_{i:03d}" for i in range(n_val_movies)]
+    info: Dict[str, dict] = {}
+    for i, vid in enumerate(train_movies):
+        info[vid] = build_movie(vid, np.random.default_rng([seed, 0, i]))
+    for i, vid in enumerate(val_movies):
+        info[vid] = build_movie(vid, np.random.default_rng([seed, 1, i]))
+
+    from revisionllm_tpu_torch.data.converters import mad_to_records
+
+    train_json = os.path.join(out_dir, "train.json")
+    with open(train_json, "w") as f:
+        json.dump(mad_to_records(annotations(train_movies, info)), f)
+    eval_json = os.path.join(out_dir, "stream_eval.json")
+    with open(eval_json, "w") as f:
+        json.dump({vid: info[vid] for vid in val_movies}, f)
+    return {"features": feat_dir, "train_json": train_json,
+            "eval_json": eval_json}
 
 
 # ----------------------------------------------------------------- tokenizer

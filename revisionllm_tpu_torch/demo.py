@@ -8,12 +8,14 @@ gradio UI when `gradio` is installed (it is imported only when asked for).
 The model comes from a checkpoint directory through eval/loader.load_model
 (models/convert.load_pretrained, serving_params_host, params_from_numpy),
 so the demo serves the int8 tree stage1.main serves, on CUDA unless
---device says otherwise. Video input is
-a `.npy` feature file; raw video needs the CLIP encoder, which is not ported
-yet (ROADMAP Queue A step 5).
+--device says otherwise. Video input is a `.npy` feature file, or a raw
+video (`.y4m` through the pure-python reader, other containers through
+ffmpeg) encoded by the CLIP of --clip_path on the demo's device
+(data/feature_extraction.py).
 
     python -m revisionllm_tpu_torch.demo --model_base hf/ --stage2 s1/ \\
-        --video feats.npy [--web] [--device cpu]
+        --video feats.npy|clip.y4m [--clip_path clip-vit-large-patch14/] \\
+        [--web] [--device cpu]
 """
 
 from __future__ import annotations
@@ -26,16 +28,24 @@ import numpy as np
 
 from revisionllm_tpu_torch.inference import inference, inference_stream
 
-CLIP_STEP = "ROADMAP Queue A step 5 (CLIP and the data tools)"
 
+def load_video_features(path: str, clip_extractor=None, num_frames: int = 100) -> np.ndarray:
+    """A .npy feature file [T, d], or a raw video decoded at 1 fps,
+    linspace-sampled to `num_frames` frames and encoded by `clip_extractor`
+    (JAX's demo.py:26-46) -> `num_frames` rows picked by linspace."""
+    if path.endswith(".npy"):
+        feats = np.load(path)
+    else:
+        from revisionllm_tpu_torch.data.feature_extraction import (
+            decode_frames,
+            linspace_sample,
+            preprocess_frames,
+        )
 
-def load_video_features(path: str, num_frames: int = 100) -> np.ndarray:
-    """A .npy feature file [T, d] -> `num_frames` rows picked by linspace."""
-    if not path.endswith(".npy"):
-        raise NotImplementedError(
-            f"raw video input needs the CLIP feature extractor, not ported yet ({CLIP_STEP}); "
-            f"pass a .npy feature file")
-    feats = np.load(path)
+        if clip_extractor is None:
+            raise RuntimeError("raw video input needs a CLIP extractor (--clip_path)")
+        frames = linspace_sample(decode_frames(path, target_fps=1.0), num_frames)
+        feats = clip_extractor.encode_images(preprocess_frames(frames))
     idx = np.linspace(0, len(feats) - 1, num_frames, dtype=np.int32)
     return feats[idx]
 
@@ -135,8 +145,9 @@ def parse_args(argv=None):
     p.add_argument("--pretrain_clip_adapter", default=None)
     p.add_argument("--stage2", default=None)
     p.add_argument("--stage3", default=None)
-    p.add_argument("--video", required=True, help=".npy feature file (mp4 needs CLIP)")
-    p.add_argument("--clip_path", default=None, help="HF CLIP dir for raw video (not ported)")
+    p.add_argument("--video", required=True,
+                   help=".npy feature file, or a raw video with --clip_path")
+    p.add_argument("--clip_path", default=None, help="HF CLIP dir for raw video")
     p.add_argument("--gradio", action="store_true")
     p.add_argument("--web", action="store_true",
                    help="stdlib web UI with token streaming (no gradio needed)")
@@ -151,15 +162,20 @@ def parse_args(argv=None):
 
 def main(argv=None, tokenizer=None):
     args = parse_args(argv)
-    if args.clip_path:
-        raise NotImplementedError(f"--clip_path needs models/clip.py, not ported yet "
-                                  f"({CLIP_STEP})")
     from revisionllm_tpu_torch.eval.loader import load_model
 
-    parts = load_model(args, tokenizer)[:5]
+    *parts, device = load_model(args, tokenizer)
+    clip_extractor = None
+    if args.clip_path:
+        from revisionllm_tpu_torch.data.feature_extraction import ClipFeatureExtractor
+        from revisionllm_tpu_torch.models.clip import convert_hf_clip
+        from revisionllm_tpu_torch.models.convert import load_hf_llama_state
+
+        clip_extractor = ClipFeatureExtractor(
+            convert_hf_clip(load_hf_llama_state(args.clip_path)), device=device)
 
     def make_session(video_path):
-        return ChatSession(parts, load_video_features(video_path))
+        return ChatSession(parts, load_video_features(video_path, clip_extractor))
 
     if args.web:
         from revisionllm_tpu_torch.webdemo import launch_web

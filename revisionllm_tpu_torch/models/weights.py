@@ -40,11 +40,14 @@ def params_from_numpy(
     """Nested dicts / lists / tuples of arrays -> the same structure of
     tensors on `device`. `dtype`, when given, casts floating-point leaves,
     except the quantization scales ("scale" and "scale4" leaves), which stay
-    f32; int8 (q8, q8c, q8r) stays int8 and packed int4 stays uint8."""
+    f32; int8 (q8, q8c, q8r) stays int8 and packed int4 stays uint8.
+    Python ints (a tree's geometry, e.g. CLIP's patch_size) stay ints."""
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device, dtype, k, requires_grad) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(params_from_numpy(v, device, dtype, _key, requires_grad) for v in tree)
+    if isinstance(tree, int):
+        return tree
     t = _tensor(tree, device, dtype, keep=_key in ("scale", "scale4"))
     if requires_grad and t.is_floating_point():
         t.requires_grad_(True)

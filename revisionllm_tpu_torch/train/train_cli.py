@@ -15,9 +15,11 @@ dtype) or a random init from --seed; --quant_base quantizes its layers to
 int8 in host RAM before the move to the device (the lm_head stays dense).
 --pretrain_clip_adapter / --pretrain_mm_mlp_adapter load a projector,
 --stage2_path a PEFT LoRA, merged into the base at training_stage 3 and
-frozen beside it otherwise (JAX's train_cli.py:121-198). Data/tensor
-parallelism (--dp/--fsdp/--tp) waits for the distributed layer, the
-streaming-memory loss for the rest of training (ROADMAP Queue A step 4).
+frozen beside it otherwise (JAX's train_cli.py:121-198). A stream preset
+(data_cfg.stream) trains the streaming-memory loss: paired clips, clip 1's
+memory pooled by --memory_type (data/stream.py) at clip 2's <memory>
+sentinel. Data/tensor parallelism (--dp/--fsdp/--tp) waits for the
+distributed layer (ROADMAP Queue A step 7).
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from revisionllm_tpu_torch.config import (
 )
 from revisionllm_tpu_torch.data.collator import Collator
 from revisionllm_tpu_torch.data.dataset import GroundingDataset
+from revisionllm_tpu_torch.data.stream import build_prefix_ids, build_visual_memory
 from revisionllm_tpu_torch.models import convert, llama, revisionllm
 from revisionllm_tpu_torch.models import lora as lora_mod
 from revisionllm_tpu_torch.models.weights import params_from_numpy
@@ -82,6 +85,9 @@ def parse_args(argv=None):
     p.add_argument("--tiny_model", action="store_true", help="toy geometry for smoke tests")
     p.add_argument("--lora_r", type=int, default=None)
     p.add_argument("--lora_alpha", type=int, default=None)
+    p.add_argument("--memory_type", type=str, default=None,
+                   choices=["mean_pool", "gt_mean_pool", "gt_multi", "multi_pool"],
+                   help="stream memory pooling override (reference train.py:104)")
     p.add_argument("--model_max_length", type=int, default=None,
                    help="override the preset's padded sequence length")
     p.add_argument("--device", type=str, default=None,
@@ -95,7 +101,7 @@ def build_configs(args):
     data_cfg = wl.data
     overrides = {}
     for name in ("training_stage", "num_epochs", "per_device_batch_size", "learning_rate",
-                 "model_max_length"):
+                 "model_max_length", "memory_type"):
         v = getattr(args, name)
         if v is not None:
             overrides[name] = v
@@ -125,12 +131,13 @@ def build_configs(args):
     return llama_cfg, adapter_cfg, data_cfg, train_cfg
 
 
-def _check_args(args, data_cfg) -> None:
+PREFIX_LEN = 24            # tokens of the stream memory's text prefix
+
+
+def _check_args(args) -> None:
     if (args.dp, args.fsdp, args.tp) != (1, 1, 1):
-        raise NotImplementedError("--dp/--fsdp/--tp other than 1 wait for the distributed layer")
-    if data_cfg.stream:
-        raise NotImplementedError("the streaming-memory loss is not ported yet "
-                                  "(ROADMAP Queue A step 4)")
+        raise NotImplementedError("--dp/--fsdp/--tp other than 1 wait for the distributed layer "
+                                  "(ROADMAP Queue A step 7)")
 
 
 @dataclass
@@ -151,11 +158,30 @@ class Run:
     rng: np.random.Generator   # the dataset's draws, then the epoch order
 
     def batch(self, indices) -> Dict[str, torch.Tensor]:
-        """The collated items at `indices`, on the run's device."""
+        """The collated items at `indices` (host_batch), on the run's device."""
+        return {k: torch.as_tensor(v, device=self.device) for k, v in
+                self.host_batch(indices).items()}
+
+    def host_batch(self, indices) -> Dict[str, np.ndarray]:
+        """The collated items at `indices` as host arrays. A stream batch
+        (JAX's train_cli.py:262-283) flattens clip 2 into 'c2_' keys and adds
+        clip 1's `visual_memory` (drawn from the run's rng) and the
+        `prefix_ids`."""
         b = self.collator([self.dataset[i] for i in indices])
         b.pop("iteration_step", None)
+        if self.data_cfg.stream:
+            clip2 = b.pop("clip2")
+            neg = b.pop("neg")
+            clip2.pop("neg", None)
+            sef = b.get("start_end_frame", np.zeros((len(indices), 2), np.int32))
+            b["visual_memory"] = build_visual_memory(b["images"], sef, neg,
+                                                     self.train_cfg.memory_type, self.rng)
+            b["prefix_ids"] = build_prefix_ids(neg, self.dataset.tokenizer, PREFIX_LEN)
+            for k, v in clip2.items():
+                if k not in ("start_end_frame", "query_feats", "query_valid"):
+                    b[f"c2_{k}"] = v
         b.pop("start_end_frame", None)
-        return {k: torch.as_tensor(v, device=self.device) for k, v in b.items()}
+        return b
 
 
 def base_from_checkpoint(model_base: str, llama_cfg: LlamaConfig, quant_base: bool, device):
@@ -219,8 +245,10 @@ def assemble(llama_cfg, adapter_cfg, data_cfg, train_cfg, device, seed: int,
         data_cfg.data_path, tokenizer, data_cfg, rng=rng,
         model_max_length=train_cfg.model_max_length,
     )
+    mem_tokens = 5 if train_cfg.memory_type in ("gt_multi", "multi_pool") else 1
     collator = Collator(
         max_len=train_cfg.model_max_length, num_video_tokens=0, max_q_len=data_cfg.max_q_l,
+        num_memory_tokens=(PREFIX_LEN + mem_tokens) if data_cfg.stream else 0,
     )
     return Run(llama_cfg, adapter_cfg, data_cfg, train_cfg, device, base, trainable, frozen,
                dataset, collator, rng)
@@ -234,7 +262,7 @@ def main(argv=None, on_step: Optional[Callable[[int, Dict, Dict], None]] = None,
     --model_base. Returns the run and its optimizer."""
     args = parse_args(argv)
     llama_cfg, adapter_cfg, data_cfg, train_cfg = build_configs(args)
-    _check_args(args, data_cfg)
+    _check_args(args)
     run = assemble(llama_cfg, adapter_cfg, data_cfg, train_cfg, resolve_device(args.device),
                    args.seed, args.quant_base, model_base=args.model_base,
                    projector=args.pretrain_clip_adapter or args.pretrain_mm_mlp_adapter,
@@ -259,7 +287,8 @@ def main(argv=None, on_step: Optional[Callable[[int, Dict, Dict], None]] = None,
     optimizer = opt_lib.AdamW(trainer_lib.tree_leaves(run.trainable), train_cfg, total_steps)
     if opt_state is not None:
         optimizer.load_state_dict(opt_state)
-    step_fn = trainer_lib.make_train_step(run.llama_cfg, run.adapter_cfg, train_cfg, optimizer)
+    step_fn = trainer_lib.make_train_step(run.llama_cfg, run.adapter_cfg, train_cfg, optimizer,
+                                          stream=data_cfg.stream)
 
     # --- loop ---
     gen = torch.Generator(device=run.device).manual_seed(args.seed + 3)

@@ -10,7 +10,8 @@ Trainable selection mirrors the reference flags:
 - tune_mm_mlp_adapter: only the vision adapter gets grads (train.py:351-357)
 - freeze_mm_mlp_adapter: adapter excluded (train.py:359-364)
 - LoRA: backbone frozen, adapter matrices trained (lora_enable path)
-The streaming-memory loss waits.
+The streaming-memory loss (`make_stream_loss_fn`) trains clip 2 with clip
+1's pooled memory at its <memory> sentinel.
 """
 
 from __future__ import annotations
@@ -21,8 +22,10 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from revisionllm_tpu_torch.config import AdapterConfig, LlamaConfig, LoraConfig, TrainConfig
+from revisionllm_tpu_torch.models import llama
 from revisionllm_tpu_torch.models import lora as lora_mod
 from revisionllm_tpu_torch.models import revisionllm
+from revisionllm_tpu_torch.models.adapter import linear
 from revisionllm_tpu_torch.ops import quant
 
 Params = Dict[str, Any]
@@ -124,19 +127,62 @@ def make_loss_fn(llama_cfg: LlamaConfig, adapter_cfg: AdapterConfig, train_cfg: 
     return loss_fn
 
 
+def make_stream_loss_fn(llama_cfg: LlamaConfig, adapter_cfg: AdapterConfig,
+                        train_cfg: TrainConfig):
+    """Streaming-memory loss (reference vtimellm_trainer.compute_loss
+    :67-133, JAX's trainer.py:142-190): clip 2's forward sees [prefix text,
+    pooled clip-1 memory] tokens at its <memory> sentinel; stream_loss
+    'double' adds clip 1's own loss.
+
+    Batch layout: clip-1 fields at top level, clip-2 fields prefixed 'c2_',
+    plus the host-built `visual_memory` [B, M, d] (data/stream.py) and
+    `prefix_ids` [B, P]. The memory goes through the mlp projector in the
+    promoted type (JAX's f32 @ bf16), the prefix through embed_tokens."""
+    lora_cfg = train_cfg.lora or LoraConfig()
+    scale = lora_mod.lora_scale(lora_cfg)
+
+    def loss_fn(trainable, frozen, base_params, batch, generator):
+        lora = trainable.get("lora", frozen.get("lora"))
+        vision = trainable.get("vision", frozen.get("vision"))
+        lscale = scale if lora is not None else 0.0
+        mem_tokens = linear(vision["mm_projector"], batch["visual_memory"])  # [B, M, D]
+        prefix_emb = llama.embed_tokens(base_params, batch["prefix_ids"])
+        memory_tokens = torch.cat([prefix_emb.to(mem_tokens.dtype), mem_tokens], dim=1)
+        plan2 = {k: batch[f"c2_{k}"] for k in PLAN_KEYS}
+        with _dequant_trace():
+            loss = revisionllm.forward_train(
+                llama_cfg, adapter_cfg, base_params, vision, plan2, batch["c2_images"],
+                memory_tokens=memory_tokens, lora=lora, lora_scale=lscale,
+                deterministic=False, generator=generator,
+                remat=train_cfg.gradient_checkpointing,
+            )
+            if train_cfg.stream_loss == "double":
+                plan1 = {k: batch[k] for k in PLAN_KEYS}
+                loss = loss + revisionllm.forward_train(
+                    llama_cfg, adapter_cfg, base_params, vision, plan1, batch["images"],
+                    lora=lora, lora_scale=lscale, deterministic=False, generator=generator,
+                    remat=train_cfg.gradient_checkpointing,
+                )
+        return loss
+
+    return loss_fn
+
+
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
     """The global L2 norm of `grads`, in f32."""
     return torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
 
 
 def make_train_step(llama_cfg: LlamaConfig, adapter_cfg: AdapterConfig,
-                    train_cfg: TrainConfig, optimizer):
+                    train_cfg: TrainConfig, optimizer, stream: bool = False):
     """train_step(trainable, frozen, base_params, batch, generator) ->
-    {"loss", "grad_norm"} (0-d f32 tensors on the device). The loss and its
-    backward both run inside the exact trace (the remat recomputation runs
-    in the backward); `optimizer` (train/optimizer.py, built over the
-    trainable leaves) then updates them in place."""
-    loss_fn = make_loss_fn(llama_cfg, adapter_cfg, train_cfg)
+    {"loss", "grad_norm"} (0-d f32 tensors on the device). The loss (the
+    streaming-memory loss when `stream`) and its backward both run inside
+    the exact trace (the remat recomputation runs in the backward);
+    `optimizer` (train/optimizer.py, built over the trainable leaves) then
+    updates them in place."""
+    make = make_stream_loss_fn if stream else make_loss_fn
+    loss_fn = make(llama_cfg, adapter_cfg, train_cfg)
 
     def train_step(trainable, frozen, base_params, batch, generator):
         params = optimizer.params

@@ -595,3 +595,164 @@ def test_bf16_spacing(x, want):
         b = torch.tensor([abs(x)], dtype=torch.bfloat16)
         up = (b.view(torch.int16) + 1).view(torch.bfloat16)
         assert (up.float() - b.float()).item() == want
+
+
+# ------------------------------------------------------------------ phase 16
+
+
+def test_clip_shapes_are_hf_clip_vit_l14():
+    """clip_shapes(VIT_L14) is the state dict of transformers' CLIPModel
+    built from clip_config(VIT_L14) (on the meta device: no memory), key
+    for key and shape for shape: 428 M parameters."""
+    transformers = pytest.importorskip("transformers")
+    cfg = transformers.CLIPConfig(**{k: v for k, v in chip_smoke.clip_config(
+        chip_smoke.VIT_L14).items() if k not in ("architectures", "model_type", "torch_dtype")})
+    with torch.device("meta"):
+        model = transformers.CLIPModel(cfg)
+    want = {k: tuple(v.shape) for k, v in model.state_dict().items() if "position_ids" not in k}
+    got = {name: tuple(shape) for name, shape, _ in chip_smoke.clip_shapes(chip_smoke.VIT_L14)}
+    assert got == want
+    n = sum(int(np.prod(s)) for s in got.values())
+    assert 427e6 < n < 429e6
+    assert got["vision_model.embeddings.position_embedding.weight"] == (257, 1024)
+    assert got["text_model.embeddings.token_embedding.weight"] == (49408, 768)
+
+
+TINY_CLIP = {"vision": {"layers": 2, "width": 128, "heads": 2, "mlp": 256, "patch": 14,
+                        "image": 28},
+             "text": {"layers": 2, "width": 64, "heads": 1, "mlp": 128, "vocab": 99,
+                      "positions": 16},
+             "projection": 32}
+
+
+def test_clip_writer_round_trips(tmp_path):
+    """write_clip's directory read by the port's reader and convert_hf_clip
+    gives the drawn state; transformers' CLIPModel loads the same directory
+    and its features equal models/clip.py's within 1e-5."""
+    transformers = pytest.importorskip("transformers")
+    from revisionllm_tpu_torch.models import clip
+    from revisionllm_tpu_torch.models.convert import load_hf_llama_state
+    from revisionllm_tpu_torch.models.weights import params_from_numpy
+
+    path = str(tmp_path / "clip")
+    chip_smoke.write_clip(path, TINY_CLIP, torch.device("cpu"), seed=3)
+    state = load_hf_llama_state(path)
+    want = chip_smoke.clip_state(TINY_CLIP, torch.device("cpu"), seed=3)
+    assert set(state) == set(want)
+    assert all(np.array_equal(state[k], want[k]) for k in want)
+    params = params_from_numpy(clip.convert_hf_clip(state), "cpu")
+    hf = transformers.CLIPModel.from_pretrained(path).eval()
+    pixels = torch.from_numpy(np.random.default_rng(0).normal(size=(2, 3, 28, 28)).astype(np.float32))
+    ids = torch.from_numpy(chip_smoke.clip_tokenize(["a dog", "the old door opens"], length=16,
+                                                    vocab=99))
+    with torch.no_grad():
+        img = hf.get_image_features(pixel_values=pixels)
+        txt = hf.get_text_features(input_ids=ids)
+    img, txt = (getattr(x, "pooler_output", x) for x in (img, txt))
+    got_img = clip.encode_image(params, pixels)
+    got_txt = clip.encode_text(params, ids)["pooler_output"]
+    for got, ref in ((got_img, img), (got_txt, txt)):
+        assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def test_clip_tokenize():
+    ids = chip_smoke.clip_tokenize(list(chip_smoke.CLIP_QUERIES.values()))
+    vocab = chip_smoke.VIT_L14["text"]["vocab"]
+    assert ids.shape == (3, 77) and (ids[:, 0] == vocab - 2).all()
+    for row, text in zip(ids, chip_smoke.CLIP_QUERIES.values()):
+        n = len(text.split())
+        assert row.argmax() == n + 1 and row[n + 1] == vocab - 1
+        assert (row[1 : n + 1] < vocab - 2).all() and (row[1 : n + 1] > 0).all()
+        assert not row[n + 2 :].any()
+
+
+def test_video_writer_geometry(tmp_path):
+    """video_frames at VIDEO's shape scaled down, through write_y4m: the
+    header, the frame count, the file size, and a crop at 224 pixels."""
+    from revisionllm_tpu_torch.data.feature_extraction import decode_frames
+    from revisionllm_tpu_torch.data.video_reader import read_y4m, write_y4m
+
+    v = chip_smoke.VIDEO
+    assert int(v["seconds"] * v["fps"]) == 1500 and (v["width"], v["height"]) == (320, 240)
+    frames = chip_smoke.video_frames(3, 5, v["width"], v["height"])
+    assert frames.shape == (15, 240, 320, 3) and frames.dtype == np.uint8
+    assert not np.array_equal(frames[0], frames[5])   # the blocks drift a block a second
+    assert np.array_equal(frames[0], frames[4])
+    path = str(tmp_path / "v.y4m")
+    write_y4m(path, frames, fps=5)
+    header = open(path, "rb").readline()
+    assert header == b"YUV4MPEG2 W320 H240 F5:1 Ip A1:1 C444\n"
+    assert os.path.getsize(path) == len(header) + 15 * (6 + 320 * 240 * 3)
+    got, fps = read_y4m(path)
+    assert fps == 5.0 and got.shape == frames.shape
+    assert decode_frames(path, chip_smoke.VIDEO_FPS).shape == (15, 224, 224, 3)
+
+
+def test_batch_windows():
+    hier = {"images": torch.zeros(1, 100, 250, 8), "text_ids": torch.zeros(1, 256)}
+    stream = {"images": torch.zeros(1, 250, 8), "c2_images": torch.zeros(1, 250, 8)}
+    assert chip_smoke.batch_windows(hier) == (100, 25000)
+    assert chip_smoke.batch_windows(stream) == (2, 500)
+
+
+def test_phase16_configurations():
+    """The flags give TRAIN_STAGE2.json's geometry (100 windows of 250
+    frames, the preset's adapter: d 768, 8 heads, 2 layers, FFN 2048, T2V;
+    sequence 256, batch 1, int8 base) and the stream preset (mlp, 250
+    frames, mean_pool, single); the compares' cuts (stage2_long_33: 33
+    windows and the rest the same; the stream's gt_multi at 512), and
+    gt_multi's memory rows are the CLI's."""
+    from revisionllm_tpu_torch.train import train_cli
+
+    data = ["--data_path", "d.json", "--feat_folder", "f"]
+    args = train_cli.parse_args(chip_smoke.train16_argv(chip_smoke.STAGE2_FLAGS, data, "o", 4))
+    llama, adapter, dcfg, tcfg = train_cli.build_configs(args)
+    assert args.quant_base and args.max_steps == 4 and llama.num_layers == 32
+    assert (dcfg.hierarchy, dcfg.hierarchy_num_videos, dcfg.num_frames) == (True, 100, 250)
+    assert (adapter.d_model, adapter.num_heads, adapter.num_layers, adapter.ffn_dim,
+            adapter.clip_adapter_text, adapter.feature_mode) == (768, 8, 2, 2048, True, "cls")
+    assert (tcfg.model_max_length, tcfg.per_device_batch_size) == (256, 1)
+    args = train_cli.parse_args(chip_smoke.train16_argv(
+        chip_smoke.STAGE2_COMPARE_FLAGS, data, "o", 1))
+    llama33, adapter33, dcfg33, tcfg33 = train_cli.build_configs(args)
+    assert args.quant_base and (llama33, adapter33, tcfg33) == (llama, adapter, tcfg)
+    assert (dcfg33.hierarchy, dcfg33.hierarchy_num_videos, dcfg33.num_frames) == (True, 33, 250)
+    args = train_cli.parse_args(chip_smoke.train16_argv(chip_smoke.STREAM_FLAGS, data, "o", 4))
+    _, adapter, dcfg, tcfg = train_cli.build_configs(args)
+    assert adapter.kind == "mlp" and dcfg.stream and dcfg.num_frames == 250
+    assert tcfg.memory_type == "mean_pool" and tcfg.stream_loss == "single"
+    args = train_cli.parse_args(chip_smoke.train16_argv(
+        chip_smoke.STREAM_COMPARE_FLAGS, data, "o", 1))
+    _, adapter, dcfg, tcfg = train_cli.build_configs(args)
+    assert adapter.kind == "mlp" and dcfg.stream and dcfg.num_frames == 250
+    assert (tcfg.memory_type, tcfg.model_max_length) == ("gt_multi", 512)
+    assert chip_smoke.STREAM_MEMORY_ROWS == train_cli.PREFIX_LEN + 5
+
+
+def test_shared_base():
+    """Inside shared_base, a second init_params with the same arguments
+    returns the first tree; other arguments draw anew; outside, every call
+    draws anew."""
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.models import llama
+
+    cfg = LlamaConfig(vocab_size=64, hidden_size=16, intermediate_size=32, num_layers=1,
+                      num_heads=2, num_kv_heads=2, head_dim=8)
+    init = llama.init_params
+    with chip_smoke.shared_base():
+        a = llama.init_params(cfg, seed=0, device="cpu")
+        assert llama.init_params(cfg, seed=0, device="cpu") is a
+        assert llama.init_params(cfg, seed=1, device="cpu") is not a
+    assert llama.init_params is init
+    assert llama.init_params(cfg, seed=0, device="cpu") is not a
+
+
+def test_recording_tokenizer():
+    """recording_tokenizer decodes as fake_tokenizer does and keeps each id
+    list it decoded, in order, as ints."""
+    tok, plain = chip_smoke.recording_tokenizer(), chip_smoke.fake_tokenizer()
+    first, second = [5, 17, 42], np.array([1, 2, 300, 7])
+    assert tok.decode(first) == plain.decode(first)
+    assert tok.decode(second, skip_special_tokens=True) == plain.decode(second)
+    assert tok.decoded == [[5, 17, 42], [1, 2, 300, 7]]
+    assert all(type(i) is int for ids in tok.decoded for i in ids)

@@ -77,11 +77,32 @@ def test_chat_session_matches_jax(parts, tmp_path, stream):
     assert ts.history[0][0].startswith("<video>\n") and not ts.history[1][0].startswith("<")
 
 
-def test_raw_video_waits_for_clip(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue A step 5"):
-        tdemo.load_video_features(str(tmp_path / "clip.mp4"))
-    with pytest.raises(NotImplementedError, match="Queue A step 5"):
-        tdemo.main(["--model_base", "unused", "--video", "v.mp4", "--clip_path", "clip/"])
+def test_raw_video_waits_for_clip(tmp_path, monkeypatch):
+    """The raw-video path: a tiny .y4m decoded at 1 fps, linspace-sampled
+    and encoded by an extractor gives the features JAX's
+    load_video_features gives with the same extractor; an mp4 where no
+    ffmpeg is found raises JAX's own error, on both sides."""
+    from revisionllm_tpu.data import feature_extraction as jfe
+    from revisionllm_tpu.data.video_reader import write_y4m
+    from revisionllm_tpu_torch.data import feature_extraction as tfe
+
+    class PixelMeans:
+        """A stand-in for the CLIP extractor: 16 means of each frame's pixels."""
+
+        def encode_images(self, pixels):
+            return pixels.reshape(len(pixels), 16, -1).mean(-1)
+
+    path = str(tmp_path / "clip.y4m")
+    frames = np.random.default_rng(4).integers(0, 256, size=(50, 60, 80, 3), dtype=np.uint8)
+    write_y4m(path, frames, fps=10.0)
+    got = tdemo.load_video_features(path, PixelMeans(), num_frames=8)
+    assert got.shape == (8, 16) and np.isfinite(got).all()
+    assert np.array_equal(got, jdemo.load_video_features(path, PixelMeans(), num_frames=8))
+    for mod in (tfe, jfe):
+        monkeypatch.setattr(mod, "ffmpeg_available", lambda: False)
+    for load in (tdemo.load_video_features, jdemo.load_video_features):
+        with pytest.raises(RuntimeError, match="ffmpeg not available and input is not .y4m"):
+            load(str(tmp_path / "clip.mp4"), PixelMeans())
 
 
 def test_gradio_absent_returns_none(capsys, monkeypatch):

@@ -1,7 +1,7 @@
 """The port stands alone: no module of revisionllm_tpu_torch (nor
 chip_smoke.py) imports JAX or the JAX package, nor at import time a package
 the GPU's machine lacks (transformers, tokenizers, safetensors, ml_dtypes,
-gradio); entry points refuse to run without CUDA unless asked for the CPU;
+gradio, h5py, cv2); entry points refuse to run without CUDA unless asked for the CPU;
 the host copies agree with the JAX package's originals; the kernel build
 needs nvcc and chip_smoke.py refuses to report without a GPU or outside a
 checkout."""
@@ -30,7 +30,7 @@ bad = sorted(m for m in sys.modules
              or m == "revisionllm_tpu" or m.startswith("revisionllm_tpu."))
 absent = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("transformers", "tokenizers", "safetensors", "ml_dtypes",
-                                       "gradio"))
+                                       "gradio", "h5py", "cv2"))
 print(json.dumps({"imported": names, "bad": bad, "absent": absent}))
 """
 
@@ -55,12 +55,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "data.prefetcher", "utils.cli", "ops.decode_step", "ops.decode_serve",
                 "models.convert", "data.synthetic", "tokenization", "inference", "demo",
                 "webdemo", "eval.uncertainty", "eval.captioning", "eval.msrvtt",
-                "eval.window_recall", "eval.merge_results"):
+                "eval.window_recall", "eval.merge_results", "data.stream", "models.clip",
+                "data.video_reader", "data.feature_extraction", "data.native_store",
+                "data.analysis", "data.debug_dataset", "data.converters"):
         assert f"revisionllm_tpu_torch.{mod}" in res["imported"]
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from revisionllm_tpu_torch.config import AdapterConfig, EvalConfig, LlamaConfig
+    from revisionllm_tpu_torch.data.feature_extraction import ClipFeatureExtractor
+    from revisionllm_tpu_torch.data.prefetcher import DevicePrefetcher
     from revisionllm_tpu_torch.eval.engine import GroundingEngine
     from revisionllm_tpu_torch.models import llama, revisionllm
     from revisionllm_tpu_torch.utils.device import resolve_device
@@ -72,6 +76,8 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         lambda: llama.init_params(cfg),
         lambda: revisionllm.init_vision_params(AdapterConfig(d_model=16, hidden_size=128), d_in=16),
         lambda: GroundingEngine(cfg, AdapterConfig(), {}, {}, None, EvalConfig()),
+        lambda: ClipFeatureExtractor({}),
+        lambda: DevicePrefetcher([]),
     ):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
@@ -94,6 +100,7 @@ def test_host_copies_match_the_jax_package():
     from revisionllm_tpu_torch.utils.testing import FakeTokenizer as TF
 
     assert tc.QUESTIONS == jc.QUESTIONS and tc.IMAGE_TOKEN_INDEX == jc.IMAGE_TOKEN_INDEX
+    assert tc.PREFIX == jc.PREFIX and tc.MEMORY_TOKEN_INDEX == jc.MEMORY_TOKEN_INDEX
     assert TL().__dict__ == JL().__dict__ and TL.tiny().__dict__ == JL.tiny().__dict__
     for T_, J_ in ((TA, JA), (TE, JE)):
         assert T_().__dict__ == J_().__dict__

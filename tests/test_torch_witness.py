@@ -9,7 +9,9 @@ stage-2 hierarchical retrieval at training_stage 3), a few steps each. The
 port's stage1.main and stage2.main then write the JSONL records JAX's
 mains write on those artifacts. The other way round, the port's train_cli
 trains stage 1 from the same flags and JAX's stage1.main on the port's
-export writes the port's records.
+export writes the port's records; and the port's train_cli trains the sparse
+and stage-2 stages over JAX's stage-1 LoRA, and JAX's stage2.main on the
+port's stage-2 export writes the port's records.
 
 Both packages read the weights as bf16 and compute in f32 (their
 llama_config_from_hf patched to dtype float32, as tests/test_torch_loader.py
@@ -121,4 +123,35 @@ def test_jax_serves_the_port_trained_checkpoint(world, tmp_path, f32_compute):
     tstage1.main(_stage1_argv(world, out, tmp_path / "port") + ["--device", "cpu"])
     want = records(tmp_path / "jax")
     assert_records_equal(want, records(tmp_path / "port"), {"scores"})
+    assert len(want) == 4
+
+
+def _stage2_argv(w, s2, log):
+    """stage2.main over the whole movie (no grounding log) with the stage-2
+    LoRA and projector of `s2`."""
+    return _eval_common(w) + [
+        "--stage2", w["s1"], "--stage3", s2, "--log_path", str(log), "--batch", "8",
+        "--stride", "5", "--pretrain_clip_adapter", os.path.join(s2, "non_lora_trainables.bin"),
+        "--adapter_d_model", "16", "--adapter_heads", "4", "--adapter_layers", "2",
+        "--adapter_ffn", "32", "--zooms", "1", "--retrieval_prompt", "mad_grounding",
+        "--distributed_retrieval", "1"]
+
+
+def test_jax_serves_the_port_trained_stage2(world, tmp_path, f32_compute):
+    """The round trip: the port's train_cli trains the sparse stage over
+    JAX's stage-1 LoRA, then the stage-2 stage from its own sparse
+    projector, both from the demo's flags; JAX's stage2.main on the port's
+    stage-2 export writes the port's records."""
+    w = {**world, "sparse": str(tmp_path / "port_sparse")}
+    for preset, out in (("synthetic_tiny_sparse", w["sparse"]),
+                        ("synthetic_tiny_stage2", str(tmp_path / "port_s2"))):
+        run, _ = tcli.main(_train_argv(w, preset, out) + ["--device", "cpu"])
+        assert "non_lora_trainables.bin" in os.listdir(out)
+    assert run.adapter_cfg.hierarchy and run.train_cfg.training_stage == 3
+    assert "adapter_config.json" in os.listdir(out)
+    jstage2.main(_stage2_argv(w, out, tmp_path / "jax"))
+    tstage2.main(_stage2_argv(w, out, tmp_path / "port") + ["--device", "cpu"])
+    want = records(tmp_path / "jax")
+    assert_records_equal(want, records(tmp_path / "port"),
+                         {"score_cos", "mean_entropy", "max_entropy"})
     assert len(want) == 4
