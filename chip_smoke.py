@@ -23,8 +23,11 @@ measured in that run. Phases:
      call, and at the edge cases K1_EDGES; K3 (decode_attention) at steps 0
      and 11 by the same limits per (row, head) vector, with two planted
      faults that must fail them (k3_faults), bit-identical over two calls,
-     and so again with a bf16 prompt cache, with GQA, at 4096 positions and
-     at phase 15's streaming chat step (B 1, its 64-token gen cache);
+     and so again with a bf16 prompt cache, with GQA, at 4096 positions, at
+     phase 15's streaming chat step (B 1, its 64-token gen cache) and at
+     ChatGLM2-6B's decode step (group 16: 32 query heads over 2 kv heads,
+     B 8, 300 prompt and 128 prefix positions, the last of 12 steps; timed,
+     with its bound);
   4. the slice: GroundingEngine.ground_windows on a 1-hour movie (18 000
      frames of 768-d features, 57 windows of 250 frames in one chunk of 64,
      12 greedy tokens) with Vicuna-7B int8 weights made from a seed at full
@@ -189,12 +192,31 @@ measured in that run. Phases:
      1e-4, those of its own decode at 1 fps, linspace sampling and the
      card's encoder, and K1, K2 and K3 must have run), then demo.main on a
      .npy of those features: the two must generate the same token ids.
+ 17. the chapters adapter and the adapter's other modes: stage-2 retrieve
+     at the chapters_stage2_100 preset (the cross_attn ClipEncoder at the
+     LLM's width, its query through text_proj, the identity projector) over
+     100 windows of 250 frames (500 s at 2 fps) of hidden-wide features
+     from a seed, at Vicuna-7B width and depth with int8 weights: ms a query,
+     the adapter's ms and memory, launches (fails unless K1, K2 and K3 ran);
+     the same at 2 layers against the CPU (8 windows of 32 frames, 100 window
+     tokens a pass: first-step logits within 5% of the largest); one
+     'alternate' train step at each parity with the linformer and the
+     performer self-attention on the T2V layers against the CPU at 2 layers
+     by phase 9's limits; its time against a budget of 90 s;
+ 18. ChatGLM2-6B with P-tuning at full width and depth (28 layers, int8
+     weights and q/k/v biases from a seed, a 128-position prefix): 8 prompts
+     of about 300 tokens from preprocess_glm over a SentencePiece model
+     written here, generate for 12 greedy tokens with the prefix and
+     without: ms, prefill ms, a decode step's ms, peak memory, launches
+     (fails unless K3 ran 28 x 11 times, row 6 28 times with the prefix and
+     K2 28 times without); both on the card against the CPU at 2 layers
+     (hold_steps); its time against a budget of 120 s.
 
 The kernel checks of phases 3, 7, 10 and 12 run first, after the build
 (rows 9 and 10 after phase 4, on the slice's weights); phase 13 runs after
 phase 6; the pipeline runs after it, then phase 14 and phase 15's serving
 part, before training; phase 15's training part runs after phase 8 (whose
-corpus it trains on) and phase 9, and phase 16 runs last.
+corpus it trains on) and phase 9, then phases 16, 17 and 18.
 Prints phase lines, then one JSON line of per-kernel numbers, the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Exits non-zero,
 with no result line, when CUDA is missing, when run outside a checkout of
@@ -755,9 +777,46 @@ def check_decode_attention(dev, iters):
                 out["long_ms"] = ms
         worst = max(worst, err)
         del args, got, want
-    out["max_abs_err"] = max(out["max_abs_err"], worst)
+    out.update(check_k3_group16(dev, gen, iters))
+    out["max_abs_err"] = max(out["max_abs_err"], worst, out.pop("g16_err"))
     torch.cuda.empty_cache()
     return out
+
+
+# ChatGLM2-6B's decode step: 8 prompts of about 300 tokens after a P-tuning
+# prefix of 128 positions folded into the int8 prompt cache; 12 greedy tokens
+GLM_B, GLM_PROMPT, GLM_PREFIX, GLM_TOKENS = 8, 300, 128, 12
+
+
+def check_k3_group16(dev, gen, iters):
+    """K3 at ChatGLM2-6B's decode shape: group 16 (32 query heads over 2 kv
+    heads), B 8, an int8 prompt cache of S = 300 + 128 prefix positions
+    (live lengths 408-428), G 12, the last step: held by the rows 4-6 limits
+    per (row, head, query) vector against its plain version with K3's
+    planted faults, max abs error 1e-2, two calls bit-identical; timed
+    beside its plain version, with its bound from the bytes it reads."""
+    from revisionllm_tpu_torch.ops import decode_attention as DA
+
+    B, KH, group, hd = GLM_B, 2, 16, 128
+    S, G, step = GLM_PROMPT + GLM_PREFIX, GLM_TOKENS, GLM_TOKENS - 1
+    args = (*k3_inputs(gen, B, KH, S, G, group, S - 20, dev), step)
+    got = DA.decode_attention(*args)
+    want = DA.decode_attention_plain(*args)
+    err = (got.float() - want.float()).abs().max().item()
+    label = f"decode_attention group 16 B={B} KH={KH} S={S} G={G} step={step}"
+    if not err <= 1e-2:
+        raise AssertionError(f"{label}: max_abs_err {err} > 1e-2")
+    hold_k3(label, got, want, k3_faults(args, DA.decode_attention_plain))
+    same_bits(label, (got,), (DA.decode_attention(*args),))
+    ms = device_ms(lambda: DA.decode_attention(*args), iters)
+    plain = device_ms(lambda: DA.decode_attention_plain(*args), max(3, iters // 4))
+    plen = int(args[7].sum().item())
+    nbytes = (B * KH * group * hd * 2 * 2 + plen * KH * (hd * 2 + 8)
+              + B * (step + 1) * KH * hd * 2 * 2 + B * 4)
+    b, by = bound(nbytes, 4.0 * KH * group * hd * (plen + B * (step + 1)))
+    say(f"{label}: max_abs_err {err:.3e} (tol 1.0e-02) kernel {ms:.4f} ms plain {plain:.4f} ms "
+        f"bound {b:.4f} ms ({by}), smem {DA.smem_bytes(S, G, group)} B a block")
+    return {"g16_err": err, "g16_ms": ms, "g16_plain_ms": plain, "g16_bound_ms": b}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -1578,13 +1637,17 @@ def phase_train_compare(dev, paths):
     hold_train_step(dev, train_argv(paths, "unused", 1), "train compare")
 
 
-def hold_train_step(dev, argv, tag, **train_overrides):
+def hold_train_step(dev, argv, tag, adapter=None, data=None, iteration_step=0,
+                    **train_overrides):
     """One train step of train_cli's assembly of `argv` (its preset at full
-    width, cut to 2 layers, adapter dropout 0, the TrainConfig fields of
+    width, cut to 2 layers, adapter dropout 0, the AdapterConfig fields of
+    `adapter`, the DataConfig fields of `data` and the TrainConfig fields of
     `train_overrides` replaced; the stream loss for a stream preset) on its
-    first batch: the loss and the gradient of every trainable leaf with the
-    kernels on the card against the plain path on the CPU, by phase 9's
-    limits. Prints under `tag`; returns the batch (on the CPU)."""
+    first batch (drawn at `iteration_step`, which the loss also gets: the
+    'alternate' adapter's parity): the loss and the gradient of every
+    trainable leaf with the kernels on the card against the plain path on
+    the CPU, by phase 9's limits. Prints under `tag`; returns the batch (on
+    the CPU)."""
     import dataclasses
 
     import torch
@@ -1596,12 +1659,17 @@ def hold_train_step(dev, argv, tag, **train_overrides):
     args = train_cli.parse_args(argv)
     llama_cfg, adapter_cfg, data_cfg, train_cfg = train_cli.build_configs(args)
     run = train_cli.assemble(dataclasses.replace(llama_cfg, num_layers=2),
-                             dataclasses.replace(adapter_cfg, dropout=0.0), data_cfg,
+                             dataclasses.replace(adapter_cfg, dropout=0.0, **(adapter or {})),
+                             dataclasses.replace(data_cfg, **(data or {})),
                              dataclasses.replace(train_cfg, **train_overrides), cpu, seed=0,
                              quant_base=args.quant_base)
+    run.dataset.iteration_step = iteration_step
     batch = run.batch([0])
-    make = trainer.make_stream_loss_fn if data_cfg.stream else trainer.make_loss_fn
-    loss_fn = make(run.llama_cfg, run.adapter_cfg, run.train_cfg)
+    if data_cfg.stream:
+        loss_fn = trainer.make_stream_loss_fn(run.llama_cfg, run.adapter_cfg, run.train_cfg)
+    else:
+        loss_fn = trainer.make_loss_fn(run.llama_cfg, run.adapter_cfg, run.train_cfg,
+                                       iteration_step)
     out = {}
     secs["assembly"] = time.perf_counter() - t0
     for device in (dev, cpu):
@@ -1612,8 +1680,11 @@ def hold_train_step(dev, argv, tag, **train_overrides):
         gen = torch.Generator(device=device).manual_seed(0)
         with trainer._dequant_trace():
             loss = loss_fn(tr, {}, b, bs, gen)
-            grads = torch.autograd.grad(loss, [t for _, t in named])
-        out[device.type] = (loss.item(), {n: g.float().cpu() for (n, _), g in zip(named, grads)})
+            # a leaf the loss does not reach (the performer's detached
+            # features) gets a zero gradient, as in the train step
+            grads = torch.autograd.grad(loss, [t for _, t in named], allow_unused=True)
+        out[device.type] = (loss.item(), {n: (torch.zeros_like(t) if g is None else g).float().cpu()
+                                          for (n, t), g in zip(named, grads)})
         secs[device.type] = time.perf_counter() - t1
     (lk, gk), (lp, gp) = out[dev.type], out["cpu"]
     # The key projection's bias has no gradient in exact arithmetic (it adds
@@ -4620,11 +4691,372 @@ def phase_rest(dev, tmp, paths, smi):
     del ex
     torch.cuda.empty_cache()
     marks["demo"] = time.perf_counter()
+    say_phase(16, t_phase, marks)
+
+
+# ------------------------------------------------------------------ phase 17
+
+CHAPTERS_WINDOWS = 100      # the chapters_stage2_100 preset's windows (eval batch 100)
+CHAPTERS_TOKENS = 8         # max_new_tokens, as the stage-2 pipeline's (S2_FLAGS)
+# the card-against-CPU compare's cut: 8 windows of 32 frames (the preset's
+# 100 window tokens a pass, 3 passes): the CPU side of the hidden-wide
+# adapter over 700 windows of 250 frames would take minutes. At 20 window
+# tokens a pass the first-step logits' bf16 noise alone (bf16 against f32
+# on the CPU, scripts/torch_chapters_noise.py) is 5.07% of the largest,
+# above the 5% limit; at 100, 3.04%
+CHAPTERS_CPU = {"windows": 8, "num_frames": 32, "batch": 100}
+PHASE17_BUDGET_S, PHASE18_BUDGET_S = 90.0, 120.0
+# the alternate train compares: stage2_long_33's hierarchy batches (parity
+# 0) and temporal windows of 250 frames (parity 1), padded to 512 where a
+# window's 250 frame tokens and its text fit
+ALT_COMPARE_FLAGS = STAGE2_COMPARE_FLAGS + ["--model_max_length", "512"]
+# each parity once and each self-attention variant once: the CPU sides of
+# all four pairs take most of the phase's budget; the CPU tests hold all
+# four against JAX
+ALT_COMPARES = (("linformer", 0), ("performer", 1))
+
+
+def chapters_movie(n_windows, ecfg, d, seed):
+    """[ctx, d] f32 features from `seed` with exactly `n_windows` stage-2
+    windows under `ecfg` (window debug_window x feature_fps frames, stride
+    a fifth of it): ctx = (n_windows + 1) strides."""
+    step = int(ecfg.debug_window * ecfg.feature_fps) // ecfg.stride
+    return np.random.default_rng(seed).standard_normal(((n_windows + 1) * step, d),
+                                                       dtype=np.float32)
+
+
+def chapters_compare(dev, acfg, ecfg, qf, qc):
+    """Stage-2 retrieval at the chapters geometry with the kernels on the
+    card against the plain path on the CPU, at Vicuna-7B width, 2 layers and
+    one seed, cut to CHAPTERS_CPU: the card runs `retrieve`; the same call's
+    rows then run on both devices through encode_video (the hidden-wide
+    adapter) and prefill_kv, whose first-step logits must agree within 5%
+    of the largest."""
+    import dataclasses
+
+    import torch
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.constants import QUESTIONS
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+    from revisionllm_tpu_torch.models import generation, llama, revisionllm
+    from revisionllm_tpu_torch.models.multimodal import build_splice_plan, stack_plans
+    from revisionllm_tpu_torch.ops import flash_attention, quant
+    from revisionllm_tpu_torch.ops import windows as W
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(num_layers=2)
+    ecfg = dataclasses.replace(ecfg, num_frames=CHAPTERS_CPU["num_frames"],
+                               batch=CHAPTERS_CPU["batch"])
+    params = llama.init_params(cfg, seed=0, dtype=torch.bfloat16, device=cpu, quantize=True)
+    vision = revisionllm.init_vision_params(acfg, seed=2, dtype=torch.bfloat16, device=cpu)
+    movie = chapters_movie(CHAPTERS_CPU["windows"], ecfg, cfg.hidden_size, seed=9)
+    quant.set_w8a8(True)
+    generation.set_kv8(True)
+    flash_attention.set_attn_bf16(False)
+    out = {}
+    try:
+        for device in (dev, cpu):
+            eng = GroundingEngine(cfg, acfg, _to(params, device), _to(vision, device),
+                                  fake_tokenizer(), ecfg, device=device)
+            if device == dev:
+                res = eng.retrieve(movie, SENTENCE, qf, qc, rng=np.random.default_rng(0))
+            row_idx = eng._stage2_passes(eng._stage2_win_idx(len(movie)),
+                                         np.random.default_rng(0))[4]
+            ids = eng._prompt_ids(SENTENCE, QUESTIONS["retrieval"])
+            nv = row_idx[0].shape[0]
+            plan_np = stack_plans([build_splice_plan(ids, nv, len(ids) - 1 + nv + 8)]
+                                  * len(row_idx))
+            plan = {k: torch.as_tensor(v, device=device) for k, v in plan_np.items()}
+            images = W.gather_windows(eng._features_to_device(movie),
+                                      np.stack(row_idx)).to(torch.bfloat16)
+            video = revisionllm.encode_video(acfg, eng.vision_params, images,
+                                             *eng._broadcast_query_feats(qf, len(row_idx)))
+            embeds, pos, lens = revisionllm.assemble_inputs(eng.params, plan, video,
+                                                            dtype=torch.bfloat16)
+            logits, _ = llama.prefill_kv(cfg, eng.params, embeds, pos, kv_lens=lens,
+                                         kv_quant=True)
+            out[device.type] = logits.float().cpu()
+            del eng
+    finally:
+        quant.set_w8a8(None)
+        generation.set_kv8(None)
+        flash_attention.set_attn_bf16(None)
+    card, host = out[dev.type], out["cpu"]
+    diff = (card - host).abs().max().item()
+    tol = 5e-2 * max(1.0, host.abs().max().item())
+    say(f"chapters compare: Vicuna-7B width, 2 layers, {res['num_windows']} windows x "
+        f"{ecfg.num_frames} frames of {cfg.hidden_size}-d features, {len(row_idx)} passes of "
+        f"{nv} window tokens, kernels on the card vs plain on the CPU: first-step logits "
+        f"max_abs_diff {diff:.4e} (tol {tol:.3e}); the card's retrieve answered "
+        f"{len(res['answers'])} passes ({time.perf_counter() - t0:.1f} s)")
+    if not diff <= tol:
+        raise AssertionError(f"chapters logits differ by {diff} > {tol}")
+
+
+def say_phase(n, t_phase, marks, budget=None):
+    """Print phase `n`'s time (against its budget, if given), split at
+    `marks` ({part: the time it ended})."""
     last, parts = t_phase, {}
     for k, t in marks.items():
         parts[k] = round(t - last, 1)
         last = t
-    say(f"phase 16: {time.perf_counter() - t_phase:.1f} s ({parts})")
+    within = "" if budget is None else f"budget {budget:.0f} s; "
+    say(f"phase {n}: {time.perf_counter() - t_phase:.1f} s ({within}{parts})")
+
+
+def phase_chapters(dev, paths, smi):
+    """Phase 17, the chapters adapter and the adapter's other modes: stage-2
+    `retrieve` at the chapters_stage2_100 preset (the cross_attn ClipEncoder
+    at the LLM's width, its query through text_proj) over 100 windows of
+    250 frames (500 s at 2 fps) of hidden-wide (4096) features from a seed,
+    on Vicuna-7B at full width and depth with int8 weights: ms a query, the
+    adapter's ms and peak memory over the query's 7 passes, the launches of
+    K1, K2 and K3 (each must run); the same at 2 layers against the CPU
+    (chapters_compare); then one 'alternate' train step at each parity
+    (ALT_COMPARES: the linformer self-attention on the T2V layers at parity
+    0, the performer at 1), the card against the CPU at 2 layers by phase
+    9's limits. `smi` is the
+    card's nvidia-smi name and power limit."""
+    import dataclasses
+
+    import torch
+    from revisionllm_tpu_torch.config import LlamaConfig, get_preset
+    from revisionllm_tpu_torch.models import revisionllm
+    from revisionllm_tpu_torch.ops import windows as W
+    from revisionllm_tpu_torch.utils import kernels
+
+    say(f"phase 17 on {smi}")
+    t_phase = time.perf_counter()
+    marks = {}
+    wl = get_preset("chapters_stage2_100")
+    cfg = LlamaConfig()
+    acfg = wl.adapter.with_hidden(cfg.hidden_size)
+    ecfg = dataclasses.replace(wl.eval, max_new_tokens=CHAPTERS_TOKENS)
+    eng = make_engine(cfg, acfg, ecfg, dev, torch.bfloat16, seed=0)
+    movie = chapters_movie(CHAPTERS_WINDOWS, ecfg, cfg.hidden_size, seed=7)
+    rng = np.random.default_rng(8)
+    qf = rng.standard_normal((25, acfg.d_model), dtype=np.float32)
+    qc = rng.standard_normal(cfg.hidden_size, dtype=np.float32)
+    qc /= np.linalg.norm(qc)
+    marks["set-up"] = time.perf_counter()
+
+    def query():
+        return eng.retrieve(movie, SENTENCE, qf, qc, rng=np.random.default_rng(0),
+                            movie_key="chapters")
+
+    query()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    res, ms = timed_ms(query)
+    launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    row_idx = eng._stage2_passes(eng._stage2_win_idx(len(movie)), np.random.default_rng(0))[4]
+    images = W.gather_windows(eng._features_to_device(movie, "chapters"),
+                              np.stack(row_idx)).to(torch.bfloat16)
+    q, v = eng._broadcast_query_feats(qf, len(row_idx))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    toks, adapter_ms = timed_ms(lambda: revisionllm.encode_video(acfg, eng.vision_params,
+                                                                 images, q, v))
+    adapter_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    say(f"chapters: retrieve at chapters_stage2_100 (cross_attn ClipEncoder at d "
+        f"{acfg.hidden_size}, text_proj {acfg.d_model} -> {acfg.hidden_size}), Vicuna-7B "
+        f"{cfg.num_layers} layers int8, {res['num_windows']} windows x {ecfg.num_frames} frames "
+        f"of {movie.shape[1]}-d features ({movie.shape[0]} frames), {len(res['answers'])} "
+        f"passes of {row_idx[0].shape[0]} window tokens: {ms:.1f} ms a query, "
+        f"{1e3 / ms:.4f} q/s, peak {peak:.2f} GiB; the adapter over "
+        f"{int(np.prod(images.shape[:2]))} windows {adapter_ms:.1f} ms, "
+        f"{adapter_gib:.2f} GiB above its inputs, tokens {tuple(toks.shape)}; launches "
+        f"{launches}")
+    missing = [k for k in SERVING if not launches.get(k)]
+    if (missing or res["num_windows"] != CHAPTERS_WINDOWS
+            or not np.isfinite(res["mean_entropy"]).all()):
+        raise AssertionError(f"chapters: kernels not launched {missing}, windows "
+                             f"{res['num_windows']}, entropies {res['mean_entropy']}")
+    del eng, images, toks, q, v
+    torch.cuda.empty_cache()
+    marks["retrieve"] = time.perf_counter()
+    chapters_compare(dev, acfg, ecfg, qf, qc)
+    marks["chapters compare"] = time.perf_counter()
+    data2 = ["--data_path", paths["train_json"], "--feat_folder", paths["features"],
+             "--q_feat_dir", paths["queries"]]
+    with shared_base():
+        for kind, parity in ALT_COMPARES:
+            hold_train_step(dev, train16_argv(ALT_COMPARE_FLAGS, data2, "unused", 1),
+                            f"alternate compare ({kind}, parity {parity})",
+                            adapter={"feature_mode": "alternate", "ca_self_attn": kind},
+                            data={"clip_adapter_feature": "alternate"},
+                            iteration_step=parity)
+    marks["alternate compares"] = time.perf_counter()
+    say_phase(17, t_phase, marks, PHASE17_BUDGET_S)
+
+
+# ------------------------------------------------------------------ phase 18
+
+GLM_WORDS = ("when", "does", "the", "dog", "jump", "from", "to", "a", "man", "opens", "old",
+             "door", "video", "happen", "it", "two", "cats", "run", "across", "field", "train",
+             "leaves", "station", "at", "night", "chapter", "begins", "ends", "scene", "shows")
+GLM_PREFIX_STD = 1.0        # the prefix table's std (init 0.02 x 50): keys of unit order
+
+
+def glm_prompts(tok, n=GLM_B, length=GLM_PROMPT, seed=3):
+    """`n` ChatGLM2 prompts from preprocess_glm over `tok` ([gMASK] sop
+    <|user|> words ... <|assistant|>), live lengths length, length - 3, ...:
+    (ids [n, length] int64 right-padded with 0, lengths [n] int32)."""
+    import torch
+    from revisionllm_tpu_torch.data.preprocess import preprocess_glm
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        text = " ".join(rng.choice(GLM_WORDS, length - 3 * i - 4))
+        ids = preprocess_glm([{"from": "human", "value": text}], tok)["input_ids"].tolist()
+        rows.append(ids[:-1] + [tok.get_command("<|assistant|>")])
+    lens = [len(r) for r in rows]
+    if max(lens) != length:
+        raise AssertionError(f"GLM prompts of {lens} tokens, not up to {length}")
+    ids = torch.zeros((n, length), dtype=torch.long)
+    for i, r in enumerate(rows):
+        ids[i, : len(r)] = torch.as_tensor(r)
+    return ids, torch.as_tensor(lens, dtype=torch.int32)
+
+
+def glm_model(cfg, device, seed=0):
+    """ChatGLM2 int8 serving weights from `seed` (llama.init_params, one
+    matrix at a time) with q/k/v biases drawn from the seed (N(0, 0.5^2)),
+    and a P-tuning prefix table of GLM_PREFIX positions (models/prefix.py,
+    its std GLM_PREFIX_STD) on `device`: (params, prefix params)."""
+    import torch
+    from revisionllm_tpu_torch.models import llama, prefix
+
+    params = llama.init_params(cfg, seed=seed, dtype=torch.bfloat16, device=device,
+                               quantize=True)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    for name in ("q_bias", "k_bias", "v_bias"):
+        b = params["layers"][name]
+        params["layers"][name] = (0.5 * torch.randn(b.shape, generator=gen, device=device)
+                                  ).to(b.dtype)
+    pp = prefix.init_prefix_params(cfg, GLM_PREFIX, gen, device=device)
+    pp["embed"] = pp["embed"] * (GLM_PREFIX_STD / 0.02)
+    return params, pp
+
+
+def glm_compare(dev, cfg, ids, lens, eos_id):
+    """generate on ChatGLM2 at full width and 2 layers with the kernels on
+    the card against the plain path on the CPU, serving numerics on both,
+    with the P-tuning prefix and without: hold_steps on every step's logits
+    (within 5% of the largest, greedy tokens equal but at a bf16 tie)."""
+    import dataclasses
+
+    import torch
+    from revisionllm_tpu_torch.models import generation, llama, prefix
+    from revisionllm_tpu_torch.ops import flash_attention, quant
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, num_layers=2)
+    params, pp = glm_model(cfg, cpu, seed=4)
+    pos = torch.arange(ids.shape[1])[None].expand(ids.shape[0], -1)
+    quant.set_w8a8(True)
+    generation.set_kv8(True)
+    flash_attention.set_attn_bf16(False)
+    steps = {}
+    try:
+        for device in (dev, cpu):
+            p = _to(params, device)
+            embeds = llama.embed_tokens(p, ids.to(device))
+            for label, pkv in (("prefix", prefix.prefix_kv(cfg, _to(pp, device))),
+                               ("none", None)):
+                with LogitTrace() as tr:
+                    generation.generate(cfg, p, embeds, pos.to(device), lens.to(device),
+                                        eos_id=eos_id, max_new_tokens=GLM_TOKENS, prefix_kv=pkv)
+                steps[(device.type, label)] = tr.steps
+    finally:
+        quant.set_w8a8(None)
+        generation.set_kv8(None)
+        flash_attention.set_attn_bf16(None)
+    for label in ("prefix", "none"):
+        diff, tol, tie = hold_steps(f"GLM compare ({label})", steps[(dev.type, label)],
+                                    steps[("cpu", label)])
+        say(f"GLM compare ({'P-tuning prefix' if label == 'prefix' else 'no prefix'}): "
+            f"ChatGLM2-6B width, 2 layers, B {ids.shape[0]}, {GLM_TOKENS} greedy tokens, "
+            f"kernels on the card vs plain on the CPU: worst step's logits max_abs_diff "
+            f"{diff:.4e} (tol {tol:.3e}); "
+            + ("greedy tokens equal at every step" if tie is None else
+               f"first bf16 tie at step {tie[0]}: card {tie[1]}, CPU {tie[2]}"))
+    say(f"GLM compare: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_glm(dev, tmp, smi):
+    """Phase 18, ChatGLM2-6B with P-tuning: LlamaConfig.chatglm2_6b() at full
+    width and depth (28 layers, hidden 4096, FFN 13696, vocab 65024, 32
+    heads over 2 kv heads) with int8 weights and nonzero q/k/v biases from a
+    seed, a P-tuning prefix of 128 positions (ChatGLM2-6B's P-tuning v2
+    example), 8 prompts of about 300 tokens from preprocess_glm over a
+    build_test_model tokenizer written here; generate 12 greedy tokens with
+    the prefix and without: prefill and decode-step ms, launches of K1, K2,
+    K3 and row 6 (fails unless K3 ran 28 x 11 times, row 6 28 times with
+    the prefix and K2 28 times without), peak memory; then glm_compare."""
+    import torch
+    from revisionllm_tpu_torch.config import LlamaConfig
+    from revisionllm_tpu_torch.models import generation, llama, prefix
+    from revisionllm_tpu_torch.tokenization_glm import ChatGLMTokenizer
+    from revisionllm_tpu_torch.utils import kernels, spm
+
+    say(f"phase 18 on {smi}")
+    t_phase = time.perf_counter()
+    marks = {}
+    path = os.path.join(tmp, "glm_tokenizer.model")
+    Path(path).write_bytes(spm.build_test_model(GLM_WORDS))
+    tok = ChatGLMTokenizer(path)
+    ids, lens = glm_prompts(tok)
+    cfg = LlamaConfig.chatglm2_6b()
+    params, pp = glm_model(cfg, dev)
+    pkv = prefix.prefix_kv(cfg, pp)
+    embeds = llama.embed_tokens(params, ids.to(dev))
+    pos = torch.arange(ids.shape[1], device=dev)[None].expand(ids.shape[0], -1)
+    lens_d = lens.to(dev)
+    torch.cuda.synchronize()
+    marks["set-up"] = time.perf_counter()
+    L, G = cfg.num_layers, GLM_TOKENS
+    want = {"prefix": {"flash_attention_prefixed": L, "flash_attention": 0},
+            "none": {"flash_attention": L, "flash_attention_prefixed": 0}}
+    launched = {}
+    for label, p in (("prefix", pkv), ("none", None)):
+        def run(p=p):
+            return generation.generate(cfg, params, embeds, pos, lens_d, eos_id=tok.eos_token_id,
+                                       max_new_tokens=G, prefix_kv=p)
+
+        run()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        out, ms = timed_ms(run)
+        launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        launched[label] = launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        _, pre_ms = timed_ms(lambda: llama.prefill_kv(cfg, params, embeds, pos, kv_lens=lens_d,
+                                                      kv_quant=True, prefix_kv=p))
+        what = f"P-tuning prefix of {GLM_PREFIX}" if p is not None else "no prefix"
+        say(f"GLM generate ({what}): ChatGLM2-6B {L} layers int8, B {ids.shape[0]}, prompts "
+            f"{lens.tolist()} tokens, {G} greedy tokens: {ms:.1f} ms, prefill {pre_ms:.1f} ms, "
+            f"a decode step {(ms - pre_ms) / (G - 1):.2f} ms (the rest over {G - 1} steps); "
+            f"peak {peak:.2f} GiB; launches {launches}; row 0's tokens "
+            f"{out['tokens'][0].tolist()}")
+        bad = {k: launches.get(k, 0) for k, n in want[label].items() if launches.get(k, 0) != n}
+        if launches.get("decode_attention", 0) != L * (G - 1):
+            bad["decode_attention"] = launches.get("decode_attention", 0)
+        if not launches.get("int8_matmul") or not torch.isfinite(out["entropy"]).all() or bad:
+            raise AssertionError(f"GLM generate ({label}): launches {launches} ({bad} off), "
+                                 f"entropies finite {bool(torch.isfinite(out['entropy']).all())}")
+        marks[f"generate ({label})"] = time.perf_counter()
+    del params, pkv, embeds
+    torch.cuda.empty_cache()
+    glm_compare(dev, cfg, ids, lens, tok.eos_token_id)
+    marks["compare"] = time.perf_counter()
+    say_phase(18, t_phase, marks, PHASE18_BUDGET_S)
+    return launched
 
 
 # ------------------------------------------------------------------ main
@@ -4706,6 +5138,11 @@ def main() -> int:
         phase_train_compare(dev, paths)
         phase_surfaces_train(dev, tmp, paths)
         phase_rest(dev, tmp, paths, smi)
+        phase_chapters(dev, paths, smi)
+        launches = phase_glm(dev, tmp, smi)
+        records["decode_attention"]["g16_launches"] = launches["prefix"]["decode_attention"]
+        records["flash_attention_prefixed"]["glm_launches"] = \
+            launches["prefix"]["flash_attention_prefixed"]
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

@@ -29,15 +29,26 @@ class LlamaConfig:
     rms_norm_eps: float = 1e-5
     max_position_embeddings: int = 4096
     dtype: str = "bfloat16"
-    # ChatGLM2 knobs, kept so configs round-trip; the port's llama rejects
-    # them until the GLM slice lands
-    rope_fraction: float = 1.0
-    rope_interleaved: bool = False
-    qkv_bias: bool = False
+    # ChatGLM2 knobs (the reference's secondary backbone)
+    rope_fraction: float = 1.0      # fraction of head_dim rotated (GLM2: 0.5)
+    rope_interleaved: bool = False  # GLM2 pairs (even, odd) dims instead of halves
+    qkv_bias: bool = False          # GLM2 has bias on q/k/v only
 
     @staticmethod
     def vicuna_7b() -> "LlamaConfig":
         return LlamaConfig()
+
+    @staticmethod
+    def chatglm2_6b() -> "LlamaConfig":
+        """ChatGLM2-6B geometry: 28 layers, 32 query heads over 2 kv heads,
+        half-dim interleaved rotary, q/k/v biases, SwiGLU 13696."""
+        return LlamaConfig(
+            vocab_size=65024, hidden_size=4096, intermediate_size=13696,
+            num_layers=28, num_heads=32, num_kv_heads=2, head_dim=128,
+            rope_theta=10000.0, rms_norm_eps=1e-5,
+            max_position_embeddings=32768,
+            rope_fraction=0.5, rope_interleaved=True, qkv_bias=True,
+        )
 
     @staticmethod
     def tiny(vocab_size: int = 512) -> "LlamaConfig":
@@ -65,11 +76,11 @@ class AdapterConfig:
     ffn_dim: int = 2048
     hidden_size: int = 4096          # LLM embedding dim for mm_projector
     clip_adapter_text: bool = False  # T2V text->video cross-attn encoder
-    cross_attn: bool = False         # chapters variant (not ported yet)
+    cross_attn: bool = False         # chapters variant: the adapter at hidden_size, text_proj
     hierarchy: bool = True           # CLS-token output (1 token per window)
     feature_mode: str = "cls"        # cls | temporal | alternate | all
     dropout: float = 0.1
-    ca_self_attn: Optional[str] = None  # not ported yet
+    ca_self_attn: Optional[str] = None  # None | performer | linformer | self-attn
     sa_pos: int = 2
     linformer_k: int = 256
     max_video_length: int = 512

@@ -28,6 +28,12 @@
 // SST, 16-byte aligned: a box's innermost start is). The score is (q . k) * scale * k_scale; p1 * v_scale and p2 round to
 // bf16 before the value sums, as the einsum path casts p1v and p2.
 //
+// Group 16 (ChatGLM2-6B: 32 query heads over 2 kv heads) takes a warp a
+// position like group 8 (P = 32), and its scores, q and partial outputs grow
+// with the group: about 106 KB of shared memory at S = 428, G = 12, so 2
+// blocks an SM, which its launch bounds ask for (KBLOCKS_G16), leaving each
+// thread the registers of its 16 queries' q and output fragments.
+//
 // Plain C interface, bound with ctypes by revisionllm_tpu_torch/ops/decode_attention.py.
 
 #include "decode_attn_common.cuh"
@@ -39,6 +45,7 @@ using dattn::HD;
 constexpr int KWARPS = 4;                  // attention warps a block
 constexpr int KSTAGES = 3;                 // ring slots a block
 constexpr int KBLOCKS = 4;                 // blocks an SM
+constexpr int KBLOCKS_G16 = 2;             // ... at group 16 (shared memory and registers)
 constexpr int KTILE = 8192;                // bytes of a ring tile
 constexpr int KGU = 2;                     // position groups a warp takes at a time
 constexpr int NTHREADS = 32 * KWARPS + 32; // and the producer warp
@@ -122,7 +129,8 @@ __host__ __device__ constexpr size_t k3_smem(int nsc, int grp) {
 }
 
 template <typename PT, int GRP>
-__global__ void __launch_bounds__(NTHREADS, KBLOCKS) decode_attn_kernel(const __grid_constant__ KArgs a) {
+__global__ void __launch_bounds__(NTHREADS, GRP >= 16 ? KBLOCKS_G16 : KBLOCKS)
+    decode_attn_kernel(const __grid_constant__ KArgs a) {
   using C = K3<PT, GRP>;
   constexpr int NT = 32 * KWARPS;
   constexpr int QCH = GRP * HD / 8;             // q's 16-byte chunks
@@ -219,7 +227,7 @@ cudaError_t launch(KArgs& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidValue;
   const int items = a.B * a.KH;
-  const int grid = min(items, sms * min(per_sm, KBLOCKS));
+  const int grid = min(items, sms * min(per_sm, GRP >= 16 ? KBLOCKS_G16 : KBLOCKS));
   kern<<<grid, NTHREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -257,14 +265,18 @@ cudaError_t by_group(int group, KArgs& a, const void* pk, const void* pv, const 
       !encode_cache(&a.tm[4], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, gk, a.B, a.G, a.KH, dattn::TAIL) ||
       !encode_cache(&a.tm[5], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, gv, a.B, a.G, a.KH, dattn::TAIL))
     return cudaErrorInvalidValue;
-  if (es == 1 && (!encode_scales(&a.tm[6], a.ksc, a.B, a.S, a.KH, rows) ||
-                  !encode_scales(&a.tm[7], a.vsc, a.B, a.S, a.KH, rows)))
+  // the scales' rows hold KH rounded up to SST heads (a TMA stride is a
+  // multiple of 16 bytes): KH 2 (ChatGLM2) comes padded to 4 by the caller
+  const int khs = (a.KH + SST - 1) / SST * SST;
+  if (es == 1 && (!encode_scales(&a.tm[6], a.ksc, a.B, a.S, khs, rows) ||
+                  !encode_scales(&a.tm[7], a.vsc, a.B, a.S, khs, rows)))
     return cudaErrorInvalidValue;
   switch (group) {
     case 1: return launch<PT, 1>(a, s);
     case 2: return launch<PT, 2>(a, s);
     case 4: return launch<PT, 4>(a, s);
     case 8: return launch<PT, 8>(a, s);
+    case 16: return launch<PT, 16>(a, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -272,9 +284,11 @@ cudaError_t by_group(int group, KArgs& a, const void* pk, const void* pv, const 
 }  // namespace
 
 // q [B, KH, group, hd] bf16; prompt k/v [B, S, KH, hd] int8 (prompt_int8 = 1,
-// scales [B, S, KH] f32) or bf16 (prompt_int8 = 0, scales null); gen k/v
+// scales [B, S, KHS] f32, KHS = KH rounded up to a multiple of 4, the heads
+// past KH unread) or bf16 (prompt_int8 = 0, scales null); gen k/v
 // [B, G, KH, hd] bf16; mask_lens [B] int32; 0 <= step < G; out [B, KH, group, hd]
-// bf16. hd = 128 (Vicuna's head_dim), group in {1, 2, 4, 8}; 16-byte aligned
+// bf16. hd = 128 (Vicuna's and ChatGLM2's head_dim), group in {1, 2, 4, 8, 16};
+// 16-byte aligned
 // pointers.
 extern "C" int decode_attn_bf16(const void* q, const void* pk, const void* pv,
                                 const void* ksc, const void* vsc, const void* gk,

@@ -1,5 +1,5 @@
-"""Conversation -> (input_ids, labels) preprocessing. A host copy of the
-Vicuna v1 part of revisionllm_tpu/data/preprocess.py.
+"""Conversation -> (input_ids, labels) preprocessing. A host copy of
+revisionllm_tpu/data/preprocess.py: Vicuna v1 and ChatGLM2.
 
 Parity target: preprocess_v1 (reference revisionllm/train/dataset.py:244-327):
 conversations are rendered through the Vicuna v1 template, tokenized with
@@ -95,3 +95,39 @@ def preprocess_v1(
         labels[mask] = IGNORE_INDEX
 
     return {"input_ids": input_ids, "labels": labels}
+
+
+def preprocess_glm(
+    conversations: Sequence[Dict[str, str]],
+    tokenizer,
+) -> Dict[str, np.ndarray]:
+    """ChatGLM conversation preprocessing (parity: preprocess_glm,
+    reference train/dataset.py:116-160): [gMASK] sop header, per-turn role
+    command tokens, loss mask on assistant turns only, labels shifted one
+    right by prepending False.
+
+    `tokenizer` must expose `get_command(name)` and `eos_token_id` (the GLM
+    tokenizer interface, tokenization_glm.ChatGLMTokenizer)."""
+    tokens: list = [tokenizer.get_command("[gMASK]"), tokenizer.get_command("sop")]
+    loss_masks: list = [0, 0]
+
+    for conv in conversations:
+        if conv["from"] == "human":
+            role_token = tokenizer.get_command("<|user|>")
+            loss = 0
+        else:
+            role_token = tokenizer.get_command("<|assistant|>")
+            loss = 1
+        # the GLM tokenizer prefixes 2 special tokens; drop them (reference :139)
+        token_id = [role_token] + list(tokenizer_image_token(conv["value"], tokenizer))[2:]
+        tokens.extend(token_id)
+        loss_masks.extend([loss] * len(token_id))
+    tokens.append(tokenizer.eos_token_id)
+    loss_masks.append(0)
+
+    loss_masks = [False] + loss_masks[:-1]
+    labels = [(t if m else IGNORE_INDEX) for t, m in zip(tokens, loss_masks)]
+    return {
+        "input_ids": np.asarray(tokens, np.int32),
+        "labels": np.asarray(labels, np.int32),
+    }

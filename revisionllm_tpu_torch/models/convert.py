@@ -6,7 +6,8 @@ revisionllm/model/builder.py:21-67): HF Vicuna base weights, then
 (vtimellm_arch.py:27-40), then the stage-2 / stage-3 PEFT LoRA merge
 (builder.py:47-60) -- producing the stacked-layer trees of models/llama.py,
 models/adapter.py and models/lora.py as NumPy arrays, for
-`models.weights.params_from_numpy`.
+`models.weights.params_from_numpy`; and the ChatGLM2-6B backbone with a
+P-tuning checkpoint's prefix encoder (`convert_chatglm`).
 
 Files are read with torch and numpy alone: `.bin` through torch.load, and
 `.safetensors` through `read_safetensors`, a reader of the format's own (an
@@ -358,3 +359,76 @@ def load_pretrained(
         params = merge_lora(params, _round_in_place(lora_tree, dtype), lora_cfg, dtype)
 
     return cfg, params, vision
+
+
+# ---------------------------------------------------------------------------
+# ChatGLM2 backbone
+# ---------------------------------------------------------------------------
+
+
+def convert_chatglm(
+    state: Dict[str, np.ndarray], cfg: LlamaConfig, dtype=np.float32
+) -> Dict[str, Any]:
+    """ChatGLM2-6B state dict -> the backbone tree (the reference's secondary
+    LLM, model/vtimellm_chatglm.py over model/chatglm/modeling_chatglm.py),
+    with its q/k/v biases.
+
+    Packed tensors are split: query_key_value rows [q | k | v] and their
+    bias; dense_h_to_4h rows [gate | up] (SwiGLU's silu(x0) * x1). A P-tuning
+    checkpoint's prefix encoder (modeling_chatglm.py PrefixEncoder :61-89)
+    becomes "prefix": {"embed"[, "proj": {"w1", "b1", "w2", "b2"}]}."""
+    L = cfg.num_layers
+    q_out = cfg.num_heads * cfg.head_dim
+    kv_out = cfg.num_kv_heads * cfg.head_dim
+    ffn = cfg.intermediate_size
+
+    def key(name):
+        for prefix in ("transformer.", ""):
+            k = prefix + name
+            if k in state:
+                return state[k]
+        raise KeyError(name)
+
+    layers: Dict[str, list] = {
+        n: [] for n in (
+            "q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
+            "down_proj", "attn_norm", "mlp_norm", "q_bias", "k_bias", "v_bias",
+        )
+    }
+    for i in range(L):
+        pre = f"encoder.layers.{i}"
+        qkv_w = key(f"{pre}.self_attention.query_key_value.weight")
+        qkv_b = key(f"{pre}.self_attention.query_key_value.bias")
+        layers["q_proj"].append(_mat(qkv_w[:q_out], dtype))
+        layers["k_proj"].append(_mat(qkv_w[q_out : q_out + kv_out], dtype))
+        layers["v_proj"].append(_mat(qkv_w[q_out + kv_out :], dtype))
+        layers["q_bias"].append(qkv_b[:q_out].astype(dtype))
+        layers["k_bias"].append(qkv_b[q_out : q_out + kv_out].astype(dtype))
+        layers["v_bias"].append(qkv_b[q_out + kv_out :].astype(dtype))
+        layers["o_proj"].append(_mat(key(f"{pre}.self_attention.dense.weight"), dtype))
+        h4 = key(f"{pre}.mlp.dense_h_to_4h.weight")
+        layers["gate_proj"].append(_mat(h4[:ffn], dtype))
+        layers["up_proj"].append(_mat(h4[ffn:], dtype))
+        layers["down_proj"].append(_mat(key(f"{pre}.mlp.dense_4h_to_h.weight"), dtype))
+        layers["attn_norm"].append(key(f"{pre}.input_layernorm.weight").astype(dtype))
+        layers["mlp_norm"].append(key(f"{pre}.post_attention_layernorm.weight").astype(dtype))
+
+    out: Dict[str, Any] = {
+        "embed": key("embedding.word_embeddings.weight").astype(dtype),
+        "layers": {n: np.stack(v) for n, v in layers.items()},
+        "final_norm": key("encoder.final_layernorm.weight").astype(dtype),
+        "lm_head": _mat(key("output_layer.weight"), dtype),
+    }
+    for pe in ("prefix_encoder.", "transformer.prefix_encoder."):
+        if pe + "embedding.weight" in state:
+            prefix: Dict[str, Any] = {"embed": state[pe + "embedding.weight"].astype(dtype)}
+            if pe + "trans.0.weight" in state:  # torch Linear [out, in] -> [in, out]
+                prefix["proj"] = {
+                    "w1": _mat(state[pe + "trans.0.weight"], dtype),
+                    "b1": state[pe + "trans.0.bias"].astype(dtype),
+                    "w2": _mat(state[pe + "trans.2.weight"], dtype),
+                    "b2": state[pe + "trans.2.bias"].astype(dtype),
+                }
+            out["prefix"] = prefix
+            break
+    return out

@@ -13,14 +13,16 @@ unified int8 KV slab (a shared-prefix prefill's split cache is repacked into
 it), and each step is one ops.decode_serve launch (row 10 on the card), then
 the final norm and the lm_head; REVISIONLLM_SERVE=0 (or set_serve(False))
 sends the packed tree through decode_step_split instead. Every other step is
-llama.decode_step_split. `generate_stream` yields one greedy token a step
-for interactive use (the streaming chat).
+llama.decode_step_split. A P-tuning prefix (`prefix_kv`, ChatGLM2's) is
+attended through the prefill and every split step: it takes neither the
+serving layout nor the megakernel, as in JAX. `generate_stream` yields one
+greedy token a step for interactive use (the streaming chat).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Iterator, Optional
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import torch
 
@@ -135,6 +137,7 @@ def generate(
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
     shared_prefix_len: int = 0,
+    prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
     """Decode `max_new_tokens` for a right-padded batch of spliced prompts.
 
@@ -142,6 +145,12 @@ def generate(
     entropy, logprob and valid, each [B, G]. When every row shares its first
     `shared_prefix_len` embeddings (the engine's window batches do), the
     prefill runs that prefix once (llama.prefill_shared_prefix).
+
+    prefix_kv: a P-tuning prefix (pk, pv) [L, 1, P, KH, hd]
+    (models.prefix), attended through the prefill and the decode, folded at
+    the cache's positions [0, P): the steps mask with prompt_lens + P and
+    keep the rope positions on prompt_lens. It cannot be combined with a
+    shared-prefix prefill of more than one row (ValueError), as in JAX.
 
     Greedy (temperature 0) matches JAX token for token. temperature > 0
     samples from softmax(logits / temperature) with `generator`; it cannot
@@ -155,9 +164,12 @@ def generate(
     kv_quant = _kv8_enabled(embeds.device)
     lq = params["layers"].get("q_proj")
     serve_intent = (
-        isinstance(lq, dict) and "q8c" in lq and _serve_enabled() is not False and kv_quant
-        and DSV.supports_serve(cfg, params)
+        isinstance(lq, dict) and "q8c" in lq and prefix_kv is None
+        and _serve_enabled() is not False and kv_quant and DSV.supports_serve(cfg, params)
     )
+    ptuning_len = 0 if prefix_kv is None else int(prefix_kv[0].shape[2])
+    if prefix_kv is not None and shared_prefix_len > 1 and B > 1:
+        raise ValueError("P-tuning prefix + shared-prefix prefill unsupported")
     if shared_prefix_len > 1 and B > 1:
         logits, prompt_kv = llama.prefill_shared_prefix(
             cfg, params, embeds, positions, shared_prefix_len, kv_lens=prompt_lens,
@@ -166,12 +178,13 @@ def generate(
     else:
         logits, prompt_kv = llama.prefill_kv(
             cfg, params, embeds, positions, kv_lens=prompt_lens, kv_quant=kv_quant,
-            kv_slab_slots=G if serve_intent else None,
+            kv_slab_slots=G if serve_intent else None, prefix_kv=prefix_kv,
         )
     use_mega = (
-        not serve_intent and _megakernel_enabled() and kv_quant and "k_scale" in prompt_kv
-        and DS.supports_megakernel(cfg, params)
+        not serve_intent and ptuning_len == 0 and _megakernel_enabled() and kv_quant
+        and "k_scale" in prompt_kv and DS.supports_megakernel(cfg, params)
     )
+    mask_lens = prompt_lens + ptuning_len if ptuning_len else None
     if serve_intent:
         if "kv" in prompt_kv:
             slab, s0 = prompt_kv, T
@@ -192,7 +205,7 @@ def generate(
         if use_mega:
             return decode_step_mega(cfg, params, pkv, prompt_lens, gen_cache, g, tok_embed)
         return llama.decode_step_split(
-            cfg, params, prompt_kv, prompt_lens, gen_cache, g, tok_embed)[0]
+            cfg, params, prompt_kv, prompt_lens, gen_cache, g, tok_embed, mask_lens)[0]
 
     done = torch.zeros(B, dtype=torch.bool, device=embeds.device)
     tokens, entropies, logprobs, valids = [], [], [], []

@@ -19,8 +19,15 @@ the card). With REVISIONLLM_FUSED_MLP=1 every int8 MLP tail runs through
 ops.quant.w8a8_mlp_fused (row 8 on the card). Int4 trees ({"q4", "scale4"})
 run through the same dispatch (row 7), and so do the serving-packed chunks of
 ops/decode_serve.py (ops.quant.q8c_apply); `prefill_kv(kv_slab_slots=G)`
-writes that path's unified int8 KV slab. The P-tuning prefix and the
-ChatGLM2 geometry wait for later slices.
+writes that path's unified int8 KV slab.
+
+The ChatGLM2 geometry (LlamaConfig.chatglm2_6b) adds q/k/v biases
+(`qkv_bias`) and its rotary, half of each head's dims in interleaved pairs
+(`rope_interleaved`, `rope_fraction`); a P-tuning prefix (models/prefix.py,
+`prefix_kv`) is attended by every query position of every layer, un-roped,
+through row 6 on the card (`flash_attention_prefixed`) or, when training,
+the plain lse pieces and their merge under autograd; `prefill_kv` folds it
+into the returned cache at positions [0, P).
 """
 
 from __future__ import annotations
@@ -37,6 +44,8 @@ from revisionllm_tpu_torch.ops.decode_attention import decode_attention
 from revisionllm_tpu_torch.ops.flash_attention import (
     attention,
     flash_attention_prefixed,
+    merge_attention_pieces,
+    mha_reference_lse,
     trainable_attention,
 )
 from revisionllm_tpu_torch.ops.norms import rms_norm
@@ -50,7 +59,12 @@ from revisionllm_tpu_torch.ops.quant import (
     w8a8_mlp_fused,
     w8a8_prequant_matmul,
 )
-from revisionllm_tpu_torch.ops.rope import apply_rope_tables, rope_angles, rope_tables
+from revisionllm_tpu_torch.ops.rope import (
+    apply_rope_tables,
+    rope_angles,
+    rope_tables,
+    rope_tables_interleaved,
+)
 from revisionllm_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -70,11 +84,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torc
 
 def torch_dtype(name: Union[str, torch.dtype]) -> torch.dtype:
     return name if isinstance(name, torch.dtype) else _DTYPES[name]
-
-
-def _check_cfg(cfg: LlamaConfig) -> None:
-    if cfg.qkv_bias or cfg.rope_interleaved or cfg.rope_fraction != 1.0:
-        raise NotImplementedError("the ChatGLM2 geometry is not ported yet")
 
 
 def _dims(cfg: LlamaConfig) -> Dict[str, int]:
@@ -149,6 +158,9 @@ def init_params(
         layers[name] = matrix(L, dims[din], dims[dout])
     layers["attn_norm"] = torch.ones((L, cfg.hidden_size), dtype=dtype, device=device)
     layers["mlp_norm"] = torch.ones((L, cfg.hidden_size), dtype=dtype, device=device)
+    if cfg.qkv_bias:  # zeros, as JAX's init (llama.py:79-82)
+        for name, width in (("q_bias", "q_out"), ("k_bias", "kv_out"), ("v_bias", "kv_out")):
+            layers[name] = torch.zeros((L, dims[width]), dtype=dtype, device=device)
     return {
         "embed": normal((cfg.vocab_size, cfg.hidden_size), 0.02).to(dtype),
         "layers": layers,
@@ -184,7 +196,48 @@ def _lora_apply(x, w, lora_layer, scale):
     return y
 
 
-def _attention_block(cfg, lp, x, rope, kv_lens, lora_lp=None, lora_scale=0.0, trainable=False):
+def _rotary_dim(cfg: LlamaConfig) -> int:
+    return int(cfg.head_dim * cfg.rope_fraction)
+
+
+def rope_for(cfg: LlamaConfig, positions: torch.Tensor):
+    """The rotary tables of `positions` [..., T] for cfg's convention, the
+    arguments after x of ops.rope.apply_rope_tables: half-split over the
+    whole head (Vicuna), or ChatGLM2's interleaved pairs over its first
+    rotary_dim dims (JAX's _rope, llama.py:140-151)."""
+    cos, sin = rope_angles(positions, _rotary_dim(cfg), cfg.rope_theta)
+    if cfg.rope_interleaved or cfg.rope_fraction < 1.0:
+        return (*rope_tables_interleaved(cos, sin, cfg.head_dim), True)
+    return (*rope_tables(cos, sin), False)
+
+
+def _qkv_bias(cfg: LlamaConfig, lp, q, k, v):
+    """q [.., H, hd], k/v [.., KH, hd] plus ChatGLM2's biases (qkv_bias)."""
+    if not cfg.qkv_bias:
+        return q, k, v
+    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    return (q + lp["q_bias"].reshape(H, hd), k + lp["k_bias"].reshape(KH, hd),
+            v + lp["v_bias"].reshape(KH, hd))
+
+
+def _prefix_attention(q, k, v, pk, pv, kv_lens, trainable):
+    """Attention over [the P-tuning prefix pk/pv [1, P, KH, hd], visible to
+    every row and query | the row's own causal k/v]: row 6 on the card
+    (the prefix in q's type), its plain version on the CPU; when training,
+    the plain lse pieces and their merge, which autograd differentiates into
+    the prefix (JAX's use_pallas=False branch, llama.py:208-215)."""
+    if not trainable:
+        return flash_attention_prefixed(q, k, v, pk.to(q.dtype).contiguous(),
+                                        pv.to(q.dtype).contiguous(), kv_lens=kv_lens)
+    B = q.shape[0]
+    o1, lse1 = mha_reference_lse(q, pk.expand((B,) + tuple(pk.shape[1:])),
+                                 pv.expand((B,) + tuple(pv.shape[1:])), causal=False)
+    o2, lse2 = mha_reference_lse(q, k, v, causal=True, kv_lens=kv_lens)
+    return merge_attention_pieces(o1, lse1, o2, lse2)
+
+
+def _attention_block(cfg, lp, x, rope, kv_lens, lora_lp=None, lora_scale=0.0, trainable=False,
+                     prefix_pkv=None):
     B, T, _ = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     if lora_lp is None:
@@ -192,10 +245,13 @@ def _attention_block(cfg, lp, x, rope, kv_lens, lora_lp=None, lora_scale=0.0, tr
     else:
         qm, km, vm = (_lora_apply(x, lp[n], lora_lp.get(n), lora_scale)
                       for n in ("q_proj", "k_proj", "v_proj"))
-    q = apply_rope_tables(qm.reshape(B, T, H, hd), *rope)
-    k = apply_rope_tables(km.reshape(B, T, KH, hd), *rope)
-    v = vm.reshape(B, T, KH, hd)
-    if trainable:
+    q, k, v = _qkv_bias(cfg, lp, qm.reshape(B, T, H, hd), km.reshape(B, T, KH, hd),
+                        vm.reshape(B, T, KH, hd))
+    q = apply_rope_tables(q, *rope)
+    k = apply_rope_tables(k, *rope)
+    if prefix_pkv is not None:
+        o = _prefix_attention(q, k, v, *prefix_pkv, kv_lens, trainable)
+    elif trainable:
         o = trainable_attention(q, k, v, causal=True, kv_lens=kv_lens)
     else:
         o = attention(q, k, v, causal=True, kv_lens=kv_lens)
@@ -269,6 +325,7 @@ def forward_hidden(
     trainable: bool = False,
     remat: bool = False,
     kv_slab_slots: Optional[int] = None,
+    prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ):
     """Full-sequence forward. embeds [B, T, D], positions [B, T].
 
@@ -285,13 +342,18 @@ def forward_hidden(
     Training: `lora` (models/lora.py tree) adds scale * x A B to every
     adapted matmul; trainable=True takes the differentiable attention
     (row-4 kernels on the card); remat=True checkpoints each layer, which is
-    exact because the layers draw no random numbers."""
-    _check_cfg(cfg)
+    exact because the layers draw no random numbers.
+
+    prefix_kv: a P-tuning prefix (pk, pv) [L, 1, P, KH, hd]
+    (models.prefix.prefix_kv), prepended un-roped to every layer's keys and
+    values and visible to every query; positions are not shifted. The
+    returned cache holds the tokens' k/v only (prefill_kv folds the
+    prefix in)."""
     if remat and return_kv:
         raise ValueError("remat is for training; it returns no cache")
     B, T, _ = embeds.shape
     L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    rope = rope_tables(*rope_angles(positions, hd, cfg.rope_theta))
+    rope = rope_for(cfg, positions)
     cache = None
     if kv_slab_slots is not None:
         assert kv_quant, "kv_slab_slots requires kv_quant=True"
@@ -310,9 +372,10 @@ def forward_hidden(
         if kv_quant:
             cache["k_scale"] = torch.empty(shape[:-1], dtype=torch.float32, device=embeds.device)
             cache["v_scale"] = torch.empty(shape[:-1], dtype=torch.float32, device=embeds.device)
-    def layer(x, lp, lora_lp):
+    def layer(x, lp, lora_lp, ppkv):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        attn_out, k, v = _attention_block(cfg, lp, h, rope, kv_lens, lora_lp, lora_scale, trainable)
+        attn_out, k, v = _attention_block(cfg, lp, h, rope, kv_lens, lora_lp, lora_scale, trainable,
+                                          ppkv)
         x = x + attn_out
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
         return x + _mlp_block(lp, h, lora_lp, lora_scale), k, v
@@ -321,11 +384,12 @@ def forward_hidden(
     for i in range(L):
         lp = layer_params(params, i)
         lora_lp = lora_layer_params(lora, i)
+        ppkv = None if prefix_kv is None else (prefix_kv[0][i], prefix_kv[1][i])
         if remat:
-            x = checkpoint(lambda x, lp=lp, lora_lp=lora_lp: layer(x, lp, lora_lp)[0], x,
-                           use_reentrant=False)
+            x = checkpoint(lambda x, ppkv, lp=lp, lora_lp=lora_lp: layer(x, lp, lora_lp, ppkv)[0],
+                           x, ppkv, use_reentrant=False)
             continue
-        x, k, v = layer(x, lp, lora_lp)
+        x, k, v = layer(x, lp, lora_lp, ppkv)
         if kv_slab_slots is not None:
             for j, t in enumerate((k, v)):
                 tq, ts = _quantize_rows(t)
@@ -359,16 +423,32 @@ def prefill_kv(
     kv_lens: Optional[torch.Tensor] = None,
     kv_quant: bool = False,
     kv_slab_slots: Optional[int] = None,
+    prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Params]:
     """Prefill: (logits at each row's last position [B, V], read-only prompt
     cache {"k", "v"[, "k_scale", "v_scale"]} [L, B, T, KH, hd]).
     kv_slab_slots=G (with kv_quant) returns the unified serving slab
     {"kv", "kvsc"} of ops.decode_serve with G generation slots (s0 = T)
-    instead of the split cache."""
+    instead of the split cache.
+
+    prefix_kv: a P-tuning prefix (pk, pv) [L, 1, P, KH, hd], attended in
+    the prefill and folded into the returned cache at positions [0, P) in
+    embeds' type (int8 with its scales under kv_quant), so the cache is
+    [L, B, P + T, KH, hd]; decode then masks with mask_lens = kv_lens + P
+    and keeps the rope positions on kv_lens (decode_step_split). The serve
+    slab takes no prefix (JAX's llama.py:528)."""
+    if prefix_kv is not None and kv_slab_slots is not None:
+        raise ValueError("P-tuning prefix is not supported with the serve slab")
     hidden, cache = forward_hidden(
         cfg, params, embeds, positions, kv_lens, return_kv=True, kv_quant=kv_quant,
-        kv_slab_slots=kv_slab_slots,
+        kv_slab_slots=kv_slab_slots, prefix_kv=prefix_kv,
     )
+    if prefix_kv is not None:
+        B = embeds.shape[0]
+        pkb, pvb = (t.expand((t.shape[0], B) + tuple(t.shape[2:])).to(embeds.dtype)
+                    for t in prefix_kv)
+        head = quantize_prompt_kv({"k": pkb, "v": pvb}) if kv_quant else {"k": pkb, "v": pvb}
+        cache = {name: torch.cat([head[name], t], dim=2) for name, t in cache.items()}
     if kv_lens is None:
         last = hidden[:, -1]
     else:
@@ -397,13 +477,12 @@ def prefill_shared_prefix(
     prefix broadcast and then the rest. kv_quant=True quantizes it layer by
     layer (per (position, head) scales, the same numbers as JAX's quantizing
     the whole bf16 cache at the end), so the full bf16 cache never exists."""
-    _check_cfg(cfg)
     B, T, _ = embeds.shape
     P = prefix_len
     L, H, KH, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     _, prefix_kv = forward_hidden(cfg, params, embeds[:1, :P], positions[:1, :P], return_kv=True)
     T2 = T - P
-    rope = rope_tables(*rope_angles(positions[:, P:], hd, cfg.rope_theta))
+    rope = rope_for(cfg, positions[:, P:])
     rest_lens = None if kv_lens is None else (kv_lens.to(torch.int32) - P).clamp(min=0)
     kv_dtype = torch.int8 if kv_quant else embeds.dtype
     cache = {n: torch.empty((L, B, T, KH, hd), dtype=kv_dtype, device=embeds.device)
@@ -430,9 +509,10 @@ def prefill_shared_prefix(
         pk, pv = prefix_kv["k"][i], prefix_kv["v"][i]
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         qm, km, vm = q8_apply_multi(h, (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
-        q = apply_rope_tables(qm.reshape(B, T2, H, hd), *rope)
-        k = apply_rope_tables(km.reshape(B, T2, KH, hd), *rope)
-        v = vm.reshape(B, T2, KH, hd)
+        q, k, v = _qkv_bias(cfg, lp, qm.reshape(B, T2, H, hd), km.reshape(B, T2, KH, hd),
+                            vm.reshape(B, T2, KH, hd))
+        q = apply_rope_tables(q, *rope)
+        k = apply_rope_tables(k, *rope)
         o = flash_attention_prefixed(q, k, v, pk, pv, kv_lens=rest_lens)
         x = x + q8_apply(o.reshape(B, T2, H * hd), lp["o_proj"])
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
@@ -473,14 +553,15 @@ def decode_step_split(
     k/v land in gen_cache [L, B, G, KH, hd] at slot `step`, written IN PLACE
     (JAX returns an updated copy; the returned dict is the same tensors).
     Attention over [prompt | generated] is one decode_attention call per
-    layer. mask_lens: valid prompt positions per row (default prompt_lens).
+    layer. mask_lens: valid prompt positions per row (default prompt_lens;
+    prompt_lens + P over a cache with a P-tuning prefix folded in, whose
+    rope positions stay on prompt_lens).
     Returns (logits [B, V] f32, gen_cache)."""
-    _check_cfg(cfg)
     B = token_embeds.shape[0]
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     group = H // KH
     positions = (prompt_lens.long() + step)[:, None]
-    rope = rope_tables(*rope_angles(positions, hd, cfg.rope_theta))
+    rope = rope_for(cfg, positions)
     if mask_lens is None:
         mask_lens = prompt_lens
     quantized = "k_scale" in prompt_kv
@@ -489,9 +570,11 @@ def decode_step_split(
     for i in range(cfg.num_layers):
         lp = layer_params(params, i)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q = apply_rope_tables(q8_apply(h, lp["q_proj"]).reshape(B, 1, H, hd), *rope)
-        k = apply_rope_tables(q8_apply(h, lp["k_proj"]).reshape(B, 1, KH, hd), *rope)
-        v = q8_apply(h, lp["v_proj"]).reshape(B, 1, KH, hd)
+        q, k, v = _qkv_bias(cfg, lp, q8_apply(h, lp["q_proj"]).reshape(B, 1, H, hd),
+                            q8_apply(h, lp["k_proj"]).reshape(B, 1, KH, hd),
+                            q8_apply(h, lp["v_proj"]).reshape(B, 1, KH, hd))
+        q = apply_rope_tables(q, *rope)
+        k = apply_rope_tables(k, *rope)
         gk, gv = gen_cache["k"][i], gen_cache["v"][i]
         gk[:, step] = k[:, 0].to(gk.dtype)
         gv[:, step] = v[:, 0].to(gv.dtype)

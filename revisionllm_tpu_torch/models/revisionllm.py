@@ -17,6 +17,7 @@ from revisionllm_tpu_torch.constants import IGNORE_INDEX
 from revisionllm_tpu_torch.models import generation, llama
 from revisionllm_tpu_torch.models.adapter import clip_encoder_forward, init_adapter_params
 from revisionllm_tpu_torch.models.multimodal import splice_embeds
+from revisionllm_tpu_torch.ops.norms import layer_norm
 from revisionllm_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -38,14 +39,22 @@ def init_vision_params(
 ) -> Params:
     """Vision module init from `seed` on `device` (default CUDA): the mlp
     projector from `d_in` features, or the ClipEncoder adapter (whose width
-    is d_model)."""
+    is d_model, or hidden_size for cross_attn), with the LayerNorm
+    `alternate_ln` over its output in 'alternate' mode (reference
+    vtimellm_arch.py:72-73)."""
     device = resolve_device(device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     if adapter_cfg.kind == "mlp":
         return {"mm_projector": init_mlp_projector(gen, d_in, adapter_cfg.hidden_size, dtype,
                                                    device)}
-    return {"mm_projector": init_adapter_params(adapter_cfg, gen, dtype, device)}
+    out = {"mm_projector": init_adapter_params(adapter_cfg, gen, dtype, device)}
+    if adapter_cfg.feature_mode == "alternate":
+        out["alternate_ln"] = {
+            "w": torch.ones((adapter_cfg.hidden_size,), dtype=dtype, device=device),
+            "b": torch.zeros((adapter_cfg.hidden_size,), dtype=dtype, device=device),
+        }
+    return out
 
 
 def encode_video(
@@ -56,11 +65,14 @@ def encode_video(
     query_valid: Optional[torch.Tensor] = None,
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
+    iteration_step: int = 0,
 ) -> torch.Tensor:
     """Frame features -> LLM token block. images [B, T, d], one window per
     row -> [B, T, hidden] (temporal) or [B, 1, hidden] (cls); or the
     hierarchy input [B, V, T, d] of stage-2 retrieval, V windows per row ->
-    [B, V, hidden], one CLS token per window.
+    [B, V, hidden], one CLS token per window. 'alternate' mode picks the
+    adapter's output by iteration_step's parity and applies `alternate_ln`
+    to it (vtimellm_arch.py:146-147).
 
     The hierarchy input runs as B * V windows, the query features repeated
     V times in place for each row (jnp.repeat on axis 0; Tensor.repeat would
@@ -70,6 +82,13 @@ def encode_video(
     proj = vision_params["mm_projector"]
     if adapter_cfg.kind == "mlp":
         return images.to(proj["w"].dtype) @ proj["w"] + proj["b"]
+
+    def post(toks):
+        if adapter_cfg.feature_mode == "alternate" and "alternate_ln" in vision_params:
+            ln = vision_params["alternate_ln"]
+            return layer_norm(toks, ln["w"], ln["b"])
+        return toks
+
     if images.dim() == 4:
         B, V, T, d = images.shape
         flat = images.reshape(B * V, T, d)
@@ -80,14 +99,15 @@ def encode_video(
                 adapter_cfg, proj, flat[i : i + HIERARCHY_CHUNK],
                 None if qf is None else qf[i : i + HIERARCHY_CHUNK],
                 None if qv is None else qv[i : i + HIERARCHY_CHUNK],
-                deterministic, generator,
+                deterministic, generator, iteration_step,
             )
             for i in range(0, B * V, HIERARCHY_CHUNK)
         ]
-        return torch.cat(toks, dim=0).reshape(B, V, -1)
-    return clip_encoder_forward(
+        return post(torch.cat(toks, dim=0).reshape(B, V, -1))
+    return post(clip_encoder_forward(
         adapter_cfg, proj, images, query_feats, query_valid, deterministic, generator,
-    )
+        iteration_step,
+    ))
 
 
 def assemble_inputs(
@@ -132,12 +152,15 @@ def forward_train(
     deterministic: bool = True,
     generator: Optional[torch.Generator] = None,
     remat: bool = False,
+    iteration_step: int = 0,
 ) -> torch.Tensor:
     """One training forward -> scalar LM loss: encode the windows, splice,
     run the backbone with LoRA and the differentiable attention, LM head in
-    f32, shifted CE over the plan's labels (reference vtimellm_llama.py:38-90)."""
+    f32, shifted CE over the plan's labels (reference vtimellm_llama.py:38-90).
+    iteration_step selects the 'alternate' adapter's output (encode_video)."""
     video_tokens = encode_video(
-        adapter_cfg, vision_params, images, query_feats, query_valid, deterministic, generator
+        adapter_cfg, vision_params, images, query_feats, query_valid, deterministic, generator,
+        iteration_step,
     )
     embeds, positions, lengths = assemble_inputs(
         params, plan, video_tokens, memory_tokens, dtype=llama.torch_dtype(cfg.dtype)

@@ -25,6 +25,8 @@ NEG_INF = -2.0e30
 # scale box (floats a position of a slot's scales)
 KWARPS, KSTAGES, KTILE, SST = 4, 3, 8192, 4
 SMEM_MAX = 227 * 1024
+# the query heads a kv head that K3 is built for (16: ChatGLM2's 32 over 2)
+K3_GROUPS = (1, 2, 4, 8, 16)
 
 
 def smem_bytes(S: int, G: int, group: int, hd: int = 128) -> int:
@@ -88,14 +90,15 @@ def decode_attention(
 ) -> torch.Tensor:
     """Same contract as `decode_attention_plain`. A CPU tensor takes the plain
     version; a CUDA tensor launches K3 (bf16 q and gen cache, int8 or bf16
-    prompt cache, hd = 128, group in {1, 2, 4, 8})."""
+    prompt cache, hd = 128, group in K3_GROUPS) and raises for any other
+    shape."""
     if q.device.type == "cpu":
         return decode_attention_plain(
             q, prompt_k, prompt_v, k_scale, v_scale, gen_k, gen_v, mask_lens, step
         )
     B, KH, group, hd = q.shape
     S, G = prompt_k.shape[1], gen_k.shape[1]
-    if hd != 128 or group not in (1, 2, 4, 8):
+    if hd != 128 or group not in K3_GROUPS:
         raise ValueError(f"decode_attention kernel: unsupported q shape {tuple(q.shape)}")
     if not 0 <= step < G:
         raise ValueError(f"decode_attention: step {step} outside the {G} gen slots")
@@ -122,6 +125,11 @@ def decode_attention(
     smem = smem_bytes(S, G, group, hd)
     if smem > SMEM_MAX:
         raise ValueError(f"decode_attention kernel: S={S} needs {smem} B of shared memory")
+    if quantized and KH % SST:
+        # the kernel reads the scales of SST heads a position (a TMA row is a
+        # multiple of 16 bytes): pad KH 2 (ChatGLM2) to 4 heads
+        pad = (0, -KH % SST)
+        k_scale, v_scale = (torch.nn.functional.pad(t, pad).contiguous() for t in (k_scale, v_scale))
     lens = mask_lens.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty_like(q)
     fn = kernels.function(

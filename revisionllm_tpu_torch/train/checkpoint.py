@@ -206,3 +206,6 @@ def _export_vision(state: dict, tree: Dict[str, Any], prefix: str) -> None:
     if "mm_projector" in tree:
         state[f"{prefix}.mm_projector.weight"] = _t(tree["mm_projector"]["w"].T)
         state[f"{prefix}.mm_projector.bias"] = _t(tree["mm_projector"]["b"])
+    if "text_proj" in tree:  # the chapters adapter's query projection
+        state[f"{prefix}.text_mm_projector.weight"] = _t(tree["text_proj"]["w"].T)
+        state[f"{prefix}.text_mm_projector.bias"] = _t(tree["text_proj"]["b"])

@@ -103,10 +103,13 @@ def build_trainable(
     return trainable, frozen
 
 
-def make_loss_fn(llama_cfg: LlamaConfig, adapter_cfg: AdapterConfig, train_cfg: TrainConfig):
+def make_loss_fn(llama_cfg: LlamaConfig, adapter_cfg: AdapterConfig, train_cfg: TrainConfig,
+                 iteration_step: int = 0):
     """loss_fn(trainable, frozen, base_params, batch, generator) -> scalar
     loss, in training mode (adapter dropout from `generator`), inside the
-    exact trace."""
+    exact trace. `iteration_step` selects the 'alternate' adapter's output
+    (CLS tokens on even steps, frame tokens on odd ones): one loss per
+    parity, as JAX builds one program per parity (trainer.py:95-103)."""
     lora_cfg = train_cfg.lora or LoraConfig()
     scale = lora_mod.lora_scale(lora_cfg)
 
@@ -121,7 +124,7 @@ def make_loss_fn(llama_cfg: LlamaConfig, adapter_cfg: AdapterConfig, train_cfg: 
                 memory_tokens=batch.get("memory_tokens"), lora=lora,
                 lora_scale=scale if lora is not None else 0.0,
                 deterministic=False, generator=generator,
-                remat=train_cfg.gradient_checkpointing,
+                remat=train_cfg.gradient_checkpointing, iteration_step=iteration_step,
             )
 
     return loss_fn
@@ -174,15 +177,18 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 
 
 def make_train_step(llama_cfg: LlamaConfig, adapter_cfg: AdapterConfig,
-                    train_cfg: TrainConfig, optimizer, stream: bool = False):
+                    train_cfg: TrainConfig, optimizer, stream: bool = False,
+                    iteration_step: int = 0):
     """train_step(trainable, frozen, base_params, batch, generator) ->
     {"loss", "grad_norm"} (0-d f32 tensors on the device). The loss (the
     streaming-memory loss when `stream`) and its backward both run inside
     the exact trace (the remat recomputation runs in the backward);
     `optimizer` (train/optimizer.py, built over the trainable leaves) then
-    updates them in place."""
-    make = make_stream_loss_fn if stream else make_loss_fn
-    loss_fn = make(llama_cfg, adapter_cfg, train_cfg)
+    updates them in place. `iteration_step` goes to make_loss_fn."""
+    if stream:
+        loss_fn = make_stream_loss_fn(llama_cfg, adapter_cfg, train_cfg)
+    else:
+        loss_fn = make_loss_fn(llama_cfg, adapter_cfg, train_cfg, iteration_step)
 
     def train_step(trainable, frozen, base_params, batch, generator):
         params = optimizer.params

@@ -203,6 +203,32 @@ def test_k3_copies_are_the_cache_rows(i8, plen, step):
                 np.testing.assert_array_equal(scl[:nv, 0], (a["ks"], a["vs"])[side][b, p0:p0 + nv, kh])
 
 
+@pytest.mark.parametrize("plen,step", [(428, 11), (300, 0), (70, 2)])
+def test_k3_scale_boxes_of_two_kv_heads_read_the_padded_scales(plen, step):
+    """KH 2 (ChatGLM2's): a TMA row of scales is a multiple of 16 bytes, so
+    the wrapper pads the [B, S, KH] scales to SST heads, as the kernel's
+    scale map expects (KH rounded up to SST); each item's box then carries
+    its own head's scales, position for position."""
+    rng = np.random.default_rng(plen + step)
+    B, S, KH, G = 2, 428, 2, 12
+    ks, vs = (torch.from_numpy(rng.uniform(0.005, 0.025, (B, S, KH)).astype(F32))
+              for _ in range(2))
+    pad = (0, -KH % TDA.SST)
+    assert TDA.SST == K3_SST and (KH + pad[1]) * 4 % 16 == 0
+    a = {"pk": rng.integers(-127, 128, (B, S, KH, HD)).astype(np.int8),
+         "pv": rng.integers(-127, 128, (B, S, KH, HD)).astype(np.int8),
+         "gk": rng.normal(size=(B, G, KH, HD)).astype(F32),
+         "gv": rng.normal(size=(B, G, KH, HD)).astype(F32),
+         "ks": torch.nn.functional.pad(ks, pad).numpy(),
+         "vs": torch.nn.functional.pad(vs, pad).numpy()}
+    for item in range(B * KH):
+        b, kh = divmod(item, KH)
+        for side, si, p0, nv in walk(plan_k3(plen, step, 1), KTILE):
+            _, scl, _, _ = k3_copies(a, item, side, si, p0, nv)
+            if scl is not None:
+                np.testing.assert_array_equal(scl[:nv, 0], (ks, vs)[side][b, p0:p0 + nv, kh].numpy())
+
+
 def row_copies(a, l, item, side, si, p0, nv, row):
     """Rows 9 and 10's issue(): (slot bytes as rows, slot scales from the
     run's first one, barrier byte count). Row 9: the prompt run of kv [L,
@@ -504,7 +530,7 @@ def rel_l2(got, want):
     return float(np.linalg.norm(got - want) / np.linalg.norm(want))
 
 
-@pytest.mark.parametrize("group", [1, 4])
+@pytest.mark.parametrize("group", [1, 4, 16])
 @pytest.mark.parametrize("step", [0, 5])
 def test_emulated_k3_matches_plain(group, step):
     """The emulated core against K3's plain version on bf16 inputs with an
