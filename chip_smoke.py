@@ -27,7 +27,9 @@ measured in that run. Phases:
      phase 15's streaming chat step (B 1, its 64-token gen cache) and at
      ChatGLM2-6B's decode step (group 16: 32 query heads over 2 kv heads,
      B 8, 300 prompt and 128 prefix positions, the last of 12 steps; timed,
-     with its bound);
+     with its bound and SDPA over the dequantized cache with grouped heads,
+     approximate; and at one kv head, ChatGLM2's rank under tensor
+     parallelism 2);
   4. the slice: GroundingEngine.ground_windows on a 1-hour movie (18 000
      frames of 768-d features, 57 windows of 250 frames in one chunk of 64,
      12 greedy tokens) with Vicuna-7B int8 weights made from a seed at full
@@ -211,12 +213,34 @@ measured in that run. Phases:
      (fails unless K3 ran 28 x 11 times, row 6 28 times with the prefix and
      K2 28 times without); both on the card against the CPU at 2 layers
      (hold_steps); its time against a budget of 120 s.
+ 19. the distributed layer (revisionllm_tpu_torch/parallel/) on the one
+     card: two ranks spawned over gloo, passed explicitly (NCCL refuses
+     two ranks on one device), after a check that gloo all-reduces and
+     all-gathers CUDA tensors in bf16 and f32; the slice's chunk
+     (ground_windows, 57 windows, int8, W8A8 prefill, KV8) cut to
+     P19_LAYERS layers under meshes (1,1,2), (2,1,1) and (1,2,1), each
+     after one untimed chunk on it, each rank's greedy decode held against
+     the one-rank run of the same tree in this process (hold_sharded: under
+     (2,1,1) and (1,2,1) the logits, tokens, answers and entropies equal;
+     under (1,1,2), whose ranks sum in another order, every step's logits
+     within 5% of the largest, tokens equal but at a tie widened by the
+     step's logit difference, a tied row not held after, and the other
+     windows' answers equal and entropies within 5%); then one 2-layer
+     stage-1 QLoRA step (the preset's adapter dropout, drawn alike by every
+     rank) at (2,1,1) and (1,1,2), after an untimed one, against the
+     one-rank step by phase 9's limits; first, K1, K2, K3, row 4 and row 8
+     against their plain versions at the shapes a rank gives them under
+     tensor parallelism 2 and 4 (check_sharded_shapes); each rank's chunk
+     and step ms, the collectives' count, bytes and ms (gloo
+     stages CUDA tensors through the host: no guide to NVLink) and kernel
+     launches (fails unless K1, K2 and K3, and the row-4 kernels, ran on
+     every rank); its time against a budget of 150 s.
 
 The kernel checks of phases 3, 7, 10 and 12 run first, after the build
 (rows 9 and 10 after phase 4, on the slice's weights); phase 13 runs after
 phase 6; the pipeline runs after it, then phase 14 and phase 15's serving
 part, before training; phase 15's training part runs after phase 8 (whose
-corpus it trains on) and phase 9, then phases 16, 17 and 18.
+corpus it trains on) and phase 9, then phases 16, 17, 18 and 19.
 Prints phase lines, then one JSON line of per-kernel numbers, the
 nvidia-smi line, and last {"ok": true, "device": {...}}. Exits non-zero,
 with no result line, when CUDA is missing, when run outside a checkout of
@@ -810,13 +834,48 @@ def check_k3_group16(dev, gen, iters):
     same_bits(label, (got,), (DA.decode_attention(*args),))
     ms = device_ms(lambda: DA.decode_attention(*args), iters)
     plain = device_ms(lambda: DA.decode_attention_plain(*args), max(3, iters // 4))
+    lib = k3_gqa_sdpa_ms(args, iters)
     plen = int(args[7].sum().item())
     nbytes = (B * KH * group * hd * 2 * 2 + plen * KH * (hd * 2 + 8)
               + B * (step + 1) * KH * hd * 2 * 2 + B * 4)
     b, by = bound(nbytes, 4.0 * KH * group * hd * (plen + B * (step + 1)))
     say(f"{label}: max_abs_err {err:.3e} (tol 1.0e-02) kernel {ms:.4f} ms plain {plain:.4f} ms "
-        f"bound {b:.4f} ms ({by}), smem {DA.smem_bytes(S, G, group)} B a block")
-    return {"g16_err": err, "g16_ms": ms, "g16_plain_ms": plain, "g16_bound_ms": b}
+        f"sdpa(dequantized, GQA, approx) {lib:.4f} ms bound {b:.4f} ms ({by}), smem "
+        f"{DA.smem_bytes(S, G, group)} B a block")
+    # ChatGLM2 under tensor parallelism 2: one kv head a rank (the wrapper
+    # pads the scales' head axis to the TMA's 4)
+    args1 = (*k3_inputs(gen, B, 1, S, G, group, S - 20, dev), step)
+    got1 = DA.decode_attention(*args1)
+    err1 = (got1.float() - DA.decode_attention_plain(*args1).float()).abs().max().item()
+    label1 = f"decode_attention group 16 KH=1 (ChatGLM2 at tp 2) B={B} S={S} step={step}"
+    if not err1 <= 1e-2:
+        raise AssertionError(f"{label1}: max_abs_err {err1} > 1e-2")
+    hold_k3(label1, got1, DA.decode_attention_plain(*args1))
+    same_bits(label1, (got1,), (DA.decode_attention(*args1),))
+    say(f"{label1}: max_abs_err {err1:.3e} (tol 1.0e-02)")
+    return {"g16_err": max(err, err1), "g16_ms": ms, "g16_plain_ms": plain, "g16_bound_ms": b,
+            "g16_library_ms": lib}
+
+
+def k3_gqa_sdpa_ms(args, iters):
+    """SDPA over K3's inputs `args` with the prompt cache dequantized and
+    the gen cache concatenated beforehand, the query heads grouped over the
+    kv heads (enable_gqa): a yardstick that does less work than the kernel
+    (approximate)."""
+    import torch
+    import torch.nn.functional as F
+
+    q, pk, pv, ks, vs, gk, gv, lens, step = args
+    B, KH, group, hd = q.shape
+    S = pk.shape[1]
+    kf = torch.cat([(pk.float() * ks[..., None]).to(torch.bfloat16), gk[:, : step + 1]], dim=1)
+    vf = torch.cat([(pv.float() * vs[..., None]).to(torch.bfloat16), gv[:, : step + 1]], dim=1)
+    kt, vt = kf.transpose(1, 2).contiguous(), vf.transpose(1, 2).contiguous()
+    qh = q.reshape(B, KH * group, 1, hd)
+    cols = torch.arange(S + step + 1, device=q.device)
+    mask = ((cols[None, :] < lens[:, None]) | (cols[None, :] >= S))[:, None, None, :]
+    return device_ms(lambda: F.scaled_dot_product_attention(qh, kt, vt, attn_mask=mask,
+                                                            enable_gqa=True), iters)
 
 
 # ------------------------------------------------------------------ phase 4
@@ -879,14 +938,19 @@ def check_result(res, n_windows):
         raise AssertionError("entropy scores are not finite and non-negative")
 
 
-def slice_setup(dev):
+def slice_setup(dev, num_layers=None, tag="slice"):
     """The stage-1 serving configuration of bench.py:48-200 at Vicuna-7B full
-    width and depth: (engine, movie [18000, 768], query tokens [25, 768],
-    query CLS [768]), weights and inputs made from seed 0."""
+    width and depth (or cut to `num_layers`): (engine, movie [18000, 768],
+    query tokens [25, 768], query CLS [768]), weights and inputs made from
+    seed 0."""
+    import dataclasses
+
     import torch
     from revisionllm_tpu_torch.config import AdapterConfig, EvalConfig, LlamaConfig
 
     cfg = LlamaConfig()
+    if num_layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
     acfg = AdapterConfig(clip_adapter_text=True, hierarchy=False, feature_mode="temporal",
                          hidden_size=cfg.hidden_size)
     ecfg = EvalConfig(debug_window=125, num_frames=250, feature_fps=5.0, batch=64,
@@ -894,7 +958,7 @@ def slice_setup(dev):
     t0 = time.perf_counter()
     engine = make_engine(cfg, acfg, ecfg, dev, torch.bfloat16)
     torch.cuda.synchronize()
-    say(f"slice: Vicuna-7B, {cfg.num_layers} layers, int8 weights built from seed 0 in "
+    say(f"{tag}: Vicuna-7B, {cfg.num_layers} layers, int8 weights built from seed 0 in "
         f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     movie = rng.normal(size=(18000, 768)).astype(np.float32)
@@ -1637,6 +1701,20 @@ def phase_train_compare(dev, paths):
     hold_train_step(dev, train_argv(paths, "unused", 1), "train compare")
 
 
+def grad_rel_errors(got, want):
+    """{leaf: relative L2 error of got[leaf] against want[leaf]}. The key
+    projection's bias has no gradient in exact arithmetic (it adds the same
+    q.b to every score of a row, which the softmax ignores), so both sides
+    return rounding noise there, about 1e-8 in norm: its error is measured
+    against the gradient of the same layer's query bias."""
+    rel = {}
+    for n, w in want.items():
+        ref = want[n[:-len("wk/b")] + "wq/b"] if n.endswith("/wk/b") else w
+        e, r = (got[n] - w).norm().item(), ref.norm().item()
+        rel[n] = e / r if r > 0 else (math.inf if e > 0 else 0.0)
+    return rel
+
+
 def hold_train_step(dev, argv, tag, adapter=None, data=None, iteration_step=0,
                     **train_overrides):
     """One train step of train_cli's assembly of `argv` (its preset at full
@@ -1687,15 +1765,7 @@ def hold_train_step(dev, argv, tag, adapter=None, data=None, iteration_step=0,
                                           for (n, t), g in zip(named, grads)})
         secs[device.type] = time.perf_counter() - t1
     (lk, gk), (lp, gp) = out[dev.type], out["cpu"]
-    # The key projection's bias has no gradient in exact arithmetic (it adds
-    # the same q.b to every score of a row, which the softmax ignores), so
-    # both sides return rounding noise there, about 1e-8 in norm. Its error
-    # is measured against the gradient of the same layer's query bias.
-    rel = {}
-    for n, want in gp.items():
-        ref = gp[n[:-len("wk/b")] + "wq/b"] if n.endswith("/wk/b") else want
-        e, r = (gk[n] - want).norm().item(), ref.norm().item()
-        rel[n] = e / r if r > 0 else (math.inf if e > 0 else 0.0)
+    rel = grad_rel_errors(gk, gp)
     groups = {"LoRA-B": [n for n in rel if n.startswith("lora/") and n.endswith("/b")],
               "LoRA-A (zero: B starts at 0)": [n for n in rel if n.startswith("lora/") and n.endswith("/a")],
               "vision": [n for n in rel if n.startswith("vision/")]}
@@ -3507,6 +3577,76 @@ def hold_steps(label, card, cpu, rel=5e-2):
     return worst + (None,)
 
 
+def hold_sharded(label, steps, want, res, ref, exact, offset=0, rel=5e-2):
+    """Phase 19's hold of a sharded chunk against the one-rank run: `steps`
+    (LogitTrace.steps) are this rank's logits a decode step, `want` the
+    one-rank run's at this rank's rows (from global row `offset`), `res`
+    ground_windows' result (whole on every rank), `ref` the one-rank
+    answers and entropies.
+
+    `exact`, a mesh without tensor parallelism (each rank runs whole rows
+    through the same kernels; the batch and fsdp gathers copy): every
+    step's logits (so every greedy token), the answers and the entropies
+    bit-identical. Otherwise the tensor ranks sum their partial products in
+    another order: every step's logits within `rel` of its largest
+    magnitude on the rows not yet tied; a greedy token may differ only at a
+    tie (hold_steps' rule, widened by the step's max abs difference), and
+    that row leaves the hold from the next step, since it then decodes other
+    tokens; the untied windows' answers equal and their entropies within
+    `rel` relative. Raises at the first break; returns {"diff", "tol",
+    "ties": [(step, row)], "entropy_diff", "answers_equal"}."""
+    import torch
+
+    if len(steps) != len(want):
+        raise AssertionError(f"{label}: {len(steps)} decode steps, {len(want)} on one rank")
+    got_ent, ref_ent = (np.asarray(x, np.float64) for x in (res["scores_entropy"], ref["entropy"]))
+    if exact:
+        for k, (a, b) in enumerate(zip(steps, want)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{label}: step {k}: logits differ from one rank's by "
+                                     f"{(a - b).abs().max().item():.4e}; without tensor "
+                                     f"parallelism they must be equal")
+        if res["answers"] != ref["answers"] or not np.array_equal(got_ent, ref_ent):
+            raise AssertionError(f"{label}: answers or entropies differ from one rank's")
+        return {"diff": 0.0, "tol": 0.0, "ties": [], "entropy_diff": 0.0,
+                "answers_equal": True}
+    live = torch.ones(want[0].shape[0], dtype=torch.bool)
+    worst, ties = (0.0, 1.0), []
+    for k, (a, b) in enumerate(zip(steps, want)):
+        rows = live.nonzero().flatten()
+        diff = (a[rows] - b[rows]).abs().max().item()
+        tol = rel * max(1.0, b[rows].abs().max().item())
+        if not diff <= tol:
+            raise AssertionError(f"{label}: step {k}: logits max_abs_diff {diff:.4e} > tol "
+                                 f"{tol:.3e}")
+        if diff * worst[1] >= worst[0] * tol:
+            worst = (diff, tol)
+        for r in rows[a[rows].argmax(-1) != b[rows].argmax(-1)].tolist():
+            ta, tb = int(a[r].argmax()), int(b[r].argmax())
+            gaps = (a[r, ta] - a[r, tb]).item(), (b[r, tb] - b[r, ta]).item()
+            limit = [2 * bf16_spacing(max(abs(x[r, ta].item()), abs(x[r, tb].item()))) + diff
+                     for x in (a, b)]
+            if any(g > s for g, s in zip(gaps, limit)):
+                raise AssertionError(
+                    f"{label}: step {k}: greedy tokens differ beyond a tie in row {r} (logit "
+                    f"gaps {gaps}, limits {limit}); top-2: sharded {top2(a[r])}, one rank "
+                    f"{top2(b[r])}")
+            ties.append((k, r))
+            live[r] = False
+    held = [offset + r for r in live.nonzero().flatten().tolist()
+            if offset + r < len(ref["answers"])]
+    ent = float(np.abs(got_ent[held] - ref_ent[held]).max()) if held else 0.0
+    for w in held:
+        if res["answers"][w] != ref["answers"][w]:
+            raise AssertionError(f"{label}: window {w} (no tie) answers {res['answers'][w]!r}, "
+                                 f"one rank {ref['answers'][w]!r}")
+        if not abs(got_ent[w] - ref_ent[w]) <= rel * abs(ref_ent[w]):
+            raise AssertionError(f"{label}: window {w} (no tie) entropy {got_ent[w]}, one "
+                                 f"rank {ref_ent[w]}")
+    return {"diff": worst[0], "tol": worst[1], "ties": ties, "entropy_diff": ent,
+            "answers_equal": res["answers"] == ref["answers"]}
+
+
 def top2(logits):
     """((value, id), (value, id)) of the two largest entries of a 1-D row."""
     v, i = logits.float().topk(2)
@@ -5062,6 +5202,353 @@ def phase_glm(dev, tmp, smi):
 # ------------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------------ phase 19
+
+# The distributed layer on one card: two ranks over gloo (NCCL refuses two
+# ranks on one device), the stage-1 chunk cut to P19_LAYERS layers (gloo
+# stages every collective through the host: an fsdp chunk gathers each
+# layer's shards in the prefill and in each of 11 decode steps), and a
+# 2-layer QLoRA step
+P19_LAYERS = 8
+P19_MESHES = ((1, 1, 2), (2, 1, 1), (1, 2, 1))
+P19_TRAIN_MESHES = ((2, 1, 1), (1, 1, 2))
+P19_TRAIN_ROWS = 2          # the train step's batch: one row a rank under dp 2
+P19_BUDGET = 150.0
+GLOO_NOTE = ("gloo stages CUDA tensors through the host: these collective times are no "
+             "guide to NVLink")
+
+
+def check_sharded_shapes(dev, tps=(2, 4)):
+    """Each kernel of the sharded path against its plain version at the
+    shapes one rank gives it under tensor parallelism `tps` (Vicuna-7B),
+    correctness only, by the limits of its own check: K1 at M 64 for
+    q/k/v/o's input and output (4096 / tp), gate/up (11008 / tp), down's
+    K (11008 / tp) and the lm_head (32000 / tp) by hold_cols; K2 at 32 / tp
+    heads (B 64, T 318, ragged) within 2e-2; K3 at 32 / tp kv heads (B 64,
+    S 318, G 12, step 11) by hold_k3; row 4's forward, dq and dk/dv at
+    32 / tp heads (B 1, T 2048, kv_len 330) by hold; row 8 at 11008 / tp
+    columns (M 64 and 19200) by hold_mlp. Returns the worst error a
+    kernel."""
+    import torch
+    from revisionllm_tpu_torch.ops import decode_attention as DA
+    from revisionllm_tpu_torch.ops import flash_attention as FA
+    from revisionllm_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    worst = {}
+
+    def note(name, err):
+        worst[name] = max(worst.get(name, 0.0), err)
+
+    for tp in tps:
+        for K, N in ((4096, 4096 // tp), (4096 // tp, 4096), (4096, 11008 // tp),
+                     (11008 // tp, 4096), (4096, 32000 // tp)):
+            x = torch.randn((64, K), generator=gen, device=dev).to(torch.bfloat16)
+            q, sc = Q.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5)
+            note("int8_matmul", hold_cols(f"int8_matmul tp {tp} M=64 K={K} N={N}",
+                                          Q.int8_matmul(x, q, sc), Q.int8_matmul_plain(x, q, sc)))
+        H = 32 // tp
+        qh, kh, vh = (torch.randn((64, 318, H, 128), generator=gen, device=dev)
+                      .to(torch.bfloat16) for _ in range(3))
+        lens = torch.randint(200, 319, (64,), generator=gen, device=dev, dtype=torch.int32)
+        err = (FA.flash_attention(qh, kh, vh, causal=True, kv_lens=lens).float()
+               - FA.flash_attention_plain(qh, kh, vh, causal=True, kv_lens=lens).float()
+               ).abs().max().item()
+        if not err <= 2e-2:
+            raise AssertionError(f"flash_attention tp {tp} H={H}: max_abs_err {err} > 2e-2")
+        note("flash_attention", err)
+        args = (*k3_inputs(gen, 64, H, 318, 12, 1, 280, dev), 11)
+        note("decode_attention", hold_k3(f"decode_attention tp {tp} KH={H}",
+                                         DA.decode_attention(*args),
+                                         DA.decode_attention_plain(*args)))
+        q4, k4, v4, do = (torch.randn((1, 2048, H, 128), generator=gen, device=dev)
+                          .to(torch.bfloat16) for _ in range(4))
+        l4 = torch.full((1,), 330, dtype=torch.int32, device=dev)
+        o, lse = FA.flash_fwd_lse(q4, k4, v4, kv_lens=l4, causal=True)
+        o2, _ = FA.flash_fwd_lse_plain(q4, k4, v4, kv_lens=l4, causal=True)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        a4 = (q4, k4, v4, do, lse, delta)
+        dk, dv = FA.flash_dkv(*a4, kv_lens=l4, causal=True)
+        dk2, dv2 = FA.flash_dkv_plain(*a4, kv_lens=l4, causal=True)
+        for name, got, want in (
+                ("flash_fwd_lse", o, o2),
+                ("flash_dq", FA.flash_dq(*a4, kv_lens=l4, causal=True),
+                 FA.flash_dq_plain(*a4, kv_lens=l4, causal=True)),
+                ("flash_dkv", dk, dk2), ("flash_dkv", dv, dv2)):
+            note(name, hold(f"{name} tp {tp} H={H}", got, want))
+        for M in (64, 19200):
+            a8 = mlp_inputs(gen, M, 4096, 11008 // tp, dev)
+            note("w8a8_mlp_fused", hold_mlp(f"w8a8_mlp_fused tp {tp} M={M} N={11008 // tp}",
+                                            Q.w8a8_mlp_fused(*a8), Q.w8a8_mlp_fused_plain(*a8)))
+        del qh, kh, vh, q4, k4, v4, do, a4, a8
+    torch.cuda.empty_cache()
+    say("sharded shapes against the plain versions, worst error a kernel: "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in worst.items()}))
+    return worst
+
+
+def p19_check_collectives(dev):
+    """What the design needs of the backend, on CUDA tensors: all_reduce
+    (sum and max) and all_gather, in bf16 and f32, with exact results."""
+    import torch
+    import torch.distributed as dist
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    for dt in (torch.bfloat16, torch.float32):
+        t = torch.full((1000,), float(r + 1), dtype=dt, device=dev)
+        dist.all_reduce(t)
+        m = torch.full((7,), float(r), dtype=dt, device=dev)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX)
+        parts = [torch.empty((3, 5), dtype=dt, device=dev) for _ in range(n)]
+        dist.all_gather(parts, torch.full((3, 5), float(r), dtype=dt, device=dev))
+        ok = (t.eq(n * (n + 1) / 2).all() and m.eq(n - 1).all()
+              and all(p.eq(i).all() for i, p in enumerate(parts)))
+        if not bool(ok):
+            raise AssertionError(f"{dist.get_backend()}: a collective gave wrong values in {dt}")
+    return f"{dist.get_backend()}: all_reduce (sum, max) and all_gather on CUDA bf16 and f32 ok"
+
+
+def p19_train_run(dev, paths):
+    """train_cli's assembly of the stage-1 QLoRA flags (phase 8's) at full
+    width cut to 2 layers, on the card, and its first P19_TRAIN_ROWS
+    items as one batch (the adapter's dropout kept: every process draws
+    the same masks from the same CUDA generator)."""
+    import dataclasses
+
+    from revisionllm_tpu_torch.train import train_cli
+
+    args = train_cli.parse_args(train_argv(paths, "unused", 1))
+    llama_cfg, adapter_cfg, data_cfg, train_cfg = train_cli.build_configs(args)
+    run = train_cli.assemble(dataclasses.replace(llama_cfg, num_layers=2), adapter_cfg,
+                             data_cfg, train_cfg, dev, seed=0, quant_base=True)
+    return run, run.batch(list(range(P19_TRAIN_ROWS)))
+
+
+def p19_grads(run, batch, dev, mesh=None):
+    """The batch's loss and the gradient of every trainable leaf (CPU f32)
+    from trainer.make_grad_fn, one process (mesh None) or this rank of
+    `mesh` (over its shards of the base), the generator seeded 0 on the
+    card; and the step's ms."""
+    import torch
+    from revisionllm_tpu_torch.parallel import sharding
+    from revisionllm_tpu_torch.train import trainer
+
+    tr = _to(run.trainable, dev, grad=True)
+    named = _named_leaves(tr)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    base = run.base
+    if mesh is not None:
+        base = sharding.shard_params(mesh, base, sharding.llama_param_specs(base))
+    grad_fn = trainer.make_grad_fn(run.llama_cfg, run.adapter_cfg, run.train_cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads = grad_fn(tr, {}, base, batch, gen, [t for _, t in named])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return loss.item(), {n: g.float().cpu() for (n, _), g in zip(named, grads)}, ms
+
+
+def p19_hold_grads(tag, got, want):
+    """phase 9's limits: the loss within 2e-3 relative, every gradient leaf
+    within 5e-2 relative L2 (grad_rel_errors). Returns (the loss's relative
+    difference, the worst leaf, its error)."""
+    (lg, gg), (lw, gw) = got, want
+    if not abs(lg - lw) <= 2e-3 * abs(lw):
+        raise AssertionError(f"{tag}: loss {lg} against the one-rank {lw}")
+    rel = grad_rel_errors(gg, gw)
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= 5e-2:
+        raise AssertionError(f"{tag}: gradient {worst} relative L2 {rel[worst]:.3e} > 5e-2")
+    return abs(lg - lw) / abs(lw), worst, rel[worst]
+
+
+def p19_rank(layers, meshes, train_meshes, ref_path, paths):
+    """One rank of phase 19 (or of scripts/torch_parallel_4gpu.py): the
+    backend check; the slice's chunk at `layers` layers under each mesh of
+    `meshes`, its greedy decode held against the one-rank run's logits in
+    `ref_path` (this rank's rows, hold_sharded), timed after an untimed
+    chunk on the mesh, with the chunk's collectives and kernel launches;
+    then the train step's gradients under each of `train_meshes`, timed
+    after an untimed step (rank 0 returns them). The parent reports."""
+    import torch
+    import torch.distributed as dist
+    from revisionllm_tpu_torch.eval.engine import GroundingEngine
+    from revisionllm_tpu_torch.parallel import comm
+    from revisionllm_tpu_torch.parallel import mesh as mesh_lib
+    from revisionllm_tpu_torch.utils import kernels
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank = dist.get_rank()
+    out = {"rank": rank, "check": p19_check_collectives(dev), "serve": [], "train": []}
+    eng, movie, qf, qc = slice_setup(dev, layers, tag=f"phase 19 rank {rank}")
+    ref = torch.load(ref_path)
+    for shape in meshes:
+        mesh = mesh_lib.create_mesh(*shape)
+        e = GroundingEngine(eng.llama_cfg, eng.adapter_cfg, eng.params, eng.vision_params,
+                            eng.tokenizer, eng.eval_cfg, device=dev, mesh=mesh)
+        # one untimed chunk on this mesh first (the process's first kernel
+        # calls; the groups' communicators are made at their first collective)
+        e.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
+        dist.barrier()
+        kernels.reset_launches()
+        comm.reset_stats(timed=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with LogitTrace() as trace:
+            res = e.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        coll_ms = comm.collective_ms()
+        stats, launches = dict(comm.STATS), dict(kernels.LAUNCHES)
+        comm.reset_stats()
+        check_result(res, 57)
+        shard = mesh_lib.batch_sharding(mesh)
+        B = ref["steps"][0].shape[0]
+        want = [shard.local(s, B) for s in ref["steps"]]
+        offset = shard.index * (B // shard.n) if shard.splits(B) else 0
+        held = hold_sharded(f"mesh {shape} rank {rank}", trace.steps, want, res, ref,
+                            exact=shape[2] == 1, offset=offset)
+        out["serve"].append({"shape": shape, "ms": ms, "collective_ms": coll_ms, "stats": stats,
+                             "launches": launches, "held": held, "rows": len(trace.steps[0]),
+                             "steps": len(trace.steps)})
+        del e
+        torch.cuda.empty_cache()
+    if train_meshes:
+        run, batch = p19_train_run(dev, paths)
+        for shape in train_meshes:
+            mesh = mesh_lib.create_mesh(*shape)
+            p19_grads(run, batch, dev, mesh)  # untimed: the groups' first collectives
+            dist.barrier()
+            kernels.reset_launches()
+            comm.reset_stats(timed=True)
+            loss, grads, ms = p19_grads(run, batch, dev, mesh)
+            coll_ms = comm.collective_ms()
+            out["train"].append({"shape": shape, "loss": loss, "ms": ms,
+                                 "collective_ms": coll_ms, "stats": dict(comm.STATS),
+                                 "launches": dict(kernels.LAUNCHES),
+                                 "grads": grads if rank == 0 else None})
+            comm.reset_stats()
+    return out
+
+
+def p19_reference(dev, layers, tmp):
+    """The one-rank run the ranks are held against: the slice's chunk at
+    `layers` layers in this process (its per-step logits, answers and
+    entropies saved to a file the ranks read), timed."""
+    import torch
+    from revisionllm_tpu_torch.utils import kernels
+
+    eng, movie, qf, qc = slice_setup(dev, layers, tag="phase 19 one rank")
+    eng.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")  # warm-up
+    kernels.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with LogitTrace() as trace:
+        res = eng.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    check_result(res, 57)
+    path = os.path.join(tmp, f"p19_ref_{layers}.pt")
+    torch.save({"steps": trace.steps, "answers": res["answers"],
+                "entropy": res["scores_entropy"]}, path)
+    del eng
+    torch.cuda.empty_cache()
+    return path, ms, dict(kernels.LAUNCHES)
+
+
+def p19_report(tag, results, ref_ms, ref_launches, train_ref, note):
+    """Print each mesh's numbers a rank and hold the launches: every
+    serving kernel on every rank, row 4's on every train rank."""
+    for i, first in enumerate(results[0]["serve"]):
+        shape = first["shape"]
+        for r in results:
+            s = r["serve"][i]
+            h = s["held"]
+            if any(s["launches"].get(k, 0) == 0 for k in SERVING):
+                raise AssertionError(f"{tag}: mesh {shape} rank {r['rank']}: a serving kernel "
+                                     f"never launched: {s['launches']}")
+            say(f"{tag}: mesh {shape} rank {r['rank']}: {s['rows']} rows, chunk {s['ms']:.1f} ms "
+                f"(one rank {ref_ms:.1f} ms); collectives a chunk: "
+                f"{s['stats'].get('all_reduce', 0)} all-reduces "
+                f"{s['stats'].get('all_reduce_bytes', 0) / 1e6:.1f} MB, "
+                f"{s['stats'].get('all_gather', 0)} all-gathers "
+                f"{s['stats'].get('all_gather_bytes', 0) / 1e6:.1f} MB, "
+                f"{s['collective_ms']:.1f} ms ({note}); launches "
+                f"{ {k: v for k, v in s['launches'].items() if v} } (one rank: "
+                f"{ {k: v for k, v in ref_launches.items() if v} }); "
+                + ("logits, greedy tokens, answers and entropies equal to one rank's at all "
+                   f"{s['steps']} steps" if shape[2] == 1 else
+                   f"logits max abs diff {h['diff']:.3e} (tol {h['tol']:.3e}) over "
+                   f"{s['steps']} steps, bf16 ties (step, row) {h['ties']} (those rows not "
+                   f"held after), answers {'all equal' if h['answers_equal'] else 'equal where untied'}, "
+                   f"untied entropies max diff {h['entropy_diff']:.3e} (tol 5e-2 relative)"))
+    for i, first in enumerate(results[0]["train"]):
+        shape = first["shape"]
+        got = (first["loss"], first["grads"])
+        rel_loss, leaf, rel = p19_hold_grads(f"{tag}: train mesh {shape}", got, train_ref[:2])
+        for r in results:
+            t = r["train"][i]
+            if any(t["launches"].get(k, 0) == 0 for k in TRAINING):
+                raise AssertionError(f"{tag}: train mesh {shape} rank {r['rank']}: a row-4 "
+                                     f"kernel never launched: {t['launches']}")
+            if t["loss"] != first["loss"]:
+                raise AssertionError(f"{tag}: train mesh {shape}: the ranks' losses differ")
+            say(f"{tag}: train mesh {shape} rank {r['rank']}: loss+grads {t['ms']:.1f} ms (one "
+                f"rank {train_ref[2]:.1f} ms); collectives: {t['stats'].get('all_reduce', 0)} "
+                f"all-reduces {t['stats'].get('all_reduce_bytes', 0) / 1e6:.1f} MB, "
+                f"{t['stats'].get('all_gather', 0)} all-gathers "
+                f"{t['stats'].get('all_gather_bytes', 0) / 1e6:.1f} MB, "
+                f"{t['collective_ms']:.1f} ms ({note}); row-4 launches "
+                f"{ {k: t['launches'].get(k, 0) for k in TRAINING} }")
+        say(f"{tag}: train mesh {shape} against one rank: loss {first['loss']:.5f} vs "
+            f"{train_ref[0]:.5f} (rel diff {rel_loss:.2e}, tol 2e-03), worst gradient {leaf} "
+            f"relative L2 {rel:.2e} (tol 5e-02)")
+
+
+def phase_parallel(dev, tmp, paths, smi, layers=P19_LAYERS, meshes=P19_MESHES,
+                   train_meshes=P19_TRAIN_MESHES, backend="gloo", budget=P19_BUDGET, tag=None):
+    """Phase 19, the distributed layer: the one-rank run of the slice's chunk
+    at `layers` layers and of the train step (2 layers) in this process,
+    then len(mesh) ranks spawned over `backend` (gloo on one card, passed
+    explicitly: NCCL refuses two ranks on one device) run p19_rank: each
+    serving mesh's chunk held against the one-rank logits (hold_sharded), each
+    train mesh's loss and gradients by phase 9's limits; each rank's chunk
+    ms, collectives a chunk (count, bytes, ms) and kernel launches; the
+    phase's time against `budget`."""
+    import torch
+    from revisionllm_tpu_torch.parallel.launch import spawn
+
+    tag = tag or "phase 19"
+    nranks = math.prod(meshes[0] if meshes else train_meshes[0])
+    note = GLOO_NOTE if backend == "gloo" else f"{backend}"
+    say(f"{tag} on {smi}: {nranks} ranks over {backend}"
+        + (" (NCCL refuses two ranks on one card)" if backend == "gloo" else "")
+        + f", the stage-1 chunk at {layers} layers (depth cut from 32), train at 2 layers")
+    t_phase = time.perf_counter()
+    marks = {}
+    check_sharded_shapes(dev)
+    marks["kernels at the ranks' shapes"] = time.perf_counter()
+    torch.cuda.empty_cache()
+    ref_path, ref_ms, ref_launches = p19_reference(dev, layers, tmp)
+    marks["one-rank chunk"] = time.perf_counter()
+    train_ref = None
+    if train_meshes:
+        run, batch = p19_train_run(dev, paths)
+        p19_grads(run, batch, dev)  # warm-up
+        train_ref = p19_grads(run, batch, dev)
+        del run, batch
+        marks["one-rank train step"] = time.perf_counter()
+    torch.cuda.empty_cache()
+    results = spawn(p19_rank, nranks, (layers, meshes, train_meshes, ref_path, paths),
+                    backend=backend, timeout_s=600.0)
+    marks["ranks"] = time.perf_counter()
+    say(f"{tag}: " + "; ".join(sorted({r['check'] for r in results})))
+    p19_report(tag, results, ref_ms, ref_launches, train_ref, note)
+    say_phase(19 if tag == "phase 19" else tag, t_phase, marks, budget)
+    return results
+
+
 def main() -> int:
     root = Path(__file__).resolve().parent
     if not (root / "revisionllm_tpu_torch" / "__init__.py").is_file():
@@ -5143,6 +5630,7 @@ def main() -> int:
         records["decode_attention"]["g16_launches"] = launches["prefix"]["decode_attention"]
         records["flash_attention_prefixed"]["glm_launches"] = \
             launches["prefix"]["flash_attention_prefixed"]
+        phase_parallel(dev, tmp, paths, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

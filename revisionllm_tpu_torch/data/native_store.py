@@ -1,9 +1,10 @@
-"""ctypes binding for the native RVFS reader (native/fstore.cc), the port's
-copy of revisionllm_tpu/data/native_store.py.
+"""ctypes binding for the native RVFS reader (csrc/fstore.cc, the port's
+copy of native/fstore.cc with its shutdown race repaired), the port's copy
+of revisionllm_tpu/data/native_store.py.
 
-The library is built with the host's C++ compiler from native/fstore.cc at
-first use, into build/native/libfstore-<hash of source and flags>.so (the
-native/ directory is never written). Without a compiler or a library,
+The library is built with the host's C++ compiler from csrc/fstore.cc at
+first use, into build/native/libfstore-<hash of source and flags>.so (no
+source directory is written). Without a compiler or a library,
 `open_store_native` falls back to the NumPy reader (data/feature_store.py),
 as JAX's does; `NativeRvfsStore` itself raises.
 """
@@ -23,7 +24,7 @@ import numpy as np
 from revisionllm_tpu_torch.data.feature_store import RvfsStore
 
 ROOT = Path(__file__).resolve().parents[2]
-SOURCE = ROOT / "native" / "fstore.cc"
+SOURCE = ROOT / "revisionllm_tpu_torch" / "csrc" / "fstore.cc"
 BUILD_DIR = ROOT / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")  # native/Makefile's
 

@@ -20,8 +20,13 @@ Dense captioning (`caption_windows`) answers the JSON-event prompt for every
 dense window; MSR-VTT-style text-to-video retrieval (`retrieve_videos`)
 ranks a candidate corpus by passes of eval_cfg.batch video-CLS tokens.
 
-There is no mesh and no compiled-program cache (PyTorch runs eagerly), so
-the movie is not padded to a length bucket.
+`mesh=` (parallel/mesh.py) serves one engine across ranks, as JAX's does:
+the weights are this rank's shards (parallel/serve.py), the adapter is
+replicated, and every chunk's rows split over the (data, fsdp) axes when
+they divide (stage 1's chunk of 64 does; a stage-2 row bucket may not, and
+then every rank runs every row), with the outputs gathered so that every
+rank reads the whole chunk. There is no compiled-program cache (PyTorch
+runs eagerly), so the movie is not padded to a length bucket.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from revisionllm_tpu_torch.eval.similarity import proposal_cosine_scores
 from revisionllm_tpu_torch.models import llama, revisionllm
 from revisionllm_tpu_torch.models.multimodal import KIND_VIDEO, build_splice_plan, stack_plans
 from revisionllm_tpu_torch.ops import windows as W
+from revisionllm_tpu_torch.parallel.mesh import batch_sharding
+from revisionllm_tpu_torch.parallel.serve import gather_outputs, shard_params_for_inference
 from revisionllm_tpu_torch.tokenization import tokenizer_image_token
 from revisionllm_tpu_torch.utils.device import resolve_device
 
@@ -94,11 +101,15 @@ class GroundingEngine:
         eval_cfg: EvalConfig,
         eos_id: int = 2,
         device=None,
+        mesh=None,
     ):
+        """`params` are the whole tree; with `mesh` the engine keeps this
+        rank's shards of it (serve.shard_params_for_inference)."""
         self.device = resolve_device(device)
         self.llama_cfg = llama_cfg
         self.adapter_cfg = adapter_cfg
-        self.params = params
+        self.mesh = mesh
+        self.params = shard_params_for_inference(mesh, params)
         self.vision_params = vision_params
         self.tokenizer = tokenizer
         self.eval_cfg = eval_cfg
@@ -159,20 +170,28 @@ class GroundingEngine:
         the resident movie by the int32 index rows ([B, T] for stage 1,
         [R, V, T] for stage 2), then adapter, splice and decode. A plan with
         "qsel" (a multi-query chunk) picks each row's query features from
-        the [Q, Qt, d] stack qf."""
+        the [Q, Qt, d] stack qf. Under a mesh this rank runs its rows of the
+        chunk and the outputs are gathered (module docstring)."""
         spl = self._shared_prefix_len(plan_np)
+        shard, B = batch_sharding(self.mesh), len(rows)
+        if shard.splits(B):
+            if qf is not None and "qsel" not in plan_np:
+                qf, qv = shard.local(qf, B), shard.local(qv, B)
+            plan_np = {k: shard.local(v, B) for k, v in plan_np.items()}
+            rows = shard.local(rows, B)
         plan = {k: torch.as_tensor(v, device=self.device) for k, v in plan_np.items()}
         qsel = plan.pop("qsel", None)
         if qsel is not None:
             qf, qv = qf[qsel.long()], qv[qsel.long()]
         images = W.gather_windows(feats_dev, rows).to(self.dtype)
-        return revisionllm.generate_grounding(
+        out = revisionllm.generate_grounding(
             self.llama_cfg, self.adapter_cfg, self.params, self.vision_params,
             plan, images, qf, qv, eos_id=self.eos_id,
             max_new_tokens=self.eval_cfg.max_new_tokens,
             temperature=0.0 if self.eval_cfg.greedy else self.eval_cfg.temperature,
-            shared_prefix_len=spl,
+            shared_prefix_len=spl, mesh=self.mesh,
         )
+        return gather_outputs(out, shard, B)
 
     def _read_chunk(self, out) -> Tuple[List[str], np.ndarray]:
         tokens = out["tokens"].cpu().numpy()

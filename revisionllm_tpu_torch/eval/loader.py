@@ -10,6 +10,13 @@ otherwise), then converts the HF checkpoint and the stage directories
 moves it to the device. The tokenizer comes from `transformers` unless the
 caller passes one. `build_engine_from_args` wraps the model in a
 GroundingEngine for the eval CLIs; the demo chats over it directly.
+
+`--mesh dp,fsdp,tp` (JAX's loader.py:112-124) serves one engine across the
+ranks that torchrun starts: `mesh_from_args` joins the process group (NCCL
+for CUDA, gloo for --device cpu) and builds the mesh, every rank loads the
+checkpoint and keeps its shards:
+
+    torchrun --nproc_per_node 4 -m revisionllm_tpu_torch.eval.stage1 --mesh 1,1,4 ...
 """
 
 from __future__ import annotations
@@ -98,9 +105,6 @@ def load_model(args, tokenizer=None):
     from revisionllm_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(getattr(args, "device", None))
-    if getattr(args, "mesh", None):
-        raise NotImplementedError("--mesh waits for the distributed layer "
-                                  "(ROADMAP Queue A step 7)")
     adapter_cfg = adapter_cfg_from_args(args)
     llama_cfg, params, vision = load_pretrained(
         args.model_base,
@@ -128,14 +132,30 @@ def load_model(args, tokenizer=None):
     return llama_cfg, adapter_cfg, params, vision, tokenizer, device
 
 
+def mesh_from_args(args):
+    """None without --mesh; else join the process group (torchrun's
+    environment; the backend follows --device) and return the
+    (dp, fsdp, tp) mesh, which raises when the world cannot fill it."""
+    spec = getattr(args, "mesh", None)
+    if not spec:
+        return None
+    from revisionllm_tpu_torch.parallel.launch import initialize_distributed
+    from revisionllm_tpu_torch.parallel.mesh import create_mesh
+
+    dp, fsdp, tp = (int(x) for x in str(spec).split(","))
+    initialize_distributed(device=getattr(args, "device", None))
+    return create_mesh(dp, fsdp, tp)
+
+
 def build_engine_from_args(args, tokenizer=None):
     """A GroundingEngine on `args.device` (default CUDA) over `load_model`'s
-    checkpoint; `tokenizer`, when given, replaces
-    AutoTokenizer.from_pretrained."""
+    checkpoint, across the ranks of --mesh when it is given; `tokenizer`,
+    when given, replaces AutoTokenizer.from_pretrained."""
     from revisionllm_tpu_torch.eval.engine import GroundingEngine
 
+    mesh = mesh_from_args(args)
     llama_cfg, adapter_cfg, params, vision, tokenizer, device = load_model(args, tokenizer)
     return GroundingEngine(
         llama_cfg, adapter_cfg, params, vision, tokenizer, eval_cfg_from_args(args),
-        eos_id=tokenizer.eos_token_id or 2, device=device,
+        eos_id=tokenizer.eos_token_id or 2, device=device, mesh=mesh,
     )

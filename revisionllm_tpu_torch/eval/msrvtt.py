@@ -38,6 +38,7 @@ import numpy as np
 
 from revisionllm_tpu_torch.data.feature_store import QueryFeatureStore, open_feature_store
 from revisionllm_tpu_torch.eval import metrics as M
+from revisionllm_tpu_torch.parallel.launch import barrier, is_main_process
 from revisionllm_tpu_torch.utils.cli import str2bool
 
 
@@ -64,7 +65,9 @@ def parse_args(argv=None):
     p.add_argument("--adapter_ffn", type=int, default=2048)
     p.add_argument("--max_new_tokens", type=int, default=8)
     p.add_argument("--retrieval_prompt", type=str, default="retrieval")
-    p.add_argument("--mesh", type=str, default=None)
+    p.add_argument("--mesh", type=str, default=None,
+                   help="dp,fsdp,tp: serve across the ranks torchrun starts (rank 0 "
+                        "writes the predictions)")
     p.add_argument("--debug", type=str2bool, default=False)
     # engine knobs the loader reads
     p.add_argument("--debug_window", type=int, default=0)
@@ -147,18 +150,20 @@ def run(args, engine) -> Dict[str, float]:
             gt = cand_index[q["video"]]
             rank = res["ranked"].index(gt) + 1 if gt in res["ranked"] else len(corpus)
             ranks.append(rank)
-            M.write_log(
-                prediction_path, q["video"], "retrieval", q["query_id"],
-                res["answers"],
-                info={"ranked": res["ranked"], "scores": res["scores"],
-                      "gt": gt, "rank": rank},
-            )
+            if is_main_process():
+                M.write_log(
+                    prediction_path, q["video"], "retrieval", q["query_id"],
+                    res["answers"],
+                    info={"ranked": res["ranked"], "scores": res["scores"],
+                          "gt": gt, "rank": rank},
+                )
         except Exception:
             if args.debug:
                 raise
             errors.append(q["query_id"])
 
     print("errors", errors, file=sys.stderr)
+    barrier()  # rank 0 has written every record before any rank reads them
     logs = M.load_prediction_logs(args.log_path, args.total_split)
     all_ranks = [l["info"]["rank"] for l in logs if "rank" in l.get("info", {})]
     metrics: Dict[str, float] = {}
@@ -171,9 +176,10 @@ def run(args, engine) -> Dict[str, float]:
             "MedR": float(np.median(r)),
             "n": int(len(r)),
         }
-        with open(os.path.join(args.log_path, "result_t2v.json"), "w") as f:
-            json.dump(metrics, f, indent=2)
-        print(json.dumps(metrics))
+        if is_main_process():
+            with open(os.path.join(args.log_path, "result_t2v.json"), "w") as f:
+                json.dump(metrics, f, indent=2)
+            print(json.dumps(metrics))
     return metrics
 
 

@@ -32,6 +32,7 @@ from revisionllm_tpu_torch.data.prefetcher import prefetch_map
 from revisionllm_tpu_torch.eval import metrics as M
 from revisionllm_tpu_torch.eval.engine import GroundingEngine
 from revisionllm_tpu_torch.eval.loader import build_engine_from_args
+from revisionllm_tpu_torch.parallel.launch import is_main_process
 from revisionllm_tpu_torch.utils.cli import str2bool
 
 
@@ -70,8 +71,8 @@ def parse_args(argv=None):
     p.add_argument("--adapter_layers", type=int, default=2)
     p.add_argument("--adapter_ffn", type=int, default=2048)
     p.add_argument("--mesh", type=str, default=None,
-                   help="dp,fsdp,tp (kept for flag parity: the distributed layer "
-                        "is not ported yet)")
+                   help="dp,fsdp,tp: serve across the ranks torchrun starts (rank 0 "
+                        "writes the predictions)")
     p.add_argument("--max_new_tokens", type=int, default=32)
     p.add_argument("--baseline", type=str2bool, default=False)
     p.add_argument("--plus_baseline", type=str2bool, default=False)
@@ -163,10 +164,11 @@ def run(args, engine: GroundingEngine) -> Dict[str, int]:
             res["answers"], gt, args.num_frames, num_frames_video,
             [], getattr(args, "plus_baseline", False),
         )
-        M.write_log(
-            prediction_path, movie, "grounding", qid, res["answers"],
-            info={"iou": ious, "scores": res["scores"]},
-        )
+        if is_main_process():
+            M.write_log(
+                prediction_path, movie, "grounding", qid, res["answers"],
+                info={"iou": ious, "scores": res["scores"]},
+            )
         n_done += 1
         latencies.append(_time.time() - t0)
 
@@ -223,7 +225,8 @@ def run(args, engine: GroundingEngine) -> Dict[str, int]:
                 # dense captioning per window (reference eval_nlq_negative.py:265-268)
                 _flush()
                 cap_res = engine.caption_windows(features, movie_key=movie)
-                M.write_log(prediction_path, movie, "captioning", qid, cap_res["answers"])
+                if is_main_process():
+                    M.write_log(prediction_path, movie, "captioning", qid, cap_res["answers"])
                 if getattr(args, "task", "grounding") == "captioning":
                     n_done += 1
                     continue

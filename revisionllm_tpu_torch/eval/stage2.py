@@ -31,6 +31,7 @@ from revisionllm_tpu_torch.eval.engine import GroundingEngine
 from revisionllm_tpu_torch.eval.loader import build_engine_from_args
 from revisionllm_tpu_torch.eval.stage1 import load_items
 from revisionllm_tpu_torch.ops.windows import get_ground_truth_windows, num_windows_strided
+from revisionllm_tpu_torch.parallel.launch import is_main_process
 from revisionllm_tpu_torch.utils.cli import str2bool
 
 
@@ -73,8 +74,8 @@ def parse_args(argv=None):
                    help="comma list of hierarchy zoom scales per multi-scale "
                         "pass (reference eval_nlq_retrieval_e2e2.py:337)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="dp,fsdp,tp (kept for flag parity: the distributed layer "
-                        "is not ported yet)")
+                   help="dp,fsdp,tp: serve across the ranks torchrun starts (rank 0 "
+                        "writes the predictions)")
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--query_batch", type=int, default=1,
                    help="row-stack N same-movie queries' zoom passes into "
@@ -170,18 +171,19 @@ def run(args, engine: GroundingEngine) -> Dict[str, int]:
             res["answers"], data["timestamps"], res["starts"], res["indexes"],
             res["hierarchy_zooms"], res["grounding_windows"], args.batch,
         )
-        M.write_log(
-            prediction_path, movie, "grounding", qid, res["answers"],
-            info={
-                "gt": data["timestamps"],
-                "frames": frames,
-                "iou": ious,
-                "score_cos": res["score_cos"],
-                "mean_entropy": res["mean_entropy"],
-                "max_entropy": res["max_entropy"],
-                "hierarchy_zooms": res["hierarchy_zooms"],
-            },
-        )
+        if is_main_process():
+            M.write_log(
+                prediction_path, movie, "grounding", qid, res["answers"],
+                info={
+                    "gt": data["timestamps"],
+                    "frames": frames,
+                    "iou": ious,
+                    "score_cos": res["score_cos"],
+                    "mean_entropy": res["mean_entropy"],
+                    "max_entropy": res["max_entropy"],
+                    "hierarchy_zooms": res["hierarchy_zooms"],
+                },
+            )
         n_done += 1
         latencies.append(_time.time() - t0)
 

@@ -17,6 +17,13 @@ llama.decode_step_split. A P-tuning prefix (`prefix_kv`, ChatGLM2's) is
 attended through the prefill and every split step: it takes neither the
 serving layout nor the megakernel, as in JAX. `generate_stream` yields one
 greedy token a step for interactive use (the streaming chat).
+
+`generate(mesh=)` runs a rank's shards of a sharded model (models/llama.py)
+on the rows it is given; parallel/serve.py splits a batch over the ranks and
+gathers it back. The split step runs under any mesh. The megakernel and the
+serving layout hold whole layers in one launch, so they run under a mesh
+that splits only the batch (every rank holds the whole tree) and raise under
+tensor or fsdp sharding, whose collectives cannot run inside a launch.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from revisionllm_tpu_torch.ops import decode_serve as DSV
 from revisionllm_tpu_torch.ops import decode_step as DS
 from revisionllm_tpu_torch.ops.norms import rms_norm
 from revisionllm_tpu_torch.ops.rope import rope_angles
+from revisionllm_tpu_torch.parallel.sharding import local_config
 
 _KV8: Optional[bool] = None
 
@@ -138,6 +146,7 @@ def generate(
     generator: Optional[torch.Generator] = None,
     shared_prefix_len: int = 0,
     prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Decode `max_new_tokens` for a right-padded batch of spliced prompts.
 
@@ -157,28 +166,42 @@ def generate(
     replay JAX's PRNG, so it agrees with JAX by distribution only.
 
     JAX's scan also runs a decode step after the last token and discards its
-    logits; this loop skips that step, which changes no output."""
+    logits; this loop skips that step, which changes no output.
+
+    mesh: `params` are this rank's shards (parallel/sharding.py) and the
+    model's collectives run over it (module docstring)."""
     B, T = embeds.shape[:2]
     G = max_new_tokens
     prompt_lens = prompt_lens.to(torch.int32)
     kv_quant = _kv8_enabled(embeds.device)
+    split = llama.model_mesh(mesh) is not None
     lq = params["layers"].get("q_proj")
+    packed = isinstance(lq, dict) and "q8c" in lq
+    if split and packed:
+        raise ValueError("a serving-packed tree (row 10) decodes whole layers in one launch; "
+                         "under tensor or fsdp sharding a collective cannot run inside it: "
+                         "use a data-only mesh or the standard tree")
     serve_intent = (
-        isinstance(lq, dict) and "q8c" in lq and prefix_kv is None
+        packed and prefix_kv is None
         and _serve_enabled() is not False and kv_quant and DSV.supports_serve(cfg, params)
     )
     ptuning_len = 0 if prefix_kv is None else int(prefix_kv[0].shape[2])
     if prefix_kv is not None and shared_prefix_len > 1 and B > 1:
         raise ValueError("P-tuning prefix + shared-prefix prefill unsupported")
+    if (split and _megakernel_enabled() and ptuning_len == 0 and kv_quant
+            and DS.supports_megakernel(cfg, params)):
+        raise ValueError("REVISIONLLM_MEGAKERNEL=1 (row 9) decodes whole layers in one launch; "
+                         "under tensor or fsdp sharding a collective cannot run inside it: "
+                         "unset it or use a data-only mesh")
     if shared_prefix_len > 1 and B > 1:
         logits, prompt_kv = llama.prefill_shared_prefix(
             cfg, params, embeds, positions, shared_prefix_len, kv_lens=prompt_lens,
-            kv_quant=kv_quant,
+            kv_quant=kv_quant, mesh=mesh,
         )
     else:
         logits, prompt_kv = llama.prefill_kv(
             cfg, params, embeds, positions, kv_lens=prompt_lens, kv_quant=kv_quant,
-            kv_slab_slots=G if serve_intent else None, prefix_kv=prefix_kv,
+            kv_slab_slots=G if serve_intent else None, prefix_kv=prefix_kv, mesh=mesh,
         )
     use_mega = (
         not serve_intent and ptuning_len == 0 and _megakernel_enabled() and kv_quant
@@ -197,7 +220,8 @@ def generate(
         gen_cache = DS.init_gen_cache(cfg.num_layers, B, cfg.num_kv_heads, cfg.head_dim, G,
                                       embeds.dtype, embeds.device)
     else:
-        gen_cache = llama.init_gen_cache(cfg, B, G, embeds.dtype, embeds.device)
+        gen_cache = llama.init_gen_cache(local_config(cfg, llama.model_mesh(mesh)), B, G,
+                                         embeds.dtype, embeds.device)
 
     def decode_one(g, tok_embed):
         if serve_intent:
@@ -205,7 +229,8 @@ def generate(
         if use_mega:
             return decode_step_mega(cfg, params, pkv, prompt_lens, gen_cache, g, tok_embed)
         return llama.decode_step_split(
-            cfg, params, prompt_kv, prompt_lens, gen_cache, g, tok_embed, mask_lens)[0]
+            cfg, params, prompt_kv, prompt_lens, gen_cache, g, tok_embed, mask_lens,
+            mesh=mesh)[0]
 
     done = torch.zeros(B, dtype=torch.bool, device=embeds.device)
     tokens, entropies, logprobs, valids = [], [], [], []
@@ -223,7 +248,7 @@ def generate(
         valid = ~done
         token_out = torch.where(valid, token, torch.full_like(token, eos_id))
         if g + 1 < G:
-            tok_embed = llama.embed_tokens(params, token_out[:, None]).to(embeds.dtype)
+            tok_embed = llama.embed_tokens(params, token_out[:, None], mesh).to(embeds.dtype)
             logits = decode_one(g, tok_embed)
         done = done | (token_out == eos_id)
         tokens.append(token_out)

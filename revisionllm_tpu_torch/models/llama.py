@@ -28,6 +28,14 @@ The ChatGLM2 geometry (LlamaConfig.chatglm2_6b) adds q/k/v biases
 through row 6 on the card (`flash_attention_prefixed`) or, when training,
 the plain lse pieces and their merge under autograd; `prefill_kv` folds it
 into the returned cache at positions [0, P).
+
+`mesh=` (parallel/mesh.py) runs a rank's shards (parallel/sharding.py
+shard_params) as one part of a sharded model: H / tp query heads and
+KH / tp kv heads a rank, an all-reduce over `tensor` after o_proj and after
+down_proj, the lm_head's vocabulary slices all-gathered before the f32
+logits, and under fsdp each layer's shards all-gathered just before it runs
+(inside the checkpoint when `remat`) and freed after it. Without a mesh, or
+with one that splits only the batch, nothing of that runs.
 """
 
 from __future__ import annotations
@@ -56,8 +64,11 @@ from revisionllm_tpu_torch.ops.quant import (
     quantize_activation_rows,
     quantize_int4,
     quantize_int8,
+    row_absmax,
+    w8a8_matmul_absmax,
     w8a8_mlp_fused,
     w8a8_prequant_matmul,
+    w8a8_route,
 )
 from revisionllm_tpu_torch.ops.rope import (
     apply_rope_tables,
@@ -65,6 +76,8 @@ from revisionllm_tpu_torch.ops.rope import (
     rope_tables,
     rope_tables_interleaved,
 )
+from revisionllm_tpu_torch.parallel import comm
+from revisionllm_tpu_torch.parallel.sharding import COLUMN_PARALLEL, ROW_PARALLEL, local_config
 from revisionllm_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -170,17 +183,94 @@ def init_params(
     }
 
 
-def layer_params(params: Params, i: int) -> Params:
-    """Views of layer i of the stacked layer tree (no copies)."""
+def layer_params(params: Params, i: int, mesh=None) -> Params:
+    """Views of layer i of the stacked layer tree (no copies). Under a mesh
+    that splits the weights (model_mesh), a rank's shards: column-parallel
+    matrices gathered over fsdp along their input dim (an int8 scale is not
+    fsdp-sharded), row-parallel ones along their output dim, ChatGLM2's
+    biases cut to this rank's heads."""
     out = {}
     for name, w in params["layers"].items():
-        out[name] = {k: t[i] for k, t in w.items()} if isinstance(w, dict) else w[i]
+        w = {k: t[i] for k, t in w.items()} if isinstance(w, dict) else w[i]
+        if mesh is not None and name in COLUMN_PARALLEL:
+            w = _gather_fsdp(w, mesh, 0, keep=("scale",))
+        elif mesh is not None and name in ROW_PARALLEL:
+            w = _gather_fsdp(w, mesh, -1)
+        elif mesh is not None and name.endswith("_bias") and mesh.shape["tensor"] > 1:
+            w = comm.local_slice(w, mesh, "tensor", 0)
+        out[name] = w
     return out
 
 
-def embed_tokens(params: Params, ids: torch.Tensor) -> torch.Tensor:
-    """Token ids -> embeddings; negative sentinel ids are clamped to 0."""
-    return params["embed"][ids.clamp(min=0).long()]
+def model_mesh(mesh):
+    """`mesh` when it splits the weights (fsdp or tensor above 1), else
+    None: a data-only or one-rank mesh runs the model as one process does."""
+    if mesh is None or (mesh.shape["fsdp"] == 1 and mesh.shape["tensor"] == 1):
+        return None
+    return mesh
+
+
+@torch.no_grad()
+def _gather_fsdp(w, mesh, dim: int, keep=()):
+    """A matrix's (or a quantized dict's) fsdp shards put together along
+    `dim`; the leaves named in `keep` are not fsdp-sharded."""
+    if mesh.shape["fsdp"] == 1:
+        return w
+    if isinstance(w, dict):
+        return {k: t if k in keep else comm.all_gather(t, mesh, "fsdp", dim % t.dim())
+                for k, t in w.items()}
+    return comm.all_gather(w, mesh, "fsdp", dim % w.dim())
+
+
+def _local_lora(lora_lp: Optional[Params], mesh) -> Optional[Params]:
+    """A whole LoRA layer cut to this rank's slice of the base: b's output
+    columns of a column-parallel matrix, a's input rows of a row-parallel
+    one (autograd fills only that slice of the gradient)."""
+    if lora_lp is None or mesh is None or mesh.shape["tensor"] == 1:
+        return lora_lp
+    out = {}
+    for name, m in lora_lp.items():
+        if name in COLUMN_PARALLEL:
+            m = {"a": m["a"], "b": comm.local_slice(m["b"], mesh, "tensor", 1)}
+        elif name in ROW_PARALLEL:
+            m = {"a": comm.local_slice(m["a"], mesh, "tensor", 0), "b": m["b"]}
+        out[name] = m
+    return out
+
+
+def _local_prefix(prefix_kv, mesh):
+    """A P-tuning prefix (pk, pv) [L, 1, P, KH, hd] cut to this rank's kv
+    heads."""
+    if prefix_kv is None or mesh is None or mesh.shape["tensor"] == 1:
+        return prefix_kv
+    return tuple(comm.local_slice(t, mesh, "tensor", 3) for t in prefix_kv)
+
+
+def embed_tokens(params: Params, ids: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Token ids -> embeddings; negative sentinel ids are clamped to 0.
+
+    Under a mesh the table is [V / fsdp, D / tp]: the fsdp ranks' ids are
+    gathered (their rows differ when fsdp splits the batch), each looks up
+    the ids in its vocabulary rows (zero elsewhere), the sum over fsdp gives
+    every row its embedding exactly, and the D slices are gathered over
+    tensor."""
+    mesh = model_mesh(mesh)
+    ids = ids.clamp(min=0).long()
+    if mesh is None:
+        return params["embed"][ids]
+    table = params["embed"]
+    if mesh.shape["fsdp"] > 1:
+        every = comm.all_gather(ids[None], mesh, "fsdp", 0)
+        local = every - mesh.coord("fsdp") * table.shape[0]
+        hit = (local >= 0) & (local < table.shape[0])
+        e = table[local.clamp(0, table.shape[0] - 1)]
+        e = torch.where(hit[..., None], e, torch.zeros_like(e))
+        e = comm.all_reduce(e, mesh, "fsdp")[mesh.coord("fsdp")]
+    else:
+        e = table[ids]
+    if mesh.shape["tensor"] > 1:
+        e = comm.all_gather(e, mesh, "tensor", e.dim() - 1)
+    return e
 
 
 def _lora_apply(x, w, lora_layer, scale):
@@ -236,10 +326,26 @@ def _prefix_attention(q, k, v, pk, pv, kv_lens, trainable):
     return merge_attention_pieces(o1, lse1, o2, lse2)
 
 
+def _row_parallel(x, w, lora_lp, lora_scale, mesh):
+    """x [..., K / tp] times this rank's rows of a row-parallel matrix (plus
+    its LoRA slice), summed over tensor in f32. On the W8A8 route the
+    activation rows are quantized by their absmax over the whole K (one
+    max-reduce of M floats) and the int32 partial products are summed
+    before the scales, which gives the one-process product bit for bit."""
+    if mesh is None or mesh.shape["tensor"] == 1:
+        return _lora_apply(x, w, lora_lp, lora_scale)
+    if lora_lp is None and w8a8_route(x, w):
+        amax = comm.all_reduce(row_absmax(x), mesh, "tensor", op="max")
+        return w8a8_matmul_absmax(x, w["q8"], w["scale"], amax,
+                                  reduce=lambda acc: comm.all_reduce(acc, mesh, "tensor"))
+    return comm.reduce_from_tensor(_lora_apply(x, w, lora_lp, lora_scale), mesh)
+
+
 def _attention_block(cfg, lp, x, rope, kv_lens, lora_lp=None, lora_scale=0.0, trainable=False,
-                     prefix_pkv=None):
+                     prefix_pkv=None, mesh=None):
     B, T, _ = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    x = comm.copy_to_tensor(x, mesh)
     if lora_lp is None:
         qm, km, vm = q8_apply_multi(x, (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
     else:
@@ -257,7 +363,7 @@ def _attention_block(cfg, lp, x, rope, kv_lens, lora_lp=None, lora_scale=0.0, tr
         o = attention(q, k, v, causal=True, kv_lens=kv_lens)
     o = o.reshape(B, T, H * hd)
     lo = None if lora_lp is None else lora_lp.get("o_proj")
-    return _lora_apply(o, lp["o_proj"], lo, lora_scale), k, v
+    return _row_parallel(o, lp["o_proj"], lo, lora_scale, mesh), k, v
 
 
 _FUSED_MLP: Optional[bool] = None
@@ -277,23 +383,28 @@ def _fused_mlp_enabled() -> bool:
     return os.environ.get("REVISIONLLM_FUSED_MLP", "0") == "1"
 
 
-def _mlp_block(lp, x, lora_lp=None, lora_scale=0.0):
+def _mlp_block(lp, x, lora_lp=None, lora_scale=0.0, mesh=None):
+    x = comm.copy_to_tensor(x, mesh)
     if lora_lp is None:
         if _fused_mlp_enabled() and _is_q8(lp["gate_proj"]) and _is_q8(lp["down_proj"]):
             # JAX's fused branch (llama.py:238-262): it checks neither W8A8
             # nor M, so the decode step takes it too when the megakernel is
-            # off. The down_proj input leaves row 8 already quantized
+            # off. The down_proj input leaves row 8 already quantized (per
+            # rank's F / tp columns under tensor parallelism)
             x2 = x.reshape(-1, x.shape[-1])
             xq, xs = quantize_activation_rows(x2)
             hq, hs = w8a8_mlp_fused(xq, xs, lp["gate_proj"]["q8"], lp["gate_proj"]["scale"],
                                     lp["up_proj"]["q8"], lp["up_proj"]["scale"])
+            # summed over tensor in f32, then rounded once
             out = w8a8_prequant_matmul(hq, hs, lp["down_proj"]["q8"], lp["down_proj"]["scale"],
-                                       out_dtype=x.dtype)
-            return out.reshape(*x.shape[:-1], out.shape[-1])
+                                       out_dtype=x.dtype if mesh is None else torch.float32)
+            out = out.reshape(*x.shape[:-1], out.shape[-1])
+            return comm.reduce_from_tensor(out, mesh).to(x.dtype)
         g_lin, up = q8_apply_multi(x, (lp["gate_proj"], lp["up_proj"]))
-        return q8_apply(F.silu(g_lin) * up, lp["down_proj"])
+        return _row_parallel(F.silu(g_lin) * up, lp["down_proj"], None, 0.0, mesh)
     g_lin, up = (_lora_apply(x, lp[n], lora_lp.get(n), lora_scale) for n in ("gate_proj", "up_proj"))
-    return _lora_apply(F.silu(g_lin) * up, lp["down_proj"], lora_lp.get("down_proj"), lora_scale)
+    return _row_parallel(F.silu(g_lin) * up, lp["down_proj"], lora_lp.get("down_proj"),
+                         lora_scale, mesh)
 
 
 def lora_layer_params(lora: Optional[Params], i: int) -> Optional[Params]:
@@ -326,6 +437,7 @@ def forward_hidden(
     remat: bool = False,
     kv_slab_slots: Optional[int] = None,
     prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mesh=None,
 ):
     """Full-sequence forward. embeds [B, T, D], positions [B, T].
 
@@ -348,9 +460,15 @@ def forward_hidden(
     (models.prefix.prefix_kv), prepended un-roped to every layer's keys and
     values and visible to every query; positions are not shifted. The
     returned cache holds the tokens' k/v only (prefill_kv folds the
-    prefix in)."""
+    prefix in).
+
+    mesh: params are a rank's shards (module docstring); the cache holds
+    this rank's kv heads."""
     if remat and return_kv:
         raise ValueError("remat is for training; it returns no cache")
+    mesh = model_mesh(mesh)
+    cfg = local_config(cfg, mesh)
+    prefix_kv = _local_prefix(prefix_kv, mesh)
     B, T, _ = embeds.shape
     L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     rope = rope_for(cfg, positions)
@@ -375,21 +493,23 @@ def forward_hidden(
     def layer(x, lp, lora_lp, ppkv):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         attn_out, k, v = _attention_block(cfg, lp, h, rope, kv_lens, lora_lp, lora_scale, trainable,
-                                          ppkv)
+                                          ppkv, mesh)
         x = x + attn_out
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        return x + _mlp_block(lp, h, lora_lp, lora_scale), k, v
+        return x + _mlp_block(lp, h, lora_lp, lora_scale, mesh), k, v
 
     x = embeds
     for i in range(L):
-        lp = layer_params(params, i)
-        lora_lp = lora_layer_params(lora, i)
+        lora_lp = _local_lora(lora_layer_params(lora, i), mesh)
         ppkv = None if prefix_kv is None else (prefix_kv[0][i], prefix_kv[1][i])
         if remat:
-            x = checkpoint(lambda x, ppkv, lp=lp, lora_lp=lora_lp: layer(x, lp, lora_lp, ppkv)[0],
+            # the layer's fsdp gather runs inside the checkpoint, so the
+            # gathered weights are not kept for the backward
+            x = checkpoint(lambda x, ppkv, i=i, lora_lp=lora_lp:
+                           layer(x, layer_params(params, i, mesh), lora_lp, ppkv)[0],
                            x, ppkv, use_reentrant=False)
             continue
-        x, k, v = layer(x, lp, lora_lp, ppkv)
+        x, k, v = layer(x, layer_params(params, i, mesh), lora_lp, ppkv)
         if kv_slab_slots is not None:
             for j, t in enumerate((k, v)):
                 tq, ts = _quantize_rows(t)
@@ -410,9 +530,17 @@ def forward_hidden(
     return hidden
 
 
-def logits_from_hidden(params: Params, hidden: torch.Tensor) -> torch.Tensor:
-    """LM head, returned in f32 (decode entropy needs full-precision logits)."""
-    return q8_apply(hidden, params["lm_head"]).float()
+def logits_from_hidden(params: Params, hidden: torch.Tensor, mesh=None) -> torch.Tensor:
+    """LM head, returned in f32 (decode entropy needs full-precision logits).
+    Under a mesh the lm_head is [D / fsdp, V / tp]: its fsdp shards are
+    gathered, and each rank's vocabulary columns all-gathered over tensor
+    before the cast."""
+    mesh = model_mesh(mesh)
+    if mesh is None:
+        return q8_apply(hidden, params["lm_head"]).float()
+    w = _gather_fsdp(params["lm_head"], mesh, 0, keep=("scale",))
+    y = q8_apply(comm.copy_to_tensor(hidden, mesh), w)
+    return comm.gather_from_tensor(y, mesh).float()
 
 
 def prefill_kv(
@@ -424,6 +552,7 @@ def prefill_kv(
     kv_quant: bool = False,
     kv_slab_slots: Optional[int] = None,
     prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Params]:
     """Prefill: (logits at each row's last position [B, V], read-only prompt
     cache {"k", "v"[, "k_scale", "v_scale"]} [L, B, T, KH, hd]).
@@ -441,12 +570,12 @@ def prefill_kv(
         raise ValueError("P-tuning prefix is not supported with the serve slab")
     hidden, cache = forward_hidden(
         cfg, params, embeds, positions, kv_lens, return_kv=True, kv_quant=kv_quant,
-        kv_slab_slots=kv_slab_slots, prefix_kv=prefix_kv,
+        kv_slab_slots=kv_slab_slots, prefix_kv=prefix_kv, mesh=mesh,
     )
     if prefix_kv is not None:
         B = embeds.shape[0]
         pkb, pvb = (t.expand((t.shape[0], B) + tuple(t.shape[2:])).to(embeds.dtype)
-                    for t in prefix_kv)
+                    for t in _local_prefix(prefix_kv, model_mesh(mesh)))
         head = quantize_prompt_kv({"k": pkb, "v": pvb}) if kv_quant else {"k": pkb, "v": pvb}
         cache = {name: torch.cat([head[name], t], dim=2) for name, t in cache.items()}
     if kv_lens is None:
@@ -454,7 +583,7 @@ def prefill_kv(
     else:
         idx = (kv_lens.long() - 1).clamp(min=0)
         last = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
-    return logits_from_hidden(params, last), cache
+    return logits_from_hidden(params, last, mesh), cache
 
 
 def prefill_shared_prefix(
@@ -465,6 +594,7 @@ def prefill_shared_prefix(
     prefix_len: int,
     kv_lens: Optional[torch.Tensor] = None,
     kv_quant: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Params]:
     """Prefill where every row shares its first `prefix_len` embeddings (the
     engine's window batches share their prompt up to the video block).
@@ -477,10 +607,13 @@ def prefill_shared_prefix(
     prefix broadcast and then the rest. kv_quant=True quantizes it layer by
     layer (per (position, head) scales, the same numbers as JAX's quantizing
     the whole bf16 cache at the end), so the full bf16 cache never exists."""
+    mesh = model_mesh(mesh)
     B, T, _ = embeds.shape
     P = prefix_len
+    _, prefix_kv = forward_hidden(cfg, params, embeds[:1, :P], positions[:1, :P], return_kv=True,
+                                  mesh=mesh)
+    cfg = local_config(cfg, mesh)
     L, H, KH, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    _, prefix_kv = forward_hidden(cfg, params, embeds[:1, :P], positions[:1, :P], return_kv=True)
     T2 = T - P
     rope = rope_for(cfg, positions[:, P:])
     rest_lens = None if kv_lens is None else (kv_lens.to(torch.int32) - P).clamp(min=0)
@@ -505,7 +638,7 @@ def prefill_shared_prefix(
 
     x = embeds[:, P:]
     for i in range(L):
-        lp = layer_params(params, i)
+        lp = layer_params(params, i, mesh)
         pk, pv = prefix_kv["k"][i], prefix_kv["v"][i]
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         qm, km, vm = q8_apply_multi(h, (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
@@ -514,9 +647,9 @@ def prefill_shared_prefix(
         q = apply_rope_tables(q, *rope)
         k = apply_rope_tables(k, *rope)
         o = flash_attention_prefixed(q, k, v, pk, pv, kv_lens=rest_lens)
-        x = x + q8_apply(o.reshape(B, T2, H * hd), lp["o_proj"])
+        x = x + _row_parallel(o.reshape(B, T2, H * hd), lp["o_proj"], None, 0.0, mesh)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_block(lp, h)
+        x = x + _mlp_block(lp, h, mesh=mesh)
         store(i, "k", pk, k)
         store(i, "v", pv, v)
     hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
@@ -525,7 +658,7 @@ def prefill_shared_prefix(
     else:
         idx = (kv_lens.long() - 1 - P).clamp(min=0)
         last = hidden[torch.arange(B, device=hidden.device), idx]
-    return logits_from_hidden(params, last), cache
+    return logits_from_hidden(params, last, mesh), cache
 
 
 def init_gen_cache(cfg: LlamaConfig, batch: int, slots: int, dtype, device) -> Params:
@@ -546,6 +679,7 @@ def decode_step_split(
     step: int,
     token_embeds: torch.Tensor,
     mask_lens: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Params]:
     """One decode step with the split KV layout.
 
@@ -557,6 +691,8 @@ def decode_step_split(
     prompt_lens + P over a cache with a P-tuning prefix folded in, whose
     rope positions stay on prompt_lens).
     Returns (logits [B, V] f32, gen_cache)."""
+    mesh = model_mesh(mesh)
+    cfg = local_config(cfg, mesh)
     B = token_embeds.shape[0]
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     group = H // KH
@@ -568,7 +704,7 @@ def decode_step_split(
 
     x = token_embeds
     for i in range(cfg.num_layers):
-        lp = layer_params(params, i)
+        lp = layer_params(params, i, mesh)
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         q, k, v = _qkv_bias(cfg, lp, q8_apply(h, lp["q_proj"]).reshape(B, 1, H, hd),
                             q8_apply(h, lp["k_proj"]).reshape(B, 1, KH, hd),
@@ -585,11 +721,11 @@ def decode_step_split(
             prompt_kv["v_scale"][i] if quantized else None,
             gk, gv, mask_lens, step,
         )
-        x = x + q8_apply(o.reshape(B, 1, H * hd).to(x.dtype), lp["o_proj"])
+        x = x + _row_parallel(o.reshape(B, 1, H * hd).to(x.dtype), lp["o_proj"], None, 0.0, mesh)
         h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_block(lp, h)
+        x = x + _mlp_block(lp, h, mesh=mesh)
     hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return logits_from_hidden(params, hidden[:, 0]), gen_cache
+    return logits_from_hidden(params, hidden[:, 0], mesh), gen_cache
 
 
 def quantize_prompt_kv(prompt_kv: Params) -> Params:

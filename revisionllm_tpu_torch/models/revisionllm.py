@@ -3,7 +3,9 @@
 Counterpart of revisionllm_tpu/models/revisionllm.py: encode window features
 into LLM tokens, splice them into the embedding stream by a host-built plan,
 and either decode with inline confidence (`generate_grounding`) or return
-the causal LM loss of a training batch (`forward_train`, `lm_loss`).
+the causal LM loss of a training batch (`forward_train`, `lm_loss`). Both
+take `mesh=` for a sharded model (models/llama.py); forward_train then
+also splits the batch over the (data, fsdp) axes.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ from revisionllm_tpu_torch.models import generation, llama
 from revisionllm_tpu_torch.models.adapter import clip_encoder_forward, init_adapter_params
 from revisionllm_tpu_torch.models.multimodal import splice_embeds
 from revisionllm_tpu_torch.ops.norms import layer_norm
+from revisionllm_tpu_torch.parallel.mesh import batch_sharding
 from revisionllm_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -116,25 +119,34 @@ def assemble_inputs(
     video_tokens: torch.Tensor,
     memory_tokens: Optional[torch.Tensor] = None,
     dtype=None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Splice plan + video tokens -> (embeds, positions, lengths)."""
-    text_embeds = llama.embed_tokens(params, plan["text_ids"])
+    text_embeds = llama.embed_tokens(params, plan["text_ids"], mesh)
     if dtype is not None:
         text_embeds = text_embeds.to(dtype)
     embeds = splice_embeds(text_embeds, plan["kind"], plan["src_idx"], video_tokens, memory_tokens)
     return embeds, plan["positions"], plan["lengths"]
 
 
-def lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+def supervised_count(labels: torch.Tensor, ignore_index: int = IGNORE_INDEX) -> torch.Tensor:
+    """The positions lm_loss averages over: shifted labels not ignored."""
+    return (labels[:, 1:].long() != ignore_index).sum()
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = IGNORE_INDEX,
+            count: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Shifted causal cross-entropy in f32, mean over supervised positions
-    (the HF CausalLM loss the reference trains with)."""
+    (the HF CausalLM loss the reference trains with). `count` replaces this
+    batch's own count of them (a rank's rows of a larger batch divide by
+    the whole batch's, so the ranks' losses sum to its mean)."""
     shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:].long()
     mask = shift_labels != ignore_index
     logp = torch.log_softmax(shift_logits, dim=-1)
     token_lp = torch.gather(logp, -1, shift_labels.clamp(min=0)[..., None])[..., 0]
     total = torch.where(mask, -token_lp, torch.zeros_like(token_lp)).sum()
-    return total / mask.sum().clamp(min=1)
+    return total / (mask.sum() if count is None else count).clamp(min=1)
 
 
 def forward_train(
@@ -153,24 +165,44 @@ def forward_train(
     generator: Optional[torch.Generator] = None,
     remat: bool = False,
     iteration_step: int = 0,
+    mesh=None,
 ) -> torch.Tensor:
     """One training forward -> scalar LM loss: encode the windows, splice,
     run the backbone with LoRA and the differentiable attention, LM head in
     f32, shifted CE over the plan's labels (reference vtimellm_llama.py:38-90).
-    iteration_step selects the 'alternate' adapter's output (encode_video)."""
+    iteration_step selects the 'alternate' adapter's output (encode_video).
+
+    mesh: the inputs are the whole batch, `params` this rank's shards. The
+    adapter runs on the whole batch, so its dropout draws the one-process
+    noise from `generator`; this rank keeps its rows of the (data, fsdp)
+    split and returns their share of the whole batch's mean, so the ranks'
+    losses (and gradients) sum to the one-process ones. The batch must
+    split evenly (ValueError)."""
     video_tokens = encode_video(
         adapter_cfg, vision_params, images, query_feats, query_valid, deterministic, generator,
         iteration_step,
     )
+    count = None
+    shard = batch_sharding(mesh)
+    if shard.n > 1:
+        B = images.shape[0]
+        if B % shard.n:
+            raise ValueError(f"a batch of {B} does not split over the mesh's {shard.n} "
+                             f"(data, fsdp) ranks")
+        count = supervised_count(plan["labels"])
+        plan = {k: shard.local(v, B) for k, v in plan.items()}
+        video_tokens = shard.local(video_tokens, B)
+        if memory_tokens is not None:
+            memory_tokens = shard.local(memory_tokens, B)
     embeds, positions, lengths = assemble_inputs(
-        params, plan, video_tokens, memory_tokens, dtype=llama.torch_dtype(cfg.dtype)
+        params, plan, video_tokens, memory_tokens, dtype=llama.torch_dtype(cfg.dtype), mesh=mesh
     )
     hidden = llama.forward_hidden(
         cfg, params, embeds, positions, kv_lens=lengths, lora=lora, lora_scale=lora_scale,
-        trainable=True, remat=remat,
+        trainable=True, remat=remat, mesh=mesh,
     )
-    logits = llama.logits_from_hidden(params, hidden)
-    return lm_loss(logits, plan["labels"])
+    logits = llama.logits_from_hidden(params, hidden, mesh)
+    return lm_loss(logits, plan["labels"], count=count)
 
 
 def generate_grounding(
@@ -189,19 +221,21 @@ def generate_grounding(
     temperature: float = 0.0,
     generator: Optional[torch.Generator] = None,
     shared_prefix_len: int = 0,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """Full inference call: encode windows -> splice -> batched decode.
     Returns tokens/entropy/logprob/valid [B, G] and entropy_stats [B, 4].
     `shared_prefix_len` marks the leading tokens every row shares, which
-    the prefill then runs once (generation.generate)."""
+    the prefill then runs once (generation.generate). mesh: `params` are
+    this rank's shards; the rows are the ones this rank was given."""
     video_tokens = encode_video(adapter_cfg, vision_params, images, query_feats, query_valid)
     embeds, positions, lengths = assemble_inputs(
-        params, plan, video_tokens, memory_tokens, dtype=llama.torch_dtype(cfg.dtype)
+        params, plan, video_tokens, memory_tokens, dtype=llama.torch_dtype(cfg.dtype), mesh=mesh
     )
     out = generation.generate(
         cfg, params, embeds, positions, lengths, eos_id=eos_id,
         max_new_tokens=max_new_tokens, temperature=temperature, generator=generator,
-        shared_prefix_len=shared_prefix_len,
+        shared_prefix_len=shared_prefix_len, mesh=mesh,
     )
     out["entropy_stats"] = generation.entropy_stats_from_steps(out["entropy"], out["valid"])
     return out

@@ -218,12 +218,21 @@ def int8_matmul(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor) -> tor
     return out.reshape(*x.shape[:-1], N)
 
 
-def quantize_activation_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def row_absmax(x: torch.Tensor) -> torch.Tensor:
+    """The f32 absmax of each row of [..., K] as [M, 1] (abs and max are
+    exact in x's own type)."""
+    return x.reshape(-1, x.shape[-1]).abs().amax(dim=-1, keepdim=True).float()
+
+
+def quantize_activation_rows(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row absmax int8 of [..., K] -> (int8 [M, K], f32 scale [M, 1]):
-    the dynamic-activation half of W8A8 (JAX's quantize_activation_rows)."""
+    the dynamic-activation half of W8A8 (JAX's quantize_activation_rows).
+    `absmax` [M, 1], when given, replaces the rows' own (a row-parallel
+    slice quantized by its whole row's absmax)."""
     x2 = x.reshape(-1, x.shape[-1])
-    # abs and max are exact in x's own type, so this is the f32 absmax
-    absmax = x2.abs().amax(dim=-1, keepdim=True).float()
+    if absmax is None:
+        absmax = row_absmax(x2)
     x_scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
     # x / x_scale promotes to f32: the same quotient as x.float() / x_scale
     x_q8 = torch.div(x2, x_scale).round_().clamp_(-127, 127).to(torch.int8)
@@ -254,11 +263,10 @@ def _w8a8_product(
     type, a column slice of a wider output) with the same rounding."""
     if x_q8.is_cuda:
         kernels.forbid_grad("torch._int_mm (W8A8)", x, x_scale, w_scale)
-    acc = torch.mul(_int8_dot(x_q8, w_q8), x_scale)  # int32 -> f32 rounding as acc.float()
-    acc.mul_(w_scale)
+    acc = _int8_dot(x_q8, w_q8)
     if out is not None:
-        return out.copy_(acc)
-    return acc.to(x.dtype).reshape(*x.shape[:-1], w_q8.shape[-1])
+        return out.copy_(torch.mul(acc, x_scale).mul_(w_scale))
+    return _w8a8_scale(acc, x, x_scale, w_scale)
 
 
 class _W8A8Product(torch.autograd.Function):
@@ -298,6 +306,28 @@ class _W8A8Product(torch.autograd.Function):
         if gx is not None:
             gx = gx.to(next(g for g in gs if g is not None).dtype)
         return (gx, None) + (None,) * len(weights)
+
+
+def w8a8_matmul_absmax(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor,
+                       absmax: torch.Tensor, reduce) -> torch.Tensor:
+    """w8a8_matmul with the activation rows quantized by `absmax` [M, 1]
+    instead of their own, and `reduce` applied to the int32 product before
+    the scales (a row-parallel slice's partial sums, added exactly across
+    ranks, give one process's product bit for bit); serving only (no
+    gradient)."""
+    x_q8, x_scale = quantize_activation_rows(x, absmax)
+    if x_q8.is_cuda:
+        kernels.forbid_grad("torch._int_mm (W8A8)", x, x_scale, w_scale)
+    return _w8a8_scale(reduce(_int8_dot(x_q8, w_q8).contiguous()), x, x_scale, w_scale)
+
+
+def _w8a8_scale(acc: torch.Tensor, x: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """The int32 product acc [M, N] scaled as _w8a8_product does, in x's
+    type and leading shape."""
+    out = torch.mul(acc, x_scale)  # int32 -> f32 rounding as acc.float()
+    out.mul_(w_scale)
+    return out.to(x.dtype).reshape(*x.shape[:-1], acc.shape[-1])
 
 
 def w8a8_matmul(x: torch.Tensor, w_q8: torch.Tensor, w_scale: torch.Tensor) -> torch.Tensor:
@@ -341,6 +371,12 @@ def set_exact_trace(enabled: bool) -> None:
 
 def _is_q8(w) -> bool:
     return isinstance(w, dict) and "q8" in w
+
+
+def w8a8_route(x: torch.Tensor, w) -> bool:
+    """Whether q8_apply(x, w) takes the W8A8 route."""
+    return (_is_q8(w) and not _EXACT_TRACE and x.numel() // x.shape[-1] > KERNEL_MAX_M
+            and _w8a8_enabled(x.device))
 
 
 def q8_apply(x: torch.Tensor, w) -> torch.Tensor:

@@ -18,6 +18,9 @@ exit still commits the save.
 (train/train.py:402-412): adapter_model.bin + adapter_config.json (PEFT
 LoRA) and non_lora_trainables.bin (the ClipEncoder adapter), with JAX's
 keys, shapes and dtypes.
+
+Under torch.distributed only rank 0 writes (the ranks hold the same
+trainable state); every rank may restore.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from revisionllm_tpu_torch.config import LoraConfig
+from revisionllm_tpu_torch.parallel.launch import is_main_process
 
 _PENDING_SAVES: list = []
 _SAVE_ERRORS: list = []
@@ -54,7 +58,10 @@ def _write(ckpt_dir: str, host_state) -> None:
 
 
 def save_checkpoint(path: str, state: Dict[str, Any], step: int, block: bool = True) -> None:
-    """Save {trainable, opt_state, step} to `path/checkpoint-<step>`."""
+    """Save {trainable, opt_state, step} to `path/checkpoint-<step>` (rank 0
+    alone under torch.distributed)."""
+    if not is_main_process():
+        return
     ckpt_dir = os.path.join(os.path.abspath(path), f"checkpoint-{step}")
     if block:
         _write(ckpt_dir, _map(state, lambda t: t.detach().cpu()))
@@ -140,7 +147,10 @@ def export_reference_artifacts(
     vision: Optional[Dict[str, Any]] = None,
 ) -> None:
     """Write adapter_model.bin + adapter_config.json + non_lora_trainables.bin
-    in the reference's on-disk format."""
+    in the reference's on-disk format (rank 0 alone under
+    torch.distributed)."""
+    if not is_main_process():
+        return
     os.makedirs(out_dir, exist_ok=True)
     if lora is not None and lora_cfg is not None:
         state = {}

@@ -1,4 +1,4 @@
-"""Training entry point, one GPU.
+"""Training entry point.
 
 Counterpart of revisionllm_tpu/train/train_cli.py (itself the reference's
 train/train.py:207-415): parse model/data/training flags, assemble the base,
@@ -8,6 +8,8 @@ auto-resume and the reference-format export.
 
     python -m revisionllm_tpu_torch.train.train_cli --data_path train.json \\
         --feat_folder feats/ --output_dir out/ [--tiny_model] [--device cpu]
+    torchrun --nproc_per_node 4 -m revisionllm_tpu_torch.train.train_cli \\
+        --dp 2 --tp 2 --data_path train.json --feat_folder feats/ --output_dir out/
 
 Runs on CUDA unless --device says otherwise. The base is an HF checkpoint
 (--model_base: its config.json gives the geometry, the preset the compute
@@ -18,8 +20,12 @@ int8 in host RAM before the move to the device (the lm_head stays dense).
 frozen beside it otherwise (JAX's train_cli.py:121-198). A stream preset
 (data_cfg.stream) trains the streaming-memory loss: paired clips, clip 1's
 memory pooled by --memory_type (data/stream.py) at clip 2's <memory>
-sentinel. Data/tensor parallelism (--dp/--fsdp/--tp) waits for the
-distributed layer (ROADMAP Queue A step 7).
+sentinel. --dp/--fsdp/--tp other than 1 train across the ranks torchrun
+starts (JAX's train_cli.py:118,225-232): the global batch is
+per_device_batch_size * dp * fsdp, built alike on every rank; the base is
+sharded (parallel/sharding.py) and the step is
+trainer.make_train_step over the mesh; rank 0 alone logs, saves and exports, and
+every rank resumes from the same checkpoint.
 """
 
 from __future__ import annotations
@@ -49,6 +55,9 @@ from revisionllm_tpu_torch.models import convert, llama, revisionllm
 from revisionllm_tpu_torch.models import lora as lora_mod
 from revisionllm_tpu_torch.models.weights import params_from_numpy
 from revisionllm_tpu_torch.ops.quant import quantize_llama_params_host
+from revisionllm_tpu_torch.parallel import launch
+from revisionllm_tpu_torch.parallel import mesh as mesh_lib
+from revisionllm_tpu_torch.parallel import sharding as shard_lib
 from revisionllm_tpu_torch.train import checkpoint as ckpt_lib
 from revisionllm_tpu_torch.train import optimizer as opt_lib
 from revisionllm_tpu_torch.train import trainer as trainer_lib
@@ -132,12 +141,6 @@ def build_configs(args):
 
 
 PREFIX_LEN = 24            # tokens of the stream memory's text prefix
-
-
-def _check_args(args) -> None:
-    if (args.dp, args.fsdp, args.tp) != (1, 1, 1):
-        raise NotImplementedError("--dp/--fsdp/--tp other than 1 wait for the distributed layer "
-                                  "(ROADMAP Queue A step 7)")
 
 
 @dataclass
@@ -262,13 +265,19 @@ def main(argv=None, on_step: Optional[Callable[[int, Dict, Dict], None]] = None,
     --model_base. Returns the run and its optimizer."""
     args = parse_args(argv)
     llama_cfg, adapter_cfg, data_cfg, train_cfg = build_configs(args)
-    _check_args(args)
+    mesh = None
+    if (args.dp, args.fsdp, args.tp) != (1, 1, 1):
+        launch.initialize_distributed(device=args.device)
+        mesh = mesh_lib.create_mesh(args.dp, args.fsdp, args.tp)
     run = assemble(llama_cfg, adapter_cfg, data_cfg, train_cfg, resolve_device(args.device),
                    args.seed, args.quant_base, model_base=args.model_base,
                    projector=args.pretrain_clip_adapter or args.pretrain_mm_mlp_adapter,
                    stage2_path=args.stage2_path, tokenizer=tokenizer)
-    logger = MetricLogger(os.path.join(args.output_dir, "train_log.jsonl"))
-    global_batch = train_cfg.per_device_batch_size
+    if mesh is not None:
+        run.base = shard_lib.shard_params(mesh, run.base, shard_lib.llama_param_specs(run.base))
+    logger = (MetricLogger(os.path.join(args.output_dir, "train_log.jsonl"))
+              if launch.is_main_process() else None)
+    global_batch = train_cfg.per_device_batch_size * args.dp * args.fsdp
     steps_per_epoch = max(len(run.dataset) // global_batch, 1)
     total_steps = args.max_steps or steps_per_epoch * train_cfg.num_epochs
 
@@ -288,7 +297,7 @@ def main(argv=None, on_step: Optional[Callable[[int, Dict, Dict], None]] = None,
     if opt_state is not None:
         optimizer.load_state_dict(opt_state)
     step_fn = trainer_lib.make_train_step(run.llama_cfg, run.adapter_cfg, train_cfg, optimizer,
-                                          stream=data_cfg.stream)
+                                          stream=data_cfg.stream, mesh=mesh)
 
     # --- loop ---
     gen = torch.Generator(device=run.device).manual_seed(args.seed + 3)
@@ -300,7 +309,8 @@ def main(argv=None, on_step: Optional[Callable[[int, Dict, Dict], None]] = None,
         metrics = step_fn(run.trainable, run.frozen, run.base, batch, gen)
         if on_step is not None:
             on_step(step + 1, batch, metrics)
-        if (step + 1) % args.log_steps == 0 or step == total_steps - 1:
+        if logger is not None and ((step + 1) % args.log_steps == 0
+                                   or step == total_steps - 1):
             dt = time.time() - t_last
             t_last = time.time()
             logger.log(
@@ -327,6 +337,7 @@ def main(argv=None, on_step: Optional[Callable[[int, Dict, Dict], None]] = None,
         train_cfg.lora,
         vision={"mm_projector": vision_tree["mm_projector"]} if vision_tree else None,
     )
+    launch.barrier()  # the files exist for every rank once main returns
     print("training done", file=sys.stderr)
     return run, optimizer
 

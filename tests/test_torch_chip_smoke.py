@@ -586,6 +586,52 @@ def test_hold_steps_holds_every_step_and_token():
         chip_smoke.hold_steps("decode", cpu[:3], cpu)
 
 
+def test_hold_sharded_exact_and_past_ties():
+    """hold_sharded: without tensor parallelism it passes only equal logits,
+    answers and entropies (one ulp anywhere fails); with it, every step is
+    held on the rows not yet tied: a row that ties leaves the hold, a later
+    step that moves another row past the limit still fails, and an untied
+    window's entropy beyond 5% fails while a tied one's is not held."""
+    gen = torch.Generator().manual_seed(4)
+    ref_steps = [torch.randn((3, 50), generator=gen) * 4 for _ in range(4)]
+    for s in ref_steps:
+        s[:, 7] = s.max() + 1.0
+    ref = {"answers": ["a", "b", "c"], "entropy": [1.0, 2.0, 3.0]}
+    res = {"answers": list(ref["answers"]), "scores_entropy": list(ref["entropy"])}
+    same = [s.clone() for s in ref_steps]
+    assert chip_smoke.hold_sharded("m", same, ref_steps, res, ref, exact=True)["diff"] == 0.0
+    ulp = [s.clone() for s in ref_steps]
+    ulp[3][2, 0] = torch.nextafter(ulp[3][2, 0], torch.tensor(1e9))
+    with pytest.raises(AssertionError, match="step 3: logits differ"):
+        chip_smoke.hold_sharded("m", ulp, ref_steps, res, ref, exact=True)
+    with pytest.raises(AssertionError, match="answers or entropies"):
+        chip_smoke.hold_sharded("m", same, ref_steps, {**res, "scores_entropy": [1.0, 2.0, 3.5]},
+                                ref, exact=True)
+    # row 0 ties at step 1 (token 9 one bf16 step above 7 here, below on one
+    # rank), then decodes other tokens: its later logits are not held
+    tie, want = [s.clone() for s in ref_steps], [s.clone() for s in ref_steps]
+    step = chip_smoke.bf16_spacing(want[1][0, 7].item())
+    want[1][0, 9] = want[1][0, 7] - step
+    tie[1][0, 9] = want[1][0, 7] + step
+    tie[2][0] += 100.0
+    other = {**res, "answers": ["x", "b", "c"], "scores_entropy": [9.0, 2.0, 3.0]}
+    held = chip_smoke.hold_sharded("m", tie, want, other, ref, exact=False)
+    assert held["ties"] == [(1, 0)] and held["entropy_diff"] == 0.0
+    assert not held["answers_equal"]
+    late = [s.clone() for s in tie]
+    late[3][1, 3] += 0.3 * late[3].abs().max()
+    with pytest.raises(AssertionError, match="step 3: logits"):
+        chip_smoke.hold_sharded("m", late, want, other, ref, exact=False)
+    with pytest.raises(AssertionError, match="window 2 \\(no tie\\) entropy"):
+        chip_smoke.hold_sharded("m", tie, want, {**other, "scores_entropy": [9.0, 2.0, 3.2]},
+                                ref, exact=False)
+    # this rank's rows start at window 1: its row 0 is window 1
+    with pytest.raises(AssertionError, match="window 2 \\(no tie\\) answers"):
+        chip_smoke.hold_sharded("m", [s[:2] for s in tie], [s[:2] for s in want],
+                                {**other, "answers": ["x", "y", "z"]}, ref, exact=False,
+                                offset=1)
+
+
 @pytest.mark.parametrize("x,want", [(3.67, 2 ** -6), (4.0, 2 ** -5), (12.0, 2 ** -4),
                                     (-0.6, 2 ** -8), (0.0, 0.0)])
 def test_bf16_spacing(x, want):

@@ -58,7 +58,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "eval.window_recall", "eval.merge_results", "data.stream", "models.clip",
                 "data.video_reader", "data.feature_extraction", "data.native_store",
                 "data.analysis", "data.debug_dataset", "data.converters",
-                "ops.linear_attention", "models.prefix", "tokenization_glm", "utils.spm"):
+                "ops.linear_attention", "models.prefix", "tokenization_glm", "utils.spm",
+                "parallel.launch", "parallel.mesh", "parallel.comm", "parallel.sharding",
+                "parallel.serve", "parallel.dryrun"):
         assert f"revisionllm_tpu_torch.{mod}" in res["imported"]
 
 

@@ -142,7 +142,7 @@ def test_loader_branches_match_jax(ckpt, env, monkeypatch):
 
 def test_loader_refuses_before_reading_a_file(monkeypatch, tmp_path):
     """Without CUDA and without --device the mains raise before they read a
-    file; --mesh waits for the distributed layer."""
+    file; so does a --mesh that this one process cannot fill."""
     def no_read(*a, **k):
         raise AssertionError("read a file")
 
@@ -153,8 +153,8 @@ def test_loader_refuses_before_reading_a_file(monkeypatch, tmp_path):
     for main in (tstage1.main, tstage2.main):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             main(argv)
-    with pytest.raises(NotImplementedError, match="Queue A step 7"):
-        tloader.build_engine_from_args(tstage1.parse_args(argv + ["--mesh", "1,1,1",
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
+        tloader.build_engine_from_args(tstage1.parse_args(argv + ["--mesh", "1,1,2",
                                                                  "--device", "cpu"]))
     assert not (tmp_path / "log").exists()
 

@@ -1,6 +1,7 @@
-"""Port parity: data/native_store.py, the ctypes binding of native/fstore.cc.
-The port builds the library with the host's C++ compiler into
-build/native/ (keyed by the source's hash) and never writes into native/;
+"""Port parity: data/native_store.py, the ctypes binding of csrc/fstore.cc
+(the port's copy of native/fstore.cc). The port builds the library with the
+host's C++ compiler into build/native/ (keyed by the source's hash) and
+never writes into a source directory;
 its reader returns what the Python RVFS reader returns, record for record,
 and its prefetch queue drains. Skips only where no C++ compiler is found."""
 
@@ -39,9 +40,10 @@ def _digest(paths):
 
 def test_builds_under_build_native_not_native(tmp_path, monkeypatch):
     """A fresh build (into a temporary BUILD_DIR) writes only there, under
-    the hashed name; the sources in native/ keep their bytes, and the
-    default location is the checkout's build/native/."""
-    tracked = [tnative.SOURCE, tnative.SOURCE.parent / "Makefile"]
+    the hashed name; the port's source and those in native/ keep their
+    bytes, and the default location is the checkout's build/native/."""
+    native = tnative.ROOT / "native"
+    tracked = [tnative.SOURCE, native / "fstore.cc", native / "Makefile"]
     before = _digest(tracked)
     assert tnative.library_path().parent == tnative.ROOT / "build" / "native"
     monkeypatch.setattr(tnative, "BUILD_DIR", tmp_path / "build" / "native")
@@ -51,6 +53,7 @@ def test_builds_under_build_native_not_native(tmp_path, monkeypatch):
     assert tnative.build_library() == lib                  # built once
     assert _digest(tracked) == before
     assert not list(tnative.SOURCE.parent.glob("libfstore-*"))
+    assert not list(native.glob("libfstore-*"))
 
 
 def test_native_reader_matches_python_reader(store_path):

@@ -135,8 +135,8 @@ def test_checkpoint_round_trip_and_async_errors(tmp_path):
 
 def test_cli_refuses_what_is_not_ported(train_data, tmp_path, monkeypatch):
     base = _args(train_data, str(tmp_path / "x"), 1, 1)
-    with pytest.raises(NotImplementedError, match="distributed layer"):
-        train_cli.main(base + ["--dp", "2"])
+    with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
+        train_cli.main(base + ["--dp", "2"])  # a mesh this one process cannot fill
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_cli.main([a for a in base if a not in ("--device", "cpu")])
