@@ -219,7 +219,8 @@ measured in that run. Phases:
      all-gathers CUDA tensors in bf16 and f32; the slice's chunk
      (ground_windows, 57 windows, int8, W8A8 prefill, KV8) cut to
      P19_LAYERS layers under meshes (1,1,2), (2,1,1) and (1,2,1), each
-     after one untimed chunk on it, each rank's greedy decode held against
+     after the rank's one untimed chunk without a mesh and one small
+     collective on each of the mesh's groups, each rank's greedy decode held against
      the one-rank run of the same tree in this process (hold_sharded: under
      (2,1,1) and (1,2,1) the logits, tokens, answers and entropies equal;
      under (1,1,2), whose ranks sum in another order, every step's logits
@@ -414,12 +415,13 @@ def ptxas_entries(text):
     return out
 
 
-# the kernels that must not spill: the attention kernels, K1's, row 7's and
-# row 8's three
+# the kernels that must not spill: the attention kernels, K1's, row 7's,
+# row 8's three and K3's at group 16
 ROW8_KERNELS = ("mlp_transpose_kernel", "mlp_gemm_kernel", "mlp_quant_kernel")
 NO_SPILL_KERNELS = {**ATTENTION_KERNELS,
                     "q8_matmul_kernel": ("int8_matmul", "q8_matmul_smem_bytes", ()),
                     "q4_matmul_kernel": ("int4_matmul", "q4_matmul_smem_bytes", ()),
+                    "decode_attn_kernel_g16": ("decode_attention", "decode_attn_g16_smem_bytes", ()),
                     "mlp_gemm_kernel": ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (0,)),
                     "mlp_transpose_kernel": ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (1,)),
                     "mlp_quant_kernel": ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (2,))}
@@ -818,11 +820,35 @@ def check_k3_group16(dev, gen, iters):
     (live lengths 408-428), G 12, the last step: held by the rows 4-6 limits
     per (row, head, query) vector against its plain version with K3's
     planted faults, max abs error 1e-2, two calls bit-identical; timed
-    beside its plain version, with its bound from the bytes it reads."""
+    beside its plain version and SDPA, with its bound from the bytes it
+    reads; its grid, cluster and resident clusters printed (the split
+    against ops/decode_attention.py's mirror). Then KH 1 (tensor
+    parallelism 2) the same way, untimed, and the kernel's edge cases: a
+    bf16 prompt cache, ranks with no live position, ranks of three rounds,
+    NaN scales past mask_lens."""
+    import ctypes
+
+    import torch
     from revisionllm_tpu_torch.ops import decode_attention as DA
+    from revisionllm_tpu_torch.utils import kernels
 
     B, KH, group, hd = GLM_B, 2, 16, 128
     S, G, step = GLM_PROMPT + GLM_PREFIX, GLM_TOKENS, GLM_TOKENS - 1
+    split = kernels.function("decode_attention", "decode_attn_g16_split",
+                             [ctypes.c_int, ctypes.c_int])(S, step)
+    if split != DA.g16_split(S, step):
+        raise AssertionError(f"K3 group 16: the kernel splits an item over {split} ranks, "
+                             f"the mirror over {DA.g16_split(S, step)}")
+    resident = kernels.function("decode_attention", "decode_attn_g16_max_clusters",
+                                [ctypes.c_int, ctypes.c_int])(split, 1)
+    if resident < 1:
+        raise AssertionError(f"K3 group 16: clusters of {split} blocks do not fit ({resident})")
+    smem = kernels.function("decode_attention", "decode_attn_g16_smem_bytes", [])()
+    for kh in (KH, 1):
+        say(f"decode_attention group 16 KH={kh}: grid ({split}, {B * kh}) = {split * B * kh} "
+            f"blocks of {32 * DA.KG16_WARPS} threads, clusters of ({split}, 1, 1), "
+            f"{smem} B shared memory a block; {resident} clusters resident at "
+            f"once ({B * kh} launched: {'one wave' if B * kh <= resident else 'more than one wave'})")
     args = (*k3_inputs(gen, B, KH, S, G, group, S - 20, dev), step)
     got = DA.decode_attention(*args)
     want = DA.decode_attention_plain(*args)
@@ -840,19 +866,48 @@ def check_k3_group16(dev, gen, iters):
               + B * (step + 1) * KH * hd * 2 * 2 + B * 4)
     b, by = bound(nbytes, 4.0 * KH * group * hd * (plen + B * (step + 1)))
     say(f"{label}: max_abs_err {err:.3e} (tol 1.0e-02) kernel {ms:.4f} ms plain {plain:.4f} ms "
-        f"sdpa(dequantized, GQA, approx) {lib:.4f} ms bound {b:.4f} ms ({by}), smem "
-        f"{DA.smem_bytes(S, G, group)} B a block")
-    # ChatGLM2 under tensor parallelism 2: one kv head a rank (the wrapper
-    # pads the scales' head axis to the TMA's 4)
+        f"sdpa(dequantized, GQA, approx) {lib:.4f} ms bound {b:.4f} ms ({by})")
+    # ChatGLM2 under tensor parallelism 2: one kv head a rank
     args1 = (*k3_inputs(gen, B, 1, S, G, group, S - 20, dev), step)
     got1 = DA.decode_attention(*args1)
     err1 = (got1.float() - DA.decode_attention_plain(*args1).float()).abs().max().item()
     label1 = f"decode_attention group 16 KH=1 (ChatGLM2 at tp 2) B={B} S={S} step={step}"
     if not err1 <= 1e-2:
         raise AssertionError(f"{label1}: max_abs_err {err1} > 1e-2")
-    hold_k3(label1, got1, DA.decode_attention_plain(*args1))
+    hold_k3(label1, got1, DA.decode_attention_plain(*args1),
+            k3_faults(args1, DA.decode_attention_plain))
     same_bits(label1, (got1,), (DA.decode_attention(*args1),))
     say(f"{label1}: max_abs_err {err1:.3e} (tol 1.0e-02)")
+    # the kernel's edge cases, untimed: KV8 off (a bf16 prompt cache), live
+    # lengths of 0-3 (ranks with no live position), 1100 positions (each
+    # rank three rounds, streamed twice), and NaN scales and K/V past
+    # mask_lens (a padded cache: the kernel reads those rows and must not
+    # use them; the plain version, whose p1 * v_scale is 0 * NaN there, is
+    # held on the same inputs with those scales set to 1)
+    for name, quant, S2, low, G2, step2 in (("bf16 prompt", False, S, S - 20, G, step),
+                                            ("empty ranks", True, S, 0, G, 0),
+                                            ("three rounds a rank", True, 1100, 1000, 8, 5),
+                                            ("NaN past the mask", True, S, S - 60, G, step)):
+        a2 = list(k3_inputs(gen, B, KH, S2, G2, group, low, dev, quant)) + [step2]
+        if name == "empty ranks":
+            a2[7] = torch.randint(0, 4, (B,), generator=gen, device=dev, dtype=torch.int32)
+        want_args = a2
+        if name == "NaN past the mask":
+            past = torch.arange(S2, device=dev)[None, :] >= a2[7][:, None]  # [B, S]
+            want_args = list(a2)
+            want_args[3], want_args[4] = (t.masked_fill(past[..., None], 1.0) for t in a2[3:5])
+            a2[3], a2[4] = (t.masked_fill(past[..., None], float("nan")) for t in a2[3:5])
+            a2[1], a2[2] = (t.masked_fill(past[..., None, None], -128) for t in a2[1:3])
+        got2 = DA.decode_attention(*a2)
+        want2 = DA.decode_attention_plain(*want_args)
+        e2 = (got2.float() - want2.float()).abs().max().item()
+        lab = f"decode_attention group 16 {name} B={B} KH={KH} S={S2} step={step2}"
+        if not e2 <= 1e-2:
+            raise AssertionError(f"{lab}: max_abs_err {e2} > 1e-2")
+        hold_k3(lab, got2, want2)
+        same_bits(lab, (got2,), (DA.decode_attention(*a2),))
+        say(f"{lab}: max_abs_err {e2:.3e} (tol 1.0e-02)")
+        err1 = max(err1, e2)
     return {"g16_err": max(err, err1), "g16_ms": ms, "g16_plain_ms": plain, "g16_bound_ms": b,
             "g16_library_ms": lib}
 
@@ -5138,7 +5193,9 @@ def phase_glm(dev, tmp, smi):
     build_test_model tokenizer written here; generate 12 greedy tokens with
     the prefix and without: prefill and decode-step ms, launches of K1, K2,
     K3 and row 6 (fails unless K3 ran 28 x 11 times, row 6 28 times with
-    the prefix and K2 28 times without), peak memory; then glm_compare."""
+    the prefix and K2 28 times without), peak memory, with the prefix a
+    decode step's busy time and K3's share under the profiler; then
+    glm_compare."""
     import torch
     from revisionllm_tpu_torch.config import LlamaConfig
     from revisionllm_tpu_torch.models import generation, llama, prefix
@@ -5184,6 +5241,17 @@ def phase_glm(dev, tmp, smi):
             f"a decode step {(ms - pre_ms) / (G - 1):.2f} ms (the rest over {G - 1} steps); "
             f"peak {peak:.2f} GiB; launches {launches}; row 0's tokens "
             f"{out['tokens'][0].tolist()}")
+        if p is not None:
+            # the device's busy time a decode step and K3's share, under the
+            # profiler: one generate less one prefill, over G - 1 steps
+            _, gen_busy, gen_ev = profiled(run)
+            _, pre_busy, pre_ev = profiled(lambda: llama.prefill_kv(
+                cfg, params, embeds, pos, kv_lens=lens_d, kv_quant=True, prefix_kv=p))
+            k3 = "K3 decode_attention"
+            k3_ms = group_kernels(gen_ev)[0][k3][0] - group_kernels(pre_ev)[0][k3][0]
+            say(f"GLM generate ({what}): a decode step {(gen_busy - pre_busy) / (G - 1):.3f} ms "
+                f"busy, K3 {k3_ms / (G - 1):.4f} ms of it ({L} launches a step, "
+                f"{k3_ms / (L * (G - 1)):.4f} ms each)")
         bad = {k: launches.get(k, 0) for k, n in want[label].items() if launches.get(k, 0) != n}
         if launches.get("decode_attention", 0) != L * (G - 1):
             bad["decode_attention"] = launches.get("decode_attention", 0)
@@ -5362,14 +5430,27 @@ def p19_hold_grads(tag, got, want):
     return abs(lg - lw) / abs(lw), worst, rel[worst]
 
 
+def p19_warm_groups(mesh, dev):
+    """One small all-reduce on each process group of `mesh`: NCCL makes a
+    group's communicator at its first collective (gloo when the group is
+    made), which the timed chunk would otherwise pay for."""
+    import torch
+    import torch.distributed as dist
+
+    for axis in ("data", "fsdp", "tensor", "batch", "world"):
+        dist.all_reduce(torch.zeros(1, device=dev), group=mesh.group(axis))
+
+
 def p19_rank(layers, meshes, train_meshes, ref_path, paths):
     """One rank of phase 19 (or of scripts/torch_parallel_4gpu.py): the
     backend check; the slice's chunk at `layers` layers under each mesh of
     `meshes`, its greedy decode held against the one-rank run's logits in
-    `ref_path` (this rank's rows, hold_sharded), timed after an untimed
-    chunk on the mesh, with the chunk's collectives and kernel launches;
-    then the train step's gradients under each of `train_meshes`, timed
-    after an untimed step (rank 0 returns them). The parent reports."""
+    `ref_path` (this rank's rows, hold_sharded), timed after the process's
+    one untimed chunk without a mesh (its first kernel calls) and one small
+    collective on each of the mesh's groups (p19_warm_groups), with the
+    chunk's collectives and kernel launches; then the train step's
+    gradients under each of `train_meshes`, timed after an untimed step
+    (rank 0 returns them). The parent reports."""
     import torch
     import torch.distributed as dist
     from revisionllm_tpu_torch.eval.engine import GroundingEngine
@@ -5383,13 +5464,13 @@ def p19_rank(layers, meshes, train_meshes, ref_path, paths):
     out = {"rank": rank, "check": p19_check_collectives(dev), "serve": [], "train": []}
     eng, movie, qf, qc = slice_setup(dev, layers, tag=f"phase 19 rank {rank}")
     ref = torch.load(ref_path)
+    if meshes:  # the process's first kernel calls, untimed, on its own
+        eng.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
     for shape in meshes:
         mesh = mesh_lib.create_mesh(*shape)
         e = GroundingEngine(eng.llama_cfg, eng.adapter_cfg, eng.params, eng.vision_params,
                             eng.tokenizer, eng.eval_cfg, device=dev, mesh=mesh)
-        # one untimed chunk on this mesh first (the process's first kernel
-        # calls; the groups' communicators are made at their first collective)
-        e.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
+        p19_warm_groups(mesh, dev)
         dist.barrier()
         kernels.reset_launches()
         comm.reset_stats(timed=True)

@@ -27,10 +27,24 @@ KWARPS, KSTAGES, KTILE, SST = 4, 3, 8192, 4
 SMEM_MAX = 227 * 1024
 # the query heads a kv head that K3 is built for (16: ChatGLM2's 32 over 2)
 K3_GROUPS = (1, 2, 4, 8, 16)
+# group 16's kernel (decode_attn_kernel_g16), mirrored: warps a block,
+# positions a warp's slice, position rounds in flight, ranks (blocks of a
+# thread-block cluster) an item's walk is split over at most, bytes a staged
+# K or V row
+KG16_WARPS, KG16_SLICE, KG16_STAGES, KG16_CLUSTER, KG16_ROW = 4, 16, 2, 8, 272
+KG16_ROUND = KG16_WARPS * KG16_SLICE  # positions a round
+
+
+def g16_split(S: int, step: int) -> int:
+    """The ranks group 16's kernel splits each (row, kv head) item over: one
+    round of KG16_ROUND positions a rank while S + step + 1 allows, at most
+    KG16_CLUSTER (g16_split in csrc/decode_attention.cu)."""
+    return min(KG16_CLUSTER, -(-(S + step + 1) // KG16_ROUND))
 
 
 def smem_bytes(S: int, G: int, group: int, hd: int = 128) -> int:
-    """K3's dynamic shared memory (k3_smem): the ring's tiles, scales and
+    """K3's dynamic shared memory at groups 1-8 (k3_smem; group 16's is a
+    constant, KG16_SMEM): the ring's tiles, scales and
     barriers, q for two items, the scores [group, S + G], the warps' partial
     outputs, maxima and denominators, and the alignment slack."""
     return (128 + KSTAGES * (KTILE + KTILE // hd * SST * 4 + 16) + 4 * 2 * group * hd
@@ -114,7 +128,9 @@ def decode_attention(
         and (k_scale is None) == (not quantized) and (v_scale is None) == (not quantized)
         and (not quantized or (k_scale.shape == (B, S, KH) and v_scale.shape == (B, S, KH)
                                and k_scale.dtype == torch.float32 and v_scale.dtype == torch.float32))
-        and all(t.device == dev and t.is_contiguous() and t.data_ptr() % 16 == 0
+        and all(t.device == dev and t.is_contiguous() for t in (q,) + caches)
+        # 16-byte rows and copies; group 16 reads each scale alone (4 bytes)
+        and all(t.data_ptr() % (4 if group == 16 and t.dtype == torch.float32 else 16) == 0
                 for t in (q,) + caches)
     ):
         raise ValueError(
@@ -122,12 +138,13 @@ def decode_attention(
             "prompt k/v [B, S, KH, hd] int8 with f32 scales [B, S, KH] (or bf16 without), "
             "bf16 gen k/v [B, G, KH, hd] on one device"
         )
-    smem = smem_bytes(S, G, group, hd)
-    if smem > SMEM_MAX:
-        raise ValueError(f"decode_attention kernel: S={S} needs {smem} B of shared memory")
-    if quantized and KH % SST:
-        # the kernel reads the scales of SST heads a position (a TMA row is a
-        # multiple of 16 bytes): pad KH 2 (ChatGLM2) to 4 heads
+    if group != 16 and smem_bytes(S, G, group, hd) > SMEM_MAX:
+        raise ValueError(f"decode_attention kernel: S={S} needs {smem_bytes(S, G, group, hd)} B "
+                         "of shared memory")
+    if quantized and KH % SST and group != 16:
+        # groups 1-8 read the scales of SST heads a position (a TMA row is a
+        # multiple of 16 bytes): pad KH to a multiple of 4 heads (group 16
+        # reads each scale in place)
         pad = (0, -KH % SST)
         k_scale, v_scale = (torch.nn.functional.pad(t, pad).contiguous() for t in (k_scale, v_scale))
     lens = mask_lens.to(device=dev, dtype=torch.int32).contiguous()

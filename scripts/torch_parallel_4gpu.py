@@ -6,7 +6,8 @@
 Runs chip_smoke.py's phase 19 (phase_parallel) with four ranks, one a card,
 over NCCL: the stage-1 chunk of the 1-hour movie (57 windows, int8, W8A8
 prefill, KV8) at Vicuna-7B width and `--layers` depth under mesh (1,1,4)
-and (4,1,1), each timed after one untimed chunk and held against the
+and (4,1,1), each timed after the rank's one untimed chunk without a mesh
+and one small all-reduce on each of the mesh's groups, and held against the
 one-rank run on card 0 (hold_sharded: (4,1,1) bit for bit, (1,1,4) by its
 logits and greedy tokens at every step), and one 2-layer stage-1 QLoRA
 step under mesh (2,1,2), timed after an untimed one, against the one-rank
