@@ -1,0 +1,18 @@
+"""mfu.serve: the least time the chip could do the window's model arithmetic
+in (benchlib.roofline.query_least_s: each query's live windows through the
+adapter, the int8 prefill of their live positions, the lm_head and the
+decode steps, each at the precision the configuration runs it), as a share
+of the untraced window's seconds on the host's clock. Moves queries_per_s."""
+
+from benchlib.roofline import query_least_s
+
+
+def read(run):
+    cell, recs = run["cell"], run["records"]
+    if not recs or not run["window_s"]:
+        return None
+    ev = cell["traffic"]["eval"]
+    least = sum(query_least_s(cell["dims"], cell["adapter"], r["windows"], r["live"],
+                              r["text_tokens"], ev["num_frames"], ev["max_new_tokens"])
+                for r in recs)
+    return 100.0 * least / run["window_s"]
