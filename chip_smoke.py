@@ -5441,6 +5441,15 @@ def p19_warm_groups(mesh, dev):
         dist.all_reduce(torch.zeros(1, device=dev), group=mesh.group(axis))
 
 
+def collective_ms() -> float:
+    """The collectives' summed ms since the last spans.reset(), from their
+    `comm.*` spans: on the device's clock, on the host's for CPU tensors."""
+    from revisionllm_tpu_torch.utils import spans
+
+    rows = [r for n, r in spans.summary().items() if n.startswith("comm.")]
+    return sum(r["host_ms"] if r["device_ms"] is None else r["device_ms"] for r in rows)
+
+
 def p19_rank(layers, meshes, train_meshes, ref_path, paths):
     """One rank of phase 19 (or of scripts/torch_parallel_4gpu.py): the
     backend check; the slice's chunk at `layers` layers under each mesh of
@@ -5456,7 +5465,7 @@ def p19_rank(layers, meshes, train_meshes, ref_path, paths):
     from revisionllm_tpu_torch.eval.engine import GroundingEngine
     from revisionllm_tpu_torch.parallel import comm
     from revisionllm_tpu_torch.parallel import mesh as mesh_lib
-    from revisionllm_tpu_torch.utils import kernels
+    from revisionllm_tpu_torch.utils import kernels, spans
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5473,14 +5482,15 @@ def p19_rank(layers, meshes, train_meshes, ref_path, paths):
         p19_warm_groups(mesh, dev)
         dist.barrier()
         kernels.reset_launches()
-        comm.reset_stats(timed=True)
+        comm.reset_stats()
+        spans.reset()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with LogitTrace() as trace:
+        with LogitTrace() as trace, spans.enabled():
             res = e.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
-        coll_ms = comm.collective_ms()
+        coll_ms = collective_ms()
         stats, launches = dict(comm.STATS), dict(kernels.LAUNCHES)
         comm.reset_stats()
         check_result(res, 57)
@@ -5502,9 +5512,11 @@ def p19_rank(layers, meshes, train_meshes, ref_path, paths):
             p19_grads(run, batch, dev, mesh)  # untimed: the groups' first collectives
             dist.barrier()
             kernels.reset_launches()
-            comm.reset_stats(timed=True)
-            loss, grads, ms = p19_grads(run, batch, dev, mesh)
-            coll_ms = comm.collective_ms()
+            comm.reset_stats()
+            spans.reset()
+            with spans.enabled():
+                loss, grads, ms = p19_grads(run, batch, dev, mesh)
+            coll_ms = collective_ms()
             out["train"].append({"shape": shape, "loss": loss, "ms": ms,
                                  "collective_ms": coll_ms, "stats": dict(comm.STATS),
                                  "launches": dict(kernels.LAUNCHES),

@@ -27,6 +27,12 @@ they divide (stage 1's chunk of 64 does; a stage-2 row bucket may not, and
 then every rank runs every row), with the outputs gathered so that every
 rank reads the whole chunk. There is no compiled-program cache (PyTorch
 runs eagerly), so the movie is not padded to a length bucket.
+
+Every entry point is the root span of a request (utils/spans.py), with
+`engine.plan` (the host's planning and what it ships), one `engine.chunk`
+a call enqueued (its rows and positions, live and padded), one
+`engine.read` a chunk read back, and `engine.finalize` (the scoring tail)
+beneath it.
 """
 
 from __future__ import annotations
@@ -48,6 +54,7 @@ from revisionllm_tpu_torch.ops import windows as W
 from revisionllm_tpu_torch.parallel.mesh import batch_sharding
 from revisionllm_tpu_torch.parallel.serve import gather_outputs, shard_params_for_inference
 from revisionllm_tpu_torch.tokenization import tokenizer_image_token
+from revisionllm_tpu_torch.utils import spans
 from revisionllm_tpu_torch.utils.device import resolve_device
 
 
@@ -124,8 +131,10 @@ class GroundingEngine:
         key = (movie_key,) + tuple(features.shape)
         if movie_key is not None and self._feats_cache is not None \
                 and self._feats_cache[0] == key:
+            spans.note(shipped_bytes=0)
             return self._feats_cache[1]
         dev = torch.as_tensor(np.asarray(features, np.float32), device=self.device)
+        spans.note(shipped_bytes=dev.numel() * dev.element_size())
         if movie_key is not None:
             self._feats_cache = (key, dev)
         return dev
@@ -165,39 +174,46 @@ class GroundingEngine:
         return int(vid_pos[0]) if len(vid_pos) else 0
 
     def _run_chunk(self, plan_np: Dict[str, np.ndarray], rows: np.ndarray,
-                   feats_dev: torch.Tensor, qf, qv) -> Dict[str, torch.Tensor]:
+                   feats_dev: torch.Tensor, qf, qv, n_live: int) -> Dict[str, torch.Tensor]:
         """Enqueue one chunk: ship its splice plan, gather its windows from
         the resident movie by the int32 index rows ([B, T] for stage 1,
         [R, V, T] for stage 2), then adapter, splice and decode. A plan with
         "qsel" (a multi-query chunk) picks each row's query features from
         the [Q, Qt, d] stack qf. Under a mesh this rank runs its rows of the
-        chunk and the outputs are gathered (module docstring)."""
-        spl = self._shared_prefix_len(plan_np)
-        shard, B = batch_sharding(self.mesh), len(rows)
-        if shard.splits(B):
-            if qf is not None and "qsel" not in plan_np:
-                qf, qv = shard.local(qf, B), shard.local(qv, B)
-            plan_np = {k: shard.local(v, B) for k, v in plan_np.items()}
-            rows = shard.local(rows, B)
-        plan = {k: torch.as_tensor(v, device=self.device) for k, v in plan_np.items()}
-        qsel = plan.pop("qsel", None)
-        if qsel is not None:
-            qf, qv = qf[qsel.long()], qv[qsel.long()]
-        images = W.gather_windows(feats_dev, rows).to(self.dtype)
-        out = revisionllm.generate_grounding(
-            self.llama_cfg, self.adapter_cfg, self.params, self.vision_params,
-            plan, images, qf, qv, eos_id=self.eos_id,
-            max_new_tokens=self.eval_cfg.max_new_tokens,
-            temperature=0.0 if self.eval_cfg.greedy else self.eval_cfg.temperature,
-            shared_prefix_len=spl, mesh=self.mesh,
-        )
-        return gather_outputs(out, shard, B)
+        chunk and the outputs are gathered (module docstring). The first
+        `n_live` rows are wanted, the rest pad the chunk: the `engine.chunk`
+        span counts the chunk's rows and positions, and the live ones'."""
+        lengths = plan_np["lengths"]
+        with spans.span("engine.chunk", device=self.device, rows=len(lengths),
+                        live_rows=n_live, positions=int(plan_np["kind"].size),
+                        live_positions=int(lengths[:n_live].sum())):
+            spl = self._shared_prefix_len(plan_np)
+            shard, B = batch_sharding(self.mesh), len(rows)
+            if shard.splits(B):
+                if qf is not None and "qsel" not in plan_np:
+                    qf, qv = shard.local(qf, B), shard.local(qv, B)
+                plan_np = {k: shard.local(v, B) for k, v in plan_np.items()}
+                rows = shard.local(rows, B)
+            plan = {k: torch.as_tensor(v, device=self.device) for k, v in plan_np.items()}
+            qsel = plan.pop("qsel", None)
+            if qsel is not None:
+                qf, qv = qf[qsel.long()], qv[qsel.long()]
+            images = W.gather_windows(feats_dev, rows).to(self.dtype)
+            out = revisionllm.generate_grounding(
+                self.llama_cfg, self.adapter_cfg, self.params, self.vision_params,
+                plan, images, qf, qv, eos_id=self.eos_id,
+                max_new_tokens=self.eval_cfg.max_new_tokens,
+                temperature=0.0 if self.eval_cfg.greedy else self.eval_cfg.temperature,
+                shared_prefix_len=spl, mesh=self.mesh,
+            )
+            return gather_outputs(out, shard, B)
 
     def _read_chunk(self, out) -> Tuple[List[str], np.ndarray]:
-        tokens = out["tokens"].cpu().numpy()
-        valid = out["valid"].cpu().numpy()
-        stats = out["entropy_stats"].cpu().numpy()
-        return self._decode_answers(tokens, valid), stats
+        with spans.span("engine.read"):
+            tokens = out["tokens"].cpu().numpy()
+            valid = out["valid"].cpu().numpy()
+            stats = out["entropy_stats"].cpu().numpy()
+            return self._decode_answers(tokens, valid), stats
 
     def _broadcast_query_feats(self, query_feats: np.ndarray, n: int):
         """Ship the [Q, d] query features once and broadcast them to
@@ -272,36 +288,40 @@ class GroundingEngine:
         features [ctx_l, d] (full movie). Returns answers, per-window entropy
         scores, proposal frames and cosine scores."""
         ecfg = self.eval_cfg
-        plan_idx = self._stage1_plan_idx(len(features))
-        if not len(plan_idx):
-            return {"answers": [], "scores_entropy": [], "score_cos": [], "frames": {}}
-        feats_dev = self._features_to_device(features, movie_key)
-        ids = self._prompt_ids(sentence, QUESTIONS[question_key])
-        chunk = max(ecfg.batch, 1)
-        n = len(plan_idx)
-        plan = build_splice_plan(
-            ids, ecfg.num_frames, len(ids) - 1 + ecfg.num_frames + ecfg.max_new_tokens
-        )
-        plan_np = stack_plans([plan] * chunk)
-        qf = qv = None
-        if query_feats is not None:
-            qf, qv = self._broadcast_query_feats(query_feats, chunk)
+        with spans.span("engine.ground_windows"):
+            with spans.span("engine.plan"):
+                plan_idx = self._stage1_plan_idx(len(features))
+                if not len(plan_idx):
+                    return {"answers": [], "scores_entropy": [], "score_cos": [], "frames": {}}
+                feats_dev = self._features_to_device(features, movie_key)
+                ids = self._prompt_ids(sentence, QUESTIONS[question_key])
+                chunk = max(ecfg.batch, 1)
+                n = len(plan_idx)
+                plan = build_splice_plan(
+                    ids, ecfg.num_frames, len(ids) - 1 + ecfg.num_frames + ecfg.max_new_tokens
+                )
+                plan_np = stack_plans([plan] * chunk)
+                qf = qv = None
+                if query_feats is not None:
+                    qf, qv = self._broadcast_query_feats(query_feats, chunk)
+            spans.note(windows=n)
 
-        pending = []
-        for start in range(0, n, chunk):
-            end = min(start + chunk, n)
-            rows = plan_idx[start:end]
-            if len(rows) < chunk:  # pad the tail chunk to the chunk size
-                rows = np.concatenate([rows, np.repeat(rows[-1:], chunk - len(rows), axis=0)])
-            pending.append((end - start, self._run_chunk(plan_np, rows, feats_dev, qf, qv)))
-        answers: List[str] = []
-        scores_entropy: List[float] = []
-        col = 0 if ecfg.score == "max_entropy" else 2
-        for n_valid, out in pending:
-            chunk_answers, stats = self._read_chunk(out)
-            answers.extend(chunk_answers[:n_valid])
-            scores_entropy.extend(stats[:n_valid, col].tolist())
-        return self._stage1_finalize(answers, scores_entropy, plan_idx, feats_dev, query_cls)
+            pending = []
+            for start in range(0, n, chunk):
+                end = min(start + chunk, n)
+                rows = plan_idx[start:end]
+                if len(rows) < chunk:  # pad the tail chunk to the chunk size
+                    rows = np.concatenate([rows, np.repeat(rows[-1:], chunk - len(rows), axis=0)])
+                pending.append((end - start,
+                                self._run_chunk(plan_np, rows, feats_dev, qf, qv, end - start)))
+            answers: List[str] = []
+            scores_entropy: List[float] = []
+            col = 0 if ecfg.score == "max_entropy" else 2
+            for n_valid, out in pending:
+                chunk_answers, stats = self._read_chunk(out)
+                answers.extend(chunk_answers[:n_valid])
+                scores_entropy.extend(stats[:n_valid, col].tolist())
+            return self._stage1_finalize(answers, scores_entropy, plan_idx, feats_dev, query_cls)
 
     def _stage1_finalize(
         self,
@@ -313,58 +333,61 @@ class GroundingEngine:
     ) -> Dict[str, Any]:
         """Proposal parsing, CLIP cosine scoring of every proposal in one
         device call, normalization and merge."""
-        ecfg = self.eval_cfg
-        frames: Dict[int, Tuple[int, int]] = {}
-        for i, a in enumerate(answers):
-            span = M.parse_span(a)
-            if span is None:
-                continue
-            f, t = span
-            if f == ecfg.num_frames - 1 and t == ecfg.num_frames - 1:
-                continue
-            frames[i] = (f, t)
+        with spans.span("engine.finalize"):
+            ecfg = self.eval_cfg
+            frames: Dict[int, Tuple[int, int]] = {}
+            for i, a in enumerate(answers):
+                span = M.parse_span(a)
+                if span is None:
+                    continue
+                f, t = span
+                if f == ecfg.num_frames - 1 and t == ecfg.num_frames - 1:
+                    continue
+                frames[i] = (f, t)
+            spans.note(proposals=len(frames))
 
-        score_cos: List[float] = []
-        if query_cls is not None and frames:
-            maxlen = ecfg.num_frames
-            P = len(frames)
-            prop_idx = np.zeros((P, maxlen), np.int64)
-            valid = np.zeros((P, maxlen), bool)
-            for j, (i, (f, t)) in enumerate(frames.items()):
-                row = plan_idx[i][f : t + 1]
-                prop_idx[j, : len(row)] = row
-                valid[j, : len(row)] = True
-            score_cos = self._cosine_scores(feats_dev, prop_idx, valid, query_cls)
+            score_cos: List[float] = []
+            if query_cls is not None and frames:
+                maxlen = ecfg.num_frames
+                P = len(frames)
+                prop_idx = np.zeros((P, maxlen), np.int64)
+                valid = np.zeros((P, maxlen), bool)
+                for j, (i, (f, t)) in enumerate(frames.items()):
+                    row = plan_idx[i][f : t + 1]
+                    prop_idx[j, : len(row)] = row
+                    valid[j, : len(row)] = True
+                score_cos = self._cosine_scores(feats_dev, prop_idx, valid, query_cls)
 
-        kept_entropy = [scores_entropy[i] for i in frames]
-        if ecfg.normalize:
-            if score_cos:
-                m_s = max(score_cos)
-                if m_s != 0:
-                    score_cos = [e / m_s for e in score_cos]
-            if kept_entropy:
-                m_s = max(kept_entropy)
-                if m_s != 0:
-                    kept_entropy = [e / m_s for e in kept_entropy]
+            kept_entropy = [scores_entropy[i] for i in frames]
+            if ecfg.normalize:
+                if score_cos:
+                    m_s = max(score_cos)
+                    if m_s != 0:
+                        score_cos = [e / m_s for e in score_cos]
+                if kept_entropy:
+                    m_s = max(kept_entropy)
+                    if m_s != 0:
+                        kept_entropy = [e / m_s for e in kept_entropy]
 
-        if "entropy" in ecfg.score:
-            if ecfg.score_merge == "add":
-                scores = [a - b for a, b in zip(score_cos, kept_entropy)] if score_cos else [-e for e in kept_entropy]
-            elif ecfg.score_merge == "multiply" and score_cos:
-                scores = [a / b if b else a for a, b in zip(score_cos, kept_entropy)]
+            if "entropy" in ecfg.score:
+                if ecfg.score_merge == "add":
+                    scores = ([a - b for a, b in zip(score_cos, kept_entropy)] if score_cos
+                              else [-e for e in kept_entropy])
+                elif ecfg.score_merge == "multiply" and score_cos:
+                    scores = [a / b if b else a for a, b in zip(score_cos, kept_entropy)]
+                else:
+                    scores = [-e for e in kept_entropy]
             else:
-                scores = [-e for e in kept_entropy]
-        else:
-            scores = score_cos
+                scores = score_cos
 
-        return {
-            "answers": answers,
-            "frames": frames,
-            "scores": scores,
-            "scores_entropy": scores_entropy,
-            "score_cos": score_cos,
-            "num_windows": len(plan_idx),
-        }
+            return {
+                "answers": answers,
+                "frames": frames,
+                "scores": scores,
+                "scores_entropy": scores_entropy,
+                "score_cos": score_cos,
+                "num_windows": len(plan_idx),
+            }
 
     def ground_windows_batch(
         self,
@@ -386,48 +409,54 @@ class GroundingEngine:
         Q = len(queries)
         if Q == 0:
             return []
-        plan_idx = self._stage1_plan_idx(len(features))
-        if not len(plan_idx):
-            return [{"answers": [], "scores_entropy": [], "score_cos": [], "frames": {}}
-                    for _ in range(Q)]
-        feats_dev = self._features_to_device(features, movie_key)
-        chunk = max(ecfg.batch, 1)
-        n = len(plan_idx)
-        ids_list = [self._prompt_ids(q["sentence"], QUESTIONS[question_key]) for q in queries]
-        max_len = max(len(i) for i in ids_list) - 1 + ecfg.num_frames + ecfg.max_new_tokens
-        plans = [build_splice_plan(ids, ecfg.num_frames, max_len) for ids in ids_list]
-        qf_all, qv_all = self._query_feats_stack(queries, features.shape[-1], "ground_windows_batch")
+        with spans.span("engine.ground_windows_batch"):
+            with spans.span("engine.plan"):
+                plan_idx = self._stage1_plan_idx(len(features))
+                if not len(plan_idx):
+                    return [{"answers": [], "scores_entropy": [], "score_cos": [], "frames": {}}
+                            for _ in range(Q)]
+                feats_dev = self._features_to_device(features, movie_key)
+                chunk = max(ecfg.batch, 1)
+                n = len(plan_idx)
+                ids_list = [self._prompt_ids(q["sentence"], QUESTIONS[question_key])
+                            for q in queries]
+                max_len = (max(len(i) for i in ids_list) - 1 + ecfg.num_frames
+                           + ecfg.max_new_tokens)
+                plans = [build_splice_plan(ids, ecfg.num_frames, max_len) for ids in ids_list]
+                qf_all, qv_all = self._query_feats_stack(queries, features.shape[-1],
+                                                         "ground_windows_batch")
+            spans.note(windows=Q * n)
 
-        row_q = np.repeat(np.arange(Q, dtype=np.int32), n)
-        row_w = np.tile(np.arange(n, dtype=np.int32), Q)
-        total = Q * n
-        pending = []
-        for start in range(0, total, chunk):
-            end = min(start + chunk, total)
-            sel_q, sel_w = row_q[start:end], row_w[start:end]
-            if end - start < chunk:  # pad the tail chunk to the chunk size
-                pad = chunk - (end - start)
-                sel_q = np.concatenate([sel_q, np.repeat(sel_q[-1:], pad)])
-                sel_w = np.concatenate([sel_w, np.repeat(sel_w[-1:], pad)])
-            plan_np = stack_plans([plans[qi] for qi in sel_q])
-            if qf_all is not None:
-                plan_np["qsel"] = sel_q
-            pending.append((end - start,
-                            self._run_chunk(plan_np, plan_idx[sel_w], feats_dev, qf_all, qv_all)))
+            row_q = np.repeat(np.arange(Q, dtype=np.int32), n)
+            row_w = np.tile(np.arange(n, dtype=np.int32), Q)
+            total = Q * n
+            pending = []
+            for start in range(0, total, chunk):
+                end = min(start + chunk, total)
+                sel_q, sel_w = row_q[start:end], row_w[start:end]
+                if end - start < chunk:  # pad the tail chunk to the chunk size
+                    pad = chunk - (end - start)
+                    sel_q = np.concatenate([sel_q, np.repeat(sel_q[-1:], pad)])
+                    sel_w = np.concatenate([sel_w, np.repeat(sel_w[-1:], pad)])
+                plan_np = stack_plans([plans[qi] for qi in sel_q])
+                if qf_all is not None:
+                    plan_np["qsel"] = sel_q
+                pending.append((end - start, self._run_chunk(plan_np, plan_idx[sel_w], feats_dev,
+                                                             qf_all, qv_all, end - start)))
 
-        col = 0 if ecfg.score == "max_entropy" else 2
-        answers_all: List[str] = []
-        entropy_all: List[float] = []
-        for n_valid, out in pending:
-            chunk_answers, stats = self._read_chunk(out)
-            answers_all.extend(chunk_answers[:n_valid])
-            entropy_all.extend(stats[:n_valid, col].tolist())
-        return [
-            self._stage1_finalize(answers_all[qi * n : (qi + 1) * n],
-                                  entropy_all[qi * n : (qi + 1) * n], plan_idx, feats_dev,
-                                  q.get("query_cls"))
-            for qi, q in enumerate(queries)
-        ]
+            col = 0 if ecfg.score == "max_entropy" else 2
+            answers_all: List[str] = []
+            entropy_all: List[float] = []
+            for n_valid, out in pending:
+                chunk_answers, stats = self._read_chunk(out)
+                answers_all.extend(chunk_answers[:n_valid])
+                entropy_all.extend(stats[:n_valid, col].tolist())
+            return [
+                self._stage1_finalize(answers_all[qi * n : (qi + 1) * n],
+                                      entropy_all[qi * n : (qi + 1) * n], plan_idx, feats_dev,
+                                      q.get("query_cls"))
+                for qi, q in enumerate(queries)
+            ]
 
     def caption_windows(self, features: np.ndarray, prompt: Optional[str] = None,
                         movie_key=None) -> Dict[str, Any]:
@@ -438,31 +467,35 @@ class GroundingEngine:
         padded by repeating its last row. A caption is at most
         eval_cfg.max_new_tokens long."""
         ecfg = self.eval_cfg
-        clip_length = int(ecfg.debug_window * ecfg.feature_fps)
-        bounds = W.dense_window_bounds(len(features), clip_length)
-        if not bounds:
-            return {"answers": []}
-        plan_idx = np.asarray(W.window_frame_indices(bounds, ecfg.num_frames), np.int32)
-        feats_dev = self._features_to_device(features, movie_key)
-        full = CONV_VICUNA_V1.user_turn_prompt("<video>\n " + (CAPTION_PROMPT if prompt is None
-                                                                  else prompt))
-        ids = tokenizer_image_token(full, self.tokenizer)
-        chunk = max(ecfg.batch, 1)
-        plan = build_splice_plan(
-            ids, ecfg.num_frames, len(ids) - 1 + ecfg.num_frames + ecfg.max_new_tokens
-        )
-        plan_np = stack_plans([plan] * chunk)
-        pending = []
-        for start in range(0, len(bounds), chunk):
-            end = min(start + chunk, len(bounds))
-            rows = plan_idx[start:end]
-            if len(rows) < chunk:
-                rows = np.concatenate([rows, np.repeat(rows[-1:], chunk - len(rows), axis=0)])
-            pending.append((end - start, self._run_chunk(plan_np, rows, feats_dev, None, None)))
-        answers: List[str] = []
-        for n_valid, out in pending:
-            answers.extend(self._read_chunk(out)[0][:n_valid])
-        return {"answers": answers}
+        with spans.span("engine.caption_windows"):
+            with spans.span("engine.plan"):
+                clip_length = int(ecfg.debug_window * ecfg.feature_fps)
+                bounds = W.dense_window_bounds(len(features), clip_length)
+                if not bounds:
+                    return {"answers": []}
+                plan_idx = np.asarray(W.window_frame_indices(bounds, ecfg.num_frames), np.int32)
+                feats_dev = self._features_to_device(features, movie_key)
+                full = CONV_VICUNA_V1.user_turn_prompt(
+                    "<video>\n " + (CAPTION_PROMPT if prompt is None else prompt))
+                ids = tokenizer_image_token(full, self.tokenizer)
+                chunk = max(ecfg.batch, 1)
+                plan = build_splice_plan(
+                    ids, ecfg.num_frames, len(ids) - 1 + ecfg.num_frames + ecfg.max_new_tokens
+                )
+                plan_np = stack_plans([plan] * chunk)
+            spans.note(windows=len(bounds))
+            pending = []
+            for start in range(0, len(bounds), chunk):
+                end = min(start + chunk, len(bounds))
+                rows = plan_idx[start:end]
+                if len(rows) < chunk:
+                    rows = np.concatenate([rows, np.repeat(rows[-1:], chunk - len(rows), axis=0)])
+                pending.append((end - start, self._run_chunk(plan_np, rows, feats_dev, None, None,
+                                                             end - start)))
+            answers: List[str] = []
+            for n_valid, out in pending:
+                answers.extend(self._read_chunk(out)[0][:n_valid])
+            return {"answers": answers}
 
     # ---------------------------------------------------------------- stage 2
 
@@ -538,7 +571,7 @@ class GroundingEngine:
             if qsel:
                 plan_np["qsel"] = np.asarray(sel_q, np.int32)
             pending.append((n_rows, self._run_chunk(plan_np, np.stack(rows, axis=0), feats_dev,
-                                                    qf, qv)))
+                                                    qf, qv, n_rows)))
         answers: List[str] = []
         mean_entropy: List[float] = []
         max_entropy: List[float] = []
@@ -570,28 +603,31 @@ class GroundingEngine:
         from the resident movie. grounding_windows restricts the windows (a
         stage-1 prefilter)."""
         rng = rng or np.random.default_rng(42)
-        win_idx = self._stage2_win_idx(len(features))
-        if grounding_windows is None:
-            grounding_windows = list(range(len(win_idx)))
-        else:
-            win_idx = win_idx[np.asarray(grounding_windows, np.int32)]
-        feats_dev = self._features_to_device(features, movie_key)
-        ids = self._prompt_ids(sentence, QUESTIONS[question_key])
-        starts, indexes, zooms, calls, row_idx = self._stage2_passes(win_idx, rng)
-        num_videos = row_idx[0].shape[0] if row_idx else self.eval_cfg.batch
-        plan = build_splice_plan(
-            ids, num_videos, len(ids) - 1 + num_videos + self.eval_cfg.max_new_tokens
-        )
-        qf = qv = None
-        if query_feats is not None:
-            qf, qv = self._broadcast_query_feats(
-                query_feats, self._stage2_row_bucket(len(row_idx)))
-        answers, mean_entropy, max_entropy = self._run_stage2_rows(
-            row_idx, [plan], [0] * len(row_idx), feats_dev, qf, qv, qsel=False)
-        return self._stage2_finalize(
-            answers, mean_entropy, max_entropy, starts, indexes, zooms, calls, row_idx,
-            grounding_windows, len(win_idx), feats_dev, query_cls,
-        )
+        with spans.span("engine.retrieve"):
+            with spans.span("engine.plan"):
+                win_idx = self._stage2_win_idx(len(features))
+                if grounding_windows is None:
+                    grounding_windows = list(range(len(win_idx)))
+                else:
+                    win_idx = win_idx[np.asarray(grounding_windows, np.int32)]
+                feats_dev = self._features_to_device(features, movie_key)
+                ids = self._prompt_ids(sentence, QUESTIONS[question_key])
+                starts, indexes, zooms, calls, row_idx = self._stage2_passes(win_idx, rng)
+                num_videos = row_idx[0].shape[0] if row_idx else self.eval_cfg.batch
+                plan = build_splice_plan(
+                    ids, num_videos, len(ids) - 1 + num_videos + self.eval_cfg.max_new_tokens
+                )
+                qf = qv = None
+                if query_feats is not None:
+                    qf, qv = self._broadcast_query_feats(
+                        query_feats, self._stage2_row_bucket(len(row_idx)))
+            spans.note(windows=len(win_idx))
+            answers, mean_entropy, max_entropy = self._run_stage2_rows(
+                row_idx, [plan], [0] * len(row_idx), feats_dev, qf, qv, qsel=False)
+            return self._stage2_finalize(
+                answers, mean_entropy, max_entropy, starts, indexes, zooms, calls, row_idx,
+                grounding_windows, len(win_idx), feats_dev, query_cls,
+            )
 
     def _stage2_finalize(
         self,
@@ -614,35 +650,37 @@ class GroundingEngine:
         neighbourhood of the pass's rows is scored by CLIP cosine against
         the query CLS, in one device call; 0.0 for a pass whose answer holds
         no integer."""
-        score_cos: List[float] = []
-        if query_cls is not None and answers:
-            chosen = M.stage2_chosen_windows(
-                answers, starts, indexes, hierarchy_zooms, call_in_zoom, grounding_windows,
-                [ri.shape[0] for ri in row_idx],
-            )
-            to_score = [row_idx[p][n2] for p, ns in enumerate(chosen) if ns for n2 in ns]
-            scores_flat: List[float] = []
-            if to_score:
-                prop_idx = np.stack(to_score, axis=0)
-                scores_flat = self._cosine_scores(
-                    feats_dev, prop_idx, np.ones(prop_idx.shape, bool), query_cls)
-            it = iter(scores_flat)
-            for ns in chosen:
-                if ns is None:
-                    score_cos.append(0.0)
-                else:
-                    score_cos.extend(next(it) for _ in ns)
-        return {
-            "answers": answers,
-            "starts": starts,
-            "indexes": [idx.tolist() for idx in indexes],
-            "hierarchy_zooms": hierarchy_zooms,
-            "mean_entropy": mean_entropy,
-            "max_entropy": max_entropy,
-            "score_cos": score_cos,
-            "grounding_windows": grounding_windows,
-            "num_windows": V,
-        }
+        with spans.span("engine.finalize"):
+            score_cos: List[float] = []
+            if query_cls is not None and answers:
+                chosen = M.stage2_chosen_windows(
+                    answers, starts, indexes, hierarchy_zooms, call_in_zoom, grounding_windows,
+                    [ri.shape[0] for ri in row_idx],
+                )
+                to_score = [row_idx[p][n2] for p, ns in enumerate(chosen) if ns for n2 in ns]
+                spans.note(proposals=len(to_score))
+                scores_flat: List[float] = []
+                if to_score:
+                    prop_idx = np.stack(to_score, axis=0)
+                    scores_flat = self._cosine_scores(
+                        feats_dev, prop_idx, np.ones(prop_idx.shape, bool), query_cls)
+                it = iter(scores_flat)
+                for ns in chosen:
+                    if ns is None:
+                        score_cos.append(0.0)
+                    else:
+                        score_cos.extend(next(it) for _ in ns)
+            return {
+                "answers": answers,
+                "starts": starts,
+                "indexes": [idx.tolist() for idx in indexes],
+                "hierarchy_zooms": hierarchy_zooms,
+                "mean_entropy": mean_entropy,
+                "max_entropy": max_entropy,
+                "score_cos": score_cos,
+                "grounding_windows": grounding_windows,
+                "num_windows": V,
+            }
 
     def retrieve_batch(
         self,
@@ -662,43 +700,49 @@ class GroundingEngine:
         Q = len(queries)
         if Q == 0:
             return []
-        plan_idx = self._stage2_win_idx(len(features))
-        feats_dev = self._features_to_device(features, movie_key)
-        per_q = []
-        for q in queries:
-            gw = q.get("grounding_windows")
-            win_idx = plan_idx
-            if gw is None:
-                gw = list(range(len(plan_idx)))
-            else:
-                win_idx = plan_idx[np.asarray(gw, np.int32)]
-            rng = q.get("rng") or np.random.default_rng(42)
-            per_q.append((gw, len(win_idx)) + self._stage2_passes(win_idx, rng))
+        with spans.span("engine.retrieve_batch"):
+            with spans.span("engine.plan"):
+                plan_idx = self._stage2_win_idx(len(features))
+                feats_dev = self._features_to_device(features, movie_key)
+                per_q = []
+                for q in queries:
+                    gw = q.get("grounding_windows")
+                    win_idx = plan_idx
+                    if gw is None:
+                        gw = list(range(len(plan_idx)))
+                    else:
+                        win_idx = plan_idx[np.asarray(gw, np.int32)]
+                    rng = q.get("rng") or np.random.default_rng(42)
+                    per_q.append((gw, len(win_idx)) + self._stage2_passes(win_idx, rng))
 
-        num_videos = per_q[0][6][0].shape[0] if per_q[0][6] else self.eval_cfg.batch
-        ids_list = [self._prompt_ids(q["sentence"], QUESTIONS[question_key]) for q in queries]
-        max_len = max(len(i) for i in ids_list) - 1 + num_videos + self.eval_cfg.max_new_tokens
-        plans = [build_splice_plan(ids, num_videos, max_len) for ids in ids_list]
-        qf_all, qv_all = self._query_feats_stack(queries, features.shape[-1], "retrieve_batch")
+                num_videos = per_q[0][6][0].shape[0] if per_q[0][6] else self.eval_cfg.batch
+                ids_list = [self._prompt_ids(q["sentence"], QUESTIONS[question_key])
+                            for q in queries]
+                max_len = (max(len(i) for i in ids_list) - 1 + num_videos
+                           + self.eval_cfg.max_new_tokens)
+                plans = [build_splice_plan(ids, num_videos, max_len) for ids in ids_list]
+                qf_all, qv_all = self._query_feats_stack(queries, features.shape[-1],
+                                                         "retrieve_batch")
+            spans.note(windows=sum(p[1] for p in per_q))
 
-        flat_rows: List[np.ndarray] = []
-        flat_q: List[int] = []
-        for qi, p in enumerate(per_q):
-            flat_rows.extend(p[6])
-            flat_q.extend([qi] * len(p[6]))
-        answers, mean_e, max_e = self._run_stage2_rows(
-            flat_rows, plans, flat_q, feats_dev, qf_all, qv_all, qsel=qf_all is not None)
+            flat_rows: List[np.ndarray] = []
+            flat_q: List[int] = []
+            for qi, p in enumerate(per_q):
+                flat_rows.extend(p[6])
+                flat_q.extend([qi] * len(p[6]))
+            answers, mean_e, max_e = self._run_stage2_rows(
+                flat_rows, plans, flat_q, feats_dev, qf_all, qv_all, qsel=qf_all is not None)
 
-        results = []
-        off = 0
-        for qi, (gw, V, starts, indexes, zooms, calls, row_idx) in enumerate(per_q):
-            k = len(row_idx)
-            results.append(self._stage2_finalize(
-                answers[off : off + k], mean_e[off : off + k], max_e[off : off + k], starts,
-                indexes, zooms, calls, row_idx, gw, V, feats_dev, queries[qi].get("query_cls"),
-            ))
-            off += k
-        return results
+            results = []
+            off = 0
+            for qi, (gw, V, starts, indexes, zooms, calls, row_idx) in enumerate(per_q):
+                k = len(row_idx)
+                results.append(self._stage2_finalize(
+                    answers[off : off + k], mean_e[off : off + k], max_e[off : off + k], starts,
+                    indexes, zooms, calls, row_idx, gw, V, feats_dev, queries[qi].get("query_cls"),
+                ))
+                off += k
+            return results
 
     # ------------------------------------------------------------- t2v eval
 
@@ -726,44 +770,48 @@ class GroundingEngine:
         ecfg = self.eval_cfg
         V, T, d = video_feats.shape
         batch = max(ecfg.batch, 1)
-        feats_dev = self._features_to_device(video_feats.reshape(V * T, d), corpus_key)
-        base_idx = np.arange(V * T, dtype=np.int32).reshape(V, T)
-        ids = self._prompt_ids(sentence, QUESTIONS[question_key])
-        plan_np = stack_plans([build_splice_plan(ids, batch, len(ids) - 1 + batch
-                                                 + ecfg.max_new_tokens)])
-        qf = qv = None
-        if query_feats is not None:
-            qf, qv = self._broadcast_query_feats(query_feats, 1)
-        starts: List[int] = []
-        pending = []
-        for p in range(int(np.ceil(V / batch))):
-            start = min(p * batch, max(V - batch, 0))
-            starts.append(start)
-            rows = base_idx[start : start + batch]
-            if len(rows) < batch:
-                rows = np.concatenate([rows, np.repeat(rows[-1:], batch - len(rows), axis=0)])
-            pending.append(self._run_chunk(plan_np, rows[None], feats_dev, qf, qv))
-        answers: List[str] = []
-        inv_entropy: List[float] = []
-        for out in pending:
-            chunk_answers, stats = self._read_chunk(out)
-            answers.append(chunk_answers[0])
-            inv_entropy.append(1.0 / max(stats[0, 2], 1e-9))
+        with spans.span("engine.retrieve_videos", windows=V):
+            with spans.span("engine.plan"):
+                feats_dev = self._features_to_device(video_feats.reshape(V * T, d), corpus_key)
+                base_idx = np.arange(V * T, dtype=np.int32).reshape(V, T)
+                ids = self._prompt_ids(sentence, QUESTIONS[question_key])
+                plan_np = stack_plans([build_splice_plan(ids, batch, len(ids) - 1 + batch
+                                                         + ecfg.max_new_tokens)])
+                qf = qv = None
+                if query_feats is not None:
+                    qf, qv = self._broadcast_query_feats(query_feats, 1)
+            starts: List[int] = []
+            pending = []
+            for p in range(int(np.ceil(V / batch))):
+                start = min(p * batch, max(V - batch, 0))
+                starts.append(start)
+                rows = base_idx[start : start + batch]
+                if len(rows) < batch:
+                    rows = np.concatenate([rows, np.repeat(rows[-1:], batch - len(rows), axis=0)])
+                pending.append(self._run_chunk(plan_np, rows[None], feats_dev, qf, qv, 1))
+            answers: List[str] = []
+            inv_entropy: List[float] = []
+            for out in pending:
+                chunk_answers, stats = self._read_chunk(out)
+                answers.append(chunk_answers[0])
+                inv_entropy.append(1.0 / max(stats[0, 2], 1e-9))
 
-        chosen, scores = _map_retrieval_answers(answers, inv_entropy, starts, batch, V)
-        if query_cls is not None and chosen:
-            cand = torch.as_tensor(chosen, dtype=torch.long, device=self.device)
-            frames = feats_dev.reshape(V, T, d)[cand]
-            valid = torch.ones(frames.shape[:2], dtype=torch.bool, device=self.device)
-            qc = torch.as_tensor(np.asarray(query_cls), dtype=torch.float32, device=self.device)
-            cos = proposal_cosine_scores(qc, frames, valid, k=3).tolist()
-            m = max(abs(c) for c in cos) or 1.0
-            scores = [s * (c / m) for s, c in zip(scores, cos)]
+            with spans.span("engine.finalize"):
+                chosen, scores = _map_retrieval_answers(answers, inv_entropy, starts, batch, V)
+                if query_cls is not None and chosen:
+                    cand = torch.as_tensor(chosen, dtype=torch.long, device=self.device)
+                    frames = feats_dev.reshape(V, T, d)[cand]
+                    valid = torch.ones(frames.shape[:2], dtype=torch.bool, device=self.device)
+                    qc = torch.as_tensor(np.asarray(query_cls), dtype=torch.float32,
+                                         device=self.device)
+                    cos = proposal_cosine_scores(qc, frames, valid, k=3).tolist()
+                    m = max(abs(c) for c in cos) or 1.0
+                    scores = [s * (c / m) for s, c in zip(scores, cos)]
 
-        order = np.argsort(np.asarray(scores))[::-1] if scores else []
-        return {
-            "answers": answers,
-            "ranked": [chosen[i] for i in order],
-            "scores": [scores[i] for i in order],
-            "num_candidates": V,
-        }
+                order = np.argsort(np.asarray(scores))[::-1] if scores else []
+                return {
+                    "answers": answers,
+                    "ranked": [chosen[i] for i in order],
+                    "scores": [scores[i] for i in order],
+                    "num_candidates": V,
+                }

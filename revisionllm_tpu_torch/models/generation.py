@@ -24,6 +24,10 @@ gathers it back. The split step runs under any mesh. The megakernel and the
 serving layout hold whole layers in one launch, so they run under a mesh
 that splits only the batch (every rank holds the whole tree) and raise under
 tensor or fsdp sharding, whose collectives cannot run inside a launch.
+
+`generate` is the span `model.generate` (utils/spans.py), with
+`model.prefill` and one `model.decode_step` a forward step beneath it, each
+on the host's clock and the device's.
 """
 
 from __future__ import annotations
@@ -40,6 +44,7 @@ from revisionllm_tpu_torch.ops import decode_step as DS
 from revisionllm_tpu_torch.ops.norms import rms_norm
 from revisionllm_tpu_torch.ops.rope import rope_angles
 from revisionllm_tpu_torch.parallel.sharding import local_config
+from revisionllm_tpu_torch.utils import spans
 
 _KV8: Optional[bool] = None
 
@@ -170,97 +175,101 @@ def generate(
 
     mesh: `params` are this rank's shards (parallel/sharding.py) and the
     model's collectives run over it (module docstring)."""
-    B, T = embeds.shape[:2]
-    G = max_new_tokens
-    prompt_lens = prompt_lens.to(torch.int32)
-    kv_quant = _kv8_enabled(embeds.device)
-    split = llama.model_mesh(mesh) is not None
-    lq = params["layers"].get("q_proj")
-    packed = isinstance(lq, dict) and "q8c" in lq
-    if split and packed:
-        raise ValueError("a serving-packed tree (row 10) decodes whole layers in one launch; "
-                         "under tensor or fsdp sharding a collective cannot run inside it: "
-                         "use a data-only mesh or the standard tree")
-    serve_intent = (
-        packed and prefix_kv is None
-        and _serve_enabled() is not False and kv_quant and DSV.supports_serve(cfg, params)
-    )
-    ptuning_len = 0 if prefix_kv is None else int(prefix_kv[0].shape[2])
-    if prefix_kv is not None and shared_prefix_len > 1 and B > 1:
-        raise ValueError("P-tuning prefix + shared-prefix prefill unsupported")
-    if (split and _megakernel_enabled() and ptuning_len == 0 and kv_quant
-            and DS.supports_megakernel(cfg, params)):
-        raise ValueError("REVISIONLLM_MEGAKERNEL=1 (row 9) decodes whole layers in one launch; "
-                         "under tensor or fsdp sharding a collective cannot run inside it: "
-                         "unset it or use a data-only mesh")
-    if shared_prefix_len > 1 and B > 1:
-        logits, prompt_kv = llama.prefill_shared_prefix(
-            cfg, params, embeds, positions, shared_prefix_len, kv_lens=prompt_lens,
-            kv_quant=kv_quant, mesh=mesh,
+    with spans.span("model.generate", device=embeds.device):
+        B, T = embeds.shape[:2]
+        G = max_new_tokens
+        prompt_lens = prompt_lens.to(torch.int32)
+        kv_quant = _kv8_enabled(embeds.device)
+        split = llama.model_mesh(mesh) is not None
+        lq = params["layers"].get("q_proj")
+        packed = isinstance(lq, dict) and "q8c" in lq
+        if split and packed:
+            raise ValueError("a serving-packed tree (row 10) decodes whole layers in one launch; "
+                             "under tensor or fsdp sharding a collective cannot run inside it: "
+                             "use a data-only mesh or the standard tree")
+        serve_intent = (
+            packed and prefix_kv is None
+            and _serve_enabled() is not False and kv_quant and DSV.supports_serve(cfg, params)
         )
-    else:
-        logits, prompt_kv = llama.prefill_kv(
-            cfg, params, embeds, positions, kv_lens=prompt_lens, kv_quant=kv_quant,
-            kv_slab_slots=G if serve_intent else None, prefix_kv=prefix_kv, mesh=mesh,
+        ptuning_len = 0 if prefix_kv is None else int(prefix_kv[0].shape[2])
+        if prefix_kv is not None and shared_prefix_len > 1 and B > 1:
+            raise ValueError("P-tuning prefix + shared-prefix prefill unsupported")
+        if (split and _megakernel_enabled() and ptuning_len == 0 and kv_quant
+                and DS.supports_megakernel(cfg, params)):
+            raise ValueError("REVISIONLLM_MEGAKERNEL=1 (row 9) decodes whole layers in one launch; "
+                             "under tensor or fsdp sharding a collective cannot run inside it: "
+                             "unset it or use a data-only mesh")
+        with spans.span("model.prefill", device=embeds.device):
+            if shared_prefix_len > 1 and B > 1:
+                logits, prompt_kv = llama.prefill_shared_prefix(
+                    cfg, params, embeds, positions, shared_prefix_len, kv_lens=prompt_lens,
+                    kv_quant=kv_quant, mesh=mesh,
+                )
+            else:
+                logits, prompt_kv = llama.prefill_kv(
+                    cfg, params, embeds, positions, kv_lens=prompt_lens, kv_quant=kv_quant,
+                    kv_slab_slots=G if serve_intent else None, prefix_kv=prefix_kv, mesh=mesh,
+                )
+        use_mega = (
+            not serve_intent and ptuning_len == 0 and _megakernel_enabled() and kv_quant
+            and "k_scale" in prompt_kv and DS.supports_megakernel(cfg, params)
         )
-    use_mega = (
-        not serve_intent and ptuning_len == 0 and _megakernel_enabled() and kv_quant
-        and "k_scale" in prompt_kv and DS.supports_megakernel(cfg, params)
-    )
-    mask_lens = prompt_lens + ptuning_len if ptuning_len else None
-    if serve_intent:
-        if "kv" in prompt_kv:
-            slab, s0 = prompt_kv, T
-        else:  # the shared-prefix prefill's split cache
-            slab, s0 = DSV.pack_unified_kv(prompt_kv, G)
-        del prompt_kv  # the split cache is not read again
-    elif use_mega:
-        pkv = DS.pack_prompt_kv(prompt_kv)
-        del prompt_kv  # the split cache is not read again
-        gen_cache = DS.init_gen_cache(cfg.num_layers, B, cfg.num_kv_heads, cfg.head_dim, G,
-                                      embeds.dtype, embeds.device)
-    else:
-        gen_cache = llama.init_gen_cache(local_config(cfg, llama.model_mesh(mesh)), B, G,
-                                         embeds.dtype, embeds.device)
-
-    def decode_one(g, tok_embed):
+        mask_lens = prompt_lens + ptuning_len if ptuning_len else None
         if serve_intent:
-            return decode_step_serve(cfg, params, slab, s0, prompt_lens, g, tok_embed)
-        if use_mega:
-            return decode_step_mega(cfg, params, pkv, prompt_lens, gen_cache, g, tok_embed)
-        return llama.decode_step_split(
-            cfg, params, prompt_kv, prompt_lens, gen_cache, g, tok_embed, mask_lens,
-            mesh=mesh)[0]
-
-    done = torch.zeros(B, dtype=torch.bool, device=embeds.device)
-    tokens, entropies, logprobs, valids = [], [], [], []
-    for g in range(G):
-        logits32 = logits.float()
-        probs = torch.softmax(logits32, dim=-1)
-        entropy = -(probs * torch.log(probs + 1e-10)).sum(dim=-1)
-        if temperature > 0.0:
-            token = torch.multinomial(
-                torch.softmax(logits32 / temperature, dim=-1), 1, generator=generator
-            )[:, 0]
+            if "kv" in prompt_kv:
+                slab, s0 = prompt_kv, T
+            else:  # the shared-prefix prefill's split cache
+                slab, s0 = DSV.pack_unified_kv(prompt_kv, G)
+            del prompt_kv  # the split cache is not read again
+        elif use_mega:
+            pkv = DS.pack_prompt_kv(prompt_kv)
+            del prompt_kv  # the split cache is not read again
+            gen_cache = DS.init_gen_cache(cfg.num_layers, B, cfg.num_kv_heads, cfg.head_dim, G,
+                                          embeds.dtype, embeds.device)
         else:
-            token = torch.argmax(logits32, dim=-1)
-        logprob = torch.log(probs.gather(-1, token[:, None])[:, 0] + 1e-10)
-        valid = ~done
-        token_out = torch.where(valid, token, torch.full_like(token, eos_id))
-        if g + 1 < G:
-            tok_embed = llama.embed_tokens(params, token_out[:, None], mesh).to(embeds.dtype)
-            logits = decode_one(g, tok_embed)
-        done = done | (token_out == eos_id)
-        tokens.append(token_out)
-        entropies.append(entropy)
-        logprobs.append(logprob)
-        valids.append(valid)
-    return {
-        "tokens": torch.stack(tokens, dim=1),
-        "entropy": torch.stack(entropies, dim=1),
-        "logprob": torch.stack(logprobs, dim=1),
-        "valid": torch.stack(valids, dim=1),
-    }
+            gen_cache = llama.init_gen_cache(local_config(cfg, llama.model_mesh(mesh)), B, G,
+                                             embeds.dtype, embeds.device)
+
+        def decode_one(g, tok_embed):
+            if serve_intent:
+                return decode_step_serve(cfg, params, slab, s0, prompt_lens, g, tok_embed)
+            if use_mega:
+                return decode_step_mega(cfg, params, pkv, prompt_lens, gen_cache, g, tok_embed)
+            return llama.decode_step_split(
+                cfg, params, prompt_kv, prompt_lens, gen_cache, g, tok_embed, mask_lens,
+                mesh=mesh)[0]
+
+        done = torch.zeros(B, dtype=torch.bool, device=embeds.device)
+        tokens, entropies, logprobs, valids = [], [], [], []
+        for g in range(G):
+            logits32 = logits.float()
+            probs = torch.softmax(logits32, dim=-1)
+            entropy = -(probs * torch.log(probs + 1e-10)).sum(dim=-1)
+            if temperature > 0.0:
+                token = torch.multinomial(
+                    torch.softmax(logits32 / temperature, dim=-1), 1, generator=generator
+                )[:, 0]
+            else:
+                token = torch.argmax(logits32, dim=-1)
+            logprob = torch.log(probs.gather(-1, token[:, None])[:, 0] + 1e-10)
+            valid = ~done
+            token_out = torch.where(valid, token, torch.full_like(token, eos_id))
+            if g + 1 < G:
+                with spans.span("model.decode_step", device=embeds.device, step=g):
+                    tok_embed = llama.embed_tokens(params, token_out[:, None], mesh).to(
+                        embeds.dtype)
+                    logits = decode_one(g, tok_embed)
+            done = done | (token_out == eos_id)
+            tokens.append(token_out)
+            entropies.append(entropy)
+            logprobs.append(logprob)
+            valids.append(valid)
+        return {
+            "tokens": torch.stack(tokens, dim=1),
+            "entropy": torch.stack(entropies, dim=1),
+            "logprob": torch.stack(logprobs, dim=1),
+            "valid": torch.stack(valids, dim=1),
+        }
 
 
 def entropy_stats_from_steps(entropy: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

@@ -21,6 +21,7 @@ from revisionllm_tpu_torch.models.adapter import clip_encoder_forward, init_adap
 from revisionllm_tpu_torch.models.multimodal import splice_embeds
 from revisionllm_tpu_torch.ops.norms import layer_norm
 from revisionllm_tpu_torch.parallel.mesh import batch_sharding
+from revisionllm_tpu_torch.utils import spans
 from revisionllm_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -227,11 +228,16 @@ def generate_grounding(
     Returns tokens/entropy/logprob/valid [B, G] and entropy_stats [B, 4].
     `shared_prefix_len` marks the leading tokens every row shares, which
     the prefill then runs once (generation.generate). mesh: `params` are
-    this rank's shards; the rows are the ones this rank was given."""
-    video_tokens = encode_video(adapter_cfg, vision_params, images, query_feats, query_valid)
-    embeds, positions, lengths = assemble_inputs(
-        params, plan, video_tokens, memory_tokens, dtype=llama.torch_dtype(cfg.dtype), mesh=mesh
-    )
+    this rank's shards; the rows are the ones this rank was given. Spans
+    `model.adapter` and `model.splice` (utils/spans.py) time the first two
+    on both clocks; `generate` opens its own."""
+    with spans.span("model.adapter", device=images.device):
+        video_tokens = encode_video(adapter_cfg, vision_params, images, query_feats, query_valid)
+    with spans.span("model.splice", device=images.device):
+        embeds, positions, lengths = assemble_inputs(
+            params, plan, video_tokens, memory_tokens, dtype=llama.torch_dtype(cfg.dtype),
+            mesh=mesh
+        )
     out = generation.generate(
         cfg, params, embeds, positions, lengths, eos_id=eos_id,
         max_new_tokens=max_new_tokens, temperature=temperature, generator=generator,

@@ -3,8 +3,9 @@
 Every collective the sharded model runs goes through `all_reduce` or
 `all_gather` here, which count it in STATS (calls and the bytes each rank
 sends in: the tensor for an all-reduce, the gathered output for an
-all-gather), so a caller can read what a chunk or a step exchanged, and,
-when asked (reset_stats(timed=True)), how long they took.
+all-gather), so a caller can read what a chunk or a step exchanged. Each
+is also a span, `comm.all_reduce` or `comm.all_gather` with its bytes
+(utils/spans.py): with spans on, how long it took on both clocks.
 
 Training needs three autograd functions on the `tensor` axis, with the
 backward Megatron gives them:
@@ -27,53 +28,24 @@ import collections
 import torch
 import torch.distributed as dist
 
+from revisionllm_tpu_torch.utils import spans
+
 STATS: collections.Counter = collections.Counter()
-_SPANS = None  # while timing: [(start, end)] CUDA events or host seconds
 
 
-def reset_stats(timed: bool = False) -> None:
-    """Zero STATS; with `timed`, also time every collective from now on
-    (CUDA events on the current stream, which waits for the collective;
-    the host's clock for CPU tensors) until the next reset_stats()."""
-    global _SPANS
+def reset_stats() -> None:
+    """Zero STATS."""
     STATS.clear()
-    _SPANS = [] if timed else None
-
-
-def collective_ms() -> float:
-    """The summed time of the collectives since reset_stats(timed=True)
-    (synchronizes the device)."""
-    if not _SPANS:
-        return 0.0
-    if isinstance(_SPANS[0][0], float):
-        return sum(b - a for a, b in _SPANS) * 1e3
-    _SPANS[-1][1].synchronize()
-    return sum(a.elapsed_time(b) for a, b in _SPANS)
-
-
-def _run(t: torch.Tensor, call):
-    if _SPANS is None:
-        return call()
-    if t.is_cuda:
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        call()
-        b.record()
-    else:
-        import time
-
-        a = time.perf_counter()
-        call()
-        b = time.perf_counter()
-    _SPANS.append((a, b))
 
 
 def all_reduce(t: torch.Tensor, mesh, axis: str, op: str = "sum") -> torch.Tensor:
     """Sum (or max) `t` over the axis in place; returns it."""
+    nbytes = t.numel() * t.element_size()
     STATS["all_reduce"] += 1
-    STATS["all_reduce_bytes"] += t.numel() * t.element_size()
-    _run(t, lambda: dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum"
-                                    else dist.ReduceOp.MAX, group=mesh.group(axis)))
+    STATS["all_reduce_bytes"] += nbytes
+    with spans.span("comm.all_reduce", device=t.device, bytes=nbytes):
+        dist.all_reduce(t, op=dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX,
+                        group=mesh.group(axis))
     return t
 
 
@@ -82,9 +54,11 @@ def all_gather(t: torch.Tensor, mesh, axis: str, dim: int = 0) -> torch.Tensor:
     n = mesh.axis_size(axis)
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(n)]
+    nbytes = n * t.numel() * t.element_size()
     STATS["all_gather"] += 1
-    STATS["all_gather_bytes"] += n * t.numel() * t.element_size()
-    _run(t, lambda: dist.all_gather(parts, t, group=mesh.group(axis)))
+    STATS["all_gather_bytes"] += nbytes
+    with spans.span("comm.all_gather", device=t.device, bytes=nbytes):
+        dist.all_gather(parts, t, group=mesh.group(axis))
     return torch.cat(parts, dim=dim)
 
 

@@ -328,7 +328,7 @@ class _RowRecorder:
         eng._run_chunk = self.run
         eng._read_chunk = self.read
 
-    def run(self, plan_np, rows, feats_dev, qf, qv):
+    def run(self, plan_np, rows, feats_dev, qf, qv, n_live):
         self.calls.append(tuple(np.asarray(rows).shape))
         return len(rows)
 
