@@ -7,11 +7,13 @@ Every run goes through every phase, so every number it prints was
 measured in that run. Phases:
   1. the card's name and power limit (nvidia-smi);
   2. build the twelve CUDA kernels (rows 4 and 5 share one __global__) from
-     the eight sources in csrc/ (one nvcc per source, all in parallel; rows 9
+     the eight sources in csrc/, and the W8A8 prefill's three from a ninth
+     (csrc/w8a8_gemm.cu) (one nvcc per source, all in parallel; rows 9
      and 10 share csrc/decode_common.cuh, K2 and rows 4-6
      csrc/attention_common.cuh), and print each kernel's registers, shared
      memory and spill bytes from ptxas (fails if an attention kernel, K1,
-     row 7 or one of row 8's three kernels spills);
+     row 7, one of row 8's three kernels or one of the W8A8 prefill's
+     spills);
   3. each kernel against its plain PyTorch version on the card, at the
      stage-1 shapes (Vicuna-7B, chunk of 64 windows): max error against the
      stated tolerance, device time of the kernel, of the plain version and of
@@ -61,9 +63,10 @@ measured in that run. Phases:
      the ClipEncoder adapter with T2V, remat, batch 1, sequence 2048) over
      the synthetic corpus, 1 warm-up and 6 timed steps: step time,
      tokens/s, peak memory, loss and grad norm per step, each row-4
-     kernel's launches (fails if one is 0, or if K1, K2, K3 or
-     torch._int_mm ran), the log, the async checkpoint main saved against
-     the trained trees, and the export; one step under the profiler;
+     kernel's launches (fails if one is 0, or if K1, K2, K3, the W8A8
+     kernels or torch._int_mm ran), the log, the async checkpoint main
+     saved against the trained trees, and the export; one step under the
+     profiler;
      auto-resume for one more step; the no-silent-detach rule on the card;
   9. one train step with the kernels on the card against the plain path on
      the CPU, from train_cli's assembly at full width, 2 layers and
@@ -107,7 +110,15 @@ measured in that run. Phases:
      also at the edge cases MLP_EDGES, bit-identical over two calls, its
      three launches a call (transpose, GEMM, requantization) and the
      scratch its wrapper names, each part's time, and a second yardstick
-     (the two torch._int_mm without the epilogue);
+     (the two torch._int_mm without the epilogue); and the W8A8 prefill's
+     kernels (csrc/w8a8_gemm.cu: row quantizer, weight transpose, int8
+     GEMM with the scales and the bf16 cast in its epilogue) at the
+     benchmark cells' shapes (M = 64 x 304; ChatGLM2-6B's and
+     DeepSeek-LLM-7B's seven matrices, the prompt cache's rows of 128) bit
+     for bit against the PyTorch route they replace, with a planted fault
+     each, the edge cases W8A8_EDGES at both tile widths, launches and
+     allocations a call, each kernel's time beside its bound, the plain
+     version and torch._int_mm with and without its PyTorch epilogue;
  13. configurations A (int8, REVISIONLLM_FUSED_MLP=1 and
      REVISIONLLM_MEGAKERNEL=1), B (int4 weights) and C (the int8 tree packed
      into the serving chunks, REVISIONLLM_SERVE=1) through ground_windows
@@ -128,8 +139,9 @@ measured in that run. Phases:
      the 1-hour movie (3 queries, 57 windows each), with REVISIONLLM_QUANT
      unset (the CUDA default, int8) and then REVISIONLLM_SERVE=1: each
      loader step's seconds, the checkpoint's GB/s, peak memory and launches
-     (fails unless K1, K2, K3 and torch._int_mm ran in the first, row 10,
-     K1 and K2 in the second); every loaded leaf torch.equal to the tree
+     (fails unless K1, K2, K3 and the W8A8 kernels ran in the first, and
+     torch._int_mm did not, and row 10, K1 and K2 in the second); every
+     loaded leaf torch.equal to the tree
      built in memory without the files (the same LoRA merge, bf16 rounding
      and host quantization), the JSONL records equal to that tree's
      engine's, the first-step logits within relative L2 1e-2; a checkpoint
@@ -139,7 +151,7 @@ measured in that run. Phases:
      points a user calls, at Vicuna-7B width and depth on the slice's int8
      weights: inference.inference on one 100-frame window (B 1, then B 8
      with return_list; 64 greedy tokens): wall ms, launches and peak memory
-     (fails unless K1, K2 and K3 ran, and torch._int_mm where the prefill
+     (fails unless K1, K2 and K3 ran, and the W8A8 kernels where the prefill
      has more rows than K1 takes); inference_stream on the same window: the
      time to the first token, the wall ms a token, and over the stream's
      first 16 decode steps (under torch.profiler, less its first token)
@@ -174,7 +186,8 @@ measured in that run. Phases:
      a stream corpus at 768-d and 5 fps), 1 warm-up and 3 timed steps each:
      step ms, windows/s, frames/s, peak memory, each row-4 kernel's
      launches a step (fails unless the losses are finite, all three row-4
-     kernels ran and K1, K2, K3 and torch._int_mm did not); one stage-2
+     kernels ran and K1, K2, K3, the W8A8 kernels and torch._int_mm did
+     not); one stage-2
      step on a prebuilt batch under torch.profiler (busy against wall);
      DevicePrefetcher over the stage-2 batches (equal, on the card, in
      order; the host's wait, each step's wall and the loop's whole time
@@ -283,6 +296,7 @@ REPLACES = {
     "w8a8_mlp_fused": "revisionllm_tpu/ops/quant.py:732",
     "decode_step_fused": "revisionllm_tpu/ops/decode_step.py:135",
     "decode_step_serve": "revisionllm_tpu/ops/decode_serve.py:227",
+    "w8a8_gemm": "none: JAX leaves W8A8 to XLA's int8 dot (revisionllm_tpu/ops/quant.py w8a8_matmul)",
 }
 SOURCES = {
     "int8_matmul": "int8_matmul", "flash_attention": "flash_attention",
@@ -291,8 +305,10 @@ SOURCES = {
     "flash_attention_lse": "flash_attention", "flash_attention_prefixed": "flash_attention",
     "int4_matmul": "int4_matmul", "w8a8_mlp_fused": "w8a8_mlp_fused",
     "decode_step_fused": "decode_step", "decode_step_serve": "decode_serve",
+    "w8a8_gemm": "w8a8_gemm",
 }
 SERVING = ("int8_matmul", "flash_attention", "decode_attention")
+W8A8 = ("quantize_rows", "w8a8_transpose", "w8a8_gemm")   # the W8A8 prefill
 TRAINING = ("flash_fwd_lse", "flash_dq", "flash_dkv")
 PIPELINE = ("flash_attention_lse", "flash_attention_prefixed")
 FUSED = ("w8a8_mlp_fused", "decode_step_fused")   # configuration A
@@ -424,7 +440,10 @@ NO_SPILL_KERNELS = {**ATTENTION_KERNELS,
                     "decode_attn_kernel_g16": ("decode_attention", "decode_attn_g16_smem_bytes", ()),
                     "mlp_gemm_kernel": ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (0,)),
                     "mlp_transpose_kernel": ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (1,)),
-                    "mlp_quant_kernel": ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (2,))}
+                    "mlp_quant_kernel": ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (2,)),
+                    "s8gemm_kernel": ("w8a8_gemm", "w8a8_gemm_smem_bytes", (2,)),
+                    "kmajor_transpose_kernel": ("w8a8_gemm", "w8a8_gemm_smem_bytes", (0,)),
+                    "quantize_rows_kernel": ("w8a8_gemm", "w8a8_gemm_smem_bytes", (0,))}
 
 
 def report_ptxas(kernels, libs=None):
@@ -1637,7 +1656,7 @@ def phase_train(dev, tmp, paths):
     missing = [k for k in TRAINING if launches[k] == 0]
     if missing:
         raise AssertionError(f"row-4 kernels never launched in training: {missing}")
-    stray = {k: launches[k] for k in SERVING if launches[k]}
+    stray = {k: launches[k] for k in SERVING + W8A8 if launches[k]}
     if stray or int_mm.n:
         raise AssertionError(f"kernels without a backward ran in the loss: {stray}, "
                              f"torch._int_mm x{int_mm.n}")
@@ -2696,6 +2715,185 @@ def check_fused_mlp(dev, iters):
                     f"(library_gemm_ms: the two torch._int_mm alone)"}
 
 
+# the W8A8 prefill (csrc/w8a8_gemm.cu) at the benchmark cells' shapes: M = 64
+# rows x W8A8_T positions (their chunk holds 302-314), each layer's matrices
+# (name, K, N); its edge cases (M, K, N), each at both tile widths: M 1 and
+# 130 (a second row tile of 2 rows), K 80 (one stage, zeros past K) and 4112
+# (a 16-byte last stage), N 160, 272 and 4112 (a 32- or 16-column last box)
+W8A8_T = 304
+W8A8_LAYERS = {
+    "glm2-6b": (("q", 4096, 4096), ("k", 4096, 256), ("v", 4096, 256), ("o", 4096, 4096),
+                ("gate", 4096, 13696), ("up", 4096, 13696), ("down", 13696, 4096)),
+    "deepseek-7b": (("q", 4096, 4096), ("k", 4096, 4096), ("v", 4096, 4096), ("o", 4096, 4096),
+                    ("gate", 4096, 11008), ("up", 4096, 11008), ("down", 11008, 4096)),
+}
+W8A8_KV_HEADS = {"glm2-6b": 2, "deepseek-7b": 32}
+W8A8_EDGES = ((1, 4096, 256), (130, 80, 160), (257, 4112, 4112), (300, 13696, 272),
+              (2000, 11008, 4112))
+W8A8_KERNELS = ("quantize_rows_kernel", "kmajor_transpose_kernel", "s8gemm_kernel")
+
+
+def w8a8_rows(gen, M, K, dev):
+    """bf16 [M, K] normals with a zero row and a row of absmax 127 whose
+    quotients x.5 test the rounding half to even."""
+    import torch
+
+    x = torch.randn((M, K), generator=gen, device=dev)
+    x[0] = 0.0
+    if M > 1:
+        x[1] = torch.arange(K, device=dev) % 8 - 3.5
+        x[1, 0] = 127.0
+    return x.to(torch.bfloat16)
+
+
+def hold_bits(label, got, want, faults):
+    """`got` must equal `want` bit for bit, and differ from each planted
+    fault."""
+    import torch
+
+    caught = {k: not torch.equal(got, f) for k, f in faults.items()}
+    say(f"{label}: bit-equal to the PyTorch route {torch.equal(got, want)}; planted faults "
+        f"caught {caught}")
+    if not torch.equal(got, want) or not all(caught.values()):
+        raise AssertionError(f"{label}: differs from the PyTorch route, or a fault was not caught")
+
+
+def check_w8a8_gemm(dev, iters):
+    """The W8A8 prefill's three kernels against the PyTorch route they
+    replace (quantize_activation_rows' maths, torch._int_mm, the f32 scales
+    and the cast) at the benchmark cells' shapes, bit for bit, each with a
+    planted fault the check must catch: the scale by an IEEE division, the
+    CPU's rounding (quantizer; PyTorch's CUDA absmax / 127.0 multiplies by
+    the reciprocal), the weight's last 16 K rows dropped (transpose), the two
+    scales multiplied first (GEMM epilogue). Two calls bit-identical; a
+    quantization one launch and two allocations, a product two launches
+    (transpose, GEMM) and two allocations (the K-major scratch, the output);
+    the edge cases W8A8_EDGES at both tile widths. Times each kernel beside
+    its bound, the plain version and the library yardstick (torch._int_mm
+    on a held column-major weight with its PyTorch epilogue, and alone),
+    and sums one layer of each cell."""
+    import torch
+    from revisionllm_tpu_torch.ops import quant as Q
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    M = 64 * W8A8_T
+    few = max(3, iters // 4)
+    quant_ms, gemm_ms = {}, {}
+    for K in sorted({k for layer in W8A8_LAYERS.values() for _, k, _ in layer} | {128}):
+        rows = M * (32 if K == 128 else 1)  # DeepSeek's k or v rows of head_dim
+        x = w8a8_rows(gen, rows, K, dev)
+        q, s = Q.quantize_rows(x)
+        q2, s2 = Q.quantize_rows(x)
+        pq, ps = Q.quantize_rows_plain(x)
+        absmax = x.abs().amax(dim=-1, keepdim=True).float()
+        fault = torch.where(absmax > 0, absmax / torch.full_like(absmax, 127.0),
+                            torch.ones_like(absmax))
+        hold_bits(f"quantize_rows [{rows}, {K}] scales", s, ps, {"IEEE-divided scale": fault})
+        if not (torch.equal(q, pq) and torch.equal(q, q2) and torch.equal(s, s2)):
+            raise AssertionError(f"quantize_rows [{rows}, {K}]: values differ")
+        call_kernels(f"quantize_rows [{rows}, {K}]", lambda: Q.quantize_rows(x),
+                     W8A8_KERNELS[:1], allocs=2)
+        ms = device_ms(lambda: Q.quantize_rows(x), iters)
+        plain = device_ms(lambda: Q.quantize_rows_plain(x), few)
+        b, by = bound(3 * rows * K + 4 * rows, 0)
+        say(f"quantize_rows [{rows}, {K}]: kernel {ms:.4f} ms, plain {plain:.4f} ms, bound "
+            f"{b:.4f} ms ({by})")
+        quant_ms[K] = (ms, plain, b, rows)
+        del x, q, q2, pq, absmax, fault
+
+    for K, N in sorted({(k, n) for layer in W8A8_LAYERS.values() for _, k, n in layer}):
+        x = w8a8_rows(gen, M, K, dev)
+        xq, xs = Q.quantize_rows(x)
+        wq, ws = Q.quantize_int8(torch.randn((K, N), generator=gen, device=dev) * K ** -0.5)
+        got = Q.w8a8_gemm(xq, xs, wq, ws)
+        again = Q.w8a8_gemm(xq, xs, wq, ws)
+        acc = Q._int8_dot(xq, wq)
+        cut = wq.clone()
+        cut[-16:] = 0
+        faults = {"scales multiplied first": (acc.float() * (xs * ws)).to(torch.bfloat16),
+                  "last 16 K rows dropped": Q._w8a8_scale(Q._int8_dot(xq, cut), x, xs, ws)}
+        nb = Q.w8a8_tile_columns(M, N, torch.cuda.get_device_properties(dev).multi_processor_count)
+        hold_bits(f"w8a8_gemm M={M} K={K} N={N} (tile {128 * nb} columns)", got,
+                  Q._w8a8_scale(acc, x, xs, ws), faults)
+        if not torch.equal(got, again):
+            raise AssertionError(f"w8a8_gemm M={M} K={K} N={N}: two calls differ")
+        del again, acc, cut, faults, got
+        call_kernels(f"w8a8_gemm M={M} K={K} N={N}", lambda: Q.w8a8_gemm(xq, xs, wq, ws),
+                     W8A8_KERNELS[1:], allocs=2)
+        ms = device_ms(lambda: Q.w8a8_gemm(xq, xs, wq, ws), iters)
+        parts = kernel_ms(lambda: Q.w8a8_gemm(xq, xs, wq, ws), iters, W8A8_KERNELS[1:])
+        plain = device_ms(lambda: Q.w8a8_gemm_plain(xq, xs, wq, ws), few)
+        w_cm = wq.t().contiguous().t()
+        lib = device_ms(lambda: torch.mul(torch._int_mm(xq, w_cm), xs).mul_(ws).to(torch.bfloat16),
+                        few)
+        lib_gemm = device_ms(lambda: torch._int_mm(xq, w_cm), few)
+        b, by = bound(M * K + K * N + 2 * M * N + 4 * M + 4 * N, 2.0 * M * K * N, INT8_OPS_PER_S)
+        bt = 2 * K * N / HBM_BYTES_PER_S * 1e3
+        say(f"w8a8_gemm M={M} K={K} N={N}: kernel {ms:.4f} ms (transpose "
+            f"{parts['kmajor_transpose_kernel']:.4f}, bound {bt:.4f} ms (bytes); GEMM "
+            f"{parts['s8gemm_kernel']:.4f}, bound {b:.4f} ms ({by}), "
+            f"{100 * b / parts['s8gemm_kernel']:.1f}% of it, under the profiler); plain "
+            f"{plain:.4f} ms; torch._int_mm + PyTorch epilogue {lib:.4f} ms, torch._int_mm alone "
+            f"{lib_gemm:.4f} ms")
+        gemm_ms[(K, N)] = (ms, parts["kmajor_transpose_kernel"], parts["s8gemm_kernel"], plain,
+                           lib, lib_gemm, b, bt)
+        del x, xq, xs, wq, ws, w_cm
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = Q.w8a8_tile_columns
+    try:
+        for nb in (1, 2):
+            Q.w8a8_tile_columns = lambda *a, nb=nb: nb
+            for M2, K2, N2 in W8A8_EDGES:
+                x = w8a8_rows(gen, M2, K2, dev)
+                xq, xs = Q.quantize_rows(x)
+                pq, ps = Q.quantize_rows_plain(x)
+                wq, ws = Q.quantize_int8(torch.randn((K2, N2), generator=gen, device=dev))
+                got = Q.w8a8_gemm(xq, xs, wq, ws)
+                want = Q._w8a8_scale(Q._int8_dot(xq, wq), x, xs, ws)
+                wide = torch.zeros((M2, N2 + 48), dtype=torch.float32, device=dev)
+                Q.w8a8_gemm(xq, xs, wq, ws, out=wide[:, 16:16 + N2])
+                ok = (torch.equal(xq, pq) and torch.equal(xs, ps) and torch.equal(got, want)
+                      and torch.equal(wide[:, 16:16 + N2], Q._int8_dot(xq, wq).float() * xs * ws)
+                      and not wide[:, :16].any() and not wide[:, 16 + N2:].any())
+                say(f"w8a8 edge M={M2} K={K2} N={N2}, tile {128 * nb} columns: bit-equal "
+                    f"(bf16, and f32 into a column slice) {ok}")
+                if not ok:
+                    raise AssertionError(f"w8a8 edge M={M2} K={K2} N={N2} at tile {128 * nb}")
+    finally:
+        Q.w8a8_tile_columns = plan
+
+    cells = {}
+    for cell, layer in W8A8_LAYERS.items():
+        kv_rows = W8A8_KV_HEADS[cell] * 64 * W8A8_T
+        ffn = layer[-1][1]
+        q_k = [4096, 4096, 4096, ffn]   # q|k|v, o, gate|up, down
+        kern = sum(quant_ms[k][0] for k in q_k) + 2 * quant_ms[128][0] * kv_rows / quant_ms[128][3]
+        old = sum(quant_ms[k][1] for k in q_k) + 2 * quant_ms[128][1] * kv_rows / quant_ms[128][3]
+        lib = old
+        for _, k, n in layer:
+            kern += gemm_ms[(k, n)][0]
+            old += gemm_ms[(k, n)][3]
+            lib += gemm_ms[(k, n)][4]
+        gemm = sum(gemm_ms[(k, n)][2] for _, k, n in layer)
+        gbound = sum(gemm_ms[(k, n)][6] for _, k, n in layer)
+        cells[cell] = {"kernels_ms": kern, "plain_ms": old, "library_ms": lib,
+                       "gemm_ms": gemm, "gemm_bound_ms": gbound}
+        say(f"w8a8 one {cell} layer at M={M} (4 activation quantizations, 2 of the prompt "
+            f"cache's k and v at {kv_rows} rows, 7 products): kernels {kern:.4f} ms; the PyTorch "
+            f"route (plain quantization, torch._int_mm with its per-call transpose, the f32 "
+            f"scales) {old:.4f} ms; with a held column-major weight {lib:.4f} ms; the 7 GEMMs "
+            f"{gemm:.4f} ms against a bound of {gbound:.4f} ms ({100 * gbound / gemm:.1f}%); "
+            f"{sms} SMs")
+    glm = cells["glm2-6b"]
+    return {"name": "w8a8_gemm", "max_abs_err": 0.0, "ms": glm["kernels_ms"],
+            "plain_ms": glm["plain_ms"], "library_ms": glm["library_ms"],
+            "bound_ms": glm["gemm_bound_ms"], "bound_by": "operations", "cells": cells,
+            "unit": f"one ChatGLM2-6B layer of the chunk-64 prefill (M={M}): 6 quantizations, "
+                    f"7 transposes and 7 GEMMs; library: torch._int_mm on held column-major "
+                    f"weights with the f32 scales and the cast in PyTorch, quantization plain"}
+
+
 def first_layers(tree, n):
     """The tree with its stacked layers cut to the first n (views)."""
     return {**tree, "layers": {k: ({kk: vv[:n] for kk, vv in v.items()}
@@ -3425,8 +3623,8 @@ def same_records(got, want):
 
 CKPT_RUNS = {
     # the CUDA default, REVISIONLLM_QUANT unset: int8 layers, W8A8 prefill
-    # (torch._int_mm), K2, then K3 and K1 at every decode step
-    "standard": {"env": {}, "kernels": SERVING},
+    # (csrc/w8a8_gemm.cu), K2, then K3 and K1 at every decode step
+    "standard": {"env": {}, "kernels": SERVING + W8A8},
     # the host pack: row 10 for every decode step, K1 for the lm_head, K2
     "serve": {"env": {"REVISIONLLM_SERVE": "1"},
               "kernels": ("decode_step_serve", "int8_matmul", "flash_attention")},
@@ -3508,10 +3706,9 @@ def phase_checkpoint(dev, tmp, movie):
                 say(f"checkpoint ({label}): launches in stage1.run: "
                     + str({k: n for k, n in launches.items() if n}) + f", torch._int_mm {int_mm.n}")
                 missing = [k for k in run["kernels"] if launches[k] == 0]
-                if label == "standard" and int_mm.n == 0:
-                    missing.append("torch._int_mm")
-                if missing or stats["done"] != PIPE_QUERIES or stats["errors"]:
-                    raise AssertionError(f"checkpoint ({label}): {stats}, never launched {missing}")
+                if missing or int_mm.n or stats["done"] != PIPE_QUERIES or stats["errors"]:
+                    raise AssertionError(f"checkpoint ({label}): {stats}, never launched {missing}, "
+                                         f"torch._int_mm x{int_mm.n}")
 
                 ref_params, ref_vision = as_loaded(ref_np, vision, label == "serve")
                 bad = tree_mismatches(eng.params, ref_params) + \
@@ -3931,12 +4128,13 @@ def phase_surfaces(dev, setup, tmp):
             f"{ms / SURF_TOKENS:.2f} ms a token; peak memory {peak:.2f} GiB; launches "
             f"{launches}, torch._int_mm {int_mm}")
         missing = [k for k in SERVING if k not in launches]
-        if B * prompt_len > KERNEL_MAX_M and not int_mm:
-            missing.append("torch._int_mm")
+        if B * prompt_len > KERNEL_MAX_M:
+            missing += [k for k in W8A8 if k not in launches]
         ok = (isinstance(answers, str) if B == 1 else len(answers) == B) and \
             tuple(ent.shape) == (B, SURF_TOKENS) and bool(ent.isfinite().all())
-        if missing or not ok:
-            raise AssertionError(f"inference B={B}: never launched {missing}, output ok {ok}")
+        if missing or int_mm or not ok:
+            raise AssertionError(f"inference B={B}: never launched {missing}, torch._int_mm "
+                                 f"x{int_mm}, output ok {ok}")
         outs[B] = (answers, out)
 
     parts_s["inference"] = time.perf_counter()
@@ -4021,9 +4219,10 @@ def phase_surfaces(dev, setup, tmp):
     say(f"surfaces: caption_windows over the 1-hour movie: {n} windows in one chunk of "
         f"{cap.eval_cfg.batch}, {SURF_TOKENS} tokens; chunk latency {ms:.1f} ms, q/s "
         f"{1e3 / ms:.4f}; launches {launches}, torch._int_mm {int_mm}")
-    missing = [k for k in SERVING if k not in launches] + ([] if int_mm else ["torch._int_mm"])
-    if n != 57 or missing:
-        raise AssertionError(f"caption_windows: {n} answers, never launched {missing}")
+    missing = [k for k in SERVING + W8A8 if k not in launches]
+    if n != 57 or missing or int_mm:
+        raise AssertionError(f"caption_windows: {n} answers, never launched {missing}, "
+                             f"torch._int_mm x{int_mm}")
     del cap
 
     parts_s["captions"] = time.perf_counter()
@@ -4376,7 +4575,7 @@ def timed_train(tag, argv):
     a warm-up, the others timed. Prints the step ms (median), windows/s,
     frames/s, peak memory and each row-4 kernel's launches a step; fails
     unless every loss is finite, all three row-4 kernels ran and no kernel
-    without a backward (K1, K2, K3, torch._int_mm) did. Returns (run,
+    without a backward (K1, K2, K3, the W8A8 kernels, torch._int_mm) did. Returns (run,
     optimizer, the last batch, the median loop step in s)."""
     import torch
     from revisionllm_tpu_torch.train import train_cli
@@ -4413,7 +4612,7 @@ def timed_train(tag, argv):
         f"{[round(x, 4) for x in losses]}; launches a step {launches}, torch._int_mm "
         f"{int_mm.n}; save and export {t_end - marks[-1]:.2f} s")
     missing = [k for k in TRAINING if not launches.get(k)]
-    stray = {k: launches[k] for k in SERVING if launches.get(k)}
+    stray = {k: launches[k] for k in SERVING + W8A8 if launches.get(k)}
     if not np.isfinite(losses).all() or missing or stray or int_mm.n:
         raise AssertionError(f"{tag}: losses {losses}, row-4 kernels not launched {missing}, "
                              f"kernels without a backward {stray}, torch._int_mm x{int_mm.n}")
@@ -5673,7 +5872,7 @@ def main() -> int:
 
     records = {}
     for check in (check_int8_matmul, check_flash_attention, check_decode_attention,
-                  check_int4_matmul, check_fused_mlp):
+                  check_int4_matmul, check_fused_mlp, check_w8a8_gemm):
         rec = check(dev, ITERS)
         records[rec["name"]] = rec
     for rec in check_flash_vjp(dev, ITERS) + check_prefix_attention(dev, ITERS):

@@ -64,6 +64,7 @@ from revisionllm_tpu_torch.ops.quant import (
     quantize_activation_rows,
     quantize_int4,
     quantize_int8,
+    quantize_rows,
     row_absmax,
     w8a8_matmul_absmax,
     w8a8_mlp_fused,
@@ -414,15 +415,6 @@ def lora_layer_params(lora: Optional[Params], i: int) -> Optional[Params]:
     return {name: {k: t[i] for k, t in mats.items()} for name, mats in lora["layers"].items()}
 
 
-def _quantize_rows(x: torch.Tensor):
-    """absmax-int8 over the last axis: (int8 values, f32 scale with the last
-    axis reduced to 1)."""
-    # abs and max are exact in x's own type; x / sc promotes to f32
-    absmax = x.abs().amax(dim=-1, keepdim=True).float()
-    sc = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
-    return torch.div(x, sc).round_().clamp_(-127, 127).to(torch.int8), sc
-
-
 def forward_hidden(
     cfg: LlamaConfig,
     params: Params,
@@ -512,13 +504,13 @@ def forward_hidden(
         x, k, v = layer(x, layer_params(params, i, mesh), lora_lp, ppkv)
         if kv_slab_slots is not None:
             for j, t in enumerate((k, v)):
-                tq, ts = _quantize_rows(t)
+                tq, ts = quantize_rows(t)
                 cache["kv"][i, :, j, :, :T] = tq.permute(0, 2, 1, 3)
                 cache["kvsc"][i, :, j, :, :T] = ts[..., 0].permute(0, 2, 1)
         elif cache is not None:
             if kv_quant:
                 for name, t in (("k", k), ("v", v)):
-                    tq, ts = _quantize_rows(t)
+                    tq, ts = quantize_rows(t)
                     cache[name][i] = tq
                     cache[f"{name}_scale"][i] = ts[..., 0]
             else:
@@ -630,7 +622,7 @@ def prefill_shared_prefix(
         rows, then the rest [B, T2, KH, hd]."""
         for sl, t in ((slice(0, P), prefix), (slice(P, T), rest)):
             if kv_quant:
-                tq, ts = _quantize_rows(t)
+                tq, ts = quantize_rows(t)
                 cache[name][i, :, sl] = tq
                 cache[f"{name}_scale"][i, :, sl] = ts[..., 0]
             else:
@@ -732,7 +724,7 @@ def quantize_prompt_kv(prompt_kv: Params) -> Params:
     """Int8 prompt KV: per-(layer, batch, position, head) absmax over hd."""
     out = {}
     for name in ("k", "v"):
-        q, sc = _quantize_rows(prompt_kv[name])
+        q, sc = quantize_rows(prompt_kv[name])
         out[name] = q
         out[f"{name}_scale"] = sc[..., 0]
     return out

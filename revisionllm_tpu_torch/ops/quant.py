@@ -8,9 +8,13 @@ keeps JAX's dispatch rule (ops/quant.py:237-276):
   (csrc/int8_matmul.cu) on a CUDA tensor, its plain version on a CPU one;
 - M > 256 with W8A8 on (prefill): `w8a8_matmul`, per-row int8 activations
   times int8 weights with int32 accumulation. In JAX this is an XLA int8 dot
-  outside any Pallas kernel, so here it stays a PyTorch call (`torch._int_mm`).
-  Its gradient is JAX's straight-through rule (:162-190): dx = g dequant(W)^T
-  as if the matmul were exact;
+  outside any Pallas kernel. Here a CUDA tensor takes three hand-written
+  launches (csrc/w8a8_gemm.cu): `quantize_rows` once for the matrices that
+  share x, then per matrix a transpose of the weight and the int8 wgmma GEMM
+  (`w8a8_gemm`), whose epilogue applies both scales and the cast; a CPU
+  tensor takes their plain versions (`torch._int_mm`). Its gradient is JAX's
+  straight-through rule (:162-190): dx = g dequant(W)^T as if the matmul
+  were exact;
 - otherwise exact dequantization, then a matmul.
 
 Int4 weights ({"q4", "scale4"}, group-wise, two nibbles a byte) take
@@ -24,7 +28,7 @@ The serving-packed layout of ops/decode_serve.py ({"q8c"} column chunks,
 
 `set_exact_trace(True)` (the trainer's `_dequant_trace`) sends every call to
 the differentiable dequantize-then-matmul route, on any device and any M, as
-JAX's exact-trace rule does (:221-234). K1 and `torch._int_mm` have no
+JAX's exact-trace rule does (:221-234). K1 and the W8A8 kernels have no
 backward: on a CUDA tensor that requires grad they raise (`forbid_grad`)
 rather than cut it from the graph.
 
@@ -224,28 +228,77 @@ def row_absmax(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(-1, x.shape[-1]).abs().amax(dim=-1, keepdim=True).float()
 
 
+def quantize_rows_plain(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-row absmax int8 over the last axis of [..., K] -> (int8 [..., K],
+    f32 scale [..., 1]): scale = absmax / 127 (1 where it is 0), q =
+    clip(round(x / scale), -127, 127), the quotient in f32 and rounded half
+    to even. `absmax` [..., 1], when given, replaces the rows' own. (On a
+    CUDA tensor PyTorch divides by the scalar 127 as a product with its f32
+    reciprocal, so a scale may differ from the CPU's in its last bit.)"""
+    if absmax is None:
+        absmax = x.abs().amax(dim=-1, keepdim=True).float()
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    # x / scale promotes to f32: the same quotient as x.float() / scale
+    return torch.div(x, scale).round_().clamp_(-127, 127).to(torch.int8), scale
+
+
+QROWS_MAX_K = 16384  # csrc/w8a8_gemm.cu quantize_rows: 256 threads x 8 vectors of 8
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`quantize_rows_plain` of [..., K] (its own absmax): (int8 [..., K],
+    f32 scale [..., 1]), the W8A8 prefill's activations and the int8 prompt
+    cache's rows of head_dim.
+
+    A CPU tensor takes `quantize_rows_plain`; a CUDA tensor launches
+    quantize_rows_kernel (csrc/w8a8_gemm.cu) once, bit-equal to the plain
+    version on the card: bf16, K % 8 == 0 and K <= QROWS_MAX_K."""
+    if x.device.type == "cpu":
+        return quantize_rows_plain(x)
+    kernels.forbid_grad("quantize_rows", x)
+    K = x.shape[-1]
+    x2 = x.reshape(-1, K).contiguous()
+    M = x2.shape[0]
+    if not (x2.dtype == torch.bfloat16 and K % 8 == 0 and 8 <= K <= QROWS_MAX_K):
+        raise ValueError(
+            f"quantize_rows kernel takes bf16 rows of K % 8 == 0, 8 <= K <= {QROWS_MAX_K}; got "
+            f"{x2.dtype} {tuple(x.shape)}")
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    s = torch.empty((*x.shape[:-1], 1), dtype=torch.float32, device=x.device)
+    if M == 0:
+        return q, s
+    if x2.data_ptr() % 16:
+        x2 = x2.clone()  # a view at an odd offset: 16-byte loads need an aligned row
+    fn = kernels.function("w8a8_gemm", "quantize_rows",
+                          [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    err = fn(x2.data_ptr(), q.data_ptr(), s.data_ptr(), M, K, kernels.stream_of(x2))
+    kernels.check_launch("quantize_rows", err)
+    kernels.LAUNCHES["quantize_rows"] += 1
+    return q, s
+
+
 def quantize_activation_rows(x: torch.Tensor, absmax: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-row absmax int8 of [..., K] -> (int8 [M, K], f32 scale [M, 1]):
-    the dynamic-activation half of W8A8 (JAX's quantize_activation_rows).
-    `absmax` [M, 1], when given, replaces the rows' own (a row-parallel
-    slice quantized by its whole row's absmax)."""
+    the dynamic-activation half of W8A8 (JAX's quantize_activation_rows),
+    through `quantize_rows`. `absmax` [M, 1], when given, replaces the rows'
+    own (a row-parallel slice quantized by its whole row's absmax; the plain
+    route)."""
     x2 = x.reshape(-1, x.shape[-1])
     if absmax is None:
-        absmax = row_absmax(x2)
-    x_scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
-    # x / x_scale promotes to f32: the same quotient as x.float() / x_scale
-    x_q8 = torch.div(x2, x_scale).round_().clamp_(-127, 127).to(torch.int8)
-    return x_q8, x_scale
+        return quantize_rows(x2)
+    return quantize_rows_plain(x2, absmax)
 
 
 def _int8_dot(x_q8: torch.Tensor, w_q8: torch.Tensor) -> torch.Tensor:
-    """Exact int32 product of int8 x [M, K] and int8 w [K, N]. On the card
+    """Exact int32 product of int8 x [M, K] and int8 w [K, N]: the CPU's W8A8
+    route, the int32 partial sums of the row-parallel W8A8 product under
+    tensor parallelism, and row 8's plain version. On the card
     torch._int_mm wants M > 16 (fewer rows are padded to 17) and takes
     cuBLAS's fast int8 kernel only for a column-major weight, so the weight
     is transposed for the call (the stored layout stays [K, N] row-major, as
-    in JAX). The copy is redone on every call: a known cost, queued in
-    ROADMAP's speed work."""
+    in JAX)."""
     M = x_q8.shape[0]
     if x_q8.is_cuda:
         xp = torch.nn.functional.pad(x_q8, (0, 0, 0, 17 - M)) if M <= 16 else x_q8
@@ -255,18 +308,102 @@ def _int8_dot(x_q8: torch.Tensor, w_q8: torch.Tensor) -> torch.Tensor:
     return x_q8.int() @ w_q8.int()
 
 
+W8A8_BM = 128  # the GEMM's tile (csrc/w8a8_gemm.cu): 128 rows by 128 or 256 columns
+
+
+def w8a8_tile_columns(M: int, N: int, sms: int) -> int:
+    """The GEMM's tile width in 128 columns for an [M, K] x [K, N] product
+    on `sms` SMs: 2, unless its tiles would not fill two waves, where the
+    narrow tile spreads the work over more SMs (ChatGLM2's k and v, N 256,
+    152 wide tiles). The copies bound the narrow tile sooner: it moves two
+    thirds of the wide one's bytes for half its products, and at the cells'
+    other shapes it ran 11-20 points further from the bound (PERF.md)."""
+    wide = -(-M // W8A8_BM) * -(-N // 256)
+    return 2 if wide >= 2 * sms else 1
+
+
+def _w8a8_out_ok(out: torch.Tensor, M: int, N: int, dev: torch.device) -> bool:
+    """Whether the GEMM can write `out`: [M, N] on `dev`, unit column stride;
+    bf16 goes out in TMA boxes (16-byte aligned, row stride a multiple of
+    8), f32 in float2 stores (8-byte aligned, even row stride)."""
+    step, align = (8, 16) if out.dtype == torch.bfloat16 else (2, 8)
+    return (out.shape == (M, N) and out.device == dev and out.stride(1) == 1
+            and out.stride(0) >= N and out.stride(0) % step == 0 and out.data_ptr() % align == 0)
+
+
+def w8a8_gemm_plain(x_q8, x_scale, w_q8, w_scale, out_dtype=torch.bfloat16):
+    """The GEMM's maths step by step: the exact int32 product, each sum
+    rounded to f32, times x_scale, times w_scale (two f32 roundings, in that
+    order), cast to out_dtype."""
+    return (_int8_dot(x_q8, w_q8).float() * x_scale * w_scale).to(out_dtype)
+
+
+def w8a8_gemm(x_q8: torch.Tensor, x_scale: torch.Tensor, w_q8: torch.Tensor,
+              w_scale: torch.Tensor, out: Optional[torch.Tensor] = None,
+              out_dtype=torch.bfloat16) -> torch.Tensor:
+    """(x_q8 [M, K] int8, x_scale [M, 1] f32) x (w_q8 [K, N] int8, w_scale [N]
+    f32) -> ((x_q8 @ w_q8 in f32) * x_scale) * w_scale as [M, N] of
+    out_dtype, or written into `out` ([M, N], unit column stride, any row
+    stride: a column slice of a wider output) and returned.
+
+    A CPU tensor takes `w8a8_gemm_plain`; a CUDA tensor launches, on the
+    caller's stream, kmajor_transpose_kernel (the weight K-major into a
+    scratch [N, K]) and then s8gemm_kernel once (csrc/w8a8_gemm.cu), whose
+    epilogue applies both scales and the cast: bit-equal to the plain
+    version, bf16 or f32 out, K and N multiples of 16."""
+    if x_q8.device.type == "cpu":
+        res = w8a8_gemm_plain(x_q8, x_scale, w_q8, w_scale,
+                              torch.float32 if out is not None else out_dtype)
+        return res if out is None else out.copy_(res)
+    kernels.forbid_grad("w8a8_gemm", x_scale, w_scale)
+    M, K = x_q8.shape
+    N = w_q8.shape[-1]
+    dev = x_q8.device
+    dtype = out_dtype if out is None else out.dtype
+    if not (
+        M >= 1 and K % 16 == 0 and N % 16 == 0 and w_q8.shape == (K, N)
+        and x_scale.shape == (M, 1) and w_scale.shape == (N,)
+        and dtype in (torch.bfloat16, torch.float32)
+        and all(t.dtype == torch.int8 and t.device == dev and t.is_contiguous()
+                and t.data_ptr() % 16 == 0 for t in (x_q8, w_q8))
+        and all(t.dtype == torch.float32 and t.device == dev and t.is_contiguous()
+                for t in (x_scale, w_scale))
+        and (out is None or _w8a8_out_ok(out, M, N, dev))
+    ):
+        raise ValueError(
+            "w8a8_gemm kernel takes contiguous 16-byte-aligned int8 x [M, K%16==0] and w [K, "
+            "N%16==0], f32 scales [M, 1] and [N] on one device, and a bf16 or f32 output [M, N] "
+            "(unit column stride; bf16: 16-byte aligned, row stride a multiple of 8; f32: "
+            f"8-byte aligned, even row stride); got x {x_q8.dtype} {tuple(x_q8.shape)}, "
+            f"w {w_q8.dtype} {tuple(w_q8.shape)}, x_scale {tuple(x_scale.shape)}, w_scale "
+            f"{tuple(w_scale.shape)}, out {dtype}"
+            + ("" if out is None else f" {tuple(out.shape)} stride {out.stride()}"))
+    if out is None:
+        out = torch.empty((M, N), dtype=dtype, device=dev)
+    wt = torch.empty((N, K), dtype=torch.int8, device=dev)
+    fn = kernels.function(
+        "w8a8_gemm", "w8a8_gemm",
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p])
+    err = fn(x_q8.data_ptr(), x_scale.data_ptr(), w_q8.data_ptr(), w_scale.data_ptr(),
+             wt.data_ptr(), out.data_ptr(), M, K, N, out.stride(0),
+             int(dtype == torch.float32), w8a8_tile_columns(M, N, _sm_count(dev)),
+             kernels.stream_of(x_q8))
+    kernels.check_launch("w8a8_gemm", err)
+    kernels.LAUNCHES["w8a8_transpose"] += 1
+    kernels.LAUNCHES["w8a8_gemm"] += 1
+    return out
+
+
 def _w8a8_product(
     x: torch.Tensor, x_q8: torch.Tensor, x_scale: torch.Tensor,
     w_q8: torch.Tensor, w_scale: torch.Tensor, out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One W8A8 product in x's type, or written into `out` ([M, N] of x's
-    type, a column slice of a wider output) with the same rounding."""
-    if x_q8.is_cuda:
-        kernels.forbid_grad("torch._int_mm (W8A8)", x, x_scale, w_scale)
-    acc = _int8_dot(x_q8, w_q8)
-    if out is not None:
-        return out.copy_(torch.mul(acc, x_scale).mul_(w_scale))
-    return _w8a8_scale(acc, x, x_scale, w_scale)
+    """One W8A8 product in x's type and leading shape, or written into `out`
+    ([M, N] of x's type, a column slice of a wider output) with the same
+    rounding: `w8a8_gemm`."""
+    res = w8a8_gemm(x_q8, x_scale, w_q8, w_scale, out=out, out_dtype=x.dtype)
+    return res if out is not None else res.reshape(*x.shape[:-1], res.shape[-1])
 
 
 class _W8A8Product(torch.autograd.Function):
@@ -761,7 +898,5 @@ def w8a8_prequant_matmul(x_q8: torch.Tensor, x_scale: torch.Tensor, w_q8: torch.
     """int8 x int8 for an activation that is already quantized (row 8's
     output): exact int32 product, (acc * x_scale * w_scale) in f32, cast to
     out_dtype. An int8 dot outside any Pallas kernel in JAX (:856-866), so
-    here `torch._int_mm` as for W8A8."""
-    if x_q8.is_cuda:
-        kernels.forbid_grad("torch._int_mm (W8A8)", x_scale, w_scale)
-    return (_int8_dot(x_q8, w_q8).float() * x_scale * w_scale).to(out_dtype)
+    here `w8a8_gemm` as for W8A8."""
+    return w8a8_gemm(x_q8, x_scale, w_q8, w_scale, out_dtype=out_dtype)

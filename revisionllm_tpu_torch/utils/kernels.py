@@ -36,19 +36,21 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNELS = (
     "int8_matmul", "flash_attention", "decode_attention", "flash_attention_vjp",
-    "int4_matmul", "w8a8_mlp_fused", "decode_step", "decode_serve",
+    "int4_matmul", "w8a8_mlp_fused", "decode_step", "decode_serve", "w8a8_gemm",
 )
 # launch counters, one per kernel: flash_attention.cu holds K2, the LSE
 # forward (row 4's flash_fwd_lse and row 5's flash_attention_lse, counted
 # by their wrappers) and row 6 (flash_attention_prefixed),
 # flash_attention_vjp.cu row 4's dq and dk/dv; int4_matmul.cu row 7,
 # w8a8_mlp_fused.cu row 8, decode_step.cu row 9 (decode_step_fused),
-# decode_serve.cu row 10 (decode_step_serve)
+# decode_serve.cu row 10 (decode_step_serve); w8a8_gemm.cu the W8A8
+# prefill's row quantizer, weight transpose and GEMM
 COUNTERS = (
     "int8_matmul", "flash_attention", "decode_attention",
     "flash_fwd_lse", "flash_dq", "flash_dkv",
     "flash_attention_lse", "flash_attention_prefixed",
     "int4_matmul", "w8a8_mlp_fused", "decode_step_fused", "decode_step_serve",
+    "quantize_rows", "w8a8_transpose", "w8a8_gemm",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

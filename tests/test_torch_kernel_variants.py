@@ -1,7 +1,7 @@
 """The kernel probes' source edits (scripts/kernel_variants.py and the
 CUTS of scripts/torch_int4_probe.py, torch_int8_kernel.py,
-torch_fused_mlp_kernel.py, torch_decode_step_phases.py and
-torch_decode_attention_kernel.py) against the CUDA
+torch_fused_mlp_kernel.py, torch_w8a8_gemm.py, torch_decode_step_phases.py
+and torch_decode_attention_kernel.py) against the CUDA
 sources as they are: every cut still finds its lines, overrides replace
 exactly one constexpr, and a stale edit or an unknown constant stops the
 probe. No GPU or nvcc is needed."""
@@ -20,18 +20,21 @@ import torch_decode_step_phases as phases  # noqa: E402
 import torch_fused_mlp_kernel as mlp_probe  # noqa: E402
 import torch_int4_probe as int4_probe  # noqa: E402
 import torch_int8_kernel as int8_probe  # noqa: E402
+import torch_w8a8_gemm as w8a8_probe  # noqa: E402
 
 CSRC = ROOT / "revisionllm_tpu_torch" / "csrc"
 
 
-PROBES = {"int8": int8_probe.CUTS, "int4": int4_probe.CUTS, "mlp": mlp_probe.CUTS}
+PROBES = {"int8": int8_probe.CUTS, "int4": int4_probe.CUTS, "mlp": mlp_probe.CUTS,
+          "w8a8": w8a8_probe.CUTS}
 
 
 def _variant(probe, spec):
     """The source of one probe's variant, prepared as the probe prepares it."""
     if probe == "int4":
         return int4_probe.variant_source(spec)
-    src = int8_probe.SRC.read_text() if probe == "int8" else (ROOT / mlp_probe.SRC).read_text()
+    src = int8_probe.SRC.read_text() if probe == "int8" else \
+        (ROOT / (w8a8_probe.SRC if probe == "w8a8" else mlp_probe.SRC)).read_text()
     return kv.variant_source(src, spec, PROBES[probe], probe)
 
 
