@@ -297,6 +297,7 @@ REPLACES = {
     "decode_step_fused": "revisionllm_tpu/ops/decode_step.py:135",
     "decode_step_serve": "revisionllm_tpu/ops/decode_serve.py:227",
     "w8a8_gemm": "none: JAX leaves W8A8 to XLA's int8 dot (revisionllm_tpu/ops/quant.py w8a8_matmul)",
+    "moe_grouped": "none: the JAX package has no mixture of experts",
 }
 SOURCES = {
     "int8_matmul": "int8_matmul", "flash_attention": "flash_attention",
@@ -305,7 +306,7 @@ SOURCES = {
     "flash_attention_lse": "flash_attention", "flash_attention_prefixed": "flash_attention",
     "int4_matmul": "int4_matmul", "w8a8_mlp_fused": "w8a8_mlp_fused",
     "decode_step_fused": "decode_step", "decode_step_serve": "decode_serve",
-    "w8a8_gemm": "w8a8_gemm",
+    "w8a8_gemm": "w8a8_gemm", "moe_grouped": "w8a8_gemm",
 }
 SERVING = ("int8_matmul", "flash_attention", "decode_attention")
 W8A8 = ("quantize_rows", "w8a8_transpose", "w8a8_gemm")   # the W8A8 prefill
@@ -432,7 +433,8 @@ def ptxas_entries(text):
 
 
 # the kernels that must not spill: the attention kernels, K1's, row 7's,
-# row 8's three and K3's at group 16
+# row 8's three, K3's at group 16, the W8A8 prefill's three and the two
+# grouped expert kernels
 ROW8_KERNELS = ("mlp_transpose_kernel", "mlp_gemm_kernel", "mlp_quant_kernel")
 NO_SPILL_KERNELS = {**ATTENTION_KERNELS,
                     "q8_matmul_kernel": ("int8_matmul", "q8_matmul_smem_bytes", ()),
@@ -443,7 +445,9 @@ NO_SPILL_KERNELS = {**ATTENTION_KERNELS,
                     "mlp_quant_kernel": ("w8a8_mlp_fused", "w8a8_mlp_smem_bytes", (2,)),
                     "s8gemm_kernel": ("w8a8_gemm", "w8a8_gemm_smem_bytes", (2,)),
                     "kmajor_transpose_kernel": ("w8a8_gemm", "w8a8_gemm_smem_bytes", (0,)),
-                    "quantize_rows_kernel": ("w8a8_gemm", "w8a8_gemm_smem_bytes", (0,))}
+                    "quantize_rows_kernel": ("w8a8_gemm", "w8a8_gemm_smem_bytes", (0,)),
+                    "moe_w8a8_kernel": ("w8a8_gemm", "w8a8_gemm_smem_bytes", (2,)),
+                    "moe_w8a16_kernel": ("int8_matmul", "q8_matmul_smem_bytes", ())}
 
 
 def report_ptxas(kernels, libs=None):
@@ -2892,6 +2896,159 @@ def check_w8a8_gemm(dev, iters):
             "unit": f"one ChatGLM2-6B layer of the chunk-64 prefill (M={M}): 6 quantizations, "
                     f"7 transposes and 7 GEMMs; library: torch._int_mm on held column-major "
                     f"weights with the f32 scales and the cast in PyTorch, quantization plain"}
+
+
+MOE_E, MOE_K, MOE_D, MOE_F = 64, 6, 2048, 1408   # DeepSeek-V2-Lite's routed experts
+MOE_PREFILL_TOKENS = 64 * 314                     # the cell's chunk: 64 rows of its longest prompt
+MOE_DECODE_TOKENS = 64                            # one decode step of the chunk
+MOE_KERNELS = ("moe_w8a8_kernel", "moe_w8a16_kernel")
+
+
+def moe_routing(gen, T, k, E, dev, case):
+    """Router choices idx [T, k] of distinct experts per token: "ragged"
+    (experts drawn with skewed odds, experts 5 and 9 never), or "one" (k =
+    1, every token to expert 7)."""
+    import torch
+
+    if case == "one":
+        return torch.full((T, 1), 7, dtype=torch.long, device=dev)
+    odds = torch.rand(E, generator=gen, device=dev) ** 3 + 0.02
+    odds[[5, 9]] = 0
+    return torch.multinomial(odds.expand(T, E), k, replacement=False, generator=gen)
+
+
+def moe_shifted(d, e):
+    """The dispatch `d` with expert e's rows read one row late (a planted
+    fault of the offsets)."""
+    starts = d.starts.clone()
+    starts[e] += 1
+    return d._replace(starts=starts)
+
+
+def moe_used_rows(d):
+    """The buffer rows that hold routed rows (bool [capacity])."""
+    import torch
+
+    used = torch.zeros(d.capacity, dtype=torch.bool, device=d.dest.device)
+    used[d.dest] = True
+    return used
+
+
+def check_moe_kernels(dev, iters):
+    """DeepSeekMoE's two grouped expert kernels against their plain versions
+    (ops/moe.py) at the DeepSeek-V2-Lite cell's shapes, with routings that
+    leave experts empty, skew the rest, or send every row to one expert; in
+    the ragged routing a planted fault each must be caught (the busiest
+    expert's offset shifted by one row). The grouped W8A8 GEMM (prefill: 64 x 314 tokens, 6 experts each)
+    is bit-equal on the rows in use; the grouped W8A16 (decode: 64 tokens)
+    is held by relative L2 as K1 is. Records each kernel's worst absolute
+    error against its plain version, measured. Times each beside its
+    bound, its plain version, and the per-expert loop of the dense kernels
+    it replaces (w8a8_gemm with its transpose, K1), one launch an
+    expert."""
+    import torch
+    from revisionllm_tpu_torch.ops import moe as MOE
+    from revisionllm_tpu_torch.ops import quant as Q
+    from revisionllm_tpu_torch.utils import kernels as KN
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    E, k, D, Fm = MOE_E, MOE_K, MOE_D, MOE_F
+    few = max(3, iters // 4)
+    out = {}
+    worst = {"moe_w8a8": 0.0, "moe_w8a16": 0.0}
+    mats = {"gate/up": (D, 2 * Fm), "down": (Fm, D)}
+    weights = {}
+    for name, (K, N) in mats.items():
+        wq, ws = Q.quantize_int8(torch.randn((E, K, N), generator=gen, device=dev) * K ** -0.5)
+        weights[name] = (wq, ws, wq.transpose(-1, -2).contiguous())
+
+    for case in ("ragged", "one"):
+        T = MOE_PREFILL_TOKENS
+        idx = moe_routing(gen, T, k, E, dev, case)
+        d = MOE.dispatch(idx, E, MOE.W8A8_PAD)
+        used = moe_used_rows(d)
+        busiest = int(d.counts.argmax())
+        for name, (K, N) in mats.items():
+            wq, ws, wt = weights[name]
+            xq, xs = Q.quantize_rows(w8a8_rows(gen, d.capacity, K, dev))
+            before = KN.LAUNCHES["moe_w8a8"]
+            got = MOE.grouped_w8a8(xq, xs, wt, ws, d)
+            again = MOE.grouped_w8a8(xq, xs, wt, ws, d)
+            want = MOE.grouped_w8a8_plain(xq, xs, wt, ws, d)
+            bad = MOE.grouped_w8a8_plain(xq, xs, wt, ws, moe_shifted(d, busiest))
+            label = f"moe_w8a8 {case} {name} R={idx.numel()} K={K} N={N}"
+            # with one expert a shifted start moves no row to another expert
+            hold_bits(label, got[used], want[used],
+                      {"offset shifted by one": bad[used]} if case == "ragged" else {})
+            worst["moe_w8a8"] = max(worst["moe_w8a8"],
+                                    (got[used].float() - want[used].float()).abs().max().item())
+            if not torch.equal(got[used], again[used]) or KN.LAUNCHES["moe_w8a8"] != before + 2:
+                raise AssertionError(f"{label}: two calls differ, or not one launch a call")
+            del got, again, want, bad
+            if case != "ragged":
+                continue
+            R = idx.numel()
+            ms = kernel_ms(lambda: MOE.grouped_w8a8(xq, xs, wt, ws, d), iters,
+                           MOE_KERNELS[:1])[MOE_KERNELS[0]]
+            rows = MOE._expert_rows(d)
+            loop = device_ms(lambda: [Q.w8a8_gemm(xq[s:s + c], xs[s:s + c], wq[e], ws[e])
+                                      for e, s, c in rows], few)
+            plain = device_ms(lambda: MOE.grouped_w8a8_plain(xq, xs, wt, ws, d), few)
+            b, by = bound(R * K + E * K * N + 2 * R * N + 4 * R + 4 * E * N, 2.0 * R * K * N,
+                          INT8_OPS_PER_S)
+            say(f"{label}: kernel {ms:.4f} ms (under the profiler), bound {b:.4f} ms ({by}), "
+                f"{100 * b / ms:.1f}% of it; plain version {plain:.4f} ms; per-expert loop of "
+                f"w8a8_gemm (transpose + GEMM, {len(rows)} experts with rows) {loop:.4f} ms; "
+                f"{d.capacity - R} padding rows")
+            out[f"w8a8 {name}"] = {"ms": ms, "bound_ms": b, "plain_ms": plain, "loop_ms": loop}
+            del xq, xs
+
+        T = MOE_DECODE_TOKENS
+        idx = moe_routing(gen, T, k, E, dev, case)
+        d = MOE.dispatch(idx, E, 1)
+        busiest = int(d.counts.argmax())
+        for name, (K, N) in mats.items():
+            wq, ws, _ = weights[name]
+            x = torch.randn((idx.numel(), K), generator=gen, device=dev).to(torch.bfloat16)
+            before = KN.LAUNCHES["moe_w8a16"]
+            got = MOE.grouped_w8a16(x, wq, ws, d, T)
+            again = MOE.grouped_w8a16(x, wq, ws, d, T)
+            want = MOE.grouped_w8a16_plain(x, wq, ws, d)
+            bad = MOE.grouped_w8a16_plain(x, wq, ws, moe_shifted(d, busiest))
+            label = f"moe_w8a16 {case} {name} R={idx.numel()} K={K} N={N}"
+            rel, rel_bad = rel_l2(got.float(), want.float()), rel_l2(bad.float(), want.float())
+            err = (got.float() - want.float()).abs().max().item()
+            worst["moe_w8a16"] = max(worst["moe_w8a16"], err)
+            say(f"{label}: relative L2 {rel:.2e} (tol 1e-2), worst absolute {err:.3e}; offset "
+                f"shifted by one "
+                f"{rel_bad:.2e}; {int((d.counts == 0).sum())} empty experts, the busiest "
+                f"{int(d.counts.max())} rows")
+            if not (rel <= 1e-2 and (case != "ragged" or rel_bad > 1e-2)) \
+                    or not torch.equal(got, again) \
+                    or KN.LAUNCHES["moe_w8a16"] != before + 2:
+                raise AssertionError(f"{label}: outside the tolerance, a fault passed, two calls "
+                                     f"differ, or not one launch a call")
+            if case != "ragged":
+                continue
+            R = idx.numel()
+            ms = device_ms(lambda: MOE.grouped_w8a16(x, wq, ws, d, T), iters)
+            rows = MOE._expert_rows(d)
+            loop = device_ms(lambda: [Q.int8_matmul(x[s:s + c], wq[e], ws[e])
+                                      for e, s, c in rows], few)
+            plain = device_ms(lambda: MOE.grouped_w8a16_plain(x, wq, ws, d), few)
+            hit = len(rows)
+            b, by = bound(hit * K * N + 4 * hit * N + 2 * R * K + 2 * R * N, 2.0 * R * K * N)
+            say(f"{label}: kernel {ms:.4f} ms, bound {b:.4f} ms ({by}, the {hit} experts hit), "
+                f"{100 * b / ms:.1f}% of it; plain version {plain:.4f} ms; per-expert loop of "
+                f"K1 {loop:.4f} ms")
+            out[f"w8a16 {name}"] = {"ms": ms, "bound_ms": b, "plain_ms": plain, "loop_ms": loop}
+    say(f"moe_grouped: worst absolute error against the plain versions {worst}")
+    return {"name": "moe_grouped", "max_abs_err": max(worst.values()), "max_abs_errs": worst,
+            "ms": out["w8a8 gate/up"]["ms"],
+            "bound_ms": out["w8a8 gate/up"]["bound_ms"], "bound_by": "operations",
+            "parts": out,
+            "unit": f"DeepSeek-V2-Lite's gate/up of one MoE layer in the chunk-64 prefill "
+                    f"({MOE_PREFILL_TOKENS} tokens x {k} experts)"}
 
 
 def first_layers(tree, n):
@@ -5872,7 +6029,7 @@ def main() -> int:
 
     records = {}
     for check in (check_int8_matmul, check_flash_attention, check_decode_attention,
-                  check_int4_matmul, check_fused_mlp, check_w8a8_gemm):
+                  check_int4_matmul, check_fused_mlp, check_w8a8_gemm, check_moe_kernels):
         rec = check(dev, ITERS)
         records[rec["name"]] = rec
     for rec in check_flash_vjp(dev, ITERS) + check_prefix_attention(dev, ITERS):

@@ -64,6 +64,81 @@ class LlamaConfig:
             max_position_embeddings=512,
         )
 
+    @property
+    def latent_attention(self) -> bool:
+        """Whether the layers are DeepSeek-V2's MLA and DeepSeekMoE
+        (DeepseekV2Config); False for the Llama and ChatGLM2 geometries."""
+        return False
+
+    @staticmethod
+    def deepseek_v2_lite() -> "DeepseekV2Config":
+        return DeepseekV2Config.lite()
+
+
+@dataclass(frozen=True)
+class DeepseekV2Config(LlamaConfig):
+    """DeepSeek-V2's block (HF `deepseek_v2`, modeling_deepseek.py):
+    multi-head latent attention (MLA) without a q low-rank, YaRN rotary on
+    the rope part of each head, a leading run of dense SwiGLU layers and
+    then DeepSeekMoE layers (a softmax router over `n_routed_experts`,
+    greedy top-`num_experts_per_tok`, plus shared experts). `num_heads` and
+    `intermediate_size` (the dense layers' width) keep their meaning;
+    `head_dim` is the value head. The fields live on this subclass, so the
+    dense configurations' fields stay those of the JAX package's LlamaConfig."""
+
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    n_shared_experts: int = 2
+    num_experts_per_tok: int = 6
+    moe_intermediate_size: int = 1408
+    first_k_dense_replace: int = 1
+    # YaRN (rope_scaling {"type": "yarn", ...}); factor 1 is plain rotary
+    rope_scaling_factor: float = 40.0
+    rope_original_max_position: int = 4096
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 0.707
+    yarn_mscale_all_dim: float = 0.707
+
+    @property
+    def latent_attention(self) -> bool:
+        return True
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def num_moe_layers(self) -> int:
+        return self.num_layers - self.first_k_dense_replace
+
+    @staticmethod
+    def lite() -> "DeepseekV2Config":
+        """DeepSeek-V2-Lite (huggingface.co/deepseek-ai/DeepSeek-V2-Lite
+        config.json): 27 layers, hidden 2048, 16 heads, latent 512 + rope
+        64, layer 0 dense (10944), 26 MoE layers of 64 experts (1408), top 6,
+        2 shared, vocabulary 102400."""
+        return DeepseekV2Config(
+            vocab_size=102400, hidden_size=2048, intermediate_size=10944, num_layers=27,
+            num_heads=16, num_kv_heads=16, head_dim=128, rope_theta=10000.0,
+            rms_norm_eps=1e-6, max_position_embeddings=163840)
+
+    @staticmethod
+    def tiny(vocab_size: int = 512) -> "DeepseekV2Config":
+        """The CPU tests' size: 3 layers (the first dense), hidden 128, 4
+        heads, latent 32 + rope 16, nope 32, v 32, 8 experts, top 2, 1
+        shared."""
+        return DeepseekV2Config(
+            vocab_size=vocab_size, hidden_size=128, intermediate_size=256, num_layers=3,
+            num_heads=4, num_kv_heads=4, head_dim=32, rms_norm_eps=1e-6,
+            max_position_embeddings=512, kv_lora_rank=32, qk_nope_head_dim=32,
+            qk_rope_head_dim=16, v_head_dim=32, n_routed_experts=8, n_shared_experts=1,
+            num_experts_per_tok=2, moe_intermediate_size=64, first_k_dense_replace=1,
+            rope_scaling_factor=40.0, rope_original_max_position=64)
+
 
 @dataclass(frozen=True)
 class AdapterConfig:

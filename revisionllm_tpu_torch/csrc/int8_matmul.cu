@@ -66,9 +66,14 @@
 // the wrapper's bound); each re-reads the weights, mostly from L2. Below 64
 // rows the rows past M are zeros the tensor cores multiply.
 //
-// Plain C interface, bound with ctypes by revisionllm_tpu_torch/ops/quant.py,
-// which mirrors the shared-memory size below (q8_smem_bytes) and asks
-// q8_matmul_max_clusters for the plan.
+// moe_w8a16_kernel, DeepSeekMoE's grouped decode product, is K1's body with
+// its block's expert and rows taken from the dispatch's starts (see its
+// definition); the dense kernel's path does not change.
+//
+// Plain C interface, bound with ctypes by revisionllm_tpu_torch/ops/quant.py
+// (q8_matmul_bf16) and ops/moe.py (moe_w8a16), which mirror the
+// shared-memory size below (q8_smem_bytes) and ask q8_matmul_max_clusters
+// for the plan.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -166,10 +171,17 @@ __device__ __forceinline__ void sum_store(float* part, bf16* out, const float* s
   wonly::cluster_sync();  // no rank leaves while another still reads its tile
 }
 
-__global__ void __launch_bounds__(THREADS, MINB)
-    q8_matmul_kernel(const __grid_constant__ CUtensorMap tmap_x,
-                     const __grid_constant__ CUtensorMap tmap_w, const float* __restrict__ scale,
-                     bf16* __restrict__ out, int M, int K, int N) {
+// The block's work; GROUPED (moe_w8a16_kernel): the grid's z axis is
+// (expert e, 64-row tile j) with m_tiles tiles an expert, the block's rows
+// those of e from starts[e] + 64 j (none: it returns at once), its weights
+// rows e K .. e K + K - 1 of tmap_w ([E K, N]) and its scales scale + e N;
+// the rest is the dense kernel's path
+template <bool GROUPED>
+__device__ __forceinline__ void q8_matmul_body(const CUtensorMap& tmap_x,
+                                               const CUtensorMap& tmap_w,
+                                               const float* __restrict__ scale,
+                                               bf16* __restrict__ out, int M, int K, int N,
+                                               const int* __restrict__ starts, int m_tiles) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = attn::align1024(smem_raw);
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + BAR);
@@ -178,8 +190,18 @@ __global__ void __launch_bounds__(THREADS, MINB)
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int n0 = blockIdx.x * BN;
-  const int m0 = blockIdx.z * MP;
-  const int rows = min(MP, M - m0);
+  int m0 = blockIdx.z * MP, rows = min(MP, M - m0), w_row = 0;
+  if (GROUPED) {
+    // the dispatch wrote the starts: wait for it before reading them
+    griddep_wait();
+    const int e = blockIdx.z / m_tiles, j = blockIdx.z % m_tiles;
+    const int s0 = starts[e];
+    m0 = s0 + j * MP;
+    rows = min(MP, starts[e + 1] - m0);
+    if (rows <= 0) return;  // every rank of the cluster alike
+    w_row = e * K;
+    scale += (size_t)e * N;
+  }
 
   // this rank's whole tiles (the last may run past K): ranks differ by at
   // most one
@@ -258,8 +280,8 @@ __global__ void __launch_bounds__(THREADS, MINB)
       uint64_t policy;
       asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
       auto issue_w = [&](int slot, int i) {
-        wonly::tma_load_2d_hint(stage(slot) + X_BYTES, &tmap_w, n0, (t0 + i) * BK, full + slot,
-                         policy);
+        wonly::tma_load_2d_hint(stage(slot) + X_BYTES, &tmap_w, n0, w_row + (t0 + i) * BK,
+                                full + slot, policy);
       };
       auto issue_x = [&](int slot, int i) {
         const int k0 = (t0 + i) * BK;
@@ -339,12 +361,36 @@ __global__ void __launch_bounds__(THREADS, MINB)
     sum_store<8>(part, ob, scale, rows, N, n0);
 }
 
-cudaError_t config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int M, int N, int splitk,
-                   cudaStream_t stream) {
+__global__ void __launch_bounds__(THREADS, MINB)
+    q8_matmul_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                     const __grid_constant__ CUtensorMap tmap_w, const float* __restrict__ scale,
+                     bf16* __restrict__ out, int M, int K, int N) {
+  q8_matmul_body<false>(tmap_x, tmap_w, scale, out, M, K, N, nullptr, 1);
+}
+
+// The experts' grouped W8A16 product of DeepSeekMoE's decode (ops/moe.py
+// grouped_w8a16), one launch per matrix per layer: K1's block, its weight
+// tile one expert's and its x rows those routed to that expert (the
+// dispatch sorts them by expert; starts[E + 1]). Bound: the bytes, the
+// int8 weights of each expert some row chose, once (all 64 of
+// DeepSeek-V2-Lite's: 0.37 GB of gate/up and 0.18 GB of down a layer, 0.17
+// ms at 3.35 TB/s), the activations and outputs beside them; blocks of an
+// expert no row chose read nothing.
+__global__ void __launch_bounds__(THREADS, MINB)
+    moe_w8a16_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                     const __grid_constant__ CUtensorMap tmap_w, const float* __restrict__ scale,
+                     bf16* __restrict__ out, int M, int K, int N, const int* __restrict__ starts,
+                     int m_tiles) {
+  q8_matmul_body<true>(tmap_x, tmap_w, scale, out, M, K, N, starts, m_tiles);
+}
+
+template <typename Kernel>
+cudaError_t config(Kernel kernel, cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int M,
+                   int N, int splitk, cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        q8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
     if (err != cudaSuccess) return err;
     attr_set = true;
   }
@@ -384,7 +430,8 @@ extern "C" int q8_matmul_bf16(const void* x, const void* w, const void* scale, v
     return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[2];
-  cudaError_t err = config(cfg, attr, M, N, splitk, static_cast<cudaStream_t>(stream));
+  cudaError_t err =
+      config(q8_matmul_kernel, cfg, attr, M, N, splitk, static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return (int)err;
   err = cudaLaunchKernelEx(&cfg, q8_matmul_kernel, tmap_x, tmap_w,
                            static_cast<const float*>(scale), static_cast<bf16*>(out), M, K, N);
@@ -400,8 +447,37 @@ extern "C" int q8_matmul_smem_bytes() { return (int)SMEM; }
 extern "C" int q8_matmul_max_clusters(int splitk) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[2];
-  if (config(cfg, attr, MP, BN * 16, splitk, nullptr) != cudaSuccess) return -1;
+  if (config(q8_matmul_kernel, cfg, attr, MP, BN * 16, splitk, nullptr) != cudaSuccess)
+    return -1;
   int n = 0;
   if (cudaOccupancyMaxActiveClusters(&n, q8_matmul_kernel, &cfg) != cudaSuccess) return -1;
   return n;
+}
+
+// The experts' grouped product: x [R, K] bf16 (rows sorted by expert), w [E,
+// K, N] int8, scale [E, N] f32, starts [E + 1] int32, out [R, N] bf16: rows
+// starts[e] .. starts[e + 1] - 1 of out get x @ w[e] scaled by scale[e].
+// m_tiles 64-row tiles an expert (its most rows, rounded up), splitk as
+// q8_matmul_bf16's. One launch: grid (N / 128 rounded up, splitk, E x
+// m_tiles), clusters of splitk along y.
+extern "C" int moe_w8a16(const void* x, const void* w, const void* scale, const void* starts,
+                         void* out, int R, int K, int N, int E, int m_tiles, int splitk,
+                         void* stream) {
+  if ((splitk != 1 && splitk != 2 && splitk != 4 && splitk != 8) || E < 1 || m_tiles < 1)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tmap_x, tmap_w;
+  if (!wonly::encode(&tmap_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, R, (uint64_t)K * 2, BK / 2,
+                     MP) ||
+      !wonly::encode(&tmap_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, w, N, (uint64_t)E * K, N, BN, BK))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[2];
+  cudaError_t err = config(moe_w8a16_kernel, cfg, attr, MP * E * m_tiles, N, splitk,
+                           static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&cfg, moe_w8a16_kernel, tmap_x, tmap_w,
+                           static_cast<const float*>(scale), static_cast<bf16*>(out), R, K, N,
+                           static_cast<const int*>(starts), m_tiles);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }

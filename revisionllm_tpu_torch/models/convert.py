@@ -7,7 +7,8 @@ revisionllm/model/builder.py:21-67): HF Vicuna base weights, then
 (builder.py:47-60) -- producing the stacked-layer trees of models/llama.py,
 models/adapter.py and models/lora.py as NumPy arrays, for
 `models.weights.params_from_numpy`; and the ChatGLM2-6B backbone with a
-P-tuning checkpoint's prefix encoder (`convert_chatglm`).
+P-tuning checkpoint's prefix encoder (`convert_chatglm`); and the DeepSeek-V2
+backbone (`load_deepseek_v2`: MLA, DeepSeekMoE) as a serving tree.
 
 Files are read with torch and numpy alone: `.bin` through torch.load, and
 `.safetensors` through `read_safetensors`, a reader of the format's own (an
@@ -27,7 +28,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from revisionllm_tpu_torch.config import AdapterConfig, LlamaConfig, LoraConfig
+from revisionllm_tpu_torch.config import AdapterConfig, DeepseekV2Config, LlamaConfig, LoraConfig
 
 _ST_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4",
               "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?"}
@@ -432,3 +433,132 @@ def convert_chatglm(
             out["prefix"] = prefix
             break
     return out
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2 backbone (HF model_type "deepseek_v2")
+# ---------------------------------------------------------------------------
+
+
+def deepseek_v2_config_from_hf(model_dir: str) -> DeepseekV2Config:
+    """A deepseek_v2 config.json -> DeepseekV2Config (MLA without a q
+    low-rank, greedy softmax routing, YaRN or plain rotary)."""
+    with open(os.path.join(model_dir, "config.json")) as f:
+        hf = json.load(f)
+    if hf.get("q_lora_rank") is not None or hf.get("topk_method", "greedy") != "greedy" \
+            or hf.get("scoring_func", "softmax") != "softmax" or hf.get("moe_layer_freq", 1) != 1 \
+            or hf.get("norm_topk_prob") \
+            or float(hf.get("routed_scaling_factor", 1.0)) != 1.0:
+        raise ValueError("DeepSeek-V2 is served without a q low-rank, with greedy softmax "
+                         "routing on every layer after the dense ones, its top-k weights "
+                         "neither renormalised nor scaled (V2-Lite's)")
+    rs = hf.get("rope_scaling") or {}
+    yarn = rs.get("type") == "yarn"
+    return DeepseekV2Config(
+        vocab_size=hf["vocab_size"], hidden_size=hf["hidden_size"],
+        intermediate_size=hf["intermediate_size"], num_layers=hf["num_hidden_layers"],
+        num_heads=hf["num_attention_heads"], num_kv_heads=hf["num_attention_heads"],
+        head_dim=hf["v_head_dim"], rope_theta=hf.get("rope_theta", 10000.0),
+        rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+        max_position_embeddings=hf.get("max_position_embeddings", 4096),
+        kv_lora_rank=hf["kv_lora_rank"], qk_nope_head_dim=hf["qk_nope_head_dim"],
+        qk_rope_head_dim=hf["qk_rope_head_dim"], v_head_dim=hf["v_head_dim"],
+        n_routed_experts=hf["n_routed_experts"], n_shared_experts=hf.get("n_shared_experts") or 0,
+        num_experts_per_tok=hf["num_experts_per_tok"],
+        moe_intermediate_size=hf["moe_intermediate_size"],
+        first_k_dense_replace=hf.get("first_k_dense_replace", 0),
+        rope_scaling_factor=float(rs.get("factor", 1.0)) if yarn else 1.0,
+        rope_original_max_position=rs.get("original_max_position_embeddings", 4096),
+        yarn_beta_fast=float(rs.get("beta_fast", 32)), yarn_beta_slow=float(rs.get("beta_slow", 1)),
+        yarn_mscale=float(rs.get("mscale", 1)),
+        yarn_mscale_all_dim=float(rs.get("mscale_all_dim", 0)),
+    )
+
+
+def convert_deepseek_v2(state: Dict[str, np.ndarray], cfg: DeepseekV2Config,
+                        dtype=np.float32) -> Dict[str, Any]:
+    """HF DeepseekV2ForCausalLM state dict -> the tree of models/llama.py's
+    DeepSeek-V2 path, dense NumPy: matrices [in, out] stacked over layers;
+    the dense layers' MLP under "dense"; the MoE layers under "moe" with
+    the router [D, E] (mlp.gate), each expert's gate and up side by side
+    ("gu" [E, D, 2F]) and its down [E, F, D], and the shared experts."""
+    L, k, E = cfg.num_layers, cfg.first_k_dense_replace, cfg.n_routed_experts
+
+    def key(name):
+        for prefix in ("model.", ""):
+            if prefix + name in state:
+                return state[prefix + name]
+        raise KeyError(name)
+
+    attn = {"q_proj": "q_proj", "kv_a_proj": "kv_a_proj_with_mqa", "kv_b_proj": "kv_b_proj",
+            "o_proj": "o_proj"}
+    layers: Dict[str, list] = {n: [] for n in (*attn, "kv_a_norm", "attn_norm", "mlp_norm")}
+    dense: Dict[str, list] = {n: [] for n in ("gate_proj", "up_proj", "down_proj")}
+    moe: Dict[str, list] = {n: [] for n in ("router", "gu", "down", "shared_gate", "shared_up",
+                                            "shared_down")}
+    for i in range(L):
+        pre = f"layers.{i}"
+        for ours, theirs in attn.items():
+            layers[ours].append(_mat(key(f"{pre}.self_attn.{theirs}.weight"), dtype))
+        layers["kv_a_norm"].append(key(f"{pre}.self_attn.kv_a_layernorm.weight").astype(dtype))
+        layers["attn_norm"].append(key(f"{pre}.input_layernorm.weight").astype(dtype))
+        layers["mlp_norm"].append(key(f"{pre}.post_attention_layernorm.weight").astype(dtype))
+        if i < k:
+            for n in dense:
+                dense[n].append(_mat(key(f"{pre}.mlp.{n}.weight"), dtype))
+            continue
+        moe["router"].append(_mat(key(f"{pre}.mlp.gate.weight"), np.float32))
+        moe["gu"].append(np.stack([np.concatenate(
+            [_mat(key(f"{pre}.mlp.experts.{e}.{n}.weight"), dtype) for n in ("gate_proj",
+                                                                              "up_proj")], 1)
+            for e in range(E)]))
+        moe["down"].append(np.stack([_mat(key(f"{pre}.mlp.experts.{e}.down_proj.weight"), dtype)
+                                     for e in range(E)]))
+        for n in ("gate", "up", "down"):
+            moe[f"shared_{n}"].append(_mat(key(f"{pre}.mlp.shared_experts.{n}_proj.weight"),
+                                           dtype))
+    stacked = {n: np.stack(v) for n, v in moe.items()}
+    return {
+        "embed": key("embed_tokens.weight").astype(dtype),
+        "layers": {n: np.stack(v) for n, v in layers.items()},
+        "dense": {n: np.stack(v) for n, v in dense.items()},
+        "moe": {"router": stacked["router"],
+                "experts": {"gu": stacked["gu"], "down": stacked["down"]},
+                **{n: stacked[n] for n in ("shared_gate", "shared_up", "shared_down")}},
+        "final_norm": key("norm.weight").astype(dtype),
+        "lm_head": _mat(key("lm_head.weight"), dtype),
+    }
+
+
+def deepseek_v2_params(tree: Dict[str, Any], cfg: DeepseekV2Config, device,
+                       dtype=torch.bfloat16, quantize: bool = True) -> Dict[str, Any]:
+    """convert_deepseek_v2's NumPy tree -> the serving tree on `device`:
+    every matrix int8 per output channel (quantize) or in `dtype`, the
+    router f32, norms and the embedding in `dtype`, then the layouts of
+    models.llama.add_mla_layouts (the absorbed W_uk / W_uv, K-major experts)."""
+    from revisionllm_tpu_torch.models.llama import add_mla_layouts
+    from revisionllm_tpu_torch.ops.quant import quantize_int8
+
+    vectors = {"kv_a_norm", "attn_norm", "mlp_norm", "embed", "final_norm"}
+
+    def leaf(name, a):
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        if name == "router":
+            return t.float()
+        if name in vectors or not quantize:
+            return t.to(dtype)
+        q, s = quantize_int8(t.float())
+        return {"q8": q, "scale": s}
+
+    def walk(node):
+        return {n: walk(v) if isinstance(v, dict) else leaf(n, v) for n, v in node.items()}
+
+    return add_mla_layouts(cfg, walk(tree))
+
+
+def load_deepseek_v2(model_dir: str, device, dtype=torch.bfloat16, quantize: bool = True):
+    """(DeepseekV2Config, serving tree) of an HF deepseek_v2 checkpoint
+    directory (config.json and .safetensors or pytorch_model*.bin)."""
+    cfg = deepseek_v2_config_from_hf(model_dir)
+    tree = convert_deepseek_v2(load_hf_llama_state(model_dir), cfg)
+    return cfg, deepseek_v2_params(tree, cfg, device, dtype, quantize)

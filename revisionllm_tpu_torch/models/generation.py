@@ -25,6 +25,11 @@ serving layout hold whole layers in one launch, so they run under a mesh
 that splits only the batch (every rank holds the whole tree) and raise under
 tensor or fsdp sharding, whose collectives cannot run inside a launch.
 
+DeepSeek-V2 (`cfg.latent_attention`) takes the split path with a bf16
+latent cache {"latent"} [L, B, S, C + R] (models/llama.py), under either
+KV8 setting, its steps replayed as CUDA graphs on the card
+(`MLADecodeGraphs`); the megakernel and the serving layout raise for it.
+
 `generate` is the span `model.generate` (utils/spans.py), with
 `model.prefill` and one `model.decode_step` a forward step beneath it, each
 on the host's clock and the device's.
@@ -33,9 +38,11 @@ on the host's clock and the device's.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Iterator, Optional, Tuple
+from contextlib import nullcontext
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import torch
+from torch.utils.weak import WeakTensorKeyDictionary
 
 from revisionllm_tpu_torch.config import LlamaConfig
 from revisionllm_tpu_torch.models import llama
@@ -194,6 +201,9 @@ def generate(
         ptuning_len = 0 if prefix_kv is None else int(prefix_kv[0].shape[2])
         if prefix_kv is not None and shared_prefix_len > 1 and B > 1:
             raise ValueError("P-tuning prefix + shared-prefix prefill unsupported")
+        if cfg.latent_attention and (_megakernel_enabled() or _serve_enabled()):
+            raise ValueError("DeepSeek-V2 (MLA and DeepSeekMoE) does not run with "
+                             "REVISIONLLM_MEGAKERNEL=1 (row 9) or REVISIONLLM_SERVE=1 (row 10)")
         if (split and _megakernel_enabled() and ptuning_len == 0 and kv_quant
                 and DS.supports_megakernel(cfg, params)):
             raise ValueError("REVISIONLLM_MEGAKERNEL=1 (row 9) decodes whole layers in one launch; "
@@ -230,7 +240,13 @@ def generate(
             gen_cache = llama.init_gen_cache(local_config(cfg, llama.model_mesh(mesh)), B, G,
                                              embeds.dtype, embeds.device)
 
+        graphs = None
+        if cfg.latent_attention and embeds.is_cuda:
+            graphs = _mla_graphs(cfg, params, B, prompt_kv, prompt_lens, G, embeds.dtype)
+
         def decode_one(g, tok_embed):
+            if graphs is not None:
+                return graphs.step(cfg, params, g, tok_embed)
             if serve_intent:
                 return decode_step_serve(cfg, params, slab, s0, prompt_lens, g, tok_embed)
             if use_mega:
@@ -270,6 +286,117 @@ def generate(
             "logprob": torch.stack(logprobs, dim=1),
             "valid": torch.stack(valids, dim=1),
         }
+
+
+# a weight tree's decode graphs, keyed by its embedding: {"shapes": {shape:
+# MLADecodeGraphs}, "last": the set its last generate used}
+_MLA_GRAPHS = WeakTensorKeyDictionary()
+
+
+def _mla_graphs(cfg, params, batch, prompt_kv, prompt_lens, slots, dtype):
+    """The MLA decode graphs of this tree and shape (made at its first
+    chunk), with this chunk's prompt latent and lengths copied into their
+    inputs."""
+    latent = prompt_kv["latent"]
+    S = -(-latent.shape[2] // MLA_GRAPH_POSITIONS) * MLA_GRAPH_POSITIONS
+    mine = _MLA_GRAPHS.get(params["embed"])
+    if mine is None:
+        mine = _MLA_GRAPHS[params["embed"]] = {"shapes": {}, "last": None}
+    key = (cfg, batch, S, slots, dtype)
+    graphs = mine["shapes"].get(key)
+    if graphs is None:
+        graphs = mine["shapes"][key] = MLADecodeGraphs(cfg, batch, S, slots, dtype,
+                                                       latent.device)
+    graphs.load(prompt_kv, prompt_lens)
+    mine["last"] = graphs
+    return graphs
+
+
+def mla_decode_counts(params) -> List[List[torch.Tensor]]:
+    """The rows routed to each expert [E] int64 in every MoE layer of every
+    decode step of the last `generate` on this tree's decode graphs, by step
+    and then layer ([] for a tree that has none). Replayed steps' are the
+    graphs' own buffers, rewritten by the next replay: copy what is kept."""
+    mine = _MLA_GRAPHS.get(params["embed"])
+    return [] if mine is None or mine["last"] is None else list(mine["last"].counts)
+
+
+MLA_GRAPH_POSITIONS = 64   # prompt latents pad to a multiple: one graph set serves many lengths
+
+
+class MLADecodeGraphs:
+    """DeepSeek-V2's decode steps on the card as CUDA graphs, for one
+    (batch, padded prompt length, slots) shape. The split MLA step launches
+    about 2 000 small kernels, and the host that enqueues them paces it;
+    replayed, a step is one graph launch a piece of
+    `llama.mla_decode_pieces` (the prologue, a layer's attention, its MLP,
+    the head), each replay under the span the eager piece has, so spans and
+    the profiler see the kernels the timed steps run. The graphs' inputs are
+    static buffers: the prompt latent padded to S positions (past each row's
+    length masked, as the eager step masks them), the generated latent, the
+    lengths and the token's embedding. A step index's first call runs its
+    pieces eagerly (the result, and the warm-up) and then captures them;
+    later calls replay. A capture that fails raises. The wrappers count
+    their launches (utils/kernels.LAUNCHES) as the host makes them: at the
+    eager run and at capture, not at replay."""
+
+    def __init__(self, cfg, batch, S, slots, dtype, device):
+        width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        self.prompt = {"latent": torch.zeros((cfg.num_layers, batch, S, width), dtype=dtype,
+                                             device=device)}
+        self.gen = llama.init_gen_cache(cfg, batch, slots, dtype, device)
+        self.lens = torch.zeros(batch, dtype=torch.int32, device=device)
+        self.tok = torch.zeros((batch, 1, cfg.hidden_size), dtype=dtype, device=device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = torch.cuda.Stream(device)
+        self.graphs: Dict[int, tuple] = {}
+        self.counts: List[List[torch.Tensor]] = []
+
+    def load(self, prompt_kv, prompt_lens):
+        S = prompt_kv["latent"].shape[2]
+        self.prompt["latent"][:, :, :S].copy_(prompt_kv["latent"])
+        self.lens.copy_(prompt_lens)
+        self.counts = []
+
+    def _pieces(self, cfg, params, g):
+        return llama.mla_decode_pieces(cfg, params, self.prompt, self.lens, self.gen, g,
+                                       self.tok, self.lens)
+
+    def step(self, cfg, params, g, tok_embed):
+        self.tok.copy_(tok_embed)
+        dev = self.tok.device
+        if g not in self.graphs:
+            pieces, st = self._pieces(cfg, params, g)
+            counters = [llama.run_mla_piece(*piece, dev) for piece in pieces]
+            self.graphs[g] = self._capture(cfg, params, g)
+            self.counts.append([c[2] for c in counters if c is not None])
+            return st["logits"]
+        pieces, logits = self.graphs[g]
+        for name, layer, graph, counters in pieces:
+            with spans.span(name, device=dev, layer=layer) if name else nullcontext():
+                graph.replay()
+                llama.note_moe(counters)
+        self.counts.append([c[2] for *_, c in pieces if c is not None])
+        return logits
+
+    def _capture(self, cfg, params, g):
+        """Step g's pieces captured in order, a graph each, on a side
+        stream into the set's one memory pool (not torch.cuda.graph, whose
+        entry collects garbage and empties the cache, a cost paid here once
+        a piece): ([(name, layer, graph, the MoE counters in its buffers)],
+        the logits' buffer)."""
+        pieces, st = self._pieces(cfg, params, g)
+        out = []
+        self.stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(self.stream):
+            for name, layer, fn in pieces:
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=self.pool)
+                counters = fn()
+                graph.capture_end()
+                out.append((name, layer, graph, counters))
+        torch.cuda.current_stream().wait_stream(self.stream)
+        return out, st["logits"]
 
 
 def entropy_stats_from_steps(entropy: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

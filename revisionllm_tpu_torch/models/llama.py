@@ -29,6 +29,18 @@ through row 6 on the card (`flash_attention_prefixed`) or, when training,
 the plain lse pieces and their merge under autograd; `prefill_kv` folds it
 into the returned cache at positions [0, P).
 
+DeepSeek-V2 (config.DeepseekV2Config, `cfg.latent_attention`) takes its
+own layers behind the same entry points: multi-head latent attention (MLA),
+decompressed in the prefill (`_mla_prefill_layer`) and absorbed into the
+latent in decode (`_mla_decode_layer`), over a bf16 latent cache {"latent"
+[L, B, S, kv_lora_rank + qk_rope_head_dim]} in place of k/v; the first
+`first_k_dense_replace` layers' MLP dense ("dense"), the rest DeepSeekMoE
+(ops/moe.py, "moe"). Each layer's attention and MoE, with their norms and
+residual adds, are the spans `model.mla` and `model.moe`; a decode step is
+a list of such pieces (`mla_decode_pieces`) that models/generation.py
+replays as CUDA graphs on the card. Meshes that split the weights, P-tuning
+prefixes, the shared-prefix prefill, rows 8-10 and training raise for it.
+
 `mesh=` (parallel/mesh.py) runs a rank's shards (parallel/sharding.py
 shard_params) as one part of a sharded model: H / tp query heads and
 KH / tp kv heads a rank, an all-reduce over `tensor` after o_proj and after
@@ -40,6 +52,8 @@ with one that splits only the batch, nothing of that runs.
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import os
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -56,6 +70,7 @@ from revisionllm_tpu_torch.ops.flash_attention import (
     mha_reference_lse,
     trainable_attention,
 )
+from revisionllm_tpu_torch.ops import moe as MOE
 from revisionllm_tpu_torch.ops.norms import rms_norm
 from revisionllm_tpu_torch.ops.quant import (
     _is_q8,
@@ -75,10 +90,14 @@ from revisionllm_tpu_torch.ops.rope import (
     apply_rope_tables,
     rope_angles,
     rope_tables,
+    rope_angles_freq,
     rope_tables_interleaved,
+    yarn_inv_freq,
+    yarn_mscale,
 )
 from revisionllm_tpu_torch.parallel import comm
 from revisionllm_tpu_torch.parallel.sharding import COLUMN_PARALLEL, ROW_PARALLEL, local_config
+from revisionllm_tpu_torch.utils import spans
 from revisionllm_tpu_torch.utils.device import resolve_device
 
 Params = Dict[str, Any]
@@ -131,6 +150,8 @@ def init_params(
     dtype = torch_dtype(dtype or cfg.dtype)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    if cfg.latent_attention:
+        return _init_mla_params(cfg, gen, dtype, device, quantize, quantize_lm_head)
     dims = _dims(cfg)
     L = cfg.num_layers
     fmt = {False: None, True: "int8", "int8": "int8", "int4": "int4"}[quantize]
@@ -458,6 +479,11 @@ def forward_hidden(
     this rank's kv heads."""
     if remat and return_kv:
         raise ValueError("remat is for training; it returns no cache")
+    if cfg.latent_attention:
+        _refuse_mla(mesh=mesh, prefix=prefix_kv is not None, slab=kv_slab_slots is not None,
+                    training=trainable or remat or lora is not None)
+        hidden, cache = _mla_forward(cfg, params, embeds, positions)
+        return (hidden, cache) if return_kv else hidden
     mesh = model_mesh(mesh)
     cfg = local_config(cfg, mesh)
     prefix_kv = _local_prefix(prefix_kv, mesh)
@@ -599,6 +625,8 @@ def prefill_shared_prefix(
     prefix broadcast and then the rest. kv_quant=True quantizes it layer by
     layer (per (position, head) scales, the same numbers as JAX's quantizing
     the whole bf16 cache at the end), so the full bf16 cache never exists."""
+    if cfg.latent_attention:
+        _refuse_mla(what="the shared-prefix prefill")
     mesh = model_mesh(mesh)
     B, T, _ = embeds.shape
     P = prefix_len
@@ -654,7 +682,12 @@ def prefill_shared_prefix(
 
 
 def init_gen_cache(cfg: LlamaConfig, batch: int, slots: int, dtype, device) -> Params:
-    """Zeroed generated-token cache {"k", "v"} [L, B, G, KH, hd]."""
+    """Zeroed generated-token cache {"k", "v"} [L, B, G, KH, hd]; for MLA
+    {"latent"} [L, B, G, kv_lora_rank + qk_rope_head_dim]."""
+    if cfg.latent_attention:
+        width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+        return {"latent": torch.zeros((cfg.num_layers, batch, slots, width), dtype=dtype,
+                                      device=device)}
     shape = (cfg.num_layers, batch, slots, cfg.num_kv_heads, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
@@ -682,7 +715,14 @@ def decode_step_split(
     layer. mask_lens: valid prompt positions per row (default prompt_lens;
     prompt_lens + P over a cache with a P-tuning prefix folded in, whose
     rope positions stay on prompt_lens).
-    Returns (logits [B, V] f32, gen_cache)."""
+    Returns (logits [B, V] f32, gen_cache).
+
+    MLA (cfg.latent_attention): prompt_kv {"latent"} [L, B, S, C + R]
+    and gen_cache {"latent"} [L, B, G, C + R] (`_mla_decode_layer`)."""
+    if cfg.latent_attention:
+        _refuse_mla(mesh=mesh)
+        return _mla_decode_step(cfg, params, prompt_kv, prompt_lens, gen_cache, step,
+                                token_embeds, prompt_lens if mask_lens is None else mask_lens)
     mesh = model_mesh(mesh)
     cfg = local_config(cfg, mesh)
     B = token_embeds.shape[0]
@@ -728,3 +768,311 @@ def quantize_prompt_kv(prompt_kv: Params) -> Params:
         out[name] = q
         out[f"{name}_scale"] = sc[..., 0]
     return out
+
+
+# ---------------------------------------------------------------------------
+# DeepSeek-V2: multi-head latent attention and DeepSeekMoE
+# ---------------------------------------------------------------------------
+
+
+def _refuse_mla(mesh=None, prefix=False, slab=False, training=False, what=None):
+    """ValueError for the paths DeepSeek-V2's layers do not take."""
+    if what is None:
+        if model_mesh(mesh) is not None:
+            what = "a mesh that splits the weights (tp or fsdp)"
+        elif prefix:
+            what = "a P-tuning prefix"
+        elif slab:
+            what = "the serve slab (row 10)"
+        elif training:
+            what = "training (LoRA, the differentiable attention, remat)"
+        elif _fused_mlp_enabled():
+            what = "REVISIONLLM_FUSED_MLP=1 (row 8)"
+    if what is not None:
+        raise ValueError(f"DeepSeek-V2 (MLA and DeepSeekMoE) does not run with {what}")
+
+
+def _init_mla_params(cfg, gen, dtype, device, quantize, quantize_lm_head) -> Params:
+    """init_params for DeepseekV2Config: scaled normal matrices, drawn one
+    at a time and kept int8 per output channel (quantize) or in `dtype`;
+    the router f32 [D, E]; norms 1. The serving layouts are added by
+    `add_mla_layouts`."""
+    fmt = {False: None, True: "int8", "int8": "int8"}.get(quantize)
+    if quantize not in (False, True, "int8"):
+        raise ValueError("DeepSeek-V2 serves int8 or dense weights")
+    D, H, C, R = cfg.hidden_size, cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+    dn, dv, E = cfg.qk_nope_head_dim, cfg.v_head_dim, cfg.n_routed_experts
+    L, Ld, Lm = cfg.num_layers, cfg.first_k_dense_replace, cfg.num_moe_layers
+    Fm, Fs = cfg.moe_intermediate_size, cfg.moe_intermediate_size * cfg.n_shared_experts
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=device, dtype=torch.float32) * std
+
+    def stack(lead, din, dout, fmt=fmt):
+        """[*lead, din, dout] matrices, drawn one [din, dout] at a time."""
+        n = 1
+        for d in lead:
+            n *= d
+        if fmt:
+            out = {"q8": torch.empty((n, din, dout), dtype=torch.int8, device=device),
+                   "scale": torch.empty((n, dout), dtype=torch.float32, device=device)}
+        else:
+            out = torch.empty((n, din, dout), dtype=dtype, device=device)
+        for i in range(n):
+            w = normal((din, dout), din ** -0.5)
+            if fmt:
+                out["q8"][i], out["scale"][i] = quantize_int8(w)
+            else:
+                out[i] = w.to(dtype)
+        if fmt:
+            return {k: v.reshape(*lead, *v.shape[1:]) for k, v in out.items()}
+        return out.reshape(*lead, din, dout)
+
+    ones = lambda *shape: torch.ones(shape, dtype=dtype, device=device)  # noqa: E731
+    layers = {
+        "attn_norm": ones(L, D), "mlp_norm": ones(L, D), "kv_a_norm": ones(L, C),
+        "q_proj": stack((L,), D, H * (dn + R)),
+        "kv_a_proj": stack((L,), D, C + R),
+        "kv_b_proj": stack((L,), C, H * (dn + dv)),
+        "o_proj": stack((L,), H * dv, D),
+    }
+    params = {
+        "embed": normal((cfg.vocab_size, D), 0.02).to(dtype),
+        "layers": layers,
+        "dense": {"gate_proj": stack((Ld,), D, cfg.intermediate_size),
+                  "up_proj": stack((Ld,), D, cfg.intermediate_size),
+                  "down_proj": stack((Ld,), cfg.intermediate_size, D)},
+        "moe": {
+            "router": normal((Lm, D, E), D ** -0.5),
+            "experts": {"gu": stack((Lm, E), D, 2 * Fm), "down": stack((Lm, E), Fm, D)},
+            "shared_gate": stack((Lm,), D, Fs), "shared_up": stack((Lm,), D, Fs),
+            "shared_down": stack((Lm,), Fs, D),
+        },
+        "final_norm": ones(D),
+        "lm_head": stack((), D, cfg.vocab_size, fmt if quantize_lm_head else None),
+    }
+    return add_mla_layouts(cfg, params)
+
+
+def add_mla_layouts(cfg, params: Params) -> Params:
+    """The serving layouts a DeepSeek-V2 tree needs beside its matrices, made
+    once (in place; returns the tree): the absorbed decode's W_uk [L, H, dn,
+    C] and W_uv [L, H, C, dv] from kv_b_proj's int8 values, in the
+    embedding's type (bf16 when served), and each
+    int8 expert matrix again K-major ("gu_t" [Lm, E, 2F, D], "down_t" [Lm,
+    E, D, F]) for the grouped W8A8 GEMM, whose int8 wgmma reads both
+    operands K-major."""
+    H, C, dn, dv = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.v_head_dim
+    lay = params["layers"]
+    kvb = lay["kv_b_proj"]
+    dtype = params["embed"].dtype
+    if _is_q8(kvb):
+        w = (kvb["q8"].float() * kvb["scale"][:, None, :]).to(dtype)
+    else:
+        w = kvb.to(dtype)
+    w = w.reshape(w.shape[0], C, H, dn + dv)
+    lay["w_uk"] = w[..., :dn].permute(0, 2, 3, 1).contiguous()
+    lay["w_uv"] = w[..., dn:].permute(0, 2, 1, 3).contiguous()
+    del w
+    ex = params["moe"]["experts"]
+    for name in ("gu", "down"):
+        m = ex[name]
+        ex[f"{name}_t"] = (m["q8"] if _is_q8(m) else m).transpose(-1, -2).contiguous()
+    return params
+
+
+def mla_rope(cfg, positions: torch.Tensor):
+    """The YaRN rotary tables of `positions` [..., T] for the rope part of
+    each head (qk_rope_head_dim), in interleaved pairs, the cos and sin
+    times mscale(mscale) / mscale(mscale_all_dim) (1 for V2-Lite)."""
+    f = cfg.rope_scaling_factor
+    m = yarn_mscale(f, cfg.yarn_mscale) / yarn_mscale(f, cfg.yarn_mscale_all_dim)
+    cos, sin = rope_angles_freq(positions, _mla_inv_freq(cfg, positions.device), m)
+    return (*rope_tables_interleaved(cos, sin, cfg.qk_rope_head_dim), True)
+
+
+@functools.lru_cache(maxsize=None)
+def _mla_inv_freq(cfg, device) -> torch.Tensor:
+    """YaRN's inverse frequencies of cfg's rope part, made once a device."""
+    return yarn_inv_freq(cfg.qk_rope_head_dim, cfg.rope_theta, cfg.rope_scaling_factor,
+                         cfg.rope_original_max_position, cfg.yarn_beta_fast, cfg.yarn_beta_slow,
+                         device=device)
+
+
+def mla_softmax_scale(cfg) -> float:
+    """qk_head_dim^-0.5, times mscale(mscale_all_dim)^2 under YaRN."""
+    m = yarn_mscale(cfg.rope_scaling_factor, cfg.yarn_mscale_all_dim)
+    return cfg.qk_head_dim ** -0.5 * m * m
+
+
+def _mla_latent(cfg, lp, h, rope):
+    """h [B, T, D] -> (q_nope [B, T, H, dn], q_pe [B, T, H, R] rotated, the
+    normed compressed kv c [B, T, C], the latent [B, T, C + R]: c and the
+    rotated shared k_pe) through q_proj and kv_a_proj, which share one
+    activation quantization in the W8A8 prefill; q_pe and k_pe rotate in
+    one pass."""
+    B, T, _ = h.shape
+    H, C, R, dn = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim, cfg.qk_nope_head_dim
+    q, kva = q8_apply_multi(h, (lp["q_proj"], lp["kv_a_proj"]))
+    q = q.reshape(B, T, H, dn + R)
+    pe = apply_rope_tables(torch.cat([q[..., dn:], kva[..., None, C:]], dim=2), *rope)
+    c = rms_norm(kva[..., :C], lp["kv_a_norm"], cfg.rms_norm_eps)
+    return q[..., :dn], pe[:, :, :H], c, torch.cat([c, pe[:, :, H]], dim=-1)
+
+
+def mla_prefill_attention(q, k, v, scale: float) -> torch.Tensor:
+    """Causal attention of q, k [B, T, H, dq] and v [B, T, H, dv] as
+    modeling_deepseek.py computes it: products in q's type, the scores
+    scaled, softmax in f32 and cast back. Plain PyTorch products (no fused
+    attention operator)."""
+    T = q.shape[1]
+    s = torch.matmul(q.transpose(1, 2), k.permute(0, 2, 3, 1)) * scale     # [B, H, T, T]
+    mask = torch.ones((T, T), dtype=torch.bool, device=q.device).triu_(1)
+    s = s.masked_fill_(mask, float("-inf"))
+    p = torch.softmax(s, dim=-1, dtype=torch.float32).to(q.dtype)
+    return torch.matmul(p, v.transpose(1, 2)).transpose(1, 2)                # [B, T, H, dv]
+
+
+def _mla_prefill_layer(cfg, lp, h, rope):
+    """MLA decompressed: the latent, k_nope and v from kv_b_proj, attention
+    over q/k heads of dn + R and v heads of dv, o_proj. Returns (the
+    attention's output [B, T, D], the latent [B, T, C + R])."""
+    B, T, _ = h.shape
+    H, C, dn, dv = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_nope_head_dim, cfg.v_head_dim
+    q_nope, q_pe, c, latent = _mla_latent(cfg, lp, h, rope)
+    kv = q8_apply(c, lp["kv_b_proj"]).reshape(B, T, H, dn + dv)
+    k_pe = latent[:, :, None, C:].expand(B, T, H, cfg.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_pe], dim=-1)
+    k = torch.cat([kv[..., :dn], k_pe], dim=-1)
+    o = mla_prefill_attention(q, k, kv[..., dn:], mla_softmax_scale(cfg))
+    return q8_apply(o.reshape(B, T, H * dv), lp["o_proj"]), latent
+
+
+def tree_at(tree: Params, i: int) -> Params:
+    """Views of entry i of a tree stacked on a leading axis, at any depth."""
+    return {k: tree_at(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def _mla_layer_pieces(cfg, params, i: int, st: Dict[str, Any], attention):
+    """Layer i as two pieces (span name or None, layer, fn) that read and
+    write the residual stream st["x"] [B, T, D]: its attention
+    (`attention(i, lp, h)` on the normed stream) and its MLP, dense for the
+    first first_k_dense_replace layers and DeepSeekMoE (ops/moe.py) after
+    them, whose fn returns its counters (MOE.moe_counters' arguments); each
+    piece's norm and residual add are inside it."""
+    lp = layer_params(params, i)
+    k, eps = cfg.first_k_dense_replace, cfg.rms_norm_eps
+
+    def mla():
+        st["x"] = st["x"] + attention(i, lp, rms_norm(st["x"], lp["attn_norm"], eps))
+
+    def mlp():
+        h = rms_norm(st["x"], lp["mlp_norm"], eps)
+        if i < k:
+            st["x"] = st["x"] + _mlp_block(tree_at(params["dense"], i), h)
+            return None
+        y, counts = MOE.moe_block(cfg, tree_at(params["moe"], i - k), h)
+        st["x"] = st["x"] + y
+        return h.numel() // h.shape[-1], cfg.num_experts_per_tok, counts
+
+    return [("model.mla", i, mla), ("model.moe" if i >= k else None, i, mlp)]
+
+
+def run_mla_piece(name, layer, fn, device):
+    """One piece under its span (`device` for the span's events), the MoE
+    counters noted while spans record. Returns what fn returned."""
+    with spans.span(name, device=device, layer=layer) if name else contextlib.nullcontext():
+        out = fn()
+        note_moe(out)
+    return out
+
+
+def note_moe(counters) -> None:
+    """A MoE piece's counters onto the open span `model.moe` (spans on)."""
+    if counters is not None and spans.recording():
+        spans.note(**MOE.moe_counters(*counters))
+
+
+def _mla_forward(cfg, params, embeds, positions):
+    """The MLA model over embeds [B, T, D]: (final hidden [B, T, D], the
+    latent cache {"latent" [L, B, T, C + R]} in embeds' type)."""
+    B, T, _ = embeds.shape
+    rope = mla_rope(cfg, positions)
+    width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
+    cache = {"latent": torch.empty((cfg.num_layers, B, T, width), dtype=embeds.dtype,
+                                   device=embeds.device)}
+
+    def attention(i, lp, h):
+        attn, cache["latent"][i] = _mla_prefill_layer(cfg, lp, h, rope)
+        return attn
+
+    st = {"x": embeds}
+    for i in range(cfg.num_layers):
+        for piece in _mla_layer_pieces(cfg, params, i, st, attention):
+            run_mla_piece(*piece, embeds.device)
+    return rms_norm(st["x"], params["final_norm"], cfg.rms_norm_eps), cache
+
+
+def _mla_decode_layer(cfg, lp, h, rope, prompt_lat, gen_lat, mask, step: int):
+    """MLA absorbed for one token a row, h [B, 1, D]: q_nope through W_uk
+    into the latent, scores q_lat . c + q_pe . k_pe over the read-only prompt
+    latent [B, S, C + R] and the generated one [B, G, C + R] (slots <= step;
+    this step's written first, in place), scaled, plus mask [B, 1, S + step
+    + 1] (-inf past each row's prompt), softmax in f32, the weighted latent
+    through W_uv, o_proj."""
+    B = h.shape[0]
+    C, scale = cfg.kv_lora_rank, mla_softmax_scale(cfg)
+    q_nope, q_pe, _, latent = _mla_latent(cfg, lp, h, rope)
+    gen_lat[:, step] = latent[:, 0]
+    q_lat = torch.bmm(q_nope[:, 0].transpose(0, 1), lp["w_uk"])               # [H, B, C]
+    qf = torch.cat([q_lat.transpose(0, 1), q_pe[:, 0]], dim=-1).float()      # [B, H, C + R]
+    S = prompt_lat.shape[1]
+    pl, gl = prompt_lat.float(), gen_lat[:, : step + 1].float()
+    s = torch.cat([torch.baddbmm(mask[..., :S], qf, pl.transpose(1, 2), alpha=scale),
+                   torch.baddbmm(mask[..., S:], qf, gl.transpose(1, 2), alpha=scale)], dim=-1)
+    p = torch.softmax(s, dim=-1)
+    o_lat = torch.baddbmm(torch.bmm(p[..., S:], gl[..., :C]), p[..., :S], pl[..., :C])
+    o = torch.bmm(o_lat.to(h.dtype).transpose(0, 1), lp["w_uv"])             # [H, B, dv]
+    return q8_apply(o.transpose(0, 1).reshape(B, 1, -1), lp["o_proj"])
+
+
+def mla_decode_pieces(cfg, params, prompt_kv, prompt_lens, gen_cache, step, token_embeds,
+                      mask_lens):
+    """One MLA decode step as pieces (span name or None, layer, fn) run in
+    order: the rotary tables and the mask, two a layer
+    (`_mla_layer_pieces`), the final norm and the logits. They share the
+    returned dict, whose "logits" [B, V] f32 the last piece writes.
+    `_mla_decode_step` runs them one after another; models/generation.py
+    captures each as a CUDA graph and replays them under the same spans."""
+    st: Dict[str, Any] = {"x": token_embeds}
+    S = prompt_kv["latent"].shape[2]
+
+    def prologue():
+        st["rope"] = mla_rope(cfg, (prompt_lens.long() + step)[:, None])
+        past = torch.arange(S + step + 1, device=token_embeds.device)[None] \
+            >= mask_lens.long()[:, None]
+        past[:, S:] = False
+        st["mask"] = torch.zeros(past.shape, device=past.device).masked_fill_(
+            past, float("-inf"))[:, None]
+
+    def attention(i, lp, h):
+        return _mla_decode_layer(cfg, lp, h, st["rope"], prompt_kv["latent"][i],
+                                 gen_cache["latent"][i], st["mask"], step)
+
+    def head():
+        hidden = rms_norm(st["x"], params["final_norm"], cfg.rms_norm_eps)
+        st["logits"] = logits_from_hidden(params, hidden[:, 0])
+
+    pieces = [(None, None, prologue)]
+    for i in range(cfg.num_layers):
+        pieces += _mla_layer_pieces(cfg, params, i, st, attention)
+    return pieces + [(None, None, head)], st
+
+
+def _mla_decode_step(cfg, params, prompt_kv, prompt_lens, gen_cache, step, token_embeds,
+                     mask_lens):
+    pieces, st = mla_decode_pieces(cfg, params, prompt_kv, prompt_lens, gen_cache, step,
+                                   token_embeds, mask_lens)
+    for piece in pieces:
+        run_mla_piece(*piece, token_embeds.device)
+    return st["logits"], gen_cache

@@ -1,9 +1,12 @@
 """Rotary position embeddings, as in revisionllm_tpu/ops/rope.py: the HF
 LLaMA half-split convention, and ChatGLM2's, which rotates only the first
 `rotary_dim` dims of a head in interleaved (even, odd) pairs. Angles are
-computed and applied in f32 before casting back."""
+computed and applied in f32 before casting back. DeepSeek-V2 adds YaRN's
+frequencies (`yarn_inv_freq`, `yarn_mscale`) on interleaved pairs."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -75,3 +78,47 @@ def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     tables = rope_tables_interleaved(cos[..., : rotary_dim // 2], sin[..., : rotary_dim // 2],
                                      x.shape[-1])
     return apply_rope_tables(x, *tables, interleaved=True)
+
+
+def yarn_mscale(scale: float, mscale: float = 1.0) -> float:
+    """DeepSeek-V2's yarn_get_mscale: 0.1 mscale ln(scale) + 1, or 1 for a
+    scale of 1 or less."""
+    if scale <= 1:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def yarn_inv_freq(dim: int, base: float, factor: float, original_max_position: int,
+                  beta_fast: float = 32.0, beta_slow: float = 1.0, device=None) -> torch.Tensor:
+    """YaRN's inverse frequencies of a rotary over `dim` dims [dim / 2] f32
+    (DeepseekV2YarnRotaryEmbedding): the dims whose wavelengths fit fewer
+    than beta_slow turns in the original context are interpolated (divided
+    by `factor`), those with more than beta_fast turns kept, with a linear
+    ramp between; factor 1 gives the plain frequencies."""
+    exps = torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim
+    freq_extra = 1.0 / (base ** exps)
+    if factor <= 1:
+        return freq_extra
+    freq_inter = 1.0 / (factor * base ** exps)
+
+    def correction_dim(rotations):
+        return (dim * math.log(original_max_position / (rotations * 2 * math.pi))
+                ) / (2 * math.log(base))
+
+    low = max(math.floor(correction_dim(beta_fast)), 0)
+    high = min(math.ceil(correction_dim(beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - low)
+            / (high - low)).clamp(0, 1)
+    extra_mask = 1.0 - ramp
+    return freq_inter * (1 - extra_mask) + freq_extra * extra_mask
+
+
+def rope_angles_freq(positions: torch.Tensor, inv_freq: torch.Tensor, mscale: float = 1.0):
+    """rope_angles with given inverse frequencies [rot / 2], the cos and sin
+    times `mscale` (YaRN's attention factor on the tables)."""
+    ang = positions.float()[..., None] * inv_freq.to(positions.device)
+    if mscale == 1.0:
+        return torch.cos(ang), torch.sin(ang)
+    return torch.cos(ang) * mscale, torch.sin(ang) * mscale

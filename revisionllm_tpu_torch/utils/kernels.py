@@ -44,13 +44,14 @@ KERNELS = (
 # flash_attention_vjp.cu row 4's dq and dk/dv; int4_matmul.cu row 7,
 # w8a8_mlp_fused.cu row 8, decode_step.cu row 9 (decode_step_fused),
 # decode_serve.cu row 10 (decode_step_serve); w8a8_gemm.cu the W8A8
-# prefill's row quantizer, weight transpose and GEMM
+# prefill's row quantizer, weight transpose and GEMM, and the grouped expert
+# GEMM (moe_w8a8); int8_matmul.cu also the grouped W8A16 (moe_w8a16)
 COUNTERS = (
     "int8_matmul", "flash_attention", "decode_attention",
     "flash_fwd_lse", "flash_dq", "flash_dkv",
     "flash_attention_lse", "flash_attention_prefixed",
     "int4_matmul", "w8a8_mlp_fused", "decode_step_fused", "decode_step_serve",
-    "quantize_rows", "w8a8_transpose", "w8a8_gemm",
+    "quantize_rows", "w8a8_transpose", "w8a8_gemm", "moe_w8a8", "moe_w8a16",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -12,7 +12,8 @@ default), with no profiler running, it returns one shared null context:
 no allocation, no clock read, no record. On (`enable(True)` or
 `enabled()`), it records the span's name, its id, its parent's id, the
 request id and its host interval (`time.perf_counter_ns`), with `attrs`,
-the counts taken at the same boundary (`note` adds to them from inside).
+the counts taken at the same boundary (`note` adds to them from inside;
+a count may be a device scalar, read when the records are).
 With `device` a CUDA `torch.device`, the span also records a timing event
 on the device's current stream at entry and at exit: its device interval
 is when the stream reached those points. A span opened with no span open
@@ -140,6 +141,12 @@ def note(**attrs) -> None:
             stack[-1].attrs.update(attrs)
 
 
+def recording() -> bool:
+    """Whether spans are being recorded (counts that cost device work are
+    taken only then)."""
+    return _S.on
+
+
 def enable(on: bool = True) -> None:
     """Switch recording on or off (off by default)."""
     _S.on = bool(on)
@@ -186,12 +193,18 @@ def records() -> List[Dict[str, Any]]:
         out.append({
             "name": s.name, "id": s.id, "parent": s.parent, "request": s.request,
             "start_ns": s.start_ns, "end_ns": s.end_ns,
-            "host_ms": (s.end_ns - s.start_ns) / 1e6, "attrs": dict(s.attrs),
+            "host_ms": (s.end_ns - s.start_ns) / 1e6, "attrs": _host_attrs(s.attrs),
             "device_start_ms": None if dev is None else dev[0],
             "device_end_ms": None if dev is None else dev[1],
             "device_ms": None if dev is None else dev[1] - dev[0],
         })
     return out
+
+
+def _host_attrs(attrs: Dict[str, Any]) -> Dict[str, Any]:
+    """A span's counts, those noted as device scalars read as numbers
+    (`records` has synchronised)."""
+    return {k: v.item() if isinstance(v, torch.Tensor) else v for k, v in attrs.items()}
 
 
 def self_host_ms(recs: List[Dict[str, Any]]) -> Dict[int, float]:

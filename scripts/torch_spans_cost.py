@@ -8,8 +8,9 @@ For each seed, in one process: the cell's driver set up as a benchmark run
 sets it up (benchmark/run.py), then four windows of the same queries (the
 query stream restarted for each) with the spans off, on, on, off. One JSON
 line a window: its queries_per_s and median latency, and with the spans on
-the seven per-layer metrics that read them (benchmark/metrics/), over every
-query of the window."""
+the per-layer metrics that read them (benchmark/metrics/; DeepSeek-V2's
+`model.moe` and `model.mla` readers read nothing on the other cells), over
+every query of the window."""
 
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import run as R  # noqa: E402
 
 READERS = ("adapter_ms_per_query", "prefill_ms_per_query", "decode_ms_per_step",
            "decode_enqueue_ms_per_step", "engine_host_ms_per_query", "device_lag_ms_per_query",
-           "prefill_useful_pct")
+           "prefill_useful_pct", "moe_ms_per_query", "mla_ms_per_query")
 
 
 def main(argv=None):

@@ -60,7 +60,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "data.analysis", "data.debug_dataset", "data.converters",
                 "ops.linear_attention", "models.prefix", "tokenization_glm", "utils.spm",
                 "parallel.launch", "parallel.mesh", "parallel.comm", "parallel.sharding",
-                "parallel.serve", "parallel.dryrun"):
+                "parallel.serve", "parallel.dryrun", "ops.moe", "models.deepseek_v2_reference"):
         assert f"revisionllm_tpu_torch.{mod}" in res["imported"]
 
 
