@@ -985,27 +985,72 @@ def packed_engine(engine, device):
 
 
 def run_slice(engine, movie, qf, qc, runs):
-    """ground_windows once counted, then `runs - 1` more; returns (result,
-    launches of the first run, list of latencies in s)."""
+    """ground_windows once with its kernels counted (DeviceLaunches), then
+    `runs` more timed; returns (the last result, the counted run's
+    launches, list of latencies in s)."""
     import torch
-    from revisionllm_tpu_torch.utils import kernels
 
+    with DeviceLaunches() as seen:
+        engine.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
     lat = []
-    launches = None
     res = None
-    for r in range(runs):
-        if r == 0:
-            kernels.reset_launches()
-        if engine.device.type == "cuda":
-            torch.cuda.synchronize()
+    for _ in range(runs):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = engine.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
-        if engine.device.type == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         lat.append(time.perf_counter() - t0)
-        if r == 0:
-            launches = dict(kernels.LAUNCHES)
-    return res, launches, lat
+    return res, seen.launches, lat
+
+
+# the kernels behind the wrappers' launch counters (utils/kernels.py
+# COUNTERS) on the serving paths, by their __global__ names. A split decode
+# step replays as a CUDA graph on the card (models/generation.py
+# DecodeGraphs), launched by no wrapper, so a serving run's kernels are
+# counted by the profiler, which sees a replay's. flash_fwd_lse_kernel
+# counts as row 5's here (row 4 trains eagerly, counted by its wrappers);
+# row 8 counts its GEMM, one of the three kernels of a launch.
+DEVICE_KERNELS = {
+    "int8_matmul": r"q8_matmul_kernel", "flash_attention": r"flash_fwd_kernel",
+    "decode_attention": r"decode_attn_kernel(_g16)?",
+    "flash_attention_lse": r"flash_fwd_lse_kernel",
+    "flash_attention_prefixed": r"flash_prefix_kernel", "int4_matmul": r"q4_matmul_kernel",
+    "w8a8_mlp_fused": r"mlp_gemm_kernel", "decode_step_fused": r"step_kernel<.*GenCacheAttn",
+    "decode_step_serve": r"step_kernel<.*SlabAttn", "quantize_rows": r"quantize_rows_kernel",
+    "w8a8_transpose": r"kmajor_transpose_kernel", "w8a8_gemm": r"s8gemm_kernel",
+    "moe_w8a8": r"moe_w8a8_kernel", "moe_w8a16": r"moe_w8a16_kernel",
+}
+
+
+def device_launches(names):
+    """{counter of DEVICE_KERNELS: how many of the kernel names are its}."""
+    out = {}
+    for counter, pat in DEVICE_KERNELS.items():
+        found = re.compile(rf"(?<![A-Za-z0-9_])(?:{pat})(?![A-Za-z0-9_])").search
+        out[counter] = sum(found(n) is not None for n in names)
+    return out
+
+
+class DeviceLaunches:
+    """While inside, torch.profiler (CUDA activity) records the kernels the
+    device runs; on leaving, synchronised, `launches` is {counter of
+    DEVICE_KERNELS: its kernels run}. Time measured inside runs under the
+    profiler."""
+
+    def __enter__(self):
+        import torch
+
+        self.prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.cuda.synchronize()
+        self.prof.__exit__(*exc)
+        self.launches = device_launches([e.name for e in kernel_events(self.prof)])
+        return False
 
 
 def check_result(res, n_windows):
@@ -1062,7 +1107,7 @@ def phase_slice(dev, runs):
         f"chunk latency (median) {chunk_s * 1e3:.1f} ms; windows/s {57 / chunk_s:.2f}; "
         f"q/s {1 / chunk_s:.4f}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     say(f"slice: launches in one ground_windows: {launches}")
-    missing = [k for k in SERVING if launches[k] == 0]
+    missing = [k for k in SERVING if not launches[k]]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     return launches, setup
@@ -1071,7 +1116,10 @@ def phase_slice(dev, runs):
 def step_breakdown(eng, movie, qf_np, step_kind="split"):
     """Where a chunk's time goes, on the engine's 64 windows of the movie, in
     the current switches: for the adapter + splice, the prefill and a decode
-    step (the median of 11; `step_kind` "split" the split step, "mega" the
+    step (the median of 11; `step_kind` "split" the split step as generate
+    runs it on the card, replayed from its CUDA graph (the engine's graph
+    set of this shape, models/generation.py DecodeGraphs; the first pass
+    runs each step eagerly and captures it), "mega" the
     megakernel's step decode_step_mega, "serve" the serving layout's
     decode_step_serve after a prefill into the unified slab), the wall time
     by CUDA events from an idle
@@ -1114,8 +1162,13 @@ def step_breakdown(eng, movie, qf_np, step_kind="split"):
     for _ in range(2):  # the first pass warms up
         (embeds, pos, lens), out["adapter_wall"], out["adapter_host"] = timed(adapter)
         lens = lens.to(torch.int32)
+        graphs = None
+        if step_kind == "split":  # the prefill writes into the set's buffers, as in generate
+            graphs = generation._decode_graphs(cfg, eng.params, 64, embeds.shape[1], True, False,
+                                               12, torch.bfloat16, dev)
         prefill = partial(llama.prefill_kv, cfg, eng.params, embeds, pos, kv_lens=lens,
-                          kv_quant=True, kv_slab_slots=12 if step_kind == "serve" else None)
+                          kv_quant=True, kv_slab_slots=12 if step_kind == "serve" else None,
+                          kv_out=graphs.prompt if graphs else None)
         (logits, pkv), out["prefill_wall"], out["prefill_host"] = timed(prefill)
         tok = llama.embed_tokens(eng.params, logits.argmax(-1)[:, None])
         if step_kind == "serve":
@@ -1128,8 +1181,9 @@ def step_breakdown(eng, movie, qf_np, step_kind="split"):
                                     torch.bfloat16, dev)
             step = partial(generation.decode_step_mega, cfg, eng.params, pkv, lens, gen)
         else:
-            gen = llama.init_gen_cache(cfg, 64, 12, torch.bfloat16, dev)
-            step = partial(llama.decode_step_split, cfg, eng.params, pkv, lens, gen)
+            graphs.load(None, lens)
+            gen = None
+            step = partial(graphs.step, cfg, eng.params)
         steps = [timed(partial(step, g, tok))[1:] for g in range(11)]
     _, out["adapter_busy"], _ = profiled(adapter)
     _, out["prefill_busy"], _ = profiled(prefill)
@@ -1140,7 +1194,7 @@ def step_breakdown(eng, movie, qf_np, step_kind="split"):
     groups, _ = group_kernels(events)
     out["step_kernels"] = "; ".join(f"{label} {ms:.3f} ms x{n}"
                                     for label, (ms, n) in groups.items() if n)
-    del pkv, gen, step
+    del pkv, gen, step, graphs
     torch.cuda.empty_cache()
     return out
 
@@ -2102,7 +2156,6 @@ def run_pipeline(eng1, eng2, common, out):
     import torch
     from revisionllm_tpu_torch.eval import fusion, stage1, stage2
     from revisionllm_tpu_torch.eval import metrics as M
-    from revisionllm_tpu_torch.utils import kernels
 
     s1, s2 = os.path.join(out, "s1"), os.path.join(out, "s2")
     a1 = stage1.parse_args(common + ["--log_path", s1] + S1_FLAGS)
@@ -2110,12 +2163,14 @@ def run_pipeline(eng1, eng2, common, out):
     res = {"launches": {}}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
+    stages_s = 0.0
     for name, stage, args, eng in (("stage1", stage1, a1, eng1), ("stage2", stage2, a2, eng2)):
-        kernels.reset_launches()
-        stats = stage.run(args, eng)
-        torch.cuda.synchronize()
-        res["launches"][name] = dict(kernels.LAUNCHES)
+        with DeviceLaunches() as seen:
+            t0 = time.perf_counter()
+            stats = stage.run(args, eng)
+            torch.cuda.synchronize()
+            stages_s += time.perf_counter() - t0
+        res["launches"][name] = seen.launches
         res[name] = stats
         if stats["done"] != PIPE_QUERIES or stats["errors"]:
             raise AssertionError(f"{name}.run: {stats}")
@@ -2123,8 +2178,8 @@ def run_pipeline(eng1, eng2, common, out):
     with contextlib.redirect_stdout(io.StringIO()):
         metrics = fusion.main(["--grounding_path", s1, "--retrieval_path", s2,
                                "--distributed_grounding", "1", "--distributed_retrieval", "1"])
-    res["wall"] = time.perf_counter() - t0
     res["fusion_s"] = time.perf_counter() - t2
+    res["wall"] = stages_s + res["fusion_s"]
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     res["metrics"] = metrics
     res["logs"] = (M.load_prediction_logs(s1, 1), M.load_prediction_logs(s2, 1))
@@ -4076,29 +4131,41 @@ def first_divergence(streamed, batch_tokens, eos_id):
 
 
 class LogitTrace:
-    """While inside, records the logits that every llama.prefill_kv and
-    llama.decode_step_split call returns (f32, on the CPU): `steps[k]` is
-    the [B, V] logits that choose decode step k's token."""
+    """While inside, records the logits that every llama.prefill_kv call
+    and every decode step returns (f32, on the CPU): `steps[k]` is the
+    [B, V] logits that choose decode step k's token. A decode step is a
+    llama.decode_step_split call, or on the card a generation.DecodeGraphs
+    step (eager, captured or replayed), read when it returns: the split
+    step inside it is not recorded again, and a capture reads nothing on
+    the host."""
 
     def __enter__(self):
-        from revisionllm_tpu_torch.models import llama
+        from revisionllm_tpu_torch.models import generation, llama
 
-        self.steps, self.orig = [], (llama.prefill_kv, llama.decode_step_split)
+        self.steps, self.depth = [], 0
+        self.orig = (llama.prefill_kv, llama.decode_step_split, generation.DecodeGraphs.step)
 
-        def wrap(fn):
+        def wrap(fn, logits):
             def spy(*a, **k):
-                out = fn(*a, **k)
-                self.steps.append(out[0].float().cpu())
+                self.depth += 1
+                try:
+                    out = fn(*a, **k)
+                finally:
+                    self.depth -= 1
+                if not self.depth:
+                    self.steps.append(logits(out).float().cpu())
                 return out
             return spy
 
-        llama.prefill_kv, llama.decode_step_split = (wrap(f) for f in self.orig)
+        llama.prefill_kv = wrap(self.orig[0], lambda out: out[0])
+        llama.decode_step_split = wrap(self.orig[1], lambda out: out[0])
+        generation.DecodeGraphs.step = wrap(self.orig[2], lambda out: out)
         return self
 
     def __exit__(self, *exc):
-        from revisionllm_tpu_torch.models import llama
+        from revisionllm_tpu_torch.models import generation, llama
 
-        llama.prefill_kv, llama.decode_step_split = self.orig
+        llama.prefill_kv, llama.decode_step_split, generation.DecodeGraphs.step = self.orig
 
 
 def write_t2v_corpus(root, n_videos=T2V_VIDEOS, n_queries=T2V_QUERIES, d=768, seed=0,
@@ -4189,14 +4256,12 @@ def stream_busy(parts, image, question, qf, qv, steps=SURF_BUSY_STEPS):
 
 
 def counted(fn):
-    """(fn(), launches by kernel, torch._int_mm calls, wall ms from an idle
-    device to the end of fn's device work)."""
-    from revisionllm_tpu_torch.utils import kernels
-
-    kernels.reset_launches()
-    with _CountIntMM() as int_mm:
+    """(fn(), the device's launches by kernel (DeviceLaunches), torch._int_mm
+    calls, wall ms from an idle device to the end of fn's device work,
+    under the profiler)."""
+    with DeviceLaunches() as seen, _CountIntMM() as int_mm:
         out, ms = timed_ms(fn)
-    return out, {k: n for k, n in kernels.LAUNCHES.items() if n}, int_mm.n, ms
+    return out, {k: n for k, n in seen.launches.items() if n}, int_mm.n, ms
 
 
 def stream_once(parts, image, question, qf, qv):
@@ -5375,7 +5440,6 @@ def phase_chapters(dev, paths, smi):
     from revisionllm_tpu_torch.config import LlamaConfig, get_preset
     from revisionllm_tpu_torch.models import revisionllm
     from revisionllm_tpu_torch.ops import windows as W
-    from revisionllm_tpu_torch.utils import kernels
 
     say(f"phase 17 on {smi}")
     t_phase = time.perf_counter()
@@ -5398,9 +5462,9 @@ def phase_chapters(dev, paths, smi):
 
     query()  # warm-up
     torch.cuda.reset_peak_memory_stats()
-    kernels.reset_launches()
-    res, ms = timed_ms(query)
-    launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+    with DeviceLaunches() as seen:
+        res, ms = timed_ms(query)
+    launches = {k: n for k, n in seen.launches.items() if n}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     row_idx = eng._stage2_passes(eng._stage2_win_idx(len(movie)), np.random.default_rng(0))[4]
     images = W.gather_windows(eng._features_to_device(movie, "chapters"),
@@ -5556,7 +5620,7 @@ def phase_glm(dev, tmp, smi):
     from revisionllm_tpu_torch.config import LlamaConfig
     from revisionllm_tpu_torch.models import generation, llama, prefix
     from revisionllm_tpu_torch.tokenization_glm import ChatGLMTokenizer
-    from revisionllm_tpu_torch.utils import kernels, spm
+    from revisionllm_tpu_torch.utils import spm
 
     say(f"phase 18 on {smi}")
     t_phase = time.perf_counter()
@@ -5584,9 +5648,9 @@ def phase_glm(dev, tmp, smi):
 
         run()  # warm-up
         torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launches()
-        out, ms = timed_ms(run)
-        launches = {k: n for k, n in kernels.LAUNCHES.items() if n}
+        with DeviceLaunches() as seen:
+            out, ms = timed_ms(run)
+        launches = {k: n for k, n in seen.launches.items() if n}
         launched[label] = launches
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         _, pre_ms = timed_ms(lambda: llama.prefill_kv(cfg, params, embeds, pos, kv_lens=lens_d,
@@ -5837,17 +5901,17 @@ def p19_rank(layers, meshes, train_meshes, ref_path, paths):
                             eng.tokenizer, eng.eval_cfg, device=dev, mesh=mesh)
         p19_warm_groups(mesh, dev)
         dist.barrier()
-        kernels.reset_launches()
         comm.reset_stats()
         spans.reset()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with LogitTrace() as trace, spans.enabled():
-            res = e.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        with DeviceLaunches() as seen:
+            t0 = time.perf_counter()
+            with LogitTrace() as trace, spans.enabled():
+                res = e.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
         coll_ms = collective_ms()
-        stats, launches = dict(comm.STATS), dict(kernels.LAUNCHES)
+        stats, launches = dict(comm.STATS), seen.launches
         comm.reset_stats()
         check_result(res, 57)
         shard = mesh_lib.batch_sharding(mesh)
@@ -5886,24 +5950,23 @@ def p19_reference(dev, layers, tmp):
     `layers` layers in this process (its per-step logits, answers and
     entropies saved to a file the ranks read), timed."""
     import torch
-    from revisionllm_tpu_torch.utils import kernels
 
     eng, movie, qf, qc = slice_setup(dev, layers, tag="phase 19 one rank")
     eng.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")  # warm-up
-    kernels.reset_launches()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with LogitTrace() as trace:
-        res = eng.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
+    with DeviceLaunches() as seen:
+        t0 = time.perf_counter()
+        with LogitTrace() as trace:
+            res = eng.ground_windows(movie, SENTENCE, qf, qc, movie_key="movie0")
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
     check_result(res, 57)
     path = os.path.join(tmp, f"p19_ref_{layers}.pt")
     torch.save({"steps": trace.steps, "answers": res["answers"],
                 "entropy": res["scores_entropy"]}, path)
     del eng
     torch.cuda.empty_cache()
-    return path, ms, dict(kernels.LAUNCHES)
+    return path, ms, seen.launches
 
 
 def p19_report(tag, results, ref_ms, ref_launches, train_ref, note):

@@ -18,6 +18,17 @@ attended through the prefill and every split step: it takes neither the
 serving layout nor the megakernel, as in JAX. `generate_stream` yields one
 greedy token a step for interactive use (the streaming chat).
 
+On the card the split steps of `generate` replay as CUDA graphs
+(`DecodeGraphs`) wherever the step runs in one process: CUDA tensors, no
+mesh that splits the weights (`llama.model_mesh(mesh) is None`), neither
+row 9 nor row 10. A dense step is one graph; DeepSeek-V2's is a graph a
+piece of `llama.mla_decode_pieces`. The prefill writes the chunk's prompt
+cache into the set's static buffers, padded to a multiple of
+DECODE_GRAPH_POSITIONS positions (with a P-tuning prefix it is copied
+there); a tree keeps at most DECODE_GRAPH_SETS shapes. The CPU, the
+weight-splitting meshes, the megakernel, the serving layout and
+`generate_stream` run eagerly.
+
 `generate(mesh=)` runs a rank's shards of a sharded model (models/llama.py)
 on the rows it is given; parallel/serve.py splits a batch over the ranks and
 gathers it back. The split step runs under any mesh. The megakernel and the
@@ -27,17 +38,18 @@ tensor or fsdp sharding, whose collectives cannot run inside a launch.
 
 DeepSeek-V2 (`cfg.latent_attention`) takes the split path with a bf16
 latent cache {"latent"} [L, B, S, C + R] (models/llama.py), under either
-KV8 setting, its steps replayed as CUDA graphs on the card
-(`MLADecodeGraphs`); the megakernel and the serving layout raise for it.
+KV8 setting; the megakernel and the serving layout raise for it.
 
 `generate` is the span `model.generate` (utils/spans.py), with
-`model.prefill` and one `model.decode_step` a forward step beneath it, each
-on the host's clock and the device's.
+`model.prefill` and one `model.decode_step` a forward step beneath it,
+each on the host's clock and the device's. A step's span has the attribute
+`replayed`: 1 for a graph replay, 0 for a step run eagerly (or captured).
 """
 
 from __future__ import annotations
 
 import os
+from collections import OrderedDict
 from contextlib import nullcontext
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
@@ -48,6 +60,7 @@ from revisionllm_tpu_torch.config import LlamaConfig
 from revisionllm_tpu_torch.models import llama
 from revisionllm_tpu_torch.ops import decode_serve as DSV
 from revisionllm_tpu_torch.ops import decode_step as DS
+from revisionllm_tpu_torch.ops import quant
 from revisionllm_tpu_torch.ops.norms import rms_norm
 from revisionllm_tpu_torch.ops.rope import rope_angles
 from revisionllm_tpu_torch.parallel.sharding import local_config
@@ -209,23 +222,33 @@ def generate(
             raise ValueError("REVISIONLLM_MEGAKERNEL=1 (row 9) decodes whole layers in one launch; "
                              "under tensor or fsdp sharding a collective cannot run inside it: "
                              "unset it or use a data-only mesh")
+        use_mega = (
+            not serve_intent and ptuning_len == 0 and _megakernel_enabled() and kv_quant
+            and not cfg.latent_attention and DS.supports_megakernel(cfg, params)
+        )
+        mask_lens = prompt_lens + ptuning_len if ptuning_len else None
+        graphs = kv_out = None
+        if embeds.is_cuda and not split and G > 1 and not serve_intent and not use_mega:
+            graphs = _decode_graphs(cfg, params, B, T + ptuning_len, kv_quant, ptuning_len > 0,
+                                    G, embeds.dtype, embeds.device)
+            if not ptuning_len:  # the prefill writes the cache into the set's buffers
+                kv_out = graphs.prompt
         with spans.span("model.prefill", device=embeds.device):
             if shared_prefix_len > 1 and B > 1:
                 logits, prompt_kv = llama.prefill_shared_prefix(
                     cfg, params, embeds, positions, shared_prefix_len, kv_lens=prompt_lens,
-                    kv_quant=kv_quant, mesh=mesh,
+                    kv_quant=kv_quant, mesh=mesh, kv_out=kv_out,
                 )
             else:
                 logits, prompt_kv = llama.prefill_kv(
                     cfg, params, embeds, positions, kv_lens=prompt_lens, kv_quant=kv_quant,
                     kv_slab_slots=G if serve_intent else None, prefix_kv=prefix_kv, mesh=mesh,
+                    kv_out=kv_out,
                 )
-        use_mega = (
-            not serve_intent and ptuning_len == 0 and _megakernel_enabled() and kv_quant
-            and "k_scale" in prompt_kv and DS.supports_megakernel(cfg, params)
-        )
-        mask_lens = prompt_lens + ptuning_len if ptuning_len else None
-        if serve_intent:
+        if graphs is not None:
+            graphs.load(None if kv_out else prompt_kv, prompt_lens, mask_lens)
+            prompt_kv = None  # the graphs read their own buffers
+        elif serve_intent:
             if "kv" in prompt_kv:
                 slab, s0 = prompt_kv, T
             else:  # the shared-prefix prefill's split cache
@@ -240,13 +263,10 @@ def generate(
             gen_cache = llama.init_gen_cache(local_config(cfg, llama.model_mesh(mesh)), B, G,
                                              embeds.dtype, embeds.device)
 
-        graphs = None
-        if cfg.latent_attention and embeds.is_cuda:
-            graphs = _mla_graphs(cfg, params, B, prompt_kv, prompt_lens, G, embeds.dtype)
-
         def decode_one(g, tok_embed):
             if graphs is not None:
                 return graphs.step(cfg, params, g, tok_embed)
+            spans.note(replayed=0)
             if serve_intent:
                 return decode_step_serve(cfg, params, slab, s0, prompt_lens, g, tok_embed)
             if use_mega:
@@ -288,28 +308,45 @@ def generate(
         }
 
 
-# a weight tree's decode graphs, keyed by its embedding: {"shapes": {shape:
-# MLADecodeGraphs}, "last": the set its last generate used}
-_MLA_GRAPHS = WeakTensorKeyDictionary()
+DECODE_GRAPH_POSITIONS = 64  # prompt caches pad to a multiple: one graph set serves many lengths
+DECODE_GRAPH_SETS = 2        # graph sets a tree keeps (the least recently used goes first)
+
+# a weight tree's decode graph sets, keyed by its embedding: an OrderedDict
+# {shape key: DecodeGraphs}, the one its last generate used at the end
+_DECODE_GRAPHS = WeakTensorKeyDictionary()
 
 
-def _mla_graphs(cfg, params, batch, prompt_kv, prompt_lens, slots, dtype):
-    """The MLA decode graphs of this tree and shape (made at its first
-    chunk), with this chunk's prompt latent and lengths copied into their
-    inputs."""
-    latent = prompt_kv["latent"]
-    S = -(-latent.shape[2] // MLA_GRAPH_POSITIONS) * MLA_GRAPH_POSITIONS
-    mine = _MLA_GRAPHS.get(params["embed"])
-    if mine is None:
-        mine = _MLA_GRAPHS[params["embed"]] = {"shapes": {}, "last": None}
-    key = (cfg, batch, S, slots, dtype)
-    graphs = mine["shapes"].get(key)
+def _graph_set(params, key, make):
+    """The set of this tree at `key` (made by `make()` when it has none),
+    now the tree's most recent; at most DECODE_GRAPH_SETS sets a tree, the
+    least recently used dropped before a new one is made."""
+    sets = _DECODE_GRAPHS.get(params["embed"])
+    if sets is None:
+        sets = _DECODE_GRAPHS[params["embed"]] = OrderedDict()
+    graphs = sets.pop(key, None)
     if graphs is None:
-        graphs = mine["shapes"][key] = MLADecodeGraphs(cfg, batch, S, slots, dtype,
-                                                       latent.device)
-    graphs.load(prompt_kv, prompt_lens)
-    mine["last"] = graphs
+        while len(sets) >= DECODE_GRAPH_SETS:
+            sets.popitem(last=False)
+        graphs = make()
+    sets[key] = graphs
     return graphs
+
+
+def _decode_graphs(cfg, params, batch, length, kv_quant, masked, slots, dtype, device):
+    """The decode graphs of this tree and shape. The key holds everything a
+    capture fixes: the configuration, batch, prompt length padded to
+    DECODE_GRAPH_POSITIONS, slots, the cache's layout, whether the mask
+    differs from the lengths, the matmul switches the step reads (row 8,
+    W8A8, the exact route) and the identity of the tree's entries besides
+    the embedding (the layers, the head), which the set keeps alive while
+    its graphs read them."""
+    S = -(-length // DECODE_GRAPH_POSITIONS) * DECODE_GRAPH_POSITIONS
+    layout = llama.prompt_cache_layout(cfg, batch, S, kv_quant, dtype)
+    switches = (llama._fused_mlp_enabled(), quant._w8a8_enabled(device), quant._EXACT_TRACE)
+    weights = tuple((k, id(v)) for k, v in sorted(params.items()) if k != "embed")
+    key = (cfg, batch, slots, dtype, tuple(sorted(layout.items())), masked, switches, weights)
+    return _graph_set(params, key, lambda: DecodeGraphs(cfg, params, batch, layout, slots, dtype,
+                                                         masked, device))
 
 
 def mla_decode_counts(params) -> List[List[torch.Tensor]]:
@@ -317,50 +354,68 @@ def mla_decode_counts(params) -> List[List[torch.Tensor]]:
     decode step of the last `generate` on this tree's decode graphs, by step
     and then layer ([] for a tree that has none). Replayed steps' are the
     graphs' own buffers, rewritten by the next replay: copy what is kept."""
-    mine = _MLA_GRAPHS.get(params["embed"])
-    return [] if mine is None or mine["last"] is None else list(mine["last"].counts)
+    sets = _DECODE_GRAPHS.get(params["embed"])
+    return [] if not sets else list(next(reversed(sets.values())).counts)
 
 
-MLA_GRAPH_POSITIONS = 64   # prompt latents pad to a multiple: one graph set serves many lengths
+class DecodeGraphs:
+    """The split decode steps on the card as CUDA graphs, for one (batch,
+    padded prompt length, slots) shape of one tree. Eagerly, the host that
+    enqueues a step's ~1 000 (dense) or ~2 000 (MLA) small launches paces
+    it; replayed, a dense step is one graph launch, and DeepSeek-V2's a
+    graph a piece of `llama.mla_decode_pieces` (the prologue, a layer's
+    attention, its MLP, the head), each replay under the span the eager
+    piece has, so spans and the profiler see the kernels the timed steps
+    run. The graphs' inputs are static buffers: the prompt cache (every
+    tensor of it: {"k", "v"[, "k_scale", "v_scale"]} or {"latent"}) padded
+    to S positions, past each row's mask length masked as the eager step
+    masks them (so what a longer earlier chunk left there is never read);
+    the generated cache; the lengths and, with a P-tuning prefix, the mask
+    lengths; the token's embedding. The prefill writes a chunk's cache into
+    the prompt buffers (`kv_out`), or `load` copies it there (a P-tuning
+    prefix is folded into a new cache); `load` copies the lengths. A
+    step index's first call runs its pieces eagerly (the result, and the
+    warm-up) and then captures them; later calls replay, and note
+    `replayed` on the open span. A capture that fails raises. The wrappers
+    count their launches (utils/kernels.LAUNCHES) as the host makes them:
+    at the eager run and at capture, not at replay; the profiler sees the
+    kernels a replay runs."""
 
-
-class MLADecodeGraphs:
-    """DeepSeek-V2's decode steps on the card as CUDA graphs, for one
-    (batch, padded prompt length, slots) shape. The split MLA step launches
-    about 2 000 small kernels, and the host that enqueues them paces it;
-    replayed, a step is one graph launch a piece of
-    `llama.mla_decode_pieces` (the prologue, a layer's attention, its MLP,
-    the head), each replay under the span the eager piece has, so spans and
-    the profiler see the kernels the timed steps run. The graphs' inputs are
-    static buffers: the prompt latent padded to S positions (past each row's
-    length masked, as the eager step masks them), the generated latent, the
-    lengths and the token's embedding. A step index's first call runs its
-    pieces eagerly (the result, and the warm-up) and then captures them;
-    later calls replay. A capture that fails raises. The wrappers count
-    their launches (utils/kernels.LAUNCHES) as the host makes them: at the
-    eager run and at capture, not at replay."""
-
-    def __init__(self, cfg, batch, S, slots, dtype, device):
-        width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
-        self.prompt = {"latent": torch.zeros((cfg.num_layers, batch, S, width), dtype=dtype,
-                                             device=device)}
+    def __init__(self, cfg, params, batch, layout, slots, dtype, masked, device):
+        self.prompt = {name: torch.zeros(shape, dtype=dt, device=device)
+                       for name, (shape, dt) in layout.items()}
         self.gen = llama.init_gen_cache(cfg, batch, slots, dtype, device)
         self.lens = torch.zeros(batch, dtype=torch.int32, device=device)
+        self.mask = torch.zeros_like(self.lens) if masked else self.lens
         self.tok = torch.zeros((batch, 1, cfg.hidden_size), dtype=dtype, device=device)
+        self.weights = {k: v for k, v in params.items() if k != "embed"}
         self.pool = torch.cuda.graph_pool_handle()
         self.stream = torch.cuda.Stream(device)
         self.graphs: Dict[int, tuple] = {}
         self.counts: List[List[torch.Tensor]] = []
 
-    def load(self, prompt_kv, prompt_lens):
-        S = prompt_kv["latent"].shape[2]
-        self.prompt["latent"][:, :, :S].copy_(prompt_kv["latent"])
+    def load(self, prompt_kv, prompt_lens, mask_lens=None):
+        """A chunk's lengths (and mask lengths) into the inputs, and its
+        prompt cache where the prefill made one of its own (None where it
+        wrote the buffers)."""
+        for name, t in (prompt_kv or {}).items():
+            self.prompt[name][:, :, :t.shape[2]].copy_(t)
         self.lens.copy_(prompt_lens)
+        if mask_lens is not None:
+            self.mask.copy_(mask_lens)
         self.counts = []
 
     def _pieces(self, cfg, params, g):
-        return llama.mla_decode_pieces(cfg, params, self.prompt, self.lens, self.gen, g,
-                                       self.tok, self.lens)
+        if cfg.latent_attention:
+            return llama.mla_decode_pieces(cfg, params, self.prompt, self.lens, self.gen, g,
+                                           self.tok, self.mask)
+        st: Dict[str, Any] = {}
+
+        def step():
+            st["logits"] = llama.decode_step_split(cfg, params, self.prompt, self.lens, self.gen,
+                                                   g, self.tok, self.mask)[0]
+
+        return [(None, None, step)], st
 
     def step(self, cfg, params, g, tok_embed):
         self.tok.copy_(tok_embed)
@@ -370,6 +425,7 @@ class MLADecodeGraphs:
             counters = [llama.run_mla_piece(*piece, dev) for piece in pieces]
             self.graphs[g] = self._capture(cfg, params, g)
             self.counts.append([c[2] for c in counters if c is not None])
+            spans.note(replayed=0)
             return st["logits"]
         pieces, logits = self.graphs[g]
         for name, layer, graph, counters in pieces:
@@ -377,6 +433,7 @@ class MLADecodeGraphs:
                 graph.replay()
                 llama.note_moe(counters)
         self.counts.append([c[2] for *_, c in pieces if c is not None])
+        spans.note(replayed=1)
         return logits
 
     def _capture(self, cfg, params, g):

@@ -451,6 +451,7 @@ def forward_hidden(
     kv_slab_slots: Optional[int] = None,
     prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     mesh=None,
+    kv_out: Optional[Params] = None,
 ):
     """Full-sequence forward. embeds [B, T, D], positions [B, T].
 
@@ -476,13 +477,17 @@ def forward_hidden(
     prefix in).
 
     mesh: params are a rank's shards (module docstring); the cache holds
-    this rank's kv heads."""
+    this rank's kv heads.
+
+    kv_out: tensors of `prompt_cache_layout` over S >= T positions that the
+    cache is written into at positions [0, T) (the returned cache is their
+    views), in place of new ones."""
     if remat and return_kv:
         raise ValueError("remat is for training; it returns no cache")
     if cfg.latent_attention:
         _refuse_mla(mesh=mesh, prefix=prefix_kv is not None, slab=kv_slab_slots is not None,
                     training=trainable or remat or lora is not None)
-        hidden, cache = _mla_forward(cfg, params, embeds, positions)
+        hidden, cache = _mla_forward(cfg, params, embeds, positions, kv_out)
         return (hidden, cache) if return_kv else hidden
     mesh = model_mesh(mesh)
     cfg = local_config(cfg, mesh)
@@ -499,15 +504,8 @@ def forward_hidden(
             "kvsc": torch.zeros((L, B, 2, KH, Sp), dtype=torch.float32, device=embeds.device),
         }
     elif return_kv:
-        kv_dtype = torch.int8 if kv_quant else embeds.dtype
-        shape = (L, B, T, KH, hd)
-        cache = {
-            "k": torch.empty(shape, dtype=kv_dtype, device=embeds.device),
-            "v": torch.empty(shape, dtype=kv_dtype, device=embeds.device),
-        }
-        if kv_quant:
-            cache["k_scale"] = torch.empty(shape[:-1], dtype=torch.float32, device=embeds.device)
-            cache["v_scale"] = torch.empty(shape[:-1], dtype=torch.float32, device=embeds.device)
+        cache = new_prompt_cache(cfg, B, T, kv_quant, embeds.dtype, embeds.device, kv_out)
+
     def layer(x, lp, lora_lp, ppkv):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
         attn_out, k, v = _attention_block(cfg, lp, h, rope, kv_lens, lora_lp, lora_scale, trainable,
@@ -537,7 +535,7 @@ def forward_hidden(
             if kv_quant:
                 for name, t in (("k", k), ("v", v)):
                     tq, ts = quantize_rows(t)
-                    cache[name][i] = tq
+                    _put_rows(cache[name][i], tq)
                     cache[f"{name}_scale"][i] = ts[..., 0]
             else:
                 cache["k"][i] = k
@@ -571,9 +569,11 @@ def prefill_kv(
     kv_slab_slots: Optional[int] = None,
     prefix_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     mesh=None,
+    kv_out: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Params]:
     """Prefill: (logits at each row's last position [B, V], read-only prompt
-    cache {"k", "v"[, "k_scale", "v_scale"]} [L, B, T, KH, hd]).
+    cache {"k", "v"[, "k_scale", "v_scale"]} [L, B, T, KH, hd]), written
+    into `kv_out` when given (forward_hidden's; not with a P-tuning prefix).
     kv_slab_slots=G (with kv_quant) returns the unified serving slab
     {"kv", "kvsc"} of ops.decode_serve with G generation slots (s0 = T)
     instead of the split cache.
@@ -586,9 +586,11 @@ def prefill_kv(
     slab takes no prefix (JAX's llama.py:528)."""
     if prefix_kv is not None and kv_slab_slots is not None:
         raise ValueError("P-tuning prefix is not supported with the serve slab")
+    if prefix_kv is not None and kv_out is not None:
+        raise ValueError("a P-tuning prefix is folded into a new cache: no kv_out")
     hidden, cache = forward_hidden(
         cfg, params, embeds, positions, kv_lens, return_kv=True, kv_quant=kv_quant,
-        kv_slab_slots=kv_slab_slots, prefix_kv=prefix_kv, mesh=mesh,
+        kv_slab_slots=kv_slab_slots, prefix_kv=prefix_kv, mesh=mesh, kv_out=kv_out,
     )
     if prefix_kv is not None:
         B = embeds.shape[0]
@@ -613,6 +615,7 @@ def prefill_shared_prefix(
     kv_lens: Optional[torch.Tensor] = None,
     kv_quant: bool = False,
     mesh=None,
+    kv_out: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Params]:
     """Prefill where every row shares its first `prefix_len` embeddings (the
     engine's window batches share their prompt up to the video block).
@@ -624,7 +627,8 @@ def prefill_shared_prefix(
     each row's last position and the prompt cache [L, B, T, KH, hd], the
     prefix broadcast and then the rest. kv_quant=True quantizes it layer by
     layer (per (position, head) scales, the same numbers as JAX's quantizing
-    the whole bf16 cache at the end), so the full bf16 cache never exists."""
+    the whole bf16 cache at the end), so the full bf16 cache never exists.
+    kv_out: as forward_hidden's."""
     if cfg.latent_attention:
         _refuse_mla(what="the shared-prefix prefill")
     mesh = model_mesh(mesh)
@@ -637,13 +641,7 @@ def prefill_shared_prefix(
     T2 = T - P
     rope = rope_for(cfg, positions[:, P:])
     rest_lens = None if kv_lens is None else (kv_lens.to(torch.int32) - P).clamp(min=0)
-    kv_dtype = torch.int8 if kv_quant else embeds.dtype
-    cache = {n: torch.empty((L, B, T, KH, hd), dtype=kv_dtype, device=embeds.device)
-             for n in ("k", "v")}
-    if kv_quant:
-        for n in ("k", "v"):
-            cache[f"{n}_scale"] = torch.empty((L, B, T, KH), dtype=torch.float32,
-                                              device=embeds.device)
+    cache = new_prompt_cache(cfg, B, T, kv_quant, embeds.dtype, embeds.device, kv_out)
 
     def store(i, name, prefix, rest):
         """Layer i of the cache: the prefix [1, P, KH, hd] broadcast over the
@@ -651,7 +649,7 @@ def prefill_shared_prefix(
         for sl, t in ((slice(0, P), prefix), (slice(P, T), rest)):
             if kv_quant:
                 tq, ts = quantize_rows(t)
-                cache[name][i, :, sl] = tq
+                _put_rows(cache[name][i, :, sl], tq)
                 cache[f"{name}_scale"][i, :, sl] = ts[..., 0]
             else:
                 cache[name][i, :, sl] = t
@@ -679,6 +677,44 @@ def prefill_shared_prefix(
         idx = (kv_lens.long() - 1 - P).clamp(min=0)
         last = hidden[torch.arange(B, device=hidden.device), idx]
     return logits_from_hidden(params, last, mesh), cache
+
+
+def prompt_cache_layout(cfg: LlamaConfig, batch: int, length: int, kv_quant: bool,
+                        dtype) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """The prompt cache's tensors as {name: (shape, dtype)}: {"k", "v"}
+    [L, B, S, KH, hd] in `dtype`, or int8 with {"k_scale", "v_scale"}
+    [L, B, S, KH] f32 under kv_quant; for MLA {"latent"} [L, B, S, C + R]
+    in `dtype` under either setting."""
+    L = cfg.num_layers
+    if cfg.latent_attention:
+        return {"latent": ((L, batch, length, cfg.kv_lora_rank + cfg.qk_rope_head_dim), dtype)}
+    shape = (L, batch, length, cfg.num_kv_heads, cfg.head_dim)
+    if not kv_quant:
+        return {"k": (shape, dtype), "v": (shape, dtype)}
+    return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+            "k_scale": (shape[:-1], torch.float32), "v_scale": (shape[:-1], torch.float32)}
+
+
+def new_prompt_cache(cfg: LlamaConfig, batch: int, length: int, kv_quant: bool, dtype, device,
+                     kv_out: Optional[Params] = None) -> Params:
+    """The prompt cache of `length` positions for a prefill to fill: new
+    tensors of `prompt_cache_layout`, or the views at positions [0, length)
+    of `kv_out`, tensors of that layout over more positions (a decode graph
+    set's static buffers, models/generation.py)."""
+    if kv_out is not None:
+        return {name: t[:, :, :length] for name, t in kv_out.items()}
+    return {name: torch.empty(shape, dtype=dt, device=device)
+            for name, (shape, dt) in prompt_cache_layout(cfg, batch, length, kv_quant,
+                                                         dtype).items()}
+
+
+def _put_rows(dst: torch.Tensor, src: torch.Tensor) -> None:
+    """dst[...] = src for int8 cache rows of head_dim (a multiple of 8),
+    moved as 8-byte words: a copy into a strided view (a graph set's padded
+    buffers) goes element by element, and an element of a byte is about
+    2.7x slower on an H100 (DeepSeek-LLM-7B's cache of 64 x 308 positions,
+    30 layers: 11.0 against 4.1 ms)."""
+    dst.view(torch.int64).copy_(src.view(torch.int64))
 
 
 def init_gen_cache(cfg: LlamaConfig, batch: int, slots: int, dtype, device) -> Params:
@@ -993,14 +1029,13 @@ def note_moe(counters) -> None:
         spans.note(**MOE.moe_counters(*counters))
 
 
-def _mla_forward(cfg, params, embeds, positions):
+def _mla_forward(cfg, params, embeds, positions, kv_out=None):
     """The MLA model over embeds [B, T, D]: (final hidden [B, T, D], the
-    latent cache {"latent" [L, B, T, C + R]} in embeds' type)."""
+    latent cache {"latent" [L, B, T, C + R]} in embeds' type, written into
+    `kv_out` when given)."""
     B, T, _ = embeds.shape
     rope = mla_rope(cfg, positions)
-    width = cfg.kv_lora_rank + cfg.qk_rope_head_dim
-    cache = {"latent": torch.empty((cfg.num_layers, B, T, width), dtype=embeds.dtype,
-                                   device=embeds.device)}
+    cache = new_prompt_cache(cfg, B, T, False, embeds.dtype, embeds.device, kv_out)
 
     def attention(i, lp, h):
         attn, cache["latent"][i] = _mla_prefill_layer(cfg, lp, h, rope)

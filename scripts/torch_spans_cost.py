@@ -7,10 +7,12 @@ cell, and their readings over whole windows, on the card:
 For each seed, in one process: the cell's driver set up as a benchmark run
 sets it up (benchmark/run.py), then four windows of the same queries (the
 query stream restarted for each) with the spans off, on, on, off. One JSON
-line a window: its queries_per_s and median latency, and with the spans on
-the per-layer metrics that read them (benchmark/metrics/; DeepSeek-V2's
-`model.moe` and `model.mla` readers read nothing on the other cells), over
-every query of the window."""
+line a window: its queries_per_s, median latency and peak device memory,
+and with the spans on the per-layer metrics that read them
+(benchmark/metrics/; DeepSeek-V2's `model.moe` and `model.mla` readers read
+nothing on the other cells), over every query of the window, beside the
+share of decode steps replayed from CUDA graphs (`model.decode_step`'s
+attribute `replayed`)."""
 
 from __future__ import annotations
 
@@ -60,15 +62,21 @@ def main(argv=None):
         for on in (False, True, True, False):
             driver.stream = TR.queries(cell["traffic"], seed)
             spans.reset()
+            torch.cuda.reset_peak_memory_stats()
             with spans.enabled(on):
                 recs, window_s = driver.window(args.seconds)
             row = {"workload": args.workload, "seed": seed, "spans": on, "card": card,
                    "queries": len(recs), "window_s": window_s,
                    "queries_per_s": len(recs) / window_s,
-                   "median_ms": statistics.median(r["latency_s"] for r in recs) * 1e3}
+                   "median_ms": statistics.median(r["latency_s"] for r in recs) * 1e3,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
             if on:
-                run = {"cell": cell, "spans": {"queries": recs, "records": spans.records()}}
+                got = spans.records()
+                run = {"cell": cell, "spans": {"queries": recs, "records": got}}
                 row.update({name: module("metrics", name).read(run) for name in READERS})
+                steps = [r for r in got if r["name"] == "model.decode_step"]
+                row["replayed_share"] = (sum(r["attrs"].get("replayed") == 1 for r in steps)
+                                         / len(steps)) if steps else None
             spans.reset()
             print(json.dumps(row), flush=True)
             if args.out:

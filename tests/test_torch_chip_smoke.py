@@ -15,6 +15,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import chip_smoke  # noqa: E402
 from revisionllm_tpu_torch.ops import flash_attention as FA  # noqa: E402
+from revisionllm_tpu_torch.utils import kernels  # noqa: E402
 
 B, H, T, D = 1, 2, 512, 128
 
@@ -239,6 +240,41 @@ def test_kernel_groups_name_rows_9_and_10():
     assert groups["row 9 decode_step_fused"] == [2.0, 1]
     assert groups["row 10 decode_step_serve"] == [2.0, 1]
     assert other == {}
+
+
+def test_device_launches_count_each_kernel_under_its_counter():
+    """A serving run's launches come from the profiler's kernel names
+    (chip_smoke.DeviceLaunches): each hand-written kernel counts under its
+    wrapper's counter and no other (K3 at groups 1 and 16 both as
+    decode_attention, row 8 by its GEMM alone, K1 and the W8A8 GEMM apart
+    from the grouped expert kernels that share their bodies), and PyTorch's
+    kernels under none."""
+    ns = "(anonymous namespace)::"
+    names = [
+        f"{ns}q8_matmul_kernel(CUtensorMap_st, CUtensorMap_st, float const*, "
+        "__nv_bfloat16*, int, int, int)",
+        f"void {ns}decode_attn_kernel<signed char>({ns}KArgs)",
+        f"void {ns}decode_attn_kernel_g16<signed char>({ns}GArgs)",
+        f"{ns}flash_fwd_kernel({ns}FArgs)", f"{ns}flash_fwd_lse_kernel({ns}FArgs)",
+        f"{ns}flash_prefix_kernel({ns}FArgs)", f"{ns}q4_matmul_kernel(CUtensorMap_st)",
+        f"{ns}mlp_transpose_kernel(signed char const*)", f"{ns}mlp_gemm_kernel(CUtensorMap_st)",
+        f"{ns}mlp_quant_kernel(float const*)",
+        f"void {ns}step_kernel<{ns}GenCacheAttn>({ns}Args)",
+        f"void {ns}step_kernel<{ns}SlabAttn>({ns}Args)",
+        f"void {ns}quantize_rows_kernel<16>(__nv_bfloat16 const*)",
+        f"{ns}kmajor_transpose_kernel(signed char const*)",
+        f"void {ns}s8gemm_kernel<2>(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, "
+        "float const*, float const*, float*, int, int, int, long long)",
+        f"void {ns}moe_w8a8_kernel<2>(CUtensorMap_st)", f"{ns}moe_w8a16_kernel(CUtensorMap_st)",
+        "void at::native::vectorized_elementwise_kernel<8, at::native::BinaryFunctor<c10::"
+        "BFloat16, c10::BFloat16, c10::BFloat16, at::native::binary_internal::MulFunctor",
+    ]
+    got = chip_smoke.device_launches(names)
+    assert got == {k: 2 if k == "decode_attention" else 1 for k in chip_smoke.DEVICE_KERNELS}
+    assert set(chip_smoke.DEVICE_KERNELS) <= set(kernels.COUNTERS)
+    assert set(chip_smoke.SERVING + chip_smoke.W8A8 + chip_smoke.PIPELINE) \
+        <= set(chip_smoke.DEVICE_KERNELS)
+    assert all(not n for n in chip_smoke.device_launches(names[-1:]).values())
 
 
 def test_row7_checks_cover_the_edges_and_spills():
