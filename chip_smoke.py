@@ -1181,7 +1181,7 @@ def step_breakdown(eng, movie, qf_np, step_kind="split"):
                                     torch.bfloat16, dev)
             step = partial(generation.decode_step_mega, cfg, eng.params, pkv, lens, gen)
         else:
-            graphs.load(None, lens)
+            graphs.load(lens)
             gen = None
             step = partial(graphs.step, cfg, eng.params)
         steps = [timed(partial(step, g, tok))[1:] for g in range(11)]

@@ -4,41 +4,36 @@ Counterpart of revisionllm_tpu/models/generation.py::generate: prefill once,
 then a greedy decode loop that computes each step's softmax entropy and the
 chosen token's log-probability in f32, and masks rows after their eos. The
 `lax.scan` becomes a Python loop that only enqueues device work (no host
-sync inside the loop). With REVISIONLLM_MEGAKERNEL=1 (or set_megakernel)
-each decode step is one ops.decode_step launch (row 9 on the card), then the
-final norm and the lm_head, wherever JAX takes that path (generation.py:
-165-172). A tree packed by ops.decode_serve.pack_serving_weights takes the
-serving layout instead (generation.py:131-219): the full prefill writes the
-unified int8 KV slab (a shared-prefix prefill's split cache is repacked into
-it), and each step is one ops.decode_serve launch (row 10 on the card), then
-the final norm and the lm_head; REVISIONLLM_SERVE=0 (or set_serve(False))
-sends the packed tree through decode_step_split instead. Every other step is
-llama.decode_step_split. A P-tuning prefix (`prefix_kv`, ChatGLM2's) is
-attended through the prefill and every split step: it takes neither the
-serving layout nor the megakernel, as in JAX. `generate_stream` yields one
-greedy token a step for interactive use (the streaming chat).
+sync inside the loop). `generate_stream` yields one greedy token a step for
+interactive use (the streaming chat), through eager split steps.
 
-On the card the split steps of `generate` replay as CUDA graphs
-(`DecodeGraphs`) wherever the step runs in one process: CUDA tensors, no
-mesh that splits the weights (`llama.model_mesh(mesh) is None`), neither
-row 9 nor row 10. A dense step is one graph; DeepSeek-V2's is a graph a
-piece of `llama.mla_decode_pieces`. The prefill writes the chunk's prompt
-cache into the set's static buffers, padded to a multiple of
-DECODE_GRAPH_POSITIONS positions (with a P-tuning prefix it is copied
-there); a tree keeps at most DECODE_GRAPH_SETS shapes. The CPU, the
-weight-splitting meshes, the megakernel, the serving layout and
-`generate_stream` run eagerly.
+`generate` picks its decode route once (`_decode_route`):
+
+- "serve": a tree packed by ops.decode_serve.pack_serving_weights, under
+  KV8, unless REVISIONLLM_SERVE=0 (or set_serve(False)). The prefill writes
+  the unified int8 KV slab (a shared-prefix prefill's split cache is
+  packed into it); each step is one ops.decode_serve launch (row 10), then
+  the final norm and the lm_head (JAX's generation.py:131-219).
+- "mega": REVISIONLLM_MEGAKERNEL=1 (or set_megakernel) with an int8 tree
+  the kernel covers, under KV8: each step is one ops.decode_step launch
+  (row 9), then the final norm and the lm_head (JAX's :165-172).
+- "graphs": any other call on the card in one process (no mesh that
+  splits the weights) for more than one token: llama.decode_step_split
+  replayed as CUDA graphs (`DecodeGraphs`), the prefill writing the
+  chunk's prompt cache into the graphs' static buffers.
+- "split": the rest (the CPU, the weight-splitting meshes): eager
+  llama.decode_step_split steps.
+
+A P-tuning prefix (`prefix_kv`, ChatGLM2's) is attended through the prefill
+and every step; it takes neither row 9 nor row 10, as in JAX. DeepSeek-V2
+(`cfg.latent_attention`, a bf16 latent cache {"latent"} under either KV8
+setting) raises for both. Rows 9 and 10 hold whole layers in one launch,
+so they raise under tensor or fsdp sharding, whose collectives cannot run
+inside a launch; a mesh that splits only the batch keeps the tree whole.
 
 `generate(mesh=)` runs a rank's shards of a sharded model (models/llama.py)
-on the rows it is given; parallel/serve.py splits a batch over the ranks and
-gathers it back. The split step runs under any mesh. The megakernel and the
-serving layout hold whole layers in one launch, so they run under a mesh
-that splits only the batch (every rank holds the whole tree) and raise under
-tensor or fsdp sharding, whose collectives cannot run inside a launch.
-
-DeepSeek-V2 (`cfg.latent_attention`) takes the split path with a bf16
-latent cache {"latent"} [L, B, S, C + R] (models/llama.py), under either
-KV8 setting; the megakernel and the serving layout raise for it.
+on the rows it is given; parallel/serve.py splits a batch over the ranks
+and gathers it back.
 
 `generate` is the span `model.generate` (utils/spans.py), with
 `model.prefill` and one `model.decode_step` a forward step beneath it,
@@ -158,6 +153,38 @@ def decode_step_mega(cfg: LlamaConfig, params: Dict[str, Any], pkv: Dict[str, to
     return llama.logits_from_hidden(params, h[:, 0])
 
 
+def _decode_route(cfg: LlamaConfig, params: Dict[str, Any], embeds: torch.Tensor, G: int,
+                  kv_quant: bool, mesh, prefix_kv, shared_prefix_len: int) -> str:
+    """The decode route of one `generate` call, chosen once (module
+    docstring): "serve", "mega", "graphs" or "split". Raises for the
+    combinations that have none: a serving-packed tree or the megakernel
+    under a mesh that splits the weights, a P-tuning prefix with a
+    shared-prefix prefill of several rows, DeepSeek-V2 with row 9 or 10."""
+    split = llama.model_mesh(mesh) is not None
+    lq = params["layers"].get("q_proj")
+    packed = isinstance(lq, dict) and "q8c" in lq
+    if split and packed:
+        raise ValueError("a serving-packed tree (row 10) decodes whole layers in one launch; "
+                         "under tensor or fsdp sharding a collective cannot run inside it: "
+                         "use a data-only mesh or the standard tree")
+    if prefix_kv is not None and shared_prefix_len > 1 and embeds.shape[0] > 1:
+        raise ValueError("P-tuning prefix + shared-prefix prefill unsupported")
+    if cfg.latent_attention and (_megakernel_enabled() or _serve_enabled()):
+        raise ValueError("DeepSeek-V2 (MLA and DeepSeekMoE) does not run with "
+                         "REVISIONLLM_MEGAKERNEL=1 (row 9) or REVISIONLLM_SERVE=1 (row 10)")
+    if (packed and prefix_kv is None and _serve_enabled() is not False and kv_quant
+            and DSV.supports_serve(cfg, params)):
+        return "serve"
+    if (prefix_kv is None and _megakernel_enabled() and kv_quant
+            and DS.supports_megakernel(cfg, params)):
+        if split:
+            raise ValueError("REVISIONLLM_MEGAKERNEL=1 (row 9) decodes whole layers in one "
+                             "launch; under tensor or fsdp sharding a collective cannot run "
+                             "inside it: unset it or use a data-only mesh")
+        return "mega"
+    return "graphs" if embeds.is_cuda and not split and G > 1 else "split"
+
+
 def generate(
     cfg: LlamaConfig,
     params: Dict[str, Any],
@@ -181,7 +208,7 @@ def generate(
     prefill runs that prefix once (llama.prefill_shared_prefix).
 
     prefix_kv: a P-tuning prefix (pk, pv) [L, 1, P, KH, hd]
-    (models.prefix), attended through the prefill and the decode, folded at
+    (models.prefix), attended through the prefill and the decode, held at
     the cache's positions [0, P): the steps mask with prompt_lens + P and
     keep the rope positions on prompt_lens. It cannot be combined with a
     shared-prefix prefill of more than one row (ValueError), as in JAX.
@@ -200,39 +227,15 @@ def generate(
         G = max_new_tokens
         prompt_lens = prompt_lens.to(torch.int32)
         kv_quant = _kv8_enabled(embeds.device)
-        split = llama.model_mesh(mesh) is not None
-        lq = params["layers"].get("q_proj")
-        packed = isinstance(lq, dict) and "q8c" in lq
-        if split and packed:
-            raise ValueError("a serving-packed tree (row 10) decodes whole layers in one launch; "
-                             "under tensor or fsdp sharding a collective cannot run inside it: "
-                             "use a data-only mesh or the standard tree")
-        serve_intent = (
-            packed and prefix_kv is None
-            and _serve_enabled() is not False and kv_quant and DSV.supports_serve(cfg, params)
-        )
-        ptuning_len = 0 if prefix_kv is None else int(prefix_kv[0].shape[2])
-        if prefix_kv is not None and shared_prefix_len > 1 and B > 1:
-            raise ValueError("P-tuning prefix + shared-prefix prefill unsupported")
-        if cfg.latent_attention and (_megakernel_enabled() or _serve_enabled()):
-            raise ValueError("DeepSeek-V2 (MLA and DeepSeekMoE) does not run with "
-                             "REVISIONLLM_MEGAKERNEL=1 (row 9) or REVISIONLLM_SERVE=1 (row 10)")
-        if (split and _megakernel_enabled() and ptuning_len == 0 and kv_quant
-                and DS.supports_megakernel(cfg, params)):
-            raise ValueError("REVISIONLLM_MEGAKERNEL=1 (row 9) decodes whole layers in one launch; "
-                             "under tensor or fsdp sharding a collective cannot run inside it: "
-                             "unset it or use a data-only mesh")
-        use_mega = (
-            not serve_intent and ptuning_len == 0 and _megakernel_enabled() and kv_quant
-            and not cfg.latent_attention and DS.supports_megakernel(cfg, params)
-        )
-        mask_lens = prompt_lens + ptuning_len if ptuning_len else None
-        graphs = kv_out = None
-        if embeds.is_cuda and not split and G > 1 and not serve_intent and not use_mega:
-            graphs = _decode_graphs(cfg, params, B, T + ptuning_len, kv_quant, ptuning_len > 0,
-                                    G, embeds.dtype, embeds.device)
-            if not ptuning_len:  # the prefill writes the cache into the set's buffers
-                kv_out = graphs.prompt
+        route = _decode_route(cfg, params, embeds, G, kv_quant, mesh, prefix_kv,
+                              shared_prefix_len)
+        P = 0 if prefix_kv is None else int(prefix_kv[0].shape[2])
+        mask_lens = prompt_lens + P if P else None
+        kv_out = None
+        if route == "graphs":  # the prefill writes the cache into the set's buffers
+            graphs = _decode_graphs(cfg, params, B, T + P, kv_quant, P > 0, G, embeds.dtype,
+                                    embeds.device)
+            kv_out = graphs.prompt
         with spans.span("model.prefill", device=embeds.device):
             if shared_prefix_len > 1 and B > 1:
                 logits, prompt_kv = llama.prefill_shared_prefix(
@@ -242,34 +245,31 @@ def generate(
             else:
                 logits, prompt_kv = llama.prefill_kv(
                     cfg, params, embeds, positions, kv_lens=prompt_lens, kv_quant=kv_quant,
-                    kv_slab_slots=G if serve_intent else None, prefix_kv=prefix_kv, mesh=mesh,
-                    kv_out=kv_out,
+                    kv_slab_slots=G if route == "serve" else None, prefix_kv=prefix_kv,
+                    mesh=mesh, kv_out=kv_out,
                 )
-        if graphs is not None:
-            graphs.load(None if kv_out else prompt_kv, prompt_lens, mask_lens)
-            prompt_kv = None  # the graphs read their own buffers
-        elif serve_intent:
-            if "kv" in prompt_kv:
-                slab, s0 = prompt_kv, T
-            else:  # the shared-prefix prefill's split cache
-                slab, s0 = DSV.pack_unified_kv(prompt_kv, G)
-            del prompt_kv  # the split cache is not read again
-        elif use_mega:
+        if route == "graphs":
+            graphs.load(prompt_lens, mask_lens)
+        elif route == "serve":
+            # the shared-prefix prefill writes the split cache: packed here
+            slab, s0 = (prompt_kv, T) if "kv" in prompt_kv else DSV.pack_unified_kv(prompt_kv, G)
+        elif route == "mega":
             pkv = DS.pack_prompt_kv(prompt_kv)
-            del prompt_kv  # the split cache is not read again
             gen_cache = DS.init_gen_cache(cfg.num_layers, B, cfg.num_kv_heads, cfg.head_dim, G,
                                           embeds.dtype, embeds.device)
         else:
             gen_cache = llama.init_gen_cache(local_config(cfg, llama.model_mesh(mesh)), B, G,
                                              embeds.dtype, embeds.device)
+        if route != "split":
+            prompt_kv = None  # only the eager split steps read the prefill's cache again
 
         def decode_one(g, tok_embed):
-            if graphs is not None:
+            if route == "graphs":
                 return graphs.step(cfg, params, g, tok_embed)
             spans.note(replayed=0)
-            if serve_intent:
+            if route == "serve":
                 return decode_step_serve(cfg, params, slab, s0, prompt_lens, g, tok_embed)
-            if use_mega:
+            if route == "mega":
                 return decode_step_mega(cfg, params, pkv, prompt_lens, gen_cache, g, tok_embed)
             return llama.decode_step_split(
                 cfg, params, prompt_kv, prompt_lens, gen_cache, g, tok_embed, mask_lens,
@@ -366,15 +366,15 @@ class DecodeGraphs:
     graph a piece of `llama.mla_decode_pieces` (the prologue, a layer's
     attention, its MLP, the head), each replay under the span the eager
     piece has, so spans and the profiler see the kernels the timed steps
-    run. The graphs' inputs are static buffers: the prompt cache (every
-    tensor of it: {"k", "v"[, "k_scale", "v_scale"]} or {"latent"}) padded
-    to S positions, past each row's mask length masked as the eager step
-    masks them (so what a longer earlier chunk left there is never read);
-    the generated cache; the lengths and, with a P-tuning prefix, the mask
-    lengths; the token's embedding. The prefill writes a chunk's cache into
-    the prompt buffers (`kv_out`), or `load` copies it there (a P-tuning
-    prefix is folded into a new cache); `load` copies the lengths. A
-    step index's first call runs its pieces eagerly (the result, and the
+    run.
+
+    The graphs' inputs are static buffers: `prompt`, the prompt cache in
+    llama.prompt_cache_layout over S positions, which each chunk's prefill
+    writes as its `kv_out` (past each row's mask length it is masked as
+    the eager step masks it, so what a longer earlier chunk left there is
+    never read); the generated cache; the lengths and, with a P-tuning
+    prefix, the mask lengths, which `load` copies; the token's embedding.
+    A step index's first call runs its pieces eagerly (the result, and the
     warm-up) and then captures them; later calls replay, and note
     `replayed` on the open span. A capture that fails raises. The wrappers
     count their launches (utils/kernels.LAUNCHES) as the host makes them:
@@ -394,12 +394,9 @@ class DecodeGraphs:
         self.graphs: Dict[int, tuple] = {}
         self.counts: List[List[torch.Tensor]] = []
 
-    def load(self, prompt_kv, prompt_lens, mask_lens=None):
-        """A chunk's lengths (and mask lengths) into the inputs, and its
-        prompt cache where the prefill made one of its own (None where it
-        wrote the buffers)."""
-        for name, t in (prompt_kv or {}).items():
-            self.prompt[name][:, :, :t.shape[2]].copy_(t)
+    def load(self, prompt_lens, mask_lens=None):
+        """A chunk's lengths (and mask lengths) into the inputs; its prefill
+        wrote the prompt cache into `self.prompt` (kv_out)."""
         self.lens.copy_(prompt_lens)
         if mask_lens is not None:
             self.mask.copy_(mask_lens)

@@ -1,33 +1,39 @@
 """LLaMA / Vicuna backbone in PyTorch: serving, and training with LoRA.
 
-Counterpart of revisionllm_tpu/models/llama.py: RMSNorm pre-norm, RoPE,
-MHA/GQA attention, SwiGLU MLP. Parameters keep JAX's layout, so a tree
-converted by models/weights.py runs unchanged: matrices [in, out] stacked on
-a leading L axis (dense tensors or {"q8", "scale"} dicts), norms [L, D].
-`lax.scan` over layers becomes a Python loop over layer views.
+Counterpart of revisionllm_tpu/models/llama.py. Parameters keep JAX's
+layout, so a tree converted by models/weights.py runs unchanged: matrices
+[in, out] stacked on a leading L axis (dense, {"q8", "scale"}, int4
+{"q4", "scale4"} or the serving-packed chunks of ops/decode_serve.py),
+norms [L, D]. `lax.scan` over layers becomes a Python loop over layer views.
 
-Matmuls go through ops.quant.q8_apply (kernel K1 at M <= 256), prefill
-attention through ops.flash_attention.attention (kernel K2 on the card), and
-each decode step's attention is one ops.decode_attention launch per layer
-(kernel K3). Training (`forward_hidden(trainable=True)`) applies LoRA in
-line and takes ops.flash_attention.trainable_attention (the row-4 kernels);
-`remat=True` recomputes each layer in the backward
-(torch.utils.checkpoint, in place of jax.checkpoint). The shared-prefix
-prefill (`prefill_shared_prefix`) runs the rows' common prompt prefix once
-and the rest through ops.flash_attention.flash_attention_prefixed (row 6 on
-the card). With REVISIONLLM_FUSED_MLP=1 every int8 MLP tail runs through
-ops.quant.w8a8_mlp_fused (row 8 on the card). Int4 trees ({"q4", "scale4"})
-run through the same dispatch (row 7), and so do the serving-packed chunks of
-ops/decode_serve.py (ops.quant.q8c_apply); `prefill_kv(kv_slab_slots=G)`
-writes that path's unified int8 KV slab.
+One dense layer, `_dense_layer`, serves every dense path: RMSNorm; q/k/v
+through ops.quant.q8_apply_multi (K1 at M <= 256, the W8A8 GEMM above it;
+LoRA's adapted matmuls when training); ChatGLM2's q/k/v biases; rope
+(`rope_for`: half-split over the head, or ChatGLM2's interleaved pairs
+over half of it); the attention; o_proj and the residual; RMSNorm,
+`_mlp_block` (SwiGLU; row 8 under REVISIONLLM_FUSED_MLP=1) and the
+residual. Only the attention varies, passed in as a function of the roped
+q, k and v:
 
-The ChatGLM2 geometry (LlamaConfig.chatglm2_6b) adds q/k/v biases
-(`qkv_bias`) and its rotary, half of each head's dims in interleaved pairs
-(`rope_interleaved`, `rope_fraction`); a P-tuning prefix (models/prefix.py,
-`prefix_kv`) is attended by every query position of every layer, un-roped,
-through row 6 on the card (`flash_attention_prefixed`) or, when training,
-the plain lse pieces and their merge under autograd; `prefill_kv` folds it
-into the returned cache at positions [0, P).
+- a prompt (`forward_hidden`, `prefill_kv`): causal over its own k/v (K2
+  on the card; the row-4 kernels with `trainable=True`, each layer
+  checkpointed with `remat`), behind an attended prefix when one is given
+  (row 6, `flash_attention_prefixed`): a P-tuning prefix (models/prefix.py),
+  un-roped and seen by every query, or
+- the shared prefix (`prefill_shared_prefix`): the rows' common prompt
+  prefix runs once at B = 1, and the rest attends that pass's k/v;
+- a decode step (`decode_step_split`): this step's k/v into slot `step` of
+  the generated cache, then one decode_attention (K3) over [the prompt
+  cache | the generated slots].
+
+One prompt-cache writer, `_write_prompt_kv`, writes a layer's k and v at
+positions [start, start + n) in the layout `prompt_cache_layout` names:
+{"k", "v"} [L, B, S, KH, hd] in the model's type, int8 rows with
+per-(position, head) scales under KV8, or row 10's unified int8 slab
+{"kv", "kvsc"}. A prefill writes an attended prefix at [0, P) once for all
+layers and each layer's tokens after it as the layer ends, into new
+tensors or into the `kv_out` it is given (a decode graph set's buffers,
+models/generation.py).
 
 DeepSeek-V2 (config.DeepseekV2Config, `cfg.latent_attention`) takes its
 own layers behind the same entry points: multi-head latent attention (MLA),
@@ -332,12 +338,19 @@ def _qkv_bias(cfg: LlamaConfig, lp, q, k, v):
             v + lp["v_bias"].reshape(KH, hd))
 
 
-def _prefix_attention(q, k, v, pk, pv, kv_lens, trainable):
-    """Attention over [the P-tuning prefix pk/pv [1, P, KH, hd], visible to
-    every row and query | the row's own causal k/v]: row 6 on the card
-    (the prefix in q's type), its plain version on the CPU; when training,
-    the plain lse pieces and their merge, which autograd differentiates into
-    the prefix (JAX's use_pallas=False branch, llama.py:208-215)."""
+def _prompt_attention(q, k, v, kv_lens, trainable, prefix=None):
+    """A prompt's causal attention over its own k/v: K2 on the card, the
+    row-4 kernels when training. With `prefix` (pk, pv) [1, P, KH, hd]
+    (a P-tuning prefix, or the shared prefix's k/v) every row's queries
+    also see all P positions, un-roped: row 6 on the card (the prefix in
+    q's type), its plain version on the CPU; when training, the plain lse
+    pieces and their merge, which autograd differentiates into the prefix
+    (JAX's use_pallas=False branch, llama.py:208-215)."""
+    if prefix is None:
+        if trainable:
+            return trainable_attention(q, k, v, causal=True, kv_lens=kv_lens)
+        return attention(q, k, v, causal=True, kv_lens=kv_lens)
+    pk, pv = prefix
     if not trainable:
         return flash_attention_prefixed(q, k, v, pk.to(q.dtype).contiguous(),
                                         pv.to(q.dtype).contiguous(), kv_lens=kv_lens)
@@ -363,29 +376,31 @@ def _row_parallel(x, w, lora_lp, lora_scale, mesh):
     return comm.reduce_from_tensor(_lora_apply(x, w, lora_lp, lora_scale), mesh)
 
 
-def _attention_block(cfg, lp, x, rope, kv_lens, lora_lp=None, lora_scale=0.0, trainable=False,
-                     prefix_pkv=None, mesh=None):
+def _dense_layer(cfg, lp, x, rope, attend, lora_lp=None, lora_scale=0.0, mesh=None):
+    """The one dense layer, over x [B, T, D] (lp: layer_params' views): RMSNorm,
+    q/k/v (one q8_apply_multi, or LoRA's), ChatGLM2's biases, rope, the
+    attention, o_proj, the residual add; RMSNorm, `_mlp_block`, the
+    residual add. Only the attention varies: `attend(q, k, v)` takes the
+    roped q [B, T, H, hd] and k, v [B, T, KH, hd] and returns B * T * H * hd
+    values in x's type. Returns (x after the layer, k, v)."""
     B, T, _ = x.shape
     H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    x = comm.copy_to_tensor(x, mesh)
+    h = comm.copy_to_tensor(rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps), mesh)
     if lora_lp is None:
-        qm, km, vm = q8_apply_multi(x, (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
+        qm, km, vm = q8_apply_multi(h, (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
     else:
-        qm, km, vm = (_lora_apply(x, lp[n], lora_lp.get(n), lora_scale)
+        qm, km, vm = (_lora_apply(h, lp[n], lora_lp.get(n), lora_scale)
                       for n in ("q_proj", "k_proj", "v_proj"))
     q, k, v = _qkv_bias(cfg, lp, qm.reshape(B, T, H, hd), km.reshape(B, T, KH, hd),
                         vm.reshape(B, T, KH, hd))
     q = apply_rope_tables(q, *rope)
     k = apply_rope_tables(k, *rope)
-    if prefix_pkv is not None:
-        o = _prefix_attention(q, k, v, *prefix_pkv, kv_lens, trainable)
-    elif trainable:
-        o = trainable_attention(q, k, v, causal=True, kv_lens=kv_lens)
-    else:
-        o = attention(q, k, v, causal=True, kv_lens=kv_lens)
-    o = o.reshape(B, T, H * hd)
+    o = attend(q, k, v).reshape(B, T, H * hd)
     lo = None if lora_lp is None else lora_lp.get("o_proj")
-    return _row_parallel(o, lp["o_proj"], lo, lora_scale, mesh), k, v
+    x = x + _row_parallel(o, lp["o_proj"], lo, lora_scale, mesh)
+    del qm, km, vm, q, o  # freed before the MLP, whose intermediates set the peak
+    h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
+    return x + _mlp_block(lp, h, lora_lp, lora_scale, mesh), k, v
 
 
 _FUSED_MLP: Optional[bool] = None
@@ -453,35 +468,32 @@ def forward_hidden(
     mesh=None,
     kv_out: Optional[Params] = None,
 ):
-    """Full-sequence forward. embeds [B, T, D], positions [B, T].
+    """Full-sequence forward. embeds [B, T, D], positions [B, T]; kv_lens
+    [B] masks each row's keys past its length.
 
-    Returns the final hidden [B, T, D]; with return_kv=True also the
-    per-layer cache {"k", "v"} [L, B, T, KH, hd], which kv_quant=True writes
-    as int8 plus per-(position, head) scales {"k_scale", "v_scale"}
-    [L, B, T, KH] layer by layer, so a full-precision cache never exists.
-    kv_slab_slots=G (with kv_quant) writes the same int8 values and scales
-    straight into the unified serving slab of ops.decode_serve instead,
-    {"kv": [L, B, 2, KH, Sp, hd] int8, "kvsc": [L, B, 2, KH, Sp] f32} with
-    Sp = round_up(T + G, 128), zero past T: the split cache is never
-    allocated beside it.
+    Returns the final hidden [B, T, D]; with return_kv=True also the prompt
+    cache of `prompt_cache_layout` over P + T positions (P = 0 without a
+    prefix), written layer by layer as each layer ends: {"k", "v"}
+    [L, B, P + T, KH, hd], int8 with per-(position, head) scales
+    {"k_scale", "v_scale"} under kv_quant, so a full-precision cache never
+    exists. kv_slab_slots=G (with kv_quant) writes row 10's unified serving
+    slab {"kv", "kvsc"} with G generation slots instead (and returns it
+    with or without return_kv). kv_out: tensors of that layout over more
+    positions (a decode graph set's buffers), written at [0, P + T) in
+    place of new ones; the returned cache is their views.
+
+    prefix_kv: a P-tuning prefix (pk, pv) [L, 1, P, KH, hd]
+    (models.prefix.prefix_kv), attended un-roped by every query of every
+    layer; positions are not shifted. The cache holds it at [0, P), in
+    embeds' type, broadcast over the rows, and the tokens at [P, P + T).
 
     Training: `lora` (models/lora.py tree) adds scale * x A B to every
     adapted matmul; trainable=True takes the differentiable attention
     (row-4 kernels on the card); remat=True checkpoints each layer, which is
     exact because the layers draw no random numbers.
 
-    prefix_kv: a P-tuning prefix (pk, pv) [L, 1, P, KH, hd]
-    (models.prefix.prefix_kv), prepended un-roped to every layer's keys and
-    values and visible to every query; positions are not shifted. The
-    returned cache holds the tokens' k/v only (prefill_kv folds the
-    prefix in).
-
-    mesh: params are a rank's shards (module docstring); the cache holds
-    this rank's kv heads.
-
-    kv_out: tensors of `prompt_cache_layout` over S >= T positions that the
-    cache is written into at positions [0, T) (the returned cache is their
-    views), in place of new ones."""
+    mesh: params are a rank's shards (module docstring); the prefix is cut
+    to this rank's kv heads and the cache holds them."""
     if remat and return_kv:
         raise ValueError("remat is for training; it returns no cache")
     if cfg.latent_attention:
@@ -492,58 +504,49 @@ def forward_hidden(
     mesh = model_mesh(mesh)
     cfg = local_config(cfg, mesh)
     prefix_kv = _local_prefix(prefix_kv, mesh)
-    B, T, _ = embeds.shape
-    L, KH, hd = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    rope = rope_for(cfg, positions)
     cache = None
-    if kv_slab_slots is not None:
-        assert kv_quant, "kv_slab_slots requires kv_quant=True"
-        Sp = -(-(T + kv_slab_slots) // 128) * 128
-        cache = {
-            "kv": torch.zeros((L, B, 2, KH, Sp, hd), dtype=torch.int8, device=embeds.device),
-            "kvsc": torch.zeros((L, B, 2, KH, Sp), dtype=torch.float32, device=embeds.device),
-        }
-    elif return_kv:
-        cache = new_prompt_cache(cfg, B, T, kv_quant, embeds.dtype, embeds.device, kv_out)
+    if return_kv or kv_slab_slots is not None:
+        assert kv_slab_slots is None or kv_quant, "kv_slab_slots requires kv_quant=True"
+        B, T, _ = embeds.shape
+        P = 0 if prefix_kv is None else prefix_kv[0].shape[2]
+        cache = new_prompt_cache(cfg, B, P + T, kv_quant, embeds.dtype, embeds.device, kv_out,
+                                 kv_slab_slots)
+    hidden = _dense_forward(cfg, params, embeds, positions, kv_lens, prefix_kv, cache, mesh,
+                            lora, lora_scale, trainable, remat)
+    return hidden if cache is None else (hidden, cache)
 
-    def layer(x, lp, lora_lp, ppkv):
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        attn_out, k, v = _attention_block(cfg, lp, h, rope, kv_lens, lora_lp, lora_scale, trainable,
-                                          ppkv, mesh)
-        x = x + attn_out
-        h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        return x + _mlp_block(lp, h, lora_lp, lora_scale, mesh), k, v
 
-    x = embeds
-    for i in range(L):
+def _dense_forward(cfg, params, x, positions, kv_lens, prefix, cache, mesh, lora=None,
+                   lora_scale=0.0, trainable=False, remat=False):
+    """The dense layers and the final norm over x [B, T, D] for a rank's
+    local cfg: each layer `_dense_layer` with the prompt's attention
+    (`_prompt_attention`, behind `prefix` (pk, pv) [L, 1, P, KH, hd] of
+    this rank's kv heads when given). `cache`, when given, gets the prefix
+    at positions [0, P) and each layer's k/v at [P, P + T) as the layer
+    ends (`_write_prompt_kv`). Returns the final hidden [B, T, D]."""
+    rope = rope_for(cfg, positions)
+    P = 0 if prefix is None else prefix[0].shape[2]
+    if P and cache is not None:  # all layers' prefix in one write, not one a layer
+        _write_prompt_kv(cache, slice(None), 0, *(t.to(x.dtype) for t in prefix))
+    for i in range(cfg.num_layers):
         lora_lp = _local_lora(lora_layer_params(lora, i), mesh)
-        ppkv = None if prefix_kv is None else (prefix_kv[0][i], prefix_kv[1][i])
+        pkv = None if prefix is None else (prefix[0][i], prefix[1][i])
+
+        def layer(x, pkv, i=i, lora_lp=lora_lp):
+            attend = functools.partial(_prompt_attention, kv_lens=kv_lens, trainable=trainable,
+                                       prefix=pkv)
+            return _dense_layer(cfg, layer_params(params, i, mesh), x, rope, attend, lora_lp,
+                                lora_scale, mesh)
+
         if remat:
             # the layer's fsdp gather runs inside the checkpoint, so the
             # gathered weights are not kept for the backward
-            x = checkpoint(lambda x, ppkv, i=i, lora_lp=lora_lp:
-                           layer(x, layer_params(params, i, mesh), lora_lp, ppkv)[0],
-                           x, ppkv, use_reentrant=False)
+            x = checkpoint(layer, x, pkv, use_reentrant=False)[0]
             continue
-        x, k, v = layer(x, layer_params(params, i, mesh), lora_lp, ppkv)
-        if kv_slab_slots is not None:
-            for j, t in enumerate((k, v)):
-                tq, ts = quantize_rows(t)
-                cache["kv"][i, :, j, :, :T] = tq.permute(0, 2, 1, 3)
-                cache["kvsc"][i, :, j, :, :T] = ts[..., 0].permute(0, 2, 1)
-        elif cache is not None:
-            if kv_quant:
-                for name, t in (("k", k), ("v", v)):
-                    tq, ts = quantize_rows(t)
-                    _put_rows(cache[name][i], tq)
-                    cache[f"{name}_scale"][i] = ts[..., 0]
-            else:
-                cache["k"][i] = k
-                cache["v"][i] = v
-    hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    if return_kv or kv_slab_slots is not None:
-        return hidden, cache
-    return hidden
+        x, k, v = layer(x, pkv)
+        if cache is not None:
+            _write_prompt_kv(cache, i, P, k, v)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
 def logits_from_hidden(params: Params, hidden: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -559,6 +562,18 @@ def logits_from_hidden(params: Params, hidden: torch.Tensor, mesh=None) -> torch
     return comm.gather_from_tensor(y, mesh).float()
 
 
+def _last_logits(params: Params, hidden: torch.Tensor, lens: Optional[torch.Tensor],
+                 mesh) -> torch.Tensor:
+    """The f32 logits at each row's last position of hidden [B, T, D]:
+    position lens - 1 (0 for an empty row), or T - 1 without lens."""
+    if lens is None:
+        last = hidden[:, -1]
+    else:
+        idx = (lens.long() - 1).clamp(min=0)
+        last = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
+    return logits_from_hidden(params, last, mesh)
+
+
 def prefill_kv(
     cfg: LlamaConfig,
     params: Params,
@@ -571,39 +586,24 @@ def prefill_kv(
     mesh=None,
     kv_out: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Params]:
-    """Prefill: (logits at each row's last position [B, V], read-only prompt
-    cache {"k", "v"[, "k_scale", "v_scale"]} [L, B, T, KH, hd]), written
-    into `kv_out` when given (forward_hidden's; not with a P-tuning prefix).
-    kv_slab_slots=G (with kv_quant) returns the unified serving slab
-    {"kv", "kvsc"} of ops.decode_serve with G generation slots (s0 = T)
-    instead of the split cache.
+    """Prefill: (f32 logits at each row's last position [B, V], the
+    read-only prompt cache forward_hidden writes, into `kv_out` when given).
+    kv_slab_slots=G (with kv_quant) returns row 10's unified serving slab
+    {"kv", "kvsc"} with G generation slots (s0 = T) instead of the split
+    cache.
 
     prefix_kv: a P-tuning prefix (pk, pv) [L, 1, P, KH, hd], attended in
-    the prefill and folded into the returned cache at positions [0, P) in
-    embeds' type (int8 with its scales under kv_quant), so the cache is
+    the prefill and held at the cache's positions [0, P), so the cache is
     [L, B, P + T, KH, hd]; decode then masks with mask_lens = kv_lens + P
     and keeps the rope positions on kv_lens (decode_step_split). The serve
     slab takes no prefix (JAX's llama.py:528)."""
     if prefix_kv is not None and kv_slab_slots is not None:
         raise ValueError("P-tuning prefix is not supported with the serve slab")
-    if prefix_kv is not None and kv_out is not None:
-        raise ValueError("a P-tuning prefix is folded into a new cache: no kv_out")
     hidden, cache = forward_hidden(
         cfg, params, embeds, positions, kv_lens, return_kv=True, kv_quant=kv_quant,
         kv_slab_slots=kv_slab_slots, prefix_kv=prefix_kv, mesh=mesh, kv_out=kv_out,
     )
-    if prefix_kv is not None:
-        B = embeds.shape[0]
-        pkb, pvb = (t.expand((t.shape[0], B) + tuple(t.shape[2:])).to(embeds.dtype)
-                    for t in _local_prefix(prefix_kv, model_mesh(mesh)))
-        head = quantize_prompt_kv({"k": pkb, "v": pvb}) if kv_quant else {"k": pkb, "v": pvb}
-        cache = {name: torch.cat([head[name], t], dim=2) for name, t in cache.items()}
-    if kv_lens is None:
-        last = hidden[:, -1]
-    else:
-        idx = (kv_lens.long() - 1).clamp(min=0)
-        last = hidden[torch.arange(hidden.shape[0], device=hidden.device), idx]
-    return logits_from_hidden(params, last, mesh), cache
+    return _last_logits(params, hidden, kv_lens, mesh), cache
 
 
 def prefill_shared_prefix(
@@ -617,77 +617,47 @@ def prefill_shared_prefix(
     mesh=None,
     kv_out: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Params]:
-    """Prefill where every row shares its first `prefix_len` embeddings (the
-    engine's window batches share their prompt up to the video block).
+    """Prefill where every row shares its first P = `prefix_len` embeddings
+    (the engine's window batches share their prompt up to the video block).
 
-    The prefix runs once at B = 1 (K1 and K2 on the card); each layer of the
-    rest [B, T - P] attends to [the prefix kv | its own causal block]
-    through `flash_attention_prefixed` (row 6 on the card, two lse pieces
-    and a merge on the CPU). Returns what `prefill_kv` returns: logits at
-    each row's last position and the prompt cache [L, B, T, KH, hd], the
-    prefix broadcast and then the rest. kv_quant=True quantizes it layer by
-    layer (per (position, head) scales, the same numbers as JAX's quantizing
-    the whole bf16 cache at the end), so the full bf16 cache never exists.
-    kv_out: as forward_hidden's."""
+    The prefix runs once at B = 1; the rest [B, T - P] then runs the same
+    layers with that pass's k/v of each layer as the attended prefix (row 6
+    on the card), as a P-tuning prefix is attended, at its own positions.
+    Returns what `prefill_kv` returns: logits at each row's last position
+    and the prompt cache [L, B, T, KH, hd], the prefix broadcast at [0, P)
+    and the rest at [P, T) (int8 with its scales under kv_quant, written
+    layer by layer), into `kv_out` when given."""
     if cfg.latent_attention:
         _refuse_mla(what="the shared-prefix prefill")
     mesh = model_mesh(mesh)
     B, T, _ = embeds.shape
     P = prefix_len
-    _, prefix_kv = forward_hidden(cfg, params, embeds[:1, :P], positions[:1, :P], return_kv=True,
-                                  mesh=mesh)
+    _, shared = forward_hidden(cfg, params, embeds[:1, :P], positions[:1, :P], return_kv=True,
+                               mesh=mesh)
     cfg = local_config(cfg, mesh)
-    L, H, KH, hd = cfg.num_layers, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    T2 = T - P
-    rope = rope_for(cfg, positions[:, P:])
     rest_lens = None if kv_lens is None else (kv_lens.to(torch.int32) - P).clamp(min=0)
     cache = new_prompt_cache(cfg, B, T, kv_quant, embeds.dtype, embeds.device, kv_out)
-
-    def store(i, name, prefix, rest):
-        """Layer i of the cache: the prefix [1, P, KH, hd] broadcast over the
-        rows, then the rest [B, T2, KH, hd]."""
-        for sl, t in ((slice(0, P), prefix), (slice(P, T), rest)):
-            if kv_quant:
-                tq, ts = quantize_rows(t)
-                _put_rows(cache[name][i, :, sl], tq)
-                cache[f"{name}_scale"][i, :, sl] = ts[..., 0]
-            else:
-                cache[name][i, :, sl] = t
-
-    x = embeds[:, P:]
-    for i in range(L):
-        lp = layer_params(params, i, mesh)
-        pk, pv = prefix_kv["k"][i], prefix_kv["v"][i]
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        qm, km, vm = q8_apply_multi(h, (lp["q_proj"], lp["k_proj"], lp["v_proj"]))
-        q, k, v = _qkv_bias(cfg, lp, qm.reshape(B, T2, H, hd), km.reshape(B, T2, KH, hd),
-                            vm.reshape(B, T2, KH, hd))
-        q = apply_rope_tables(q, *rope)
-        k = apply_rope_tables(k, *rope)
-        o = flash_attention_prefixed(q, k, v, pk, pv, kv_lens=rest_lens)
-        x = x + _row_parallel(o.reshape(B, T2, H * hd), lp["o_proj"], None, 0.0, mesh)
-        h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_block(lp, h, mesh=mesh)
-        store(i, "k", pk, k)
-        store(i, "v", pv, v)
-    hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    if kv_lens is None:
-        last = hidden[:, -1]
-    else:
-        idx = (kv_lens.long() - 1 - P).clamp(min=0)
-        last = hidden[torch.arange(B, device=hidden.device), idx]
-    return logits_from_hidden(params, last, mesh), cache
+    hidden = _dense_forward(cfg, params, embeds[:, P:], positions[:, P:], rest_lens,
+                            (shared["k"], shared["v"]), cache, mesh)
+    return _last_logits(params, hidden, rest_lens, mesh), cache
 
 
 def prompt_cache_layout(cfg: LlamaConfig, batch: int, length: int, kv_quant: bool,
-                        dtype) -> Dict[str, Tuple[tuple, torch.dtype]]:
+                        dtype, slab_slots: Optional[int] = None
+                        ) -> Dict[str, Tuple[tuple, torch.dtype]]:
     """The prompt cache's tensors as {name: (shape, dtype)}: {"k", "v"}
     [L, B, S, KH, hd] in `dtype`, or int8 with {"k_scale", "v_scale"}
-    [L, B, S, KH] f32 under kv_quant; for MLA {"latent"} [L, B, S, C + R]
-    in `dtype` under either setting."""
+    [L, B, S, KH] f32 under kv_quant; with slab_slots=G row 10's unified
+    int8 slab {"kv" [L, B, 2, KH, Sp, hd], "kvsc" [L, B, 2, KH, Sp] f32},
+    Sp = round_up(S + G, 128); for MLA {"latent"} [L, B, S, C + R] in
+    `dtype` under either KV8 setting."""
     L = cfg.num_layers
     if cfg.latent_attention:
         return {"latent": ((L, batch, length, cfg.kv_lora_rank + cfg.qk_rope_head_dim), dtype)}
+    if slab_slots is not None:
+        Sp = -(-(length + slab_slots) // 128) * 128
+        shape = (L, batch, 2, cfg.num_kv_heads, Sp, cfg.head_dim)
+        return {"kv": (shape, torch.int8), "kvsc": (shape[:-1], torch.float32)}
     shape = (L, batch, length, cfg.num_kv_heads, cfg.head_dim)
     if not kv_quant:
         return {"k": (shape, dtype), "v": (shape, dtype)}
@@ -696,16 +666,39 @@ def prompt_cache_layout(cfg: LlamaConfig, batch: int, length: int, kv_quant: boo
 
 
 def new_prompt_cache(cfg: LlamaConfig, batch: int, length: int, kv_quant: bool, dtype, device,
-                     kv_out: Optional[Params] = None) -> Params:
+                     kv_out: Optional[Params] = None, slab_slots: Optional[int] = None) -> Params:
     """The prompt cache of `length` positions for a prefill to fill: new
-    tensors of `prompt_cache_layout`, or the views at positions [0, length)
-    of `kv_out`, tensors of that layout over more positions (a decode graph
-    set's static buffers, models/generation.py)."""
+    tensors of `prompt_cache_layout` (the slab zeroed: its decode reads
+    past the prompt), or the views at positions [0, length) of `kv_out`,
+    tensors of the split layout over more positions (a decode graph set's
+    static buffers, models/generation.py)."""
     if kv_out is not None:
         return {name: t[:, :, :length] for name, t in kv_out.items()}
-    return {name: torch.empty(shape, dtype=dt, device=device)
-            for name, (shape, dt) in prompt_cache_layout(cfg, batch, length, kv_quant,
-                                                         dtype).items()}
+    new = torch.empty if slab_slots is None else torch.zeros
+    return {name: new(shape, dtype=dt, device=device)
+            for name, (shape, dt) in prompt_cache_layout(cfg, batch, length, kv_quant, dtype,
+                                                         slab_slots).items()}
+
+
+def _write_prompt_kv(cache: Params, i, start: int, k: torch.Tensor, v: torch.Tensor) -> None:
+    """The prompt cache's one writer: layer i's k and v [B, n, KH, hd] (one
+    row is broadcast over the B) at positions [start, start + n), in the
+    cache's layout: {"k", "v"} in their type; int8 rows (quantize_rows,
+    per (position, head) scales) with {"k_scale", "v_scale"}; or row 10's
+    unified slab {"kv", "kvsc"}, heads before positions. i may be a slice
+    over the layers (k, v [L, B or 1, n, KH, hd])."""
+    pos = slice(start, start + k.shape[-3])
+    for j, (name, t) in enumerate((("k", k), ("v", v))):
+        if "kv" in cache:
+            tq, ts = quantize_rows(t)
+            cache["kv"][i, :, j, :, pos] = tq.transpose(-3, -2)
+            cache["kvsc"][i, :, j, :, pos] = ts[..., 0].transpose(-2, -1)
+        elif f"{name}_scale" in cache:
+            tq, ts = quantize_rows(t)
+            _put_rows(cache[name][i, :, pos], tq)
+            cache[f"{name}_scale"][i, :, pos] = ts[..., 0]
+        else:
+            cache[name][i, :, pos] = t
 
 
 def _put_rows(dst: torch.Tensor, src: torch.Tensor) -> None:
@@ -742,15 +735,15 @@ def decode_step_split(
     mask_lens: Optional[torch.Tensor] = None,
     mesh=None,
 ) -> Tuple[torch.Tensor, Params]:
-    """One decode step with the split KV layout.
-
-    prompt_kv [L, B, S, KH, hd] stays read-only after prefill; this step's
-    k/v land in gen_cache [L, B, G, KH, hd] at slot `step`, written IN PLACE
-    (JAX returns an updated copy; the returned dict is the same tensors).
-    Attention over [prompt | generated] is one decode_attention call per
-    layer. mask_lens: valid prompt positions per row (default prompt_lens;
-    prompt_lens + P over a cache with a P-tuning prefix folded in, whose
-    rope positions stay on prompt_lens).
+    """One decode step with the split KV layout: token_embeds [B, 1, D] at
+    rope positions prompt_lens + step through every `_dense_layer`, whose
+    attention writes this step's k/v into gen_cache [L, B, G, KH, hd] at
+    slot `step` IN PLACE (JAX returns an updated copy; the returned dict is
+    the same tensors) and is then one decode_attention call (K3) over
+    [the read-only prompt_kv [L, B, S, KH, hd] | the generated slots].
+    mask_lens: valid prompt positions per row (default prompt_lens;
+    prompt_lens + P over a cache that holds a P-tuning prefix, whose rope
+    positions stay on prompt_lens).
     Returns (logits [B, V] f32, gen_cache).
 
     MLA (cfg.latent_attention): prompt_kv {"latent"} [L, B, S, C + R]
@@ -761,48 +754,39 @@ def decode_step_split(
                                 token_embeds, prompt_lens if mask_lens is None else mask_lens)
     mesh = model_mesh(mesh)
     cfg = local_config(cfg, mesh)
-    B = token_embeds.shape[0]
-    H, KH, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    group = H // KH
-    positions = (prompt_lens.long() + step)[:, None]
-    rope = rope_for(cfg, positions)
-    if mask_lens is None:
-        mask_lens = prompt_lens
-    quantized = "k_scale" in prompt_kv
+    B, dtype = token_embeds.shape[0], token_embeds.dtype
+    KH, hd = cfg.num_kv_heads, cfg.head_dim
+    rope = rope_for(cfg, (prompt_lens.long() + step)[:, None])
+    mask_lens = prompt_lens if mask_lens is None else mask_lens
+    scales = "k_scale" in prompt_kv
 
-    x = token_embeds
-    for i in range(cfg.num_layers):
-        lp = layer_params(params, i, mesh)
-        h = rms_norm(x, lp["attn_norm"], cfg.rms_norm_eps)
-        q, k, v = _qkv_bias(cfg, lp, q8_apply(h, lp["q_proj"]).reshape(B, 1, H, hd),
-                            q8_apply(h, lp["k_proj"]).reshape(B, 1, KH, hd),
-                            q8_apply(h, lp["v_proj"]).reshape(B, 1, KH, hd))
-        q = apply_rope_tables(q, *rope)
-        k = apply_rope_tables(k, *rope)
+    def attend(i, q, k, v):
         gk, gv = gen_cache["k"][i], gen_cache["v"][i]
         gk[:, step] = k[:, 0].to(gk.dtype)
         gv[:, step] = v[:, 0].to(gv.dtype)
-        o = decode_attention(
-            q.reshape(B, KH, group, hd),
-            prompt_kv["k"][i], prompt_kv["v"][i],
-            prompt_kv["k_scale"][i] if quantized else None,
-            prompt_kv["v_scale"][i] if quantized else None,
+        return decode_attention(
+            q.reshape(B, KH, -1, hd), prompt_kv["k"][i], prompt_kv["v"][i],
+            prompt_kv["k_scale"][i] if scales else None,
+            prompt_kv["v_scale"][i] if scales else None,
             gk, gv, mask_lens, step,
-        )
-        x = x + _row_parallel(o.reshape(B, 1, H * hd).to(x.dtype), lp["o_proj"], None, 0.0, mesh)
-        h = rms_norm(x, lp["mlp_norm"], cfg.rms_norm_eps)
-        x = x + _mlp_block(lp, h, mesh=mesh)
+        ).to(dtype)
+
+    x = token_embeds
+    for i in range(cfg.num_layers):
+        x = _dense_layer(cfg, layer_params(params, i, mesh), x, rope,
+                         functools.partial(attend, i), mesh=mesh)[0]
     hidden = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return logits_from_hidden(params, hidden[:, 0], mesh), gen_cache
 
 
 def quantize_prompt_kv(prompt_kv: Params) -> Params:
     """Int8 prompt KV: per-(layer, batch, position, head) absmax over hd."""
+    k = prompt_kv["k"]
     out = {}
     for name in ("k", "v"):
-        q, sc = quantize_rows(prompt_kv[name])
-        out[name] = q
-        out[f"{name}_scale"] = sc[..., 0]
+        out[name] = torch.empty(k.shape, dtype=torch.int8, device=k.device)
+        out[f"{name}_scale"] = torch.empty(k.shape[:-1], dtype=torch.float32, device=k.device)
+    _write_prompt_kv(out, slice(None), 0, k, prompt_kv["v"])
     return out
 
 

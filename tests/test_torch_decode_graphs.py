@@ -101,13 +101,14 @@ def test_padded_prompt_cache_gives_the_unpadded_step(shape, cache):
         assert (got - want).abs().max().item() <= 1e-5
 
 
-@pytest.mark.parametrize("prefill", ["plain", "shared prefix", "mla"])
+@pytest.mark.parametrize("prefill", ["plain", "shared prefix", "ptuning", "mla"])
 @pytest.mark.parametrize("cache", ["int8", "bf16"])
 def test_prefill_writes_its_cache_into_kv_out(prefill, cache):
     """With kv_out (a graph set's buffers, prompt_cache_layout over more
-    positions) the prefill returns the views of kv_out's first T positions,
-    holding the cache it returns without kv_out, the logits unchanged and
-    the positions past T as they were."""
+    positions) the prefill returns the views of kv_out's first T positions
+    (P + T with a P-tuning prefix, held at [0, P)), holding the cache it
+    returns without kv_out, the logits unchanged and the positions past
+    them as they were."""
     from revisionllm_tpu_torch.config import DeepseekV2Config
 
     kv8 = cache == "int8"
@@ -121,6 +122,11 @@ def test_prefill_writes_its_cache_into_kv_out(prefill, cache):
     emb[:, :6] = emb[:1, :6]
     pos = torch.arange(T)[None].expand(B, T)
     lens = torch.tensor([21, 14, 9], dtype=torch.int32)
+    P, prefix = 0, None
+    if prefill == "ptuning":  # an f32 prefix, as models.prefix makes it
+        P = 5
+        prefix = tuple(torch.randn(cfg.num_layers, 1, P, cfg.num_kv_heads, cfg.head_dim,
+                                   generator=g) for _ in range(2))
     layout = llama.prompt_cache_layout(cfg, B, S, kv8, dt)
     kv_out = {n: torch.full(shape, 7, dtype=d) for n, (shape, d) in layout.items()}
 
@@ -128,7 +134,8 @@ def test_prefill_writes_its_cache_into_kv_out(prefill, cache):
         if prefill == "shared prefix":
             return llama.prefill_shared_prefix(cfg, p, emb, pos, 6, kv_lens=lens, kv_quant=kv8,
                                                kv_out=out)
-        return llama.prefill_kv(cfg, p, emb, pos, kv_lens=lens, kv_quant=kv8, kv_out=out)
+        return llama.prefill_kv(cfg, p, emb, pos, kv_lens=lens, kv_quant=kv8, prefix_kv=prefix,
+                                kv_out=out)
 
     want_logits, want = run(None)
     logits, got = run(kv_out)
@@ -136,8 +143,9 @@ def test_prefill_writes_its_cache_into_kv_out(prefill, cache):
     assert torch.equal(logits, want_logits)
     for name, t in got.items():
         assert t.data_ptr() == kv_out[name].data_ptr() and t.dtype == want[name].dtype
+        assert t.shape[2] == want[name].shape[2] == P + T
         assert torch.equal(t, want[name])
-        assert (kv_out[name][:, :, T:] == 7).all()
+        assert (kv_out[name][:, :, P + T:] == 7).all()
 
 
 @pytest.mark.parametrize("shape", sorted(SHAPES))
